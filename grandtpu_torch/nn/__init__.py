@@ -1,0 +1,5 @@
+"""Model layer: MLP classifier, DropNode random propagation (K1), losses."""
+
+from grandtpu_torch.nn.dropnode import gather_and_prop  # noqa: F401
+from grandtpu_torch.nn.losses import consis_loss, nll_loss  # noqa: F401
+from grandtpu_torch.nn.mlp import MLP, MLPConfig, init_mlp  # noqa: F401

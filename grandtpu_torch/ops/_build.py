@@ -1,0 +1,127 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``grandtpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
+(Hopper) into one shared library with a plain C interface,
+``build/grandtpu_torch/libgrandtpu_kernels.so``, which is loaded with
+ctypes. The build runs on first use, one ``nvcc`` per source started
+together, under a file lock, and again whenever a source is newer than the
+library. ``nvcc``'s messages, ``-Xptxas -v`` register and spill counts
+included, go to ``nvcc.log`` beside the library.
+
+Each C function returns the ``cudaError_t`` of its launch; callers raise
+on a non-zero code (see :func:`check`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+_GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_CFLAGS = _GENCODE + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                      "-Xptxas", "-v"]
+LIB_NAME = "libgrandtpu_kernels.so"
+
+_LOCK = threading.Lock()
+_LIB = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # features, cols, vals, keep, out, batch, ktop, num_features, num_aug,
+    # stream
+    "dropnode_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # indptr, indices, values, x, y, acc, num_rows, num_features, scale,
+    # accumulate, stream
+    "csr_spmm_prop_f32": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
+                          _I, _P],
+}
+
+
+def build_dir() -> str:
+    """``build/grandtpu_torch`` at the root of the checkout."""
+    d = os.path.join(os.path.dirname(_PKG), "build", "grandtpu_torch")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin); the CUDA kernels "
+            "cannot be built")
+    return path
+
+
+def build() -> str:
+    """Compile the kernels if the library is missing or stale; returns its
+    path. Raises RuntimeError with nvcc's output if a compile fails."""
+    bdir = build_dir()
+    out = os.path.join(bdir, LIB_NAME)
+    srcs = sources()
+    with open(os.path.join(bdir, "kernels.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (os.path.exists(out) and os.path.getmtime(out)
+                >= max(os.path.getmtime(s) for s in srcs)):
+            return out
+        nvcc = _nvcc()
+        procs, objs = [], []
+        for src in srcs:
+            obj = os.path.join(
+                bdir, os.path.splitext(os.path.basename(src))[0] + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *_CFLAGS, "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for src, p in procs:
+            text, _ = p.communicate()
+            log.append(f"== {os.path.basename(src)}\n{text}")
+            if p.returncode != 0:
+                failed.append(src)
+        with open(os.path.join(bdir, "nvcc.log"), "w") as f:
+            f.write("\n".join(log))
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {failed}:\n" + "\n".join(log))
+        tmp = out + ".tmp"
+        link = subprocess.run([nvcc, *_GENCODE, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+def load_kernels() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = lib
+    return _LIB
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")

@@ -1,0 +1,173 @@
+"""Experiment driver for the dense-feature engine (port of
+``grandtpu/train/trainer.py``):
+
+  load -> self-loops -> unlabeled pool -> GFPush top-k (host C++) ->
+  device-resident features and top-k table -> training loop -> exact
+  full-graph propagation with the best weights -> chunked classification.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from grandtpu_torch.config import GrandConfig
+from grandtpu_torch.data import GraphData, load_data
+from grandtpu_torch.data.preprocess import add_self_loops_adj
+from grandtpu_torch.device import resolve_device
+from grandtpu_torch.infer import exact_propagate, test_accuracy
+from grandtpu_torch.nn.mlp import MLP, MLPConfig, init_mlp
+from grandtpu_torch.ppr import gfpush
+from grandtpu_torch.ppr.api import BACKENDS
+from grandtpu_torch.train.loop import run_training_loop
+from grandtpu_torch.train.step import (StepConfig, build_eval_step,
+                                       build_train_step, make_optimizer)
+
+_CKPT = "ROADMAP Queue A: checkpoint/resume/metrics and the predict CLI"
+
+
+def check_supported(cfg: GrandConfig) -> None:
+    """Raise NotImplementedError for config fields whose feature the port
+    does not have yet, naming the ROADMAP item; nothing is ignored."""
+    unported = [
+        (cfg.ckpt_dir is not None, "ckpt_dir", _CKPT),
+        (cfg.resume, "resume", _CKPT),
+        (cfg.save_every != 0, "save_every", _CKPT),
+        (cfg.metrics_path is not None, "metrics_path", _CKPT),
+        (cfg.profile_dir is not None, "profile_dir", _CKPT),
+        (cfg.push_cache_dir is not None, "push_cache_dir", _CKPT),
+        (cfg.scan_steps, "scan_steps",
+         "ROADMAP Queue A: CUDA-graph step groups"),
+        (cfg.num_devices > 1, "num_devices > 1",
+         "ROADMAP Queue A: multi-GPU"),
+        (cfg.predict_precision != "f32",
+         f"predict_precision={cfg.predict_precision!r}",
+         "ROADMAP Queue A: K2-q8 and K2-q8mxu with their precisions"),
+        (cfg.sparse_features, "sparse_features",
+         "ROADMAP Queue A: sparse MAG engine"),
+        (cfg.push_backend not in BACKENDS,
+         f"push_backend={cfg.push_backend!r}",
+         "ROADMAP Queue A: GPU GFPush backend"),
+    ]
+    for bad, what, item in unported:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+@dataclasses.dataclass
+class TrainResult:
+    test_acc: float
+    best_val_acc: float
+    best_val_loss: float
+    num_batches: int
+    total_time: float
+    batch_time_avg: float
+    batch_time_median: float   # host seconds per step, no device sync
+    preprocess_time: float
+    propagate_time: float      # exact propagation, synchronized
+    model: Optional[MLP] = None   # holding the best weights
+    history: list = dataclasses.field(default_factory=list)
+
+
+def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
+          device="cuda") -> TrainResult:
+    """Run one GRAND+ training + exact-propagation test on ``device``."""
+    device = resolve_device(device)
+    check_supported(cfg)
+    # f32 parity with grandtpu: no TF32 in matmuls or cuDNN, set
+    # explicitly rather than trusting the build's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    verbose = log if log is not None else (print if cfg.visible else
+                                           (lambda *a, **k: None))
+    rng = np.random.RandomState(cfg.seed2)
+    if data is None:
+        data = load_data(cfg.dataset, split_seed=cfg.seed1)
+    if data.has_sparse_features:
+        raise NotImplementedError(
+            "sparse features are not ported yet (ROADMAP Queue A: sparse "
+            "MAG engine)")
+
+    t_start = time.time()
+    adj_sl = add_self_loops_adj(data.adj)
+    # unlabeled pool, reference model.py:244-248 (including the [:-1] slice
+    # quirk when unlabel_num == -1)
+    idx_sample = rng.permutation(data.idx_test)[: cfg.unlabel_num]
+    idx_unlabel = np.concatenate([data.idx_val, idx_sample])
+    sources = np.concatenate([data.idx_train, idx_unlabel])
+    tk = gfpush(adj_sl, sources, prop_mode=cfg.prop_mode, order=cfg.order,
+                alpha=cfg.alpha, rmax=cfg.rmax, k=cfg.top_k,
+                backend=cfg.push_backend)
+    preprocess_time = time.time() - t_start
+    verbose(f"preprocessing done, time: {preprocess_time:.3f}s")
+
+    features = torch.as_tensor(np.asarray(data.features, np.float32),
+                               device=device)
+    tk_cols = torch.as_tensor(tk.cols, device=device)
+    tk_vals = torch.as_tensor(tk.vals, device=device)
+    labels_int = data.labels_int
+
+    n_class = data.num_classes
+    mlp_cfg = MLPConfig(
+        num_features=data.num_features, num_classes=n_class,
+        hidden=cfg.hidden, nlayers=cfg.nlayers, use_bn=cfg.use_bn,
+        node_norm=cfg.node_norm, input_droprate=cfg.input_droprate,
+        hidden_droprate=cfg.hidden_droprate)
+    step_cfg = StepConfig(
+        mlp=mlp_cfg, k_aug=cfg.sample, dropnode_rate=cfg.dropnode_rate,
+        n_train=cfg.batch_size, lam=cfg.lam, warmup=cfg.warmup, tem=cfg.tem,
+        conf=cfg.resolve_conf(n_class), loss_kind=cfg.loss,
+        clip_norm=cfg.clip_norm)
+    model = init_mlp(mlp_cfg, cfg.seed2, device)
+    optimizer = make_optimizer(model, cfg.lr, cfg.weight_decay)
+    train_step = build_train_step(step_cfg, model, optimizer)
+    eval_step = build_eval_step(step_cfg, model)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed2)
+
+    # the whole val set in one eval call (BN in eval mode, so batching has
+    # no numeric effect)
+    val_rows = torch.as_tensor(tk.row_positions(data.idx_val),
+                               dtype=torch.long, device=device)
+    val_labels = torch.as_tensor(labels_int[data.idx_val], dtype=torch.long,
+                                 device=device)
+    val_mask = torch.ones(len(data.idx_val), device=device)
+
+    out = run_training_loop(
+        cfg, rng,
+        step_fn=lambda batch, nb: train_step(features, tk_cols, tk_vals,
+                                             batch, generator, nb),
+        eval_fn=lambda: eval_step(features, tk_cols, tk_vals, val_rows,
+                                  val_labels, val_mask),
+        snapshot=lambda: {k: v.detach().clone()
+                          for k, v in model.state_dict().items()},
+        train_positions=tk.row_positions(data.idx_train),
+        sample_positions=tk.row_positions(idx_sample),
+        train_labels_all=labels_int[data.idx_train],
+        device=device, verbose=verbose)
+    best = out["best"]
+    model.load_state_dict(best["state"])
+
+    # exact full-graph propagation test with the best weights
+    t_prop = time.time()
+    prop = exact_propagate(adj_sl, features, mode=cfg.prop_mode,
+                           order=cfg.order, alpha=cfg.alpha, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    propagate_time = time.time() - t_prop
+    test_acc = test_accuracy(model, prop, data.idx_test, labels_int)
+    total_time = time.time() - t_start
+    verbose(f"Total time elapsed: {total_time:.4f}s")
+    verbose(f"Test Accuracy {test_acc:.4f}")
+    bt = out["batch_times"]
+    return TrainResult(
+        test_acc=test_acc, best_val_acc=best["acc"],
+        best_val_loss=best["loss"], num_batches=out["num_batch"],
+        total_time=total_time,
+        batch_time_avg=float(np.mean(bt)) if bt else 0.0,
+        batch_time_median=float(np.median(bt)) if bt else 0.0,
+        preprocess_time=preprocess_time, propagate_time=propagate_time,
+        model=model, history=out["history"])

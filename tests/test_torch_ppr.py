@@ -1,0 +1,80 @@
+"""grandtpu_torch's config, synth loader and GFPush against grandtpu's.
+
+Both packages get the same inputs; every comparison here is exact
+equality, because the port copies the numpy code and the C++ kernel."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from grandtpu import config as jcfg
+from grandtpu.data import load_data as jax_load_data
+from grandtpu.data.preprocess import add_self_loops_adj as jax_self_loops
+from grandtpu.ppr import build_coef as jax_build_coef
+from grandtpu.ppr import gfpush as jax_gfpush
+
+from grandtpu_torch import config as tcfg
+from grandtpu_torch.data import load_data
+from grandtpu_torch.data.preprocess import add_self_loops_adj
+from grandtpu_torch.ppr import build_coef, gfpush
+
+
+@pytest.mark.parametrize("spec,seed", [("synth:400:4:32", 0),
+                                       ("synth:900:7:20", 42)])
+def test_synth_loader_equal(spec, seed):
+    want = jax_load_data(spec, split_seed=seed)
+    got = load_data(spec, split_seed=seed)
+    assert (got.adj != want.adj).nnz == 0
+    np.testing.assert_array_equal(got.features, want.features)
+    assert got.features.dtype == want.features.dtype == np.float32
+    np.testing.assert_array_equal(got.labels, want.labels)
+    for name in ("idx_train", "idx_val", "idx_test", "idx_unlabel"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name))
+    sl, jsl = add_self_loops_adj(got.adj), jax_self_loops(want.adj)
+    assert (sl != jsl).nnz == 0
+
+
+@pytest.mark.parametrize("mode", ["ppr", "avg", "single"])
+def test_build_coef_equal(mode):
+    np.testing.assert_array_equal(build_coef(mode, 6, 0.05),
+                                  jax_build_coef(mode, 6, 0.05))
+
+
+@pytest.mark.parametrize("backend", ["native", "numpy"])
+@pytest.mark.parametrize("mode", ["ppr", "avg"])
+def test_gfpush_equal(backend, mode):
+    d = jax_load_data("synth:500:4:16", split_seed=1)
+    adj = jax_self_loops(d.adj)
+    sources = np.concatenate([d.idx_train, d.idx_val[:20]])
+    kw = dict(prop_mode=mode, order=6, alpha=0.1, rmax=1e-5, k=16,
+              backend=backend)
+    want = jax_gfpush(adj, sources, **kw)
+    got = gfpush(adj, sources, **kw)
+    np.testing.assert_array_equal(got.cols, want.cols)
+    np.testing.assert_array_equal(got.vals, want.vals)
+    np.testing.assert_array_equal(got.sources, want.sources)
+    np.testing.assert_array_equal(got.row_positions(d.idx_val[:20]),
+                                  want.row_positions(d.idx_val[:20]))
+
+
+def test_config_and_presets_equal():
+    assert ([f.name for f in dataclasses.fields(tcfg.GrandConfig)]
+            == [f.name for f in dataclasses.fields(jcfg.GrandConfig)])
+    assert (dataclasses.asdict(tcfg.GrandConfig())
+            == dataclasses.asdict(jcfg.GrandConfig()))
+    for name in jcfg.PRESETS:
+        for mode in ("ppr", "avg", "single"):
+            assert (dataclasses.asdict(tcfg.preset(name, mode))
+                    == dataclasses.asdict(jcfg.preset(name, mode)))
+
+
+def test_unported_inputs_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_data("cora")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_data("synth:400:4:32:sparse")
+    d = load_data("synth:200:4:8")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gfpush(add_self_loops_adj(d.adj), d.idx_train, backend="bucket")
