@@ -5,13 +5,17 @@ the reference the port is tested against, and the port imports nothing
 of it:
 
 - ``grandtpu_torch.config``  own copy of ``GrandConfig`` and the presets
-- ``grandtpu_torch.data``    ``synth:`` loader, splits, self-loops (numpy)
+- ``grandtpu_torch.data``    ``synth:`` loader (dense or CSR bag-of-words
+                             features), splits, self-loops (numpy)
 - ``grandtpu_torch.ppr``     GFPush precompute: native C++ kernel, numpy
 - ``grandtpu_torch.sparse``  ``TopKProp`` table; CSR SpMM (kernel K2)
 - ``grandtpu_torch.nn``      MLP with masked BatchNorm, DropNode mean
-                             (kernel K1), losses
+                             (kernel K1), losses; the MAG model and its
+                             embedding-bag + DropNode mean (kernel K3)
 - ``grandtpu_torch.train``   train/eval steps, early-stopped loop, ``train``
-- ``grandtpu_torch.infer``   exact propagation, chunked classification
+                             (dense engine, or the MAG engine on CSR data)
+- ``grandtpu_torch.infer``   exact propagation, chunked classification,
+                             the MAG predict in embedding space
 - ``grandtpu_torch.cli``     ``run`` / ``presets``
 - ``grandtpu_torch.ops``     nvcc build of ``csrc/*.cu`` for sm_90a
 

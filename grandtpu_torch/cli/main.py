@@ -5,6 +5,8 @@
         --dataset synth:233000:41:602 --epochs 2          # on the GPU
     python -m grandtpu_torch.cli.main run --dataset synth:500:4:32 \
         --epochs 5 --device cpu                           # plain versions
+    python -m grandtpu_torch.cli.main run --preset mag_scholar_c \
+        --dataset synth:1000000:8:2780000:sparse --epochs 5   # MAG engine
     python -m grandtpu_torch.cli.main presets
 
 Every GrandConfig field is overridable via a --flag of the same name

@@ -22,7 +22,7 @@ from grandtpu_torch.data.synthetic import synthetic_graph
 class GraphData:
     """Loaded dataset: adjacency + features + one-hot labels + splits."""
     adj: sp.csr_matrix                 # [n, n], no self loops added yet
-    features: np.ndarray               # dense float32 [n, f]
+    features: np.ndarray | sp.csr_matrix   # dense f32 [n, f] or CSR
     labels: np.ndarray                 # one-hot float32 [n, c]
     idx_train: np.ndarray
     idx_val: np.ndarray
@@ -52,21 +52,20 @@ class GraphData:
 
 
 def load_data(dataset_str: str, split_seed: int = 0) -> GraphData:
-    """Spec: 'synth:<nodes>[:<classes>[:<features>]]' (dense features)."""
+    """Spec: 'synth:<nodes>[:<classes>[:<features>[:sparse]]]'; with
+    ``sparse`` the features are a CSR bag of words (the MAG engine)."""
     if not dataset_str.startswith("synth:"):
         raise NotImplementedError(
             f"dataset {dataset_str!r}: the port loads only 'synth:' graphs "
             "so far (ROADMAP Queue A: file-based dataset loaders)")
     parts = dataset_str.split(":")[1:]
-    if len(parts) > 3:
-        raise NotImplementedError(
-            f"{dataset_str!r}: sparse features are ROADMAP Queue A "
-            "'sparse MAG engine'")
     n = int(parts[0]) if parts and parts[0] else 400
     c = int(parts[1]) if len(parts) > 1 and parts[1] else 4
     f = int(parts[2]) if len(parts) > 2 and parts[2] else 32
+    sparse_feats = len(parts) > 3 and parts[3] == "sparse"
     adj, feats, labels = synthetic_graph(num_nodes=n, num_classes=c,
-                                         num_features=f, seed=7)
+                                         num_features=f,
+                                         sparse_features=sparse_feats, seed=7)
     rs = np.random.RandomState(split_seed)
     itr, iva, ite = get_train_val_test_split(
         rs, labels, train_examples_per_class=20, val_examples_per_class=30)

@@ -1,4 +1,7 @@
 """Inference: exact full-graph propagation + chunked classification."""
 
-from grandtpu_torch.infer.classify import predict_logits, test_accuracy  # noqa: F401
+from grandtpu_torch.infer.classify import (embed_all_nodes,  # noqa: F401
+                                           head_logits, predict_logits,
+                                           predict_logits_sparse,
+                                           test_accuracy)
 from grandtpu_torch.infer.propagate import Propagator, exact_propagate  # noqa: F401

@@ -42,6 +42,10 @@ _SIGNATURES = {
     # accumulate, stream
     "csr_spmm_prop_f32": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
                           _I, _P],
+    # table | grad, attr_cols, attr_vals, tk_cols, tk_vals, keep, drop,
+    # out | dtable, rows, ktop, P, H, num_aug, keep_prob, stream
+    "embed_prop_fwd_f32": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
+    "embed_prop_bwd_f32": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
 }
 
 

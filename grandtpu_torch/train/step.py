@@ -57,6 +57,27 @@ def _masked_nll(logps_k, labels, mask):
     return per_k.mean()
 
 
+def _global_norm(grads) -> torch.Tensor:
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+
+
+def _clip_(grads, gnorm: torch.Tensor, clip_norm: float) -> None:
+    """Scale ``grads`` in place by min(1, clip_norm / (gnorm + 1e-6))."""
+    scale = (clip_norm / (gnorm + 1e-6)).clamp(max=1.0)
+    for g in grads:
+        g.mul_(scale)
+
+
+def _eval_metrics(logps, labels, mask):
+    """(masked mean NLL, masked accuracy) of log-probs [B, C]."""
+    picked = logps.gather(-1, labels[:, None])[:, 0]
+    denom = mask.sum().clamp(min=1.0)
+    nll = -(picked * mask).sum() / denom
+    acc = ((logps.argmax(-1) == labels) * mask).sum() / denom
+    return nll, acc
+
+
 def build_train_step(cfg: StepConfig, model: MLP,
                      optimizer: torch.optim.Optimizer) -> Callable:
     """Returns step(features, tk_cols, tk_vals, batch, generator, num_batch)
@@ -101,12 +122,9 @@ def build_train_step(cfg: StepConfig, model: MLP,
         loss.backward()
         grads = [p.grad for p in params if p.grad is not None]
         # the reference measures the grad norm even with clipping off
-        gnorm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        gnorm = _global_norm(grads)
         if cfg.clip_norm > 0:
-            scale = (cfg.clip_norm / (gnorm + 1e-6)).clamp(max=1.0)
-            for g in grads:
-                g.mul_(scale)
+            _clip_(grads, gnorm, cfg.clip_norm)
         optimizer.step()
         return {"loss": loss.detach(), "sup_loss": sup.detach(),
                 "consis_loss": unsup.detach(), "train_acc": acc,
@@ -124,11 +142,7 @@ def build_eval_step(cfg: StepConfig, model: MLP) -> Callable:
     def evaluate(features, tk_cols, tk_vals, rows, labels, mask):
         model.eval()
         x = gather_and_prop(features, tk_cols[rows], tk_vals[rows])[0]
-        logps = torch.log_softmax(model(x), dim=-1)
-        picked = logps.gather(-1, labels[:, None])[:, 0]
-        denom = mask.sum().clamp(min=1.0)
-        nll = -(picked * mask).sum() / denom
-        acc = ((logps.argmax(-1) == labels) * mask).sum() / denom
-        return nll, acc
+        return _eval_metrics(torch.log_softmax(model(x), dim=-1), labels,
+                             mask)
 
     return evaluate

@@ -1,5 +1,6 @@
-"""Experiment driver for the dense-feature engine (port of
-``grandtpu/train/trainer.py``):
+"""Experiment entry point (port of ``grandtpu/train/trainer.py``). Data with
+CSR features goes to the MAG engine (``trainer_sparse.train_sparse``);
+the dense-feature engine here runs
 
   load -> self-loops -> unlabeled pool -> GFPush top-k (host C++) ->
   device-resident features and top-k table -> training loop -> exact
@@ -14,13 +15,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from grandtpu_torch.config import GrandConfig
 from grandtpu_torch.data import GraphData, load_data
 from grandtpu_torch.data.preprocess import add_self_loops_adj
 from grandtpu_torch.device import resolve_device
 from grandtpu_torch.infer import exact_propagate, test_accuracy
-from grandtpu_torch.nn.mlp import MLP, MLPConfig, init_mlp
+from grandtpu_torch.nn.mlp import MLPConfig, init_mlp
 from grandtpu_torch.ppr import gfpush
 from grandtpu_torch.ppr.api import BACKENDS
 from grandtpu_torch.train.loop import run_training_loop
@@ -47,8 +49,6 @@ def check_supported(cfg: GrandConfig) -> None:
         (cfg.predict_precision != "f32",
          f"predict_precision={cfg.predict_precision!r}",
          "ROADMAP Queue A: K2-q8 and K2-q8mxu with their precisions"),
-        (cfg.sparse_features, "sparse_features",
-         "ROADMAP Queue A: sparse MAG engine"),
         (cfg.push_backend not in BACKENDS,
          f"push_backend={cfg.push_backend!r}",
          "ROADMAP Queue A: GPU GFPush backend"),
@@ -69,7 +69,7 @@ class TrainResult:
     batch_time_median: float   # host seconds per step, no device sync
     preprocess_time: float
     propagate_time: float      # exact propagation, synchronized
-    model: Optional[MLP] = None   # holding the best weights
+    model: Optional[nn.Module] = None   # MLP or MagMLP, best weights
     history: list = dataclasses.field(default_factory=list)
 
 
@@ -88,9 +88,10 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
     if data is None:
         data = load_data(cfg.dataset, split_seed=cfg.seed1)
     if data.has_sparse_features:
-        raise NotImplementedError(
-            "sparse features are not ported yet (ROADMAP Queue A: sparse "
-            "MAG engine)")
+        # dispatch on the feature format, as grandtpu does (the
+        # sparse_features flag is not read)
+        from grandtpu_torch.train.trainer_sparse import train_sparse
+        return train_sparse(cfg, data=data, log=log, device=device)
 
     t_start = time.time()
     adj_sl = add_self_loops_adj(data.adj)

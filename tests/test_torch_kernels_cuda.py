@@ -6,8 +6,10 @@ machine with a card and without JAX, run them with
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 (``--noconftest``: the suite's conftest imports JAX). Shapes cover the edge
-cases the reddit-width checks in ``chip_smoke.py`` do not: K = 1..8, odd
-widths, empty and fully masked rows, hub rows.
+cases the full-width checks in ``chip_smoke.py`` do not: K = 1..8, odd
+widths, empty and fully masked rows, hub rows, and for K3 attribute-free
+nodes, input dropout, colliding ids (the backward's atomics) and the node
+form.
 """
 
 import numpy as np
@@ -16,6 +18,8 @@ import scipy.sparse as sp
 import torch
 
 from grandtpu_torch.nn.dropnode import gather_and_prop, gather_and_prop_plain
+from grandtpu_torch.nn.sparse_input import (embed_prop, embed_prop_backward,
+                                            embed_prop_plain)
 from grandtpu_torch.sparse.spmm import (CSROperator, spmm_prop_step,
                                         spmm_prop_step_plain)
 
@@ -102,3 +106,98 @@ def test_csr_spmm_kernel_matches_plain(device, nfeat, accumulate):
     assert _rel_err(out_k, out_p) <= TOL
     assert _rel_err(acc_k, acc_p) <= TOL
     assert float(out_k[5].abs().max()) == 0.0
+
+
+def _k3_inputs(device, num_aug, rows, ktop, p, h, q, collide, node_form,
+               seed=0):
+    rs = np.random.RandomState(seed)
+    vocab, n = 300, 50
+    table = rs.randn(vocab, h).astype(np.float32)
+    attr_cols = rs.randint(0, vocab, (n, p)).astype(np.int32)
+    if collide:
+        attr_cols[:] = 7                   # every id the same table row
+    attr_vals = rs.rand(n, p).astype(np.float32)
+    attr_vals[:, p // 2:] *= rs.rand(n, p - p // 2) < 0.5   # padding
+    attr_vals[3] = 0.0                     # a node with no attributes
+    args = {"attr_cols": attr_cols, "attr_vals": attr_vals}
+    if node_form:
+        args = {k: v[:rows] for k, v in args.items()}
+        drop_shape = (num_aug, rows, p, h)
+    else:
+        tk_cols = rs.randint(0, n, (rows, ktop)).astype(np.int32)
+        tk_cols[0, 0] = 3
+        tk_vals = rs.rand(rows, ktop).astype(np.float32)
+        tk_vals[-1, ktop // 2:] = 0.0      # top-k padding
+        keep = rs.rand(num_aug, rows, ktop) < 0.5
+        keep[:, min(1, rows - 1)] = False  # a row whose mask drops all
+        args.update(tk_cols=tk_cols, tk_vals=tk_vals, keep=keep)
+        drop_shape = (num_aug, rows, ktop, p, h)
+    if q > 0:
+        args["drop"] = rs.rand(*drop_shape) < 1.0 - q
+    grad = rs.randn(num_aug, rows, h).astype(np.float32)
+    to = {k: torch.tensor(v, device=device) for k, v in args.items()}
+    return (torch.tensor(table, device=device), to,
+            torch.tensor(grad, device=device))
+
+
+def _k3_check(device, num_aug, rows, ktop, p, h, q, collide=False,
+              node_form=False):
+    table, args, grad = _k3_inputs(device, num_aug, rows, ktop, p, h, q,
+                                   collide, node_form)
+    fwd0, bwd0 = embed_prop.launches, embed_prop_backward.launches
+    t_k = table.clone().requires_grad_(True)
+    out = embed_prop(t_k, droprate=q, **args)
+    (out * grad).sum().backward()
+    torch.cuda.synchronize()
+    assert embed_prop.launches == fwd0 + 1
+    assert embed_prop_backward.launches == bwd0 + 1
+    t_p = table.clone().requires_grad_(True)
+    want = embed_prop_plain(t_p, droprate=q, **args)
+    (want * grad).sum().backward()
+    assert out.shape == want.shape == (num_aug, rows, h)
+    assert _rel_err(out.detach(), want.detach()) <= TOL
+    # the backward's atomics sum in another order than autograd's scatter
+    assert _rel_err(t_k.grad, t_p.grad) <= TOL
+    return out
+
+
+@pytest.mark.parametrize("num_aug,rows,ktop,p,h,q", [
+    (1, 5, 7, 3, 64, 0.0), (2, 40, 32, 24, 64, 0.0), (2, 40, 32, 24, 64, 0.5),
+    (3, 9, 33, 37, 33, 0.5), (5, 4, 3, 5, 130, 0.0), (8, 6, 5, 5, 1, 0.5),
+    (8, 3, 9, 2, 64, 0.0),
+])
+def test_embed_prop_kernels_match_plain(device, num_aug, rows, ktop, p, h,
+                                        q):
+    out = _k3_check(device, num_aug, rows, ktop, p, h, q)
+    assert float(out.detach()[:, min(1, rows - 1)].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("q", [0.0, 0.5])
+def test_embed_prop_kernels_with_colliding_ids(device, q):
+    _k3_check(device, 2, 40, 32, 24, 64, q, collide=True)
+
+
+@pytest.mark.parametrize("num_aug,q,h", [(1, 0.0, 64), (2, 0.5, 33),
+                                         (1, 0.0, 3)])
+def test_embed_prop_node_form_matches_plain(device, num_aug, q, h):
+    out = _k3_check(device, num_aug, 40, 1, 24, h, q, node_form=True)
+    assert float(out.detach()[:, 3].abs().max()) == 0.0
+
+
+def test_embed_prop_wrapper_rejects_bad_input(device):
+    table = torch.zeros(10, 4, device=device)
+    cols = torch.zeros(3, 2, dtype=torch.int32, device=device)
+    vals = torch.ones(3, 2, device=device)
+    with pytest.raises(TypeError):
+        embed_prop(table, cols.long(), vals)
+    with pytest.raises(TypeError):
+        embed_prop(table.double(), cols, vals)
+    with pytest.raises(ValueError):
+        embed_prop(table, cols.cpu(), vals)
+    with pytest.raises(ValueError):             # K > 8
+        embed_prop(table, cols, vals, cols, vals,
+                   torch.ones(9, 3, 2, dtype=torch.bool, device=device))
+    with pytest.raises(ValueError):             # drop of the wrong shape
+        embed_prop(table, cols, vals,
+                   drop=torch.ones(1, 3, 2, 5, dtype=torch.bool,
+                                   device=device), droprate=0.5)

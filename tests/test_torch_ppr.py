@@ -74,7 +74,7 @@ def test_unported_inputs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_data("cora")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_data("synth:400:4:32:sparse")
+        load_data("mag_scholar_c")        # file-based, unlike synth:...:sparse
     d = load_data("synth:200:4:8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gfpush(add_self_loops_adj(d.adj), d.idx_train, backend="bucket")

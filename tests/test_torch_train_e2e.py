@@ -1,5 +1,6 @@
 """The port's dense-engine slice as a whole against grandtpu: loop schedule,
-``train()`` end to end, the CLI, device selection and import isolation."""
+``train()`` end to end, the CLI, device selection, engine dispatch and
+import isolation."""
 
 import dataclasses
 import os
@@ -20,6 +21,7 @@ from grandtpu.train import train as jax_train
 from grandtpu_torch.cli.main import cli
 from grandtpu_torch.config import GrandConfig
 from grandtpu_torch.convert import mlp_from_jax
+from grandtpu_torch.nn.mlp import MLP
 from grandtpu_torch.train import loop as tloop
 from grandtpu_torch.train import trainer as ttrainer
 
@@ -133,13 +135,25 @@ def test_cli_presets_and_unported_flag(capsys):
     ("ckpt_dir", "ckpts"), ("resume", True), ("save_every", 5),
     ("metrics_path", "m.jsonl"), ("profile_dir", "prof"),
     ("scan_steps", True), ("num_devices", 2), ("push_cache_dir", "cache"),
-    ("predict_precision", "bf16"), ("sparse_features", True),
+    ("predict_precision", "bf16"), ("predict_precision", "int8"),
     ("push_backend", "jax"),
 ])
 def test_unported_config_raises(field, value):
     cfg = GrandConfig(dataset="synth:200:4:16").replace(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrainer.train(cfg, device="cpu")
+
+
+def test_sparse_flag_on_dense_data_runs_dense_engine():
+    """As in grandtpu, train() dispatches on the data's feature format and
+    ignores ``sparse_features`` when the features are dense."""
+    cfg = GrandConfig(dataset="synth:400:4:16", epochs=2,
+                      sparse_features=True)
+    got = ttrainer.train(cfg, device="cpu")
+    want = ttrainer.train(cfg.replace(sparse_features=False), device="cpu")
+    assert isinstance(got.model, MLP)
+    assert got.history == want.history
+    assert got.test_acc == want.test_acc
 
 
 def test_train_defaults_to_cuda():
