@@ -48,8 +48,40 @@ Then the same for the MAG (sparse-feature) engine, on
     per step, K2 exactly ``order`` times;
 6b. profile of the MAG main path.
 
-It prints one ``{"kernels": [...]}`` line, then, as its last line,
-``{"ok": true, "device": {...}}``.
+Then the fast-precision predict, with the Amazon2M preset (F = 100,
+hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
+``synth:2000000:47:100`` (2M nodes, 8,885,478 nonzeros with self-loops):
+
+3d. K2-bf16 (f32 and bf16 carries), quantize, K2-q8 and K2-q8mxu against
+    their plain versions at the Amazon2M shape [2000000, 100], 6 ppr hops
+    each, one hop at a time on a shared input (both take the plain hop's
+    output): quantize's q equal element for element, K2-q8mxu <= 1e-6
+    (int32 sums are exact), K2-bf16 with f32 carries and K2-q8 <= 1e-5,
+    bf16 carries <= 2^-8 of max |plain| (one bf16 ulp); each whole 6-hop
+    run against the f32 K2 result: <= 5e-3 (bf16, int8, int8cast, the
+    fast-path gate) and <= 2e-2 (bf16_carry); kernel / plain / library
+    times and bounds;
+4c. reference on a small input: ``exact_propagate(backend="csr")`` for
+    every precision on ``synth:30000:8:64`` (above the dense threshold) on
+    the card and on the CPU (<= 1e-5 f32, <= 5e-3 fast forms, <= 2e-2
+    bf16_carry), then ``train()`` with the Amazon2M preset, every drop rate
+    0 and ``predict_precision="auto"``: |d val_loss| <= 1e-4 at every
+    eval, test accuracy within one node;
+5c. main path: ``train()`` with the Amazon2M preset, 2 epochs,
+    ``predict_precision="auto"`` (which resolves to int8, so K2-q8mxu),
+    counters set to 0 just before; losses finite, K1 launched for every
+    step and eval, quantize and K2-q8mxu exactly ``order`` times each, the
+    f32 K2 not at all;
+6c. profile of the Amazon2M main path;
+7.  precision sweep: one Propagator on the Amazon2M operator, ``order``
+    hops timed for f32, bf16, int8 (K2-q8mxu), int8cast (K2-q8) and bf16
+    carries, each with its error against f32 and its peak memory; then
+    ``calibrate()`` with its default candidates. Every hop kernel must
+    have launched on this path.
+
+Every path (5, 5b, 5c, 7) must launch exactly the hop kernels its
+precision selects. It prints one ``{"kernels": [...]}`` line, then, as its
+last line, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -68,14 +100,23 @@ import torch.nn.functional as F
 from grandtpu_torch.config import preset
 from grandtpu_torch.data import load_data
 from grandtpu_torch.data.preprocess import add_self_loops_adj
-from grandtpu_torch.infer import Propagator
+from grandtpu_torch.infer import (Propagator, choose_fast_precision,
+                                  exact_propagate)
 from grandtpu_torch.infer.classify import embed_all_nodes
+from grandtpu_torch.infer.propagate import DENSE_MAX_NODES
 from grandtpu_torch.nn.dropnode import gather_and_prop, gather_and_prop_plain
 from grandtpu_torch.nn.sparse_input import (PaddedFeatures, embed_prop,
                                             embed_prop_backward,
                                             embed_prop_plain)
 from grandtpu_torch.ops._build import build, build_dir
-from grandtpu_torch.sparse.spmm import spmm_prop_step, spmm_prop_step_plain
+from grandtpu_torch.sparse.spmm import (quantize_columns,
+                                        quantize_columns_plain,
+                                        spmm_prop_step, spmm_prop_step_bf16,
+                                        spmm_prop_step_plain,
+                                        spmm_prop_step_q8,
+                                        spmm_prop_step_q8_plain,
+                                        spmm_prop_step_q8mxu,
+                                        spmm_prop_step_q8mxu_plain)
 from grandtpu_torch.train import train
 
 DATASET = "synth:233000:41:602"     # RESULTS.md's reddit scale stand-in
@@ -88,6 +129,8 @@ MAG_SMALL = "synth:2000:8:500:sparse"
 # (8 classes x 30), predict chunk
 K3_SHAPE = (40, 32, 2, 240, 10000)
 H_MAG = 64                          # mag_scholar_c hidden width
+AMAZON = "synth:2000000:47:100"     # RESULTS.md's Amazon2M stand-in
+AMAZON_SMALL = "synth:30000:8:64"   # above the dense threshold
 TOL = 1e-5                          # max |kernel - plain| / max |plain|
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12             # f32 outside the tensor cores
@@ -478,6 +521,312 @@ def check_k3(data) -> list:
     return entries
 
 
+def _ppr_hop_by_hop(hop, plain_hop, x0, order: int, quantize: bool):
+    """``order`` ppr hops of ``hop`` against ``plain_hop`` on a shared
+    input: at each hop both take the plain run's carries (and, for the int8
+    hops, its quantized input), so one hop's rounding does not carry into
+    the next. Returns the max (abs, rel) error over the hops' outputs and
+    accumulators, and the count of q elements that differ."""
+    cur_in, acc = x0, x0.clone()
+    worst, q_diff = (0.0, 0.0), 0
+    for _ in range(order):
+        args = (cur_in,)
+        if quantize:
+            q, scale = quantize_columns(cur_in)
+            q_p, scale_p = quantize_columns_plain(cur_in)
+            torch.cuda.synchronize(DEV)
+            q_diff += int((q != q_p).sum()) + int((scale != scale_p).sum())
+            args = (q_p, scale_p)
+        out_k, acc_k = torch.empty_like(cur_in), acc.clone()
+        out_p, acc_p = torch.empty_like(cur_in), acc.clone()
+        hop(*args, out_k, acc_k)
+        torch.cuda.synchronize(DEV)
+        plain_hop(*args, out_p, acc_p)
+        for got, want in ((out_k, out_p), (acc_k, acc_p)):
+            e = _errors(got.float(), want.float())
+            worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+        del out_k, acc_k
+        cur_in, acc = out_p, acc_p
+    return worst, q_diff
+
+
+def _plain_ppr_run(plain_hop, x0, order: int, quantize: bool):
+    """``order`` ppr hops of the plain versions alone (the Propagator's loop
+    with ``plain_hop``); returns the accumulator. ``x0`` is not written."""
+    cur_in, acc = x0.clone(), x0.clone()
+    cur_out = torch.empty_like(x0)
+    for _ in range(order):
+        args = quantize_columns_plain(cur_in) if quantize else (cur_in,)
+        plain_hop(*args, cur_out, acc)
+        cur_in, cur_out = cur_out, cur_in
+    return acc
+
+
+def amazon_operators(data) -> dict:
+    """The Amazon2M stand-in's operator as f32- and bf16-carry Propagators
+    on the card, with its features there."""
+    adj_sl = add_self_loops_adj(data.adj)
+    return {"adj": adj_sl,
+            "f32": Propagator(adj_sl, backend="csr", device=DEV),
+            "bf16": Propagator(adj_sl, backend="csr", dtype=torch.bfloat16,
+                               device=DEV),
+            "x": torch.as_tensor(data.features, device=DEV)}
+
+
+def check_fast_kernels(ops: dict, k2: dict) -> list:
+    """Phase 3d: each fast-precision kernel hop by hop against its plain
+    version at the Amazon2M shape, each whole run against f32 K2, and
+    their times and bounds; adds K2 (f32) at this shape to ``k2``."""
+    cfg = preset("Amazon2M")
+    prop, x = ops["f32"], ops["x"]
+    op, row_val = prop.adj_op, prop.row_val
+    n, nnz, nfeat = op.num_rows, op.nnz, x.shape[1]
+    scale, order = 1.0 - cfg.alpha, cfg.order
+    x0 = cfg.alpha * x
+    bf = torch.bfloat16
+    x0_b = x.to(bf) * float(torch.tensor(cfg.alpha).to(bf))
+
+    def k2_hop(term):
+        fn = spmm_prop_step if term == "f32" else spmm_prop_step_bf16
+        return (lambda ci, co, ac: fn(op, ci, co, ac, scale, True),
+                lambda ci, co, ac: spmm_prop_step_plain(op, ci, co, ac,
+                                                        scale, True, term))
+
+    # form: (kernel hop, plain hop, first input, quantized, per-hop limit),
+    # in the order of the whole runs below
+    forms = {
+        "bf16": (*k2_hop("bf16"), x0, False, TOL),
+        "bf16_carry": (*k2_hop("bf16"), x0_b, False, 2.0 ** -8),
+        "q8": (lambda q, s, co, ac: spmm_prop_step_q8(op, q, s, co, ac,
+                                                      scale, True),
+               lambda q, s, co, ac: spmm_prop_step_q8_plain(
+                   op, q, s, co, ac, scale, True), x0, True, TOL),
+        "q8mxu": (lambda q, s, co, ac: spmm_prop_step_q8mxu(
+                      op, q, s, row_val, co, ac, scale, True),
+                  lambda q, s, co, ac: spmm_prop_step_q8mxu_plain(
+                      op, q, s, row_val, co, ac, scale, True), x0, True,
+                  1e-6),
+    }
+    errs, q_diff = {}, 0
+    for form, (hop, plain_hop, start, quantize, limit) in forms.items():
+        errs[form], qd = _ppr_hop_by_hop(hop, plain_hop, start, order,
+                                         quantize)
+        q_diff += qd
+        print(f"[3d] {form}: {order} ppr hops at [{n},{nfeat}], nnz {nnz}, "
+              f"one at a time on a shared input: max_abs_err "
+              f"{errs[form][0]} max_rel_err {errs[form][1]} (limit {limit})"
+              + (f", quantize q/scale elements differing {qd}"
+                 if quantize else ""), flush=True)
+        if not errs[form][1] <= limit:
+            raise AssertionError(f"{form} disagrees with its plain version: "
+                                 f"{errs[form][1]} > {limit}")
+    if q_diff:
+        raise AssertionError(f"quantize_columns differs from its plain "
+                             f"version in {q_diff} elements")
+
+    # whole runs of `order` hops: each kernel run against the plain run of
+    # the same precision (flips carry from hop to hop, so the fast-path
+    # limits), and no further from f32 than the plain arithmetic is
+    kw = dict(mode="ppr", order=order, alpha=cfg.alpha)
+    ref = prop(x, **kw)
+    ref_plain = _plain_ppr_run(k2_hop("f32")[1], x0, order, False)
+    runs = {"bf16": prop(x, precision="bf16", **kw),
+            "bf16_carry": ops["bf16"](x, precision="bf16", **kw),
+            "int8cast": prop(x, precision="int8cast", **kw),
+            "int8": prop(x, precision="int8", **kw)}
+    whole = {}
+    for (p, out), form in zip(runs.items(), forms):
+        plain = _plain_ppr_run(forms[form][1], forms[form][2], order,
+                               forms[form][3])
+        d = _errors(out.float(), plain.float())[1]
+        e_k = _errors(out.float(), ref)[1]
+        e_p = _errors(plain.float(), ref_plain)[1]
+        limit = 2e-2 if p == "bf16_carry" else 5e-3
+        whole[p] = {"vs_plain": d, "vs_f32": e_k, "plain_vs_f32": e_p}
+        print(f"[3d] whole {order}-hop run {p}: vs its plain run max_rel_err "
+              f"{d} (limit {limit}); vs f32 K2 {e_k}, plain vs plain f32 "
+              f"{e_p} (fast-path gate {limit}: "
+              f"{'held' if e_k <= limit else 'exceeded'})", flush=True)
+        if not (d <= limit and e_k <= e_p + 1e-3):
+            raise AssertionError(f"{p} run: {d} from its plain run (limit "
+                                 f"{limit}), {e_k} from f32 against the "
+                                 f"plain run's {e_p}")
+        del plain
+    del runs, ref, ref_plain
+
+    # times and bounds, one hop (quantize: one call) at the main path's shape
+    y, acc = torch.empty_like(x), torch.zeros_like(x)
+    y_b, acc_b = torch.empty_like(x0_b), torch.zeros_like(x0_b)
+    q, q_scale = quantize_columns(x0)
+    struct = 4 * (n + 1) + 4 * nnz
+    k2_bytes = 4 * n * nfeat * 4 + 8 * nnz + 4 * (n + 1)
+    carry_bytes = 4 * n * nfeat * 2 + 8 * nnz + 4 * (n + 1)
+    # q read, f32 y written, acc read and written, the structure
+    q8_bytes = n * nfeat * 13 + nfeat * 4 + struct
+
+    def bf16_library():
+        """torch.sparse.mm of a bf16 CSR tensor by bf16 x (A x only), if
+        this build has it."""
+        try:
+            a_b = torch.sparse_csr_tensor(op.indptr, op.indices,
+                                          op.values.to(bf), size=(n, n))
+            torch.sparse.mm(a_b, x0_b)
+            torch.cuda.synchronize(DEV)
+        except RuntimeError as e:
+            print(f"[3d] torch.sparse.mm on bf16 CSR: not in this build "
+                  f"({str(e).splitlines()[0][:120]})", flush=True)
+            return None
+        return _time_ms(lambda: torch.sparse.mm(a_b, x0_b), 30)
+
+    table = {
+        "csr_spmm_prop_bf16": (
+            lambda: spmm_prop_step_bf16(op, x0, y, acc, scale, True),
+            lambda: spmm_prop_step_plain(op, x0, y, acc, scale, True,
+                                         "bf16"),
+            None, k2_bytes, 2 * nnz * nfeat + 2 * n * nfeat),
+        "csr_spmm_prop_bf16_carry": (
+            lambda: spmm_prop_step_bf16(op, x0_b, y_b, acc_b, scale, True),
+            lambda: spmm_prop_step_plain(op, x0_b, y_b, acc_b, scale, True,
+                                         "bf16"),
+            bf16_library, carry_bytes, 2 * nnz * nfeat + 2 * n * nfeat),
+        "quantize_columns": (
+            lambda: quantize_columns(x0), lambda: quantize_columns_plain(x0),
+            None, n * nfeat * 5 + nfeat * 4, 3 * n * nfeat),
+        "csr_spmm_q8": (
+            lambda: spmm_prop_step_q8(op, q, q_scale, y, acc, scale, True),
+            lambda: spmm_prop_step_q8_plain(op, q, q_scale, y, acc, scale,
+                                            True),
+            None, q8_bytes + 4 * nnz, 2 * nnz * nfeat + 3 * n * nfeat),
+        "csr_spmm_q8mxu": (
+            lambda: spmm_prop_step_q8mxu(op, q, q_scale, row_val, y, acc,
+                                         scale, True),
+            lambda: spmm_prop_step_q8mxu_plain(op, q, q_scale, row_val, y,
+                                               acc, scale, True),
+            None, q8_bytes + 4 * n, nnz * nfeat + 4 * n * nfeat),
+    }
+    times = {}
+    for name, (kernel, plain, library, nbytes, ops_) in table.items():
+        ms = _time_ms(kernel, 30)
+        plain_ms = _time_ms(plain, 3, warmup=1)
+        library_ms = library() if library is not None else None
+        bound_ms, bound_by = _bound(nbytes, ops_)
+        times[name] = {"ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+        print(f"[3d] {name} at [{n},{nfeat}], nnz {nnz}: ms {ms} plain_ms "
+              f"{plain_ms} library_ms {library_ms} bound_ms {bound_ms} "
+              f"({bound_by}, {nbytes / 1e9:.3f} GB)", flush=True)
+    del y, acc, y_b, acc_b, q
+    ms, plain_ms, library_ms, bound_ms, bound_by, nbytes = _k2_times(
+        op, x0, scale)
+    print(f"[3d] csr_spmm_prop at [{n},{nfeat}], nnz {nnz}: ms {ms} plain_ms "
+          f"{plain_ms} library_ms {library_ms} (torch.sparse.mm) bound_ms "
+          f"{bound_ms} ({bound_by}, {nbytes / 1e9:.3f} GB)", flush=True)
+    k2["amazon"] = {"shape": f"x [{n},{nfeat}], nnz {nnz}, per hop",
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+    carry = times.pop("csr_spmm_prop_bf16_carry")
+    shape = f"x [{n},{nfeat}], nnz {nnz}, per hop"
+    sources = {"csr_spmm_prop_bf16": ("csr_spmm.cu", "grandtpu/sparse/"
+                                      "spmm.py:197", errs["bf16"]),
+               "quantize_columns": ("csr_spmm_q8.cu",
+                                    "grandtpu/sparse/spmm.py:452",
+                                    (0.0, 0.0)),
+               "csr_spmm_q8": ("csr_spmm_q8.cu",
+                               "grandtpu/sparse/spmm.py:507", errs["q8"]),
+               "csr_spmm_q8mxu": ("csr_spmm_q8.cu",
+                                  "grandtpu/sparse/spmm.py:607",
+                                  errs["q8mxu"])}
+    entries = []
+    for name, (src, line, err) in sources.items():
+        entry = {"name": name, "route": "cuda",
+                 "source": f"grandtpu_torch/csrc/{src}", "replaces": line,
+                 "max_abs_err": err[0], "max_rel_err": err[1],
+                 **times[name],
+                 "shape": shape if name != "quantize_columns"
+                 else f"x [{n},{nfeat}] f32, one call (two launches)",
+                 "whole_run": whole.get(
+                     {"csr_spmm_prop_bf16": "bf16", "csr_spmm_q8": "int8cast",
+                      "csr_spmm_q8mxu": "int8"}.get(name, ""))}
+        if name == "csr_spmm_prop_bf16":
+            entry["bf16_carry"] = {**carry, "max_abs_err":
+                                   errs["bf16_carry"][0], "max_rel_err":
+                                   errs["bf16_carry"][1],
+                                   "whole_run": whole["bf16_carry"]}
+        entries.append(entry)
+    return entries
+
+
+def check_small_fast() -> None:
+    """Phase 4c, first half: ``exact_propagate`` at every precision on the
+    card against the CPU, on a graph above the dense threshold."""
+    cfg = preset("Amazon2M")
+    data = load_data(AMAZON_SMALL, split_seed=cfg.seed1)
+    adj_sl = add_self_loops_adj(data.adj)
+    for p in ("f32", "bf16", "int8", "int8mxu", "int8cast", "auto",
+              "bf16_carry"):
+        kw = dict(mode="ppr", order=cfg.order, alpha=cfg.alpha,
+                  backend="csr", precision=p)
+        gpu = exact_propagate(adj_sl, data.features, device=DEV, **kw)
+        cpu = exact_propagate(adj_sl, data.features, device="cpu", **kw)
+        err = _errors(gpu.float().cpu(), cpu.float())[1]
+        limit = {"f32": 1e-5, "bf16_carry": 2e-2}.get(p, 5e-3)
+        print(f"[small-fast] {AMAZON_SMALL} {p}: card vs CPU max_rel_err "
+              f"{err} (limit {limit})", flush=True)
+        if not (gpu.dtype == cpu.dtype and err <= limit):
+            raise AssertionError(f"{p}: card disagrees with the CPU")
+
+
+def run_amazon_path(data) -> dict:
+    cfg = preset("Amazon2M").replace(dataset=AMAZON, epochs=2,
+                                     predict_precision="auto")
+    r, launches = run_path(cfg, data, "amazon")
+    if launches["dropnode_mean"] < r.num_batches + len(r.history):
+        raise AssertionError("K1 was not launched for every step and eval")
+    return launches
+
+
+def precision_sweep(ops: dict) -> dict:
+    """Phase 7: ``order`` hops at every precision on one Propagator, with
+    error against f32 and peak memory, then ``calibrate()``; every hop
+    kernel must launch. Returns the launches."""
+    cfg = preset("Amazon2M")
+    kw = dict(mode="ppr", order=cfg.order, alpha=cfg.alpha)
+    prop, x = ops["f32"], ops["x"]
+    _reset_counts()
+    ref = prop(x, **kw)
+    ref_max = float(ref.abs().max())
+    runs = [("f32", prop, "f32"), ("bf16", prop, "bf16"),
+            ("int8", prop, "int8"), ("int8cast", prop, "int8cast"),
+            ("bf16_carry", ops["bf16"], "bf16")]
+    sweep = {}
+    for name, pr, p in runs:
+        torch.cuda.synchronize(DEV)
+        base = torch.cuda.memory_allocated(DEV)
+        torch.cuda.reset_peak_memory_stats(DEV)
+        out = pr(x, precision=p, **kw)
+        torch.cuda.synchronize(DEV)
+        peak = (torch.cuda.max_memory_allocated(DEV) - base) / 1e9
+        err = float((out.float() - ref).abs().max()) / ref_max
+        del out
+        ms = _time_ms(lambda: pr(x, precision=p, **kw), 5, warmup=1)
+        sweep[name] = {"ms": ms, "rel_err_vs_f32": err,
+                       "peak_extra_GB": peak}
+        print(f"[sweep] {name}: {cfg.order} hops {ms} ms, max_rel_err vs "
+              f"f32 {err}, peak memory above the resident operands {peak} "
+              f"GB", flush=True)
+    del ref
+    t0 = time.time()
+    choice = prop.calibrate(x, order=cfg.order, alpha=cfg.alpha)
+    launches = _read_counts()
+    print(f"[sweep] calibrate() (candidates bf16, int8) chose {choice} in "
+          f"{time.time() - t0:.3f} s; launches {launches}", flush=True)
+    missing = [k for k in HOP_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the sweep launched no {missing}")
+    return launches
+
+
 def check_small_reference(cfg) -> None:
     """``train()`` with ``cfg`` (every drop rate 0) on the card and on the
     CPU gives the same validation history and test accuracy."""
@@ -495,22 +844,64 @@ def check_small_reference(cfg) -> None:
 
 
 COUNTED = {"dropnode_mean": gather_and_prop, "csr_spmm_prop": spmm_prop_step,
+           "csr_spmm_prop_bf16": spmm_prop_step_bf16,
+           "quantize_columns": quantize_columns,
+           "csr_spmm_q8": spmm_prop_step_q8,
+           "csr_spmm_q8mxu": spmm_prop_step_q8mxu,
            "embed_prop_fwd": embed_prop,
            "embed_prop_bwd": embed_prop_backward}
+HOP_KERNELS = ("csr_spmm_prop", "csr_spmm_prop_bf16", "quantize_columns",
+               "csr_spmm_q8", "csr_spmm_q8mxu")
+# the hop kernels of each resolved precision on the CSR backend (D^-1 A's
+# rows are constant, so int8 runs as K2-q8mxu)
+PRECISION_KERNELS = {
+    "f32": {"csr_spmm_prop"}, "bf16": {"csr_spmm_prop_bf16"},
+    "int8": {"quantize_columns", "csr_spmm_q8mxu"},
+    "int8mxu": {"quantize_columns", "csr_spmm_q8mxu"},
+    "int8cast": {"quantize_columns", "csr_spmm_q8"}}
+
+
+def _reset_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def predict_kernels(cfg, data) -> set:
+    """The hop kernels ``train()``'s predict selects for ``cfg`` on
+    ``data``, resolving the precision as ``exact_propagate`` does."""
+    n = data.num_nodes
+    if n <= DENSE_MAX_NODES:
+        return set()
+    p = cfg.predict_precision
+    if p == "bf16_carry":
+        p = "bf16"
+    if p == "auto":
+        width = cfg.hidden if data.has_sparse_features else data.num_features
+        adj_sl = add_self_loops_adj(data.adj)
+        p = choose_fast_precision(n, width,
+                                  max_degree=int(adj_sl.getnnz(1).max()))
+    return PRECISION_KERNELS[p]
 
 
 def run_path(cfg, data, tag: str) -> tuple:
     """One ``train()`` of the path with every launch count set to 0 just
-    before and read just after; returns (result, launches)."""
-    for fn in COUNTED.values():
-        fn.launches = 0
+    before and read just after; returns (result, launches). The hop
+    kernels the resolved predict precision selects must launch ``order``
+    times each, the others not at all."""
+    selected = predict_kernels(cfg, data)
+    _reset_counts()
     torch.cuda.reset_peak_memory_stats(DEV)
     t0 = time.time()
     r = train(cfg, data=data, device=DEV)
     wall = time.time() - t0
-    launches = {name: fn.launches for name, fn in COUNTED.items()}
-    print(f"[{tag}] {cfg.dataset}, {cfg.epochs} epochs: steps "
-          f"{r.num_batches}, evals {len(r.history)}, launches {launches}, "
+    launches = _read_counts()
+    print(f"[{tag}] {cfg.dataset}, {cfg.epochs} epochs, predict_precision "
+          f"{cfg.predict_precision}: steps {r.num_batches}, evals "
+          f"{len(r.history)}, launches {launches}, "
           f"test_acc {r.test_acc}, best_val_acc {r.best_val_acc}, "
           f"preprocess_s {r.preprocess_time}, batch_time_median_s "
           f"{r.batch_time_median}, propagate_s {r.propagate_time}, total_s "
@@ -521,9 +912,12 @@ def run_path(cfg, data, tag: str) -> tuple:
         raise AssertionError(f"non-finite losses: {r.history}")
     if not 0.0 <= r.test_acc <= 1.0:
         raise AssertionError(f"test_acc {r.test_acc}")
-    if launches["csr_spmm_prop"] != cfg.order:
-        raise AssertionError(f"K2 launched {launches['csr_spmm_prop']} "
-                             f"times, expected order={cfg.order}")
+    for name in HOP_KERNELS:
+        want = cfg.order if name in selected else 0
+        if launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"expected {want} (order={cfg.order}, "
+                                 f"selected {sorted(selected)})")
     return r, launches
 
 
@@ -589,7 +983,8 @@ def profile_path(cfg, data, tag: str) -> None:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     for i, (name, (t, n)) in enumerate(ranked):
         if i < 14 or any(k in name for k in ("dropnode_mean", "csr_spmm",
-                                             "embed_prop")):
+                                             "embed_prop", "quantize",
+                                             "column_absmax")):
             print(f"[{tag}] {t:10.4f} ms {n:6d}x {name[:100]}")
 
 
@@ -620,14 +1015,42 @@ def main() -> int:
     mag_launches = run_mag_path(mag)
     profile_path(preset("mag_scholar_c").replace(dataset=MAG_DATASET,
                                                  epochs=5), mag, "profile-mag")
+    del mag
 
-    k1["launches"] = launches["dropnode_mean"]
+    amazon_cfg = preset("Amazon2M").replace(dataset=AMAZON, epochs=2,
+                                            predict_precision="auto")
+    t0 = time.time()
+    amazon = load_data(AMAZON, split_seed=amazon_cfg.seed1)
+    print(f"[data] {AMAZON} generated in {time.time() - t0:.3f} s",
+          flush=True)
+    ops = amazon_operators(amazon)
+    fast = check_fast_kernels(ops, k2)
+    del ops
+    torch.cuda.empty_cache()
+    check_small_fast()
+    check_small_reference(amazon_cfg.replace(
+        dataset=AMAZON_SMALL, epochs=3, dropnode_rate=0.0))
+    amazon_launches = run_amazon_path(amazon)
+    profile_path(amazon_cfg, amazon, "profile-amazon")
+    ops = amazon_operators(amazon)
+    sweep_launches = precision_sweep(ops)
+    del ops, amazon
+
+    k1["launches_by_path"] = {"reddit": launches["dropnode_mean"],
+                              "amazon": amazon_launches["dropnode_mean"]}
     k2["launches_by_path"] = {"reddit": launches["csr_spmm_prop"],
-                              "mag": mag_launches["csr_spmm_prop"]}
-    k2["launches"] = sum(k2["launches_by_path"].values())
+                              "mag": mag_launches["csr_spmm_prop"],
+                              "amazon": amazon_launches["csr_spmm_prop"],
+                              "sweep": sweep_launches["csr_spmm_prop"]}
+    for k in (k1, k2):
+        k["launches"] = sum(k["launches_by_path"].values())
     for k in k3:
         k["launches"] = mag_launches[k["name"]]
-    print(json.dumps({"kernels": [k1, k2, *k3]}))
+    for k in fast:
+        k["launches_by_path"] = {"amazon": amazon_launches[k["name"]],
+                                 "sweep": sweep_launches[k["name"]]}
+        k["launches"] = sum(k["launches_by_path"].values())
+    print(json.dumps({"kernels": [k1, k2, *fast, *k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,9 +18,10 @@ def predict_logits(model: nn.Module, feats: torch.Tensor,
     """Logits of ``model`` (eval mode: BN on running stats) for every row of
     ``feats``, in chunks of ``batch_size`` rows; host numpy [n, C]. For the
     MAG model this is its head over propagated embeddings (``head_logits``
-    in ``grandtpu``)."""
+    in ``grandtpu``). bf16 rows (``bf16_carry`` propagation) are cast to
+    f32 first, as JAX promotes them against the f32 weights."""
     model.eval()
-    out = [model(feats[i: i + batch_size])
+    out = [model(feats[i: i + batch_size].float())
            for i in range(0, feats.shape[0], batch_size)]
     return torch.cat(out).cpu().numpy()
 
@@ -56,17 +57,19 @@ def embed_all_nodes(table: torch.Tensor, attr_cols: torch.Tensor,
 
 def predict_logits_sparse(model: nn.Module, attr_cols, attr_vals, adj_sl, *,
                           mode: str = "ppr", order: int = 10,
-                          alpha: float = 0.2,
-                          batch_size: int = 10000) -> np.ndarray:
+                          alpha: float = 0.2, batch_size: int = 10000,
+                          precision: str = "f32") -> np.ndarray:
     """Full-graph logits of the MAG model: all-node embeddings in chunks ->
     exact propagation in embedding space -> head. It never forms a dense
     [n, vocab] matrix. ``attr_cols``/``attr_vals`` are the padded features
-    [n, P] (arrays or tensors); everything runs on the model's device."""
+    [n, P] (arrays or tensors); everything runs on the model's device.
+    ``precision``: that of :func:`exact_propagate` ('f32', 'bf16', 'int8',
+    'auto', 'bf16_carry', ...)."""
     device = model.table.device
     embs = embed_all_nodes(model.table.detach(),
                            torch.as_tensor(attr_cols, device=device),
                            torch.as_tensor(attr_vals, device=device),
                            batch_size)
     prop = exact_propagate(adj_sl, embs, mode=mode, order=order, alpha=alpha,
-                           device=device)
+                           precision=precision, device=device)
     return head_logits(model, prop, batch_size)

@@ -4,8 +4,8 @@ Every ``grandtpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
 (Hopper) into one shared library with a plain C interface,
 ``build/grandtpu_torch/libgrandtpu_kernels.so``, which is loaded with
 ctypes. The build runs on first use, one ``nvcc`` per source started
-together, under a file lock, and again whenever a source is newer than the
-library. ``nvcc``'s messages, ``-Xptxas -v`` register and spill counts
+together, under a file lock, and again whenever a source or a header
+(``csrc/*.cuh``) is newer than the library. ``nvcc``'s messages, ``-Xptxas -v`` register and spill counts
 included, go to ``nvcc.log`` beside the library.
 
 Each C function returns the ``cudaError_t`` of its launch; callers raise
@@ -39,9 +39,14 @@ _SIGNATURES = {
     # stream
     "dropnode_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # indptr, indices, values, x, y, acc, num_rows, num_features, scale,
-    # accumulate, stream
-    "csr_spmm_prop_f32": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
-                          _I, _P],
+    # accumulate, term_bf16, carry_bf16, stream
+    "csr_spmm_prop": [_P] * 6 + [_I, _I, ctypes.c_float, _I, _I, _I, _P],
+    # x, amax_bits, q, col_scale, num_rows, num_features, x_bf16, stream
+    "quantize_columns": [_P] * 4 + [_I, _I, _I, _P],
+    # indptr, indices, values | row_val, q, col_scale, y, acc, num_rows,
+    # num_features, scale, accumulate, carry_bf16, stream
+    "csr_spmm_q8": [_P] * 7 + [_I, _I, ctypes.c_float, _I, _I, _P],
+    "csr_spmm_q8mxu": [_P] * 7 + [_I, _I, ctypes.c_float, _I, _I, _P],
     # table | grad, attr_cols, attr_vals, tk_cols, tk_vals, keep, drop,
     # out | dtable, rows, ktop, P, H, num_aug, keep_prob, stream
     "embed_prop_fwd_f32": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
@@ -78,8 +83,9 @@ def build() -> str:
     srcs = sources()
     with open(os.path.join(bdir, "kernels.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
+        inputs = srcs + glob.glob(os.path.join(_CSRC, "*.cuh"))
         if (os.path.exists(out) and os.path.getmtime(out)
-                >= max(os.path.getmtime(s) for s in srcs)):
+                >= max(os.path.getmtime(s) for s in inputs)):
             return out
         nvcc = _nvcc()
         procs, objs = [], []

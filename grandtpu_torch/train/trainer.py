@@ -46,9 +46,6 @@ def check_supported(cfg: GrandConfig) -> None:
          "ROADMAP Queue A: CUDA-graph step groups"),
         (cfg.num_devices > 1, "num_devices > 1",
          "ROADMAP Queue A: multi-GPU"),
-        (cfg.predict_precision != "f32",
-         f"predict_precision={cfg.predict_precision!r}",
-         "ROADMAP Queue A: K2-q8 and K2-q8mxu with their precisions"),
         (cfg.push_backend not in BACKENDS,
          f"push_backend={cfg.push_backend!r}",
          "ROADMAP Queue A: GPU GFPush backend"),
@@ -155,7 +152,8 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
     # exact full-graph propagation test with the best weights
     t_prop = time.time()
     prop = exact_propagate(adj_sl, features, mode=cfg.prop_mode,
-                           order=cfg.order, alpha=cfg.alpha, device=device)
+                           order=cfg.order, alpha=cfg.alpha,
+                           precision=cfg.predict_precision, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     propagate_time = time.time() - t_prop

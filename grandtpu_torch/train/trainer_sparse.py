@@ -188,7 +188,8 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
     model.zero_grad(set_to_none=True)
     t_prop = time.time()
     prop = exact_propagate(adj_sl, embs, mode=cfg.prop_mode, order=cfg.order,
-                           alpha=cfg.alpha, device=device)
+                           alpha=cfg.alpha, precision=cfg.predict_precision,
+                           device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     propagate_time = time.time() - t_prop

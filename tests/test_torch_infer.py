@@ -83,9 +83,12 @@ def test_csr_plain_dispatch_on_cpu(small_graph):
 
 
 def test_unported_precision_raises(small_graph):
+    """Every precision is ported; what still raises, naming its ROADMAP
+    item, is the 'segment' backend."""
     adj, feats, _ = small_graph
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        exact_propagate(adj, feats, precision="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 4"):
+        exact_propagate(adj, feats, precision="int8", backend="segment",
+                        device="cpu")
 
 
 def test_predict_logits_and_accuracy_parity(small_graph):

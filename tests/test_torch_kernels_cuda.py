@@ -9,8 +9,12 @@ machine with a card and without JAX, run them with
 cases the full-width checks in ``chip_smoke.py`` do not: K = 1..8, odd
 widths, empty and fully masked rows, hub rows, and for K3 attribute-free
 nodes, input dropout, colliding ids (the backward's atomics) and the node
-form.
+form; for the fast-precision hops (K2-bf16, quantize, K2-q8, K2-q8mxu) f32
+and bf16 carries, widths that are not a multiple of 4 or 32, an all-zero
+column, a 9000-nonzero hub row and a one-row operator.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -20,8 +24,15 @@ import torch
 from grandtpu_torch.nn.dropnode import gather_and_prop, gather_and_prop_plain
 from grandtpu_torch.nn.sparse_input import (embed_prop, embed_prop_backward,
                                             embed_prop_plain)
-from grandtpu_torch.sparse.spmm import (CSROperator, spmm_prop_step,
-                                        spmm_prop_step_plain)
+from grandtpu_torch.sparse.spmm import (CSROperator, quantize_columns,
+                                        quantize_columns_plain,
+                                        row_values_if_constant,
+                                        spmm_prop_step, spmm_prop_step_bf16,
+                                        spmm_prop_step_plain,
+                                        spmm_prop_step_q8,
+                                        spmm_prop_step_q8_plain,
+                                        spmm_prop_step_q8mxu,
+                                        spmm_prop_step_q8mxu_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -201,3 +212,177 @@ def test_embed_prop_wrapper_rejects_bad_input(device):
         embed_prop(table, cols, vals,
                    drop=torch.ones(1, 3, 2, 5, dtype=torch.bool,
                                    device=device), droprate=0.5)
+
+
+@functools.lru_cache(maxsize=None)
+def _hop_operator(n):
+    """Row-normalized D^-1 (adj + I) with an empty row 5 and, when n is
+    large enough, a 9000-nonzero hub row 7; plus a copy with varied
+    values (a general operator, for the kernels that read values)."""
+    rs = np.random.RandomState(4)
+    adj = sp.random(n, n, density=min(1.0, 4.0 / n), random_state=rs,
+                    format="csr") + sp.eye(n, format="csr")
+    if n > 9000:
+        adj = adj + sp.csr_matrix((np.ones(9000), (np.full(9000, 7),
+                                                   rs.permutation(n)[:9000])),
+                                  shape=(n, n))
+    keep = np.ones(n, np.float32)
+    keep[5:6] = 0.0                        # row 5 empty (when n > 5)
+    adj = sp.diags(keep).dot((adj > 0).astype(np.float32)).tocsr()
+    adj.eliminate_zeros()
+    deg = np.maximum(np.asarray(adj.sum(1)).ravel(), 1e-12)
+    norm = sp.diags(1.0 / deg).dot(adj).tocsr().astype(np.float32)
+    varied = norm.copy()
+    varied.data = (varied.data * rs.uniform(0.5, 1.5, varied.nnz)).astype(
+        np.float32)
+    return norm, varied
+
+
+def _carry(x, carry):
+    return x.to(torch.bfloat16) if carry == "bf16" else x
+
+
+def _hop_errors(got, want, carry):
+    """(max relative error, limit): one bf16 ulp of max |plain| for bf16
+    carries, else the f32 limit."""
+    return _rel_err(got.float(), want.float()), (
+        2.0 ** -8 if carry == "bf16" else TOL)
+
+
+@pytest.mark.parametrize("n,nfeat", [(1, 3), (300, 33), (9500, 100),
+                                     (300, 1), (9500, 602)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_columns_kernel_matches_plain(device, n, nfeat, dtype):
+    rs = np.random.RandomState(3)
+    x = torch.tensor(rs.randn(n, nfeat).astype(np.float32), device=device)
+    x[:, nfeat // 2] = 0.0                 # an all-zero column
+    x = _carry(x, dtype)
+    before = quantize_columns.launches
+    q, scale = quantize_columns(x)
+    torch.cuda.synchronize()
+    assert quantize_columns.launches == before + 1
+    q_p, scale_p = quantize_columns_plain(x)
+    assert torch.equal(q, q_p)
+    assert torch.equal(scale, scale_p)
+    assert float(scale[nfeat // 2]) == 1.0
+
+
+@pytest.mark.parametrize("kernel", ["f32", "bf16", "q8", "q8mxu"])
+@pytest.mark.parametrize("carry", ["f32", "bf16"])
+@pytest.mark.parametrize("n,nfeat", [(1, 5), (300, 33), (9500, 100),
+                                     (9500, 1)])
+@pytest.mark.parametrize("accumulate", [True, False])
+def test_fast_precision_hops_match_plain(device, kernel, carry, n, nfeat,
+                                         accumulate):
+    rs = np.random.RandomState(4)
+    norm, varied = _hop_operator(n)
+    op = CSROperator.from_scipy(norm if kernel == "q8mxu" else varied,
+                                device)
+    x = torch.tensor(rs.randn(n, nfeat).astype(np.float32), device=device)
+    if nfeat > 2:
+        x[:, 2] = 0.0                      # an all-zero column
+    acc0 = torch.tensor(rs.randn(n, nfeat).astype(np.float32),
+                        device=device)
+    x, acc0 = _carry(x, carry), _carry(acc0, carry)
+    out_k, acc_k = torch.empty_like(x), acc0.clone()
+    out_p, acc_p = torch.empty_like(x), acc0.clone()
+    if kernel in ("f32", "bf16"):
+        wrapper = spmm_prop_step if kernel == "f32" else spmm_prop_step_bf16
+        before = wrapper.launches
+        wrapper(op, x, out_k, acc_k, 0.8, accumulate)
+        spmm_prop_step_plain(op, x, out_p, acc_p, 0.8, accumulate, kernel)
+    else:
+        q, scale = quantize_columns_plain(x)
+        if kernel == "q8":
+            wrapper = spmm_prop_step_q8
+            before = wrapper.launches
+            wrapper(op, q, scale, out_k, acc_k, 0.8, accumulate)
+            spmm_prop_step_q8_plain(op, q, scale, out_p, acc_p, 0.8,
+                                    accumulate)
+        else:
+            row_val = torch.tensor(row_values_if_constant(norm),
+                                   device=device)
+            wrapper = spmm_prop_step_q8mxu
+            before = wrapper.launches
+            wrapper(op, q, scale, row_val, out_k, acc_k, 0.8, accumulate)
+            spmm_prop_step_q8mxu_plain(op, q, scale, row_val, out_p, acc_p,
+                                       0.8, accumulate)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    for got, want in ((out_k, out_p), (acc_k, acc_p)):
+        err, limit = _hop_errors(got, want, carry)
+        if kernel == "q8mxu" and carry == "f32":
+            limit = 1e-6                   # int32 sums are exact
+        assert err <= limit, (err, limit)
+    if n > 5:
+        assert float(out_k[5].float().abs().max()) == 0.0   # the empty row
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element past an aligned address, so
+    the kernels must take their one-feature-a-lane path."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("kernel", ["f32", "bf16", "q8", "q8mxu",
+                                    "quantize"])
+@pytest.mark.parametrize("carry", ["f32", "bf16"])
+def test_hops_on_misaligned_views_match_plain(device, kernel, carry):
+    rs = np.random.RandomState(6)
+    norm, varied = _hop_operator(300)
+    op = CSROperator.from_scipy(norm if kernel == "q8mxu" else varied,
+                                device)
+    x = _carry(torch.tensor(rs.randn(300, 100).astype(np.float32),
+                            device=device), carry)
+    acc0 = _carry(torch.tensor(rs.randn(300, 100).astype(np.float32),
+                               device=device), carry)
+    if kernel == "quantize":
+        q, scale = quantize_columns(_misaligned(x))
+        q_p, scale_p = quantize_columns_plain(x)
+        assert torch.equal(q, q_p) and torch.equal(scale, scale_p)
+        return
+    out_k, acc_k = _misaligned(torch.empty_like(x)), _misaligned(acc0)
+    out_p, acc_p = torch.empty_like(x), acc0.clone()
+    if kernel in ("f32", "bf16"):
+        wrapper = spmm_prop_step if kernel == "f32" else spmm_prop_step_bf16
+        wrapper(op, _misaligned(x), out_k, acc_k, 0.8, True)
+        spmm_prop_step_plain(op, x, out_p, acc_p, 0.8, True, kernel)
+    else:
+        q, scale = quantize_columns_plain(x)
+        if kernel == "q8":
+            spmm_prop_step_q8(op, _misaligned(q), scale, out_k, acc_k, 0.8,
+                              True)
+            spmm_prop_step_q8_plain(op, q, scale, out_p, acc_p, 0.8, True)
+        else:
+            row_val = torch.tensor(row_values_if_constant(norm),
+                                   device=device)
+            spmm_prop_step_q8mxu(op, _misaligned(q), scale, row_val, out_k,
+                                 acc_k, 0.8, True)
+            spmm_prop_step_q8mxu_plain(op, q, scale, row_val, out_p, acc_p,
+                                       0.8, True)
+    torch.cuda.synchronize()
+    for got, want in ((out_k, out_p), (acc_k, acc_p)):
+        err, limit = _hop_errors(got, want, carry)
+        assert err <= limit, (err, limit)
+
+
+def test_fast_precision_wrappers_reject_bad_input(device):
+    op = CSROperator.from_scipy(sp.eye(4, format="csr", dtype=np.float32),
+                                device)
+    x = torch.zeros(4, 8, device=device)
+    with pytest.raises(TypeError):               # carries of two dtypes
+        spmm_prop_step_bf16(op, x, x.clone().to(torch.bfloat16), None, 1.0,
+                            False)
+    with pytest.raises(TypeError):
+        quantize_columns(x.double())
+    q, scale = quantize_columns(x)
+    with pytest.raises(TypeError):               # q must be int8
+        spmm_prop_step_q8(op, q.int(), scale, x.clone(), None, 1.0, False)
+    with pytest.raises(ValueError):              # row_val must be [n]
+        spmm_prop_step_q8mxu(op, q, scale, torch.ones(3, device=device),
+                             x.clone(), None, 1.0, False)
+    with pytest.raises(ValueError):              # on another device
+        spmm_prop_step_q8(op, q, scale.cpu(), x.clone(), None, 1.0, False)

@@ -135,8 +135,7 @@ def test_cli_presets_and_unported_flag(capsys):
     ("ckpt_dir", "ckpts"), ("resume", True), ("save_every", 5),
     ("metrics_path", "m.jsonl"), ("profile_dir", "prof"),
     ("scan_steps", True), ("num_devices", 2), ("push_cache_dir", "cache"),
-    ("predict_precision", "bf16"), ("predict_precision", "int8"),
-    ("push_backend", "jax"),
+    ("push_backend", "jax"), ("push_backend", "bucket"),
 ])
 def test_unported_config_raises(field, value):
     cfg = GrandConfig(dataset="synth:200:4:16").replace(**{field: value})
