@@ -52,15 +52,23 @@ Then the fast-precision predict, with the Amazon2M preset (F = 100,
 hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
 ``synth:2000000:47:100`` (2M nodes, 8,885,478 nonzeros with self-loops):
 
-3d. K2-bf16 (f32 and bf16 carries), quantize, K2-q8 and K2-q8mxu against
-    their plain versions at the Amazon2M shape [2000000, 100], 6 ppr hops
-    each, one hop at a time on a shared input (both take the plain hop's
-    output): quantize's q equal element for element, K2-q8mxu <= 1e-6
-    (int32 sums are exact), K2-bf16 with f32 carries and K2-q8 <= 1e-5,
-    bf16 carries <= 2^-8 of max |plain| (one bf16 ulp); each whole 6-hop
-    run against the f32 K2 result: <= 5e-3 (bf16, int8, int8cast, the
-    fast-path gate) and <= 2e-2 (bf16_carry); kernel / plain / library
-    times and bounds;
+3d. K1 against its plain version at the Amazon2M path's shapes (its
+    features [2000000, 100], cols/vals [250, 64], K = 2, and the eval form
+    [1410, 64]), <= 1e-5; K2 (f32) for 6 ppr hops against its plain
+    version, <= 1e-5; K2-bf16 (f32 and bf16 carries), quantize, K2-q8 and
+    K2-q8mxu against their plain versions at the Amazon2M shape
+    [2000000, 100], 6 ppr hops each, one hop at a time on a shared input
+    (both take the plain hop's output): quantize's q equal element for
+    element, K2-q8mxu <= 1e-6 (int32 sums are exact), K2-bf16 with f32
+    carries and K2-q8 <= 1e-5, bf16 carries bit for bit (the plain
+    versions add in the kernels' order); each whole 6-hop run against the
+    f32 K2 result: <= 5e-3 (bf16, int8, int8cast, the fast-path gate) and
+    <= 2e-2 (bf16_carry); kernel / plain / library times and bounds;
+7.  precision sweep, on the operators 3d built: ``order`` hops timed for
+    f32, bf16, int8 (K2-q8mxu), int8cast (K2-q8) and bf16 carries, each
+    with its error against f32 and its peak memory; then ``calibrate()``
+    with its default candidates. Every hop kernel must have launched on
+    this path;
 4c. reference on a small input: ``exact_propagate(backend="csr")`` for
     every precision on ``synth:30000:8:64`` (above the dense threshold) on
     the card and on the CPU (<= 1e-5 f32, <= 5e-3 fast forms, <= 2e-2
@@ -72,16 +80,12 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     counters set to 0 just before; losses finite, K1 launched for every
     step and eval, quantize and K2-q8mxu exactly ``order`` times each, the
     f32 K2 not at all;
-6c. profile of the Amazon2M main path;
-7.  precision sweep: one Propagator on the Amazon2M operator, ``order``
-    hops timed for f32, bf16, int8 (K2-q8mxu), int8cast (K2-q8) and bf16
-    carries, each with its error against f32 and its peak memory; then
-    ``calibrate()`` with its default candidates. Every hop kernel must
-    have launched on this path.
+6c. profile of the Amazon2M main path.
 
-Every path (5, 5b, 5c, 7) must launch exactly the hop kernels its
-precision selects. It prints one ``{"kernels": [...]}`` line, then, as its
-last line, ``{"ok": true, "device": {...}}``.
+Every path (5, 5b, 5c, 7) must launch exactly the hop kernels of the form
+its predict's hops ran (``TrainResult.predict_precision``). It prints one
+``{"kernels": [...]}`` line, then, as its last line,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -100,10 +104,8 @@ import torch.nn.functional as F
 from grandtpu_torch.config import preset
 from grandtpu_torch.data import load_data
 from grandtpu_torch.data.preprocess import add_self_loops_adj
-from grandtpu_torch.infer import (Propagator, choose_fast_precision,
-                                  exact_propagate)
+from grandtpu_torch.infer import Propagator, exact_propagate
 from grandtpu_torch.infer.classify import embed_all_nodes
-from grandtpu_torch.infer.propagate import DENSE_MAX_NODES
 from grandtpu_torch.nn.dropnode import gather_and_prop, gather_and_prop_plain
 from grandtpu_torch.nn.sparse_input import (PaddedFeatures, embed_prop,
                                             embed_prop_backward,
@@ -123,6 +125,8 @@ DATASET = "synth:233000:41:602"     # RESULTS.md's reddit scale stand-in
 SMALL = "synth:2000:8:64"
 # K1 at the main path's shapes: N, F, B = 50 + 200, Ktop, K, eval rows
 K1_SHAPE = (233000, 602, 250, 64, 2, 1230)
+# and at the Amazon2M path's (its features; 47 classes x 30 val rows)
+AMAZON_K1_SHAPE = (2000000, 100, 250, 64, 2, 1410)
 MAG_DATASET = "synth:1000000:8:2780000:sparse"   # tools/mag_scale_run.py vocab
 MAG_SMALL = "synth:2000:8:500:sparse"
 # K3 at the MAG main path's shapes: batch rows 20 + 20, Ktop, K, val rows
@@ -185,10 +189,13 @@ def phase_build() -> None:
                 print(f"[build] {line.rstrip()}")
 
 
-def check_k1() -> dict:
-    n, nfeat, batch, ktop, num_aug, n_eval = K1_SHAPE
+def check_k1(shape, features=None, tag: str = "K1") -> dict:
+    """K1 against its plain version at ``shape`` (N, F, B, Ktop, K, eval
+    rows), gathering from ``features`` [N, F] (random if None)."""
+    n, nfeat, batch, ktop, num_aug, n_eval = shape
     g = torch.Generator(device=DEV).manual_seed(0)
-    features = torch.randn(n, nfeat, generator=g, device=DEV)
+    if features is None:
+        features = torch.randn(n, nfeat, generator=g, device=DEV)
     # distinct batches in turn, so the timed gathers miss the 50 MB L2 as
     # a train step's fresh batch does (8 x 38.5 MB)
     col_sets = [torch.randint(0, n, (batch, ktop), generator=g, device=DEV,
@@ -206,11 +213,11 @@ def check_k1() -> dict:
         got, gather_and_prop_plain(features, col_sets[0], vals, keep))
     abs_e, rel_e = _errors(got_e,
                            gather_and_prop_plain(features, cols_e, vals_e))
-    print(f"[K1] train [{num_aug},{batch},{nfeat}] max_abs_err {abs_err} "
+    print(f"[{tag}] train [{num_aug},{batch},{nfeat}] max_abs_err {abs_err} "
           f"max_rel_err {rel_err}; eval [1,{n_eval},{nfeat}] max_abs_err "
           f"{abs_e} max_rel_err {rel_e}", flush=True)
     if not (rel_err <= TOL and rel_e <= TOL):
-        raise AssertionError(f"K1 disagrees with its plain version: "
+        raise AssertionError(f"{tag} disagrees with its plain version: "
                              f"{rel_err}, {rel_e} > {TOL}")
 
     w = torch.where(keep, vals[None], 0.0).reshape(num_aug * batch, ktop)
@@ -240,7 +247,7 @@ def check_k1() -> dict:
     (bound_ms, bound_by), nbytes = bound(
         batch, num_aug, np.mean([torch.unique(c).numel() for c in col_sets]))
     (eval_bound_ms, _), _ = bound(n_eval, 1, torch.unique(cols_e).numel())
-    print(f"[K1] ms {ms} plain_ms {plain_ms} library_ms {library_ms} "
+    print(f"[{tag}] ms {ms} plain_ms {plain_ms} library_ms {library_ms} "
           f"bound_ms {bound_ms} ({bound_by}, {nbytes / 1e6:.1f} MB); "
           f"eval form ms {eval_ms} bound_ms {eval_bound_ms}", flush=True)
     return {"name": "dropnode_mean", "route": "cuda",
@@ -526,9 +533,10 @@ def _ppr_hop_by_hop(hop, plain_hop, x0, order: int, quantize: bool):
     input: at each hop both take the plain run's carries (and, for the int8
     hops, its quantized input), so one hop's rounding does not carry into
     the next. Returns the max (abs, rel) error over the hops' outputs and
-    accumulators, and the count of q elements that differ."""
+    accumulators, the count of their elements that differ, and the count
+    of q elements that differ."""
     cur_in, acc = x0, x0.clone()
-    worst, q_diff = (0.0, 0.0), 0
+    worst, differ, q_diff = (0.0, 0.0), 0, 0
     for _ in range(order):
         args = (cur_in,)
         if quantize:
@@ -545,9 +553,10 @@ def _ppr_hop_by_hop(hop, plain_hop, x0, order: int, quantize: bool):
         for got, want in ((out_k, out_p), (acc_k, acc_p)):
             e = _errors(got.float(), want.float())
             worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+            differ += int((got != want).sum())
         del out_k, acc_k
         cur_in, acc = out_p, acc_p
-    return worst, q_diff
+    return worst, differ, q_diff
 
 
 def _plain_ppr_run(plain_hop, x0, order: int, quantize: bool):
@@ -593,10 +602,13 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
                                                         scale, True, term))
 
     # form: (kernel hop, plain hop, first input, quantized, per-hop limit),
-    # in the order of the whole runs below
+    # in the order of the whole runs below. The plain hops add in the
+    # kernels' order, so with bf16 carries the hop must be bit for bit the
+    # plain one: a rounding done another way (an unrounded scale, say)
+    # moves a large share of the elements by one bf16 ulp
     forms = {
         "bf16": (*k2_hop("bf16"), x0, False, TOL),
-        "bf16_carry": (*k2_hop("bf16"), x0_b, False, 2.0 ** -8),
+        "bf16_carry": (*k2_hop("bf16"), x0_b, False, 0.0),
         "q8": (lambda q, s, co, ac: spmm_prop_step_q8(op, q, s, co, ac,
                                                       scale, True),
                lambda q, s, co, ac: spmm_prop_step_q8_plain(
@@ -609,12 +621,13 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
     }
     errs, q_diff = {}, 0
     for form, (hop, plain_hop, start, quantize, limit) in forms.items():
-        errs[form], qd = _ppr_hop_by_hop(hop, plain_hop, start, order,
-                                         quantize)
+        errs[form], differ, qd = _ppr_hop_by_hop(hop, plain_hop, start,
+                                                 order, quantize)
         q_diff += qd
         print(f"[3d] {form}: {order} ppr hops at [{n},{nfeat}], nnz {nnz}, "
               f"one at a time on a shared input: max_abs_err "
-              f"{errs[form][0]} max_rel_err {errs[form][1]} (limit {limit})"
+              f"{errs[form][0]} max_rel_err {errs[form][1]} (limit {limit}), "
+              f"elements differing {differ}"
               + (f", quantize q/scale elements differing {qd}"
                  if quantize else ""), flush=True)
         if not errs[form][1] <= limit:
@@ -630,6 +643,14 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
     kw = dict(mode="ppr", order=order, alpha=cfg.alpha)
     ref = prop(x, **kw)
     ref_plain = _plain_ppr_run(k2_hop("f32")[1], x0, order, False)
+    # K2 (f32) at this width takes its 4-features-a-lane path
+    f32_err = _errors(ref, ref_plain)
+    print(f"[3d] csr_spmm_prop: {order} ppr hops at [{n},{nfeat}] against "
+          f"its plain version: max_abs_err {f32_err[0]} max_rel_err "
+          f"{f32_err[1]} (limit {TOL})", flush=True)
+    if not f32_err[1] <= TOL:
+        raise AssertionError(f"K2 disagrees with its plain version at "
+                             f"[{n},{nfeat}]: {f32_err[1]} > {TOL}")
     runs = {"bf16": prop(x, precision="bf16", **kw),
             "bf16_carry": ops["bf16"](x, precision="bf16", **kw),
             "int8cast": prop(x, precision="int8cast", **kw),
@@ -722,9 +743,12 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
     print(f"[3d] csr_spmm_prop at [{n},{nfeat}], nnz {nnz}: ms {ms} plain_ms "
           f"{plain_ms} library_ms {library_ms} (torch.sparse.mm) bound_ms "
           f"{bound_ms} ({bound_by}, {nbytes / 1e9:.3f} GB)", flush=True)
+    k2["max_abs_err"] = max(k2["max_abs_err"], f32_err[0])
+    k2["max_rel_err"] = max(k2["max_rel_err"], f32_err[1])
     k2["amazon"] = {"shape": f"x [{n},{nfeat}], nnz {nnz}, per hop",
                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by}
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "max_abs_err": f32_err[0], "max_rel_err": f32_err[1]}
     carry = times.pop("csr_spmm_prop_bf16_carry")
     shape = f"x [{n},{nfeat}], nnz {nnz}, per hop"
     sources = {"csr_spmm_prop_bf16": ("csr_spmm.cu", "grandtpu/sparse/"
@@ -783,6 +807,9 @@ def run_amazon_path(data) -> dict:
     r, launches = run_path(cfg, data, "amazon")
     if launches["dropnode_mean"] < r.num_batches + len(r.history):
         raise AssertionError("K1 was not launched for every step and eval")
+    if r.predict_precision != "int8mxu":
+        raise AssertionError(f"auto ran {r.predict_precision}, not int8 as "
+                             "K2-q8mxu")
     return launches
 
 
@@ -852,11 +879,10 @@ COUNTED = {"dropnode_mean": gather_and_prop, "csr_spmm_prop": spmm_prop_step,
            "embed_prop_bwd": embed_prop_backward}
 HOP_KERNELS = ("csr_spmm_prop", "csr_spmm_prop_bf16", "quantize_columns",
                "csr_spmm_q8", "csr_spmm_q8mxu")
-# the hop kernels of each resolved precision on the CSR backend (D^-1 A's
-# rows are constant, so int8 runs as K2-q8mxu)
+# the hop kernels of each form a Propagator's hops run
+# (``Propagator.last_precision``; None on the dense backend)
 PRECISION_KERNELS = {
-    "f32": {"csr_spmm_prop"}, "bf16": {"csr_spmm_prop_bf16"},
-    "int8": {"quantize_columns", "csr_spmm_q8mxu"},
+    None: set(), "f32": {"csr_spmm_prop"}, "bf16": {"csr_spmm_prop_bf16"},
     "int8mxu": {"quantize_columns", "csr_spmm_q8mxu"},
     "int8cast": {"quantize_columns", "csr_spmm_q8"}}
 
@@ -870,29 +896,11 @@ def _read_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTED.items()}
 
 
-def predict_kernels(cfg, data) -> set:
-    """The hop kernels ``train()``'s predict selects for ``cfg`` on
-    ``data``, resolving the precision as ``exact_propagate`` does."""
-    n = data.num_nodes
-    if n <= DENSE_MAX_NODES:
-        return set()
-    p = cfg.predict_precision
-    if p == "bf16_carry":
-        p = "bf16"
-    if p == "auto":
-        width = cfg.hidden if data.has_sparse_features else data.num_features
-        adj_sl = add_self_loops_adj(data.adj)
-        p = choose_fast_precision(n, width,
-                                  max_degree=int(adj_sl.getnnz(1).max()))
-    return PRECISION_KERNELS[p]
-
-
 def run_path(cfg, data, tag: str) -> tuple:
     """One ``train()`` of the path with every launch count set to 0 just
     before and read just after; returns (result, launches). The hop
-    kernels the resolved predict precision selects must launch ``order``
-    times each, the others not at all."""
-    selected = predict_kernels(cfg, data)
+    kernels of the form the predict's hops ran must launch ``order`` times
+    each, the others not at all."""
     _reset_counts()
     torch.cuda.reset_peak_memory_stats(DEV)
     t0 = time.time()
@@ -900,7 +908,8 @@ def run_path(cfg, data, tag: str) -> tuple:
     wall = time.time() - t0
     launches = _read_counts()
     print(f"[{tag}] {cfg.dataset}, {cfg.epochs} epochs, predict_precision "
-          f"{cfg.predict_precision}: steps {r.num_batches}, evals "
+          f"{cfg.predict_precision} (hops ran {r.predict_precision}): steps "
+          f"{r.num_batches}, evals "
           f"{len(r.history)}, launches {launches}, "
           f"test_acc {r.test_acc}, best_val_acc {r.best_val_acc}, "
           f"preprocess_s {r.preprocess_time}, batch_time_median_s "
@@ -912,6 +921,7 @@ def run_path(cfg, data, tag: str) -> tuple:
         raise AssertionError(f"non-finite losses: {r.history}")
     if not 0.0 <= r.test_acc <= 1.0:
         raise AssertionError(f"test_acc {r.test_acc}")
+    selected = PRECISION_KERNELS[r.predict_precision]
     for name in HOP_KERNELS:
         want = cfg.order if name in selected else 0
         if launches[name] != want:
@@ -947,11 +957,11 @@ def run_mag_path(data) -> dict:
 
 def profile_path(cfg, data, tag: str) -> None:
     """The path once more under torch.profiler: device time by kernel and
-    the device's busy share of the ``train()`` call."""
+    the device's busy share of the ``train()`` call. Only device activity
+    is traced: recording every host op as well cost seconds a path."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         r = train(cfg, data=data, device=DEV)
         torch.cuda.synchronize(DEV)
@@ -989,18 +999,29 @@ def profile_path(cfg, data, tag: str) -> None:
 
 
 def main() -> int:
+    t_start = time.time()
+
+    def mark(label: str) -> None:
+        print(f"[time] {label} done at {time.time() - t_start:.3f} s",
+              flush=True)
+
     phase_device()
     phase_build()
+    mark("build")
     t0 = time.time()
     data = load_data(DATASET, split_seed=preset("reddit").seed1)
     print(f"[data] {DATASET} generated in {time.time() - t0:.3f} s",
           flush=True)
-    k1, k2 = check_k1(), check_k2(data)
+    k1, k2 = check_k1(K1_SHAPE), check_k2(data)
+    mark("3 (K1, K2)")
     check_small_reference(preset("reddit").replace(
         dataset=SMALL, epochs=3, unlabel_num=500, dropnode_rate=0.0))
+    mark("4")
     launches = run_main_path(data)
+    mark("5")
     profile_path(preset("reddit").replace(dataset=DATASET, epochs=2), data,
                  "profile")
+    mark("6")
     del data
 
     t0 = time.time()
@@ -1009,12 +1030,16 @@ def main() -> int:
           flush=True)
     k3 = check_k3(mag)
     check_k2_mag(mag, k2)
+    mark("3c")
     check_small_reference(preset("mag_scholar_c").replace(
         dataset=MAG_SMALL, epochs=3, dropnode_rate=0.0, input_droprate=0.0,
         hidden_droprate=0.0))
+    mark("4b")
     mag_launches = run_mag_path(mag)
+    mark("5b")
     profile_path(preset("mag_scholar_c").replace(dataset=MAG_DATASET,
                                                  epochs=5), mag, "profile-mag")
+    mark("6b")
     del mag
 
     amazon_cfg = preset("Amazon2M").replace(dataset=AMAZON, epochs=2,
@@ -1023,18 +1048,29 @@ def main() -> int:
     amazon = load_data(AMAZON, split_seed=amazon_cfg.seed1)
     print(f"[data] {AMAZON} generated in {time.time() - t0:.3f} s",
           flush=True)
+    # one build of the 2M-node operators for phases 3d and 7
     ops = amazon_operators(amazon)
+    mark("Amazon2M data and operators")
+    k1_amazon = check_k1(AMAZON_K1_SHAPE, ops["x"], "K1 Amazon2M")
+    for key in ("max_abs_err", "max_rel_err"):
+        k1[key] = max(k1[key], k1_amazon[key])
+    k1["amazon"] = {k: v for k, v in k1_amazon.items()
+                    if k not in ("name", "route", "source", "replaces")}
     fast = check_fast_kernels(ops, k2)
+    mark("3d")
+    sweep_launches = precision_sweep(ops)
+    mark("7")
     del ops
     torch.cuda.empty_cache()
     check_small_fast()
     check_small_reference(amazon_cfg.replace(
         dataset=AMAZON_SMALL, epochs=3, dropnode_rate=0.0))
+    mark("4c")
     amazon_launches = run_amazon_path(amazon)
+    mark("5c")
     profile_path(amazon_cfg, amazon, "profile-amazon")
-    ops = amazon_operators(amazon)
-    sweep_launches = precision_sweep(ops)
-    del ops, amazon
+    mark("6c")
+    del amazon
 
     k1["launches_by_path"] = {"reddit": launches["dropnode_mean"],
                               "amazon": amazon_launches["dropnode_mean"]}

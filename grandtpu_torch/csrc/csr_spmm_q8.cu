@@ -264,51 +264,24 @@ bool hop_vec4(int num_features, const int8_t* q, const float* col_scale,
          grandtpu::aligned(q, 4) && grandtpu::aligned(col_scale, 16);
 }
 
-// Launches the hop kernel Hop<kVec, T> for the carry dtype and the width.
-template <template <int, typename> class Hop, typename... Args>
-int launch_hop(bool vec4, int carry_bf16, cudaStream_t stream, int num_rows,
-               Args... args) {
-  const dim3 grid(grandtpu::hop_blocks(num_rows));
-  const dim3 block(grandtpu::kWarpsPerBlock * 32);
-  if (carry_bf16) {
-    if (vec4) {
-      Hop<4, __nv_bfloat16>::run(grid, block, stream, args...);
-    } else {
-      Hop<1, __nv_bfloat16>::run(grid, block, stream, args...);
-    }
-  } else if (vec4) {
-    Hop<4, float>::run(grid, block, stream, args...);
-  } else {
-    Hop<1, float>::run(grid, block, stream, args...);
-  }
+// Launches K2-q8mxu (kMxu; edge = row_val [n]) or K2-q8 (edge = the edge
+// values [nnz]) on carries of type T.
+template <bool kMxu, typename T>
+int launch(const int32_t* indptr, const int32_t* indices, const float* edge,
+           const int8_t* q, const float* col_scale, void* y, void* acc,
+           int num_rows, int num_features, float scale, int accumulate,
+           int carry_bf16, cudaStream_t stream) {
+  const bool vec4 = hop_vec4(num_features, q, col_scale, y, acc, carry_bf16);
+  auto kernel = kMxu ? (vec4 ? csr_spmm_q8mxu_kernel<4, T>
+                             : csr_spmm_q8mxu_kernel<1, T>)
+                     : (vec4 ? csr_spmm_q8_kernel<4, T>
+                             : csr_spmm_q8_kernel<1, T>);
+  kernel<<<grandtpu::hop_blocks(num_rows), grandtpu::kWarpsPerBlock * 32, 0,
+           stream>>>(indptr, indices, edge, q, col_scale, static_cast<T*>(y),
+                     static_cast<T*>(acc), num_rows, num_features, scale,
+                     accumulate);
   return static_cast<int>(cudaGetLastError());
 }
-
-template <int kVec, typename T>
-struct Q8Hop {
-  static void run(dim3 grid, dim3 block, cudaStream_t stream,
-                  const int32_t* indptr, const int32_t* indices,
-                  const float* values, const int8_t* q,
-                  const float* col_scale, void* y, void* acc, int num_rows,
-                  int num_features, float scale, int accumulate) {
-    csr_spmm_q8_kernel<kVec, T><<<grid, block, 0, stream>>>(
-        indptr, indices, values, q, col_scale, static_cast<T*>(y),
-        static_cast<T*>(acc), num_rows, num_features, scale, accumulate);
-  }
-};
-
-template <int kVec, typename T>
-struct Q8MxuHop {
-  static void run(dim3 grid, dim3 block, cudaStream_t stream,
-                  const int32_t* indptr, const int32_t* indices,
-                  const float* row_val, const int8_t* q,
-                  const float* col_scale, void* y, void* acc, int num_rows,
-                  int num_features, float scale, int accumulate) {
-    csr_spmm_q8mxu_kernel<kVec, T><<<grid, block, 0, stream>>>(
-        indptr, indices, row_val, q, col_scale, static_cast<T*>(y),
-        static_cast<T*>(acc), num_rows, num_features, scale, accumulate);
-  }
-};
 
 }  // namespace
 
@@ -343,12 +316,10 @@ extern "C" int csr_spmm_q8(const int32_t* indptr, const int32_t* indices,
                            int num_rows, int num_features, float scale,
                            int accumulate, int carry_bf16, void* stream) {
   if (num_rows == 0 || num_features == 0) return 0;
-  return launch_hop<Q8Hop>(hop_vec4(num_features, q, col_scale, y, acc,
-                                    carry_bf16),
-                           carry_bf16, static_cast<cudaStream_t>(stream),
-                           num_rows,
-                           indptr, indices, values, q, col_scale, y, acc,
-                           num_rows, num_features, scale, accumulate);
+  auto fn = carry_bf16 ? launch<false, __nv_bfloat16> : launch<false, float>;
+  return fn(indptr, indices, values, q, col_scale, y, acc, num_rows,
+            num_features, scale, accumulate, carry_bf16,
+            static_cast<cudaStream_t>(stream));
 }
 
 // As csr_spmm_q8, with row_val [n] f32 in place of the edge values.
@@ -358,10 +329,8 @@ extern "C" int csr_spmm_q8mxu(const int32_t* indptr, const int32_t* indices,
                               int num_rows, int num_features, float scale,
                               int accumulate, int carry_bf16, void* stream) {
   if (num_rows == 0 || num_features == 0) return 0;
-  return launch_hop<Q8MxuHop>(hop_vec4(num_features, q, col_scale, y, acc,
-                                       carry_bf16),
-                              carry_bf16, static_cast<cudaStream_t>(stream),
-                              num_rows,
-                              indptr, indices, row_val, q, col_scale, y, acc,
-                              num_rows, num_features, scale, accumulate);
+  auto fn = carry_bf16 ? launch<true, __nv_bfloat16> : launch<true, float>;
+  return fn(indptr, indices, row_val, q, col_scale, y, acc, num_rows,
+            num_features, scale, accumulate, carry_bf16,
+            static_cast<cudaStream_t>(stream));
 }

@@ -6,4 +6,5 @@ from grandtpu_torch.infer.classify import (embed_all_nodes,  # noqa: F401
                                            test_accuracy)
 from grandtpu_torch.infer.propagate import (Propagator,  # noqa: F401
                                             choose_fast_precision,
-                                            exact_propagate)
+                                            exact_propagate,
+                                            exact_propagator)

@@ -126,6 +126,8 @@ class Propagator:
         self.dtype = dtype
         self.num_rows = n
         self._auto_precision: str | None = None
+        # the form the last call's hops ran (see _resolve)
+        self.last_precision: str | None = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -168,26 +170,31 @@ class Propagator:
         self._auto_precision = best
         return best
 
-    def _resolve(self, precision: str, num_features: int) -> str:
+    def _resolve(self, precision: str, num_features: int) -> str | None:
+        """The form the hops run: 'f32', 'bf16', 'int8mxu' or 'int8cast'
+        on the 'csr' backend ('int8' is K2-q8mxu where the operator's rows
+        are constant, else K2-q8), None on the dense one."""
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r}")
+        if self.backend != "csr":
+            if precision in ("int8mxu", "int8cast"):
+                raise ValueError(f"{precision} applies to the 'csr' "
+                                 "(= 'block') backend only")
+            return None
         if precision == "auto":
-            if self.backend != "csr":
-                return "f32"
-            return self._auto_precision or choose_fast_precision(
+            precision = self._auto_precision or choose_fast_precision(
                 self.num_rows, num_features, max_degree=self.max_degree)
-        if self.backend != "csr" and precision in ("int8mxu", "int8cast"):
-            raise ValueError(
-                f"{precision} applies to the 'csr' (= 'block') backend only")
         if precision == "int8mxu" and self.row_val is None:
             raise ValueError(
                 "int8mxu needs row-constant operator values (D^-1 A has "
                 "them; this operator does not) — use 'int8' instead")
+        if precision == "int8":
+            return "int8cast" if self.row_val is None else "int8mxu"
         return precision
 
-    def _hop(self, precision: str, cur_in, cur_out, acc, scale: float,
-             accumulate: bool) -> None:
-        if self.backend == "dense":
+    def _hop(self, precision: str | None, cur_in, cur_out, acc,
+             scale: float, accumulate: bool) -> None:
+        if precision is None:          # the dense backend
             h = torch.matmul(self.adj_op, cur_in)
             if cur_out.dtype == BF16:
                 h, scale = h.to(BF16), bf16_round(scale)
@@ -202,7 +209,7 @@ class Propagator:
                                 accumulate)
         else:
             q, col_scale = quantize_columns(cur_in)
-            if self.row_val is not None and precision != "int8cast":
+            if precision == "int8mxu":
                 spmm_prop_step_q8mxu(self.adj_op, q, col_scale, self.row_val,
                                      cur_out, acc, scale, accumulate)
             else:
@@ -216,10 +223,13 @@ class Propagator:
         the Propagator's dtype on its device. ``features`` is not written.
         precision: 'f32' (default), 'bf16' (== ``fast=True``, the legacy
         alias), 'int8', 'int8mxu', 'int8cast' or 'auto'; see the module
-        docstring. The dense backend runs its matmul in ``dtype``."""
+        docstring. The dense backend runs its matmul in ``dtype``. Sets
+        ``last_precision`` to the form the hops ran: 'f32', 'bf16',
+        'int8mxu' or 'int8cast', or None on the dense backend."""
         if precision is None:
             precision = "bf16" if fast else "f32"
-        precision = self._resolve(precision, features.shape[1])
+        precision = self.last_precision = self._resolve(precision,
+                                                        features.shape[1])
         x = torch.as_tensor(features, dtype=self.dtype,
                             device=self.device).contiguous()
         # with bf16 carries JAX rounds each Python scalar to bf16 first
@@ -263,12 +273,27 @@ def exact_propagate(adj: sp.spmatrix, features, *, mode: str = "ppr",
     build, from the graph's size and largest row, as grandtpu does.
     ``rows_per_block`` is accepted and ignored (a TPU layout knob)."""
     del rows_per_block
+    prop, precision = exact_propagator(
+        adj, features.shape[1], dense_threshold=dense_threshold,
+        backend=backend, precision=precision, dtype=dtype, device=device)
+    return prop(features, mode=mode, order=order, alpha=alpha, fast=fast,
+                precision=precision)
+
+
+def exact_propagator(adj: sp.spmatrix, num_features: int, *,
+                     dense_threshold: int = 20000, backend: str | None = None,
+                     precision: str | None = None, dtype=torch.float32,
+                     device="cuda") -> tuple[Propagator, str | None]:
+    """The Propagator that :func:`exact_propagate` builds for [n,
+    ``num_features``] features, and the precision to call it with:
+    'bf16_carry' becomes 'bf16' on bf16 carries, and 'auto' is resolved
+    here, before the build, from the graph's size and largest row, as
+    grandtpu does."""
     if precision == "bf16_carry":
         precision, dtype = "bf16", BF16
     if precision == "auto":
-        precision = choose_fast_precision(adj.shape[0], features.shape[1],
+        precision = choose_fast_precision(adj.shape[0], num_features,
                                           max_degree=_max_row_nnz(adj))
     prop = Propagator(adj, dense_threshold=dense_threshold, backend=backend,
                       dtype=dtype, device=device)
-    return prop(features, mode=mode, order=order, alpha=alpha, fast=fast,
-                precision=precision)
+    return prop, precision

@@ -29,7 +29,10 @@ bf16 each.
 
 On CUDA tensors the wrappers launch ``csrc/csr_spmm.cu`` and
 ``csrc/csr_spmm_q8.cu``; on CPU tensors they run the ``*_plain`` versions,
-which repeat the kernels' arithmetic and roundings.
+which repeat the kernels' arithmetic and roundings and add each row's terms
+in the kernels' order (edge order), so that wherever the terms are rounded
+the same way (every form but K2's fused multiply-add) a hop is bit for bit
+the kernel's.
 """
 
 from __future__ import annotations
@@ -99,10 +102,22 @@ def bf16_round(v: float) -> float:
     return float(torch.tensor(v, dtype=torch.float32).to(BF16))
 
 
-def _rows(op: CSROperator) -> torch.Tensor:
-    counts = op.indptr[1:].long() - op.indptr[:-1].long()
-    return torch.repeat_interleave(
-        torch.arange(op.num_rows, device=op.indptr.device), counts)
+def _row_sums(op: CSROperator, term, out: torch.Tensor) -> torch.Tensor:
+    """``out[r] += term(e)`` for the edges ``e`` of each row ``r``, added
+    one at a time in edge order, as the kernels add them. ``term`` maps a
+    tensor of edge ids to their [len, F] terms. The loop takes one slot of
+    every row at a time (each row's j-th edge), so each element gets one
+    add per step and the sums are the same on every device (CUDA's
+    ``index_add_`` over all edges adds with atomics in any order)."""
+    starts = op.indptr[:-1].long()
+    deg = op.indptr[1:].long() - starts
+    _, rows = torch.sort(deg, descending=True, stable=True)
+    starts = starts[rows]
+    # live[j]: the count of rows with more than j edges, a prefix of rows
+    live = op.num_rows - torch.cumsum(torch.bincount(deg), 0)[:-1]
+    for j, k in enumerate(live.tolist()):
+        out.index_add_(0, rows[:k], term(starts[:k] + j))
+    return out
 
 
 def _epilogue_plain(h: torch.Tensor, cur_out: torch.Tensor,
@@ -121,12 +136,13 @@ def spmm_prop_step_plain(op: CSROperator, cur_in: torch.Tensor,
                          scale: float, accumulate: bool,
                          term: str = "f32") -> None:
     """Plain PyTorch version of K2 (``term="f32"``) and K2-bf16
-    (``term="bf16"``): gather, scale, round, index_add_."""
-    prod = cur_in[op.indices.long()].float() * op.values[:, None]
-    if term == "bf16":
-        prod = prod.to(BF16).float()
-    h = torch.zeros(cur_out.shape, device=cur_out.device).index_add_(
-        0, _rows(op), prod)
+    (``term="bf16"``): gather, scale, round, sum in edge order."""
+    def prod(e):
+        p = cur_in[op.indices[e].long()].float() * op.values[e, None]
+        return p.to(BF16).float() if term == "bf16" else p
+
+    h = _row_sums(op, prod, torch.zeros(cur_out.shape,
+                                        device=cur_out.device))
     _epilogue_plain(h, cur_out, acc, scale, accumulate)
 
 
@@ -147,9 +163,13 @@ def spmm_prop_step_q8_plain(op: CSROperator, q: torch.Tensor,
                             accumulate: bool) -> None:
     """Plain PyTorch version of K2-q8."""
     vals = op.values.to(BF16).float()
-    prod = (q[op.indices.long()].float() * vals[:, None]).to(BF16).float()
-    h = torch.zeros(cur_out.shape, device=cur_out.device).index_add_(
-        0, _rows(op), prod)
+
+    def prod(e):
+        return (q[op.indices[e].long()].float()
+                * vals[e, None]).to(BF16).float()
+
+    h = _row_sums(op, prod, torch.zeros(cur_out.shape,
+                                        device=cur_out.device))
     _epilogue_plain(h * col_scale, cur_out, acc, scale, accumulate)
 
 
@@ -158,10 +178,10 @@ def spmm_prop_step_q8mxu_plain(op: CSROperator, q: torch.Tensor,
                                row_val: torch.Tensor, cur_out: torch.Tensor,
                                acc: torch.Tensor | None, scale: float,
                                accumulate: bool) -> None:
-    """Plain PyTorch version of K2-q8mxu (int32 ``index_add_``)."""
-    isum = torch.zeros(cur_out.shape, dtype=torch.int32,
-                       device=cur_out.device).index_add_(
-        0, _rows(op), q[op.indices.long()].int())
+    """Plain PyTorch version of K2-q8mxu (int32 sums)."""
+    isum = _row_sums(op, lambda e: q[op.indices[e].long()].int(),
+                     torch.zeros(cur_out.shape, dtype=torch.int32,
+                                 device=cur_out.device))
     h = isum.float() * row_val[:, None] * col_scale
     _epilogue_plain(h, cur_out, acc, scale, accumulate)
 

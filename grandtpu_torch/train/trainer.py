@@ -21,7 +21,7 @@ from grandtpu_torch.config import GrandConfig
 from grandtpu_torch.data import GraphData, load_data
 from grandtpu_torch.data.preprocess import add_self_loops_adj
 from grandtpu_torch.device import resolve_device
-from grandtpu_torch.infer import exact_propagate, test_accuracy
+from grandtpu_torch.infer import exact_propagator, test_accuracy
 from grandtpu_torch.nn.mlp import MLPConfig, init_mlp
 from grandtpu_torch.ppr import gfpush
 from grandtpu_torch.ppr.api import BACKENDS
@@ -66,6 +66,9 @@ class TrainResult:
     batch_time_median: float   # host seconds per step, no device sync
     preprocess_time: float
     propagate_time: float      # exact propagation, synchronized
+    # the form the predict's hops ran (Propagator.last_precision: 'f32',
+    # 'bf16', 'int8mxu', 'int8cast'; None on the dense backend)
+    predict_precision: Optional[str] = None
     model: Optional[nn.Module] = None   # MLP or MagMLP, best weights
     history: list = dataclasses.field(default_factory=list)
 
@@ -151,9 +154,13 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
 
     # exact full-graph propagation test with the best weights
     t_prop = time.time()
-    prop = exact_propagate(adj_sl, features, mode=cfg.prop_mode,
-                           order=cfg.order, alpha=cfg.alpha,
-                           precision=cfg.predict_precision, device=device)
+    propagator, precision = exact_propagator(
+        adj_sl, features.shape[1], precision=cfg.predict_precision,
+        device=device)
+    prop = propagator(features, mode=cfg.prop_mode, order=cfg.order,
+                      alpha=cfg.alpha, precision=precision)
+    predict_precision = propagator.last_precision
+    del propagator      # the operator, before the head's activations
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     propagate_time = time.time() - t_prop
@@ -169,4 +176,5 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
         batch_time_avg=float(np.mean(bt)) if bt else 0.0,
         batch_time_median=float(np.median(bt)) if bt else 0.0,
         preprocess_time=preprocess_time, propagate_time=propagate_time,
-        model=model, history=out["history"])
+        predict_precision=predict_precision, model=model,
+        history=out["history"])

@@ -29,7 +29,7 @@ from grandtpu_torch.data import GraphData, load_data
 from grandtpu_torch.data.preprocess import add_self_loops_adj
 from grandtpu_torch.device import resolve_device
 from grandtpu_torch.infer.classify import embed_all_nodes, head_logits
-from grandtpu_torch.infer.propagate import exact_propagate
+from grandtpu_torch.infer.propagate import exact_propagator
 from grandtpu_torch.nn.losses import consis_loss
 from grandtpu_torch.nn.mag_mlp import MagMLP, init_mag_mlp
 from grandtpu_torch.nn.mlp import MLPConfig
@@ -187,9 +187,13 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
     optimizer.state.clear()
     model.zero_grad(set_to_none=True)
     t_prop = time.time()
-    prop = exact_propagate(adj_sl, embs, mode=cfg.prop_mode, order=cfg.order,
-                           alpha=cfg.alpha, precision=cfg.predict_precision,
-                           device=device)
+    propagator, precision = exact_propagator(
+        adj_sl, embs.shape[1], precision=cfg.predict_precision,
+        device=device)
+    prop = propagator(embs, mode=cfg.prop_mode, order=cfg.order,
+                      alpha=cfg.alpha, precision=precision)
+    predict_precision = propagator.last_precision
+    del propagator      # the operator, before the head's activations
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     propagate_time = time.time() - t_prop
@@ -209,4 +213,5 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
         batch_time_avg=float(np.mean(bt)) if bt else 0.0,
         batch_time_median=float(np.median(bt)) if bt else 0.0,
         preprocess_time=preprocess_time, propagate_time=propagate_time,
-        model=model, history=out["history"])
+        predict_precision=predict_precision, model=model,
+        history=out["history"])

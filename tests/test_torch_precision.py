@@ -8,7 +8,8 @@ Tolerances, max |port - jax| / max |jax| unless stated:
 - one hop: int8 forms <= 1e-6 (the same q, an exact int32 sum or the same
   bf16 terms, then the same f32 products), bf16 terms and int8cast
   <= 1e-5 (f32 sums in another order), bf16 carries within one bf16 ulp
-  of each element (another f32 sum order can flip a bf16 rounding);
+  of each element and at most 1e-3 of the elements different (another
+  f32 sum order can flip a bf16 rounding now and then);
 - whole runs of 5 hops: <= 5e-3 for the fast forms (the repo's fast-path
   gate) and <= 1e-2 for bf16 carries, because a flip at one hop carries
   into the next quantize or rounding.
@@ -61,12 +62,16 @@ def rel(got, want):
     return np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30)
 
 
-def within_one_bf16_ulp(got, want):
-    """Each element of ``got`` within one bf16 ulp of ``want``'s."""
+def within_one_bf16_ulp(got, want, max_share=1e-3):
+    """Each element of ``got`` within one bf16 ulp of ``want``'s, and at
+    most ``max_share`` of them different at all. Another f32 sum order
+    flips a rounding only now and then, while a rounding done the wrong
+    way (an unrounded scale, say) moves a large share of the elements."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     mag = np.maximum(np.abs(got), np.abs(want))
     ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
-    return bool(np.all(np.abs(got - want) <= ulp))
+    return bool(np.all(np.abs(got - want) <= ulp)
+                and np.mean(got != want) <= max_share)
 
 
 def _hub_graph():
@@ -422,17 +427,21 @@ def test_train_with_predict_precision_matches_grandtpu(monkeypatch, engine,
                                 device)
         monkeypatch.setattr(ttsparse, "init_mag_mlp", jax_init)
     seen = {}
-    real = tprop.exact_propagate
+    real = tprop.exact_propagator
 
     def spy(*a, **kw):
         seen.update(kw)
         return real(*a, **kw)
     monkeypatch.setattr(ttrainer if engine == "dense" else ttsparse,
-                        "exact_propagate", spy)
+                        "exact_propagator", spy)
     want = jax_train(_train_cfg(JaxConfig, dataset, precision))
     got = ttrainer.train(_train_cfg(GrandConfig, dataset, precision),
                          device="cpu")
     assert seen["precision"] == precision
+    # D^-1 A's rows are constant, so int8 (and auto's int8) is K2-q8mxu
+    assert got.predict_precision == {"int8": "int8mxu", "auto": "int8mxu",
+                                     "bf16_carry": "bf16"}.get(precision,
+                                                               precision)
     assert len(got.history) == len(want.history) == 2
     for g, w in zip(got.history, want.history):
         for k in ("val_loss", "val_acc", "loss"):
