@@ -15,10 +15,23 @@ Phases, in order; any failure exits non-zero without the result line:
    ppr hops on the operator of ``synth:233000:41:602``), with max relative
    error <= 1e-5 (f32 sums in another order) and kernel / plain / library
    times and each kernel's bound;
+3e. GFPush on the card, with the reddit preset's push (ppr, order 6, alpha
+    0.05, rmax 1e-5, k 64) from the 12,050 sources ``train()`` builds:
+    ``gfpush(backend="jax")`` (P1: the push mask, K2 over A^T at [233000,
+    512], the top-k) and ``gfpush(backend="bucket")`` (P2: expansion,
+    compaction, top-k), each a path of its own (counts set to 0 before,
+    read after), each held to the native push under the row rule of
+    tests/test_gfpush_backends.py (atol = tie_tol = max(1e-5, 2 rmax)), to
+    its plain version on the card (P2 bit for bit, its sums being fixed
+    point; P1 cols equal and vals <= 1e-5, K2 adding in edge order), and to
+    a second run (identical); kernel / plain / library (``torch.topk``)
+    times and bounds, and sources/s beside native's with the host's cores;
 4. reference on a small input: ``train()`` with DropNode off on
    ``synth:2000:8:64`` on the card and on the CPU (plain versions) gives
    the same validation history (|d val_loss| <= 1e-4) and test accuracy
    within one node;
+4d. the same with ``push_backend="bucket"`` (P2 on the card, its plain
+    version on the CPU);
 5. main path: ``train()`` with the reddit preset on
    ``synth:233000:41:602`` for 2 epochs, launch counters set to 0 just
    before; losses finite, K1 launched for every step and eval, K2 exactly
@@ -80,10 +93,18 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     counters set to 0 just before; losses finite, K1 launched for every
     step and eval, quantize and K2-q8mxu exactly ``order`` times each, the
     f32 K2 not at all;
-6c. profile of the Amazon2M main path.
+6c. profile of the Amazon2M main path;
+3f. (after 7) P2 as in 3e with the Amazon2M preset's push (rmax 1e-6, the
+    deepest of the presets) from the 12,350 sources of its ``train()``,
+    against native, its plain version and a second run; its kernels' times
+    at these shapes are the kernels line's;
+5d. the slice's main path: the Amazon2M ``train()`` of 5c with
+    ``push_backend="bucket"``: the P2 kernels and the top-k launch, the 5c
+    checks hold, preprocess_time printed beside 5c's (native).
 
-Every path (5, 5b, 5c, 7) must launch exactly the hop kernels of the form
-its predict's hops ran (``TrainResult.predict_precision``). It prints one
+Every path (5, 5b, 5c, 5d, 7) must launch exactly the hop kernels of the
+form its predict's hops ran (``TrainResult.predict_precision``), and the
+push kernels of its push backend only (none with native). It prints one
 ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -111,6 +132,12 @@ from grandtpu_torch.nn.sparse_input import (PaddedFeatures, embed_prop,
                                             embed_prop_backward,
                                             embed_prop_plain)
 from grandtpu_torch.ops._build import build, build_dir
+from grandtpu_torch.ppr import bucket_push, dense_push, gfpush
+from grandtpu_torch.ppr.coef import build_coef
+from grandtpu_torch.ppr.dense_push import (dense_push_mask,
+                                           dense_push_mask_plain)
+from grandtpu_torch.ppr.native import gfpush_native
+from grandtpu_torch.ppr.push_topk import push_topk, push_topk_plain
 from grandtpu_torch.sparse.spmm import (quantize_columns,
                                         quantize_columns_plain,
                                         spmm_prop_step, spmm_prop_step_bf16,
@@ -801,16 +828,19 @@ def check_small_fast() -> None:
             raise AssertionError(f"{p}: card disagrees with the CPU")
 
 
-def run_amazon_path(data) -> dict:
+def run_amazon_path(data, push_backend: str, tag: str):
+    """The Amazon2M ``train()`` (phase 5c with the native push, 5d with the
+    bucket push); returns (result, launches)."""
     cfg = preset("Amazon2M").replace(dataset=AMAZON, epochs=2,
-                                     predict_precision="auto")
-    r, launches = run_path(cfg, data, "amazon")
+                                     predict_precision="auto",
+                                     push_backend=push_backend)
+    r, launches = run_path(cfg, data, tag)
     if launches["dropnode_mean"] < r.num_batches + len(r.history):
         raise AssertionError("K1 was not launched for every step and eval")
     if r.predict_precision != "int8mxu":
         raise AssertionError(f"auto ran {r.predict_precision}, not int8 as "
                              "K2-q8mxu")
-    return launches
+    return r, launches
 
 
 def precision_sweep(ops: dict) -> dict:
@@ -870,13 +900,303 @@ def check_small_reference(cfg) -> None:
         raise AssertionError("GPU run disagrees with the CPU reference")
 
 
+def train_sources(cfg, data) -> np.ndarray:
+    """The source set ``train()`` pushes from (trainer.py's unlabeled
+    pool: train, val, then ``unlabel_num`` test nodes drawn with seed2)."""
+    rng = np.random.RandomState(cfg.seed2)
+    idx_sample = rng.permutation(data.idx_test)[: cfg.unlabel_num]
+    return np.concatenate([data.idx_train, data.idx_val, idx_sample])
+
+
+def _row_rule(cols_a, vals_a, cols_b, vals_b, atol: float) -> None:
+    """tests/test_gfpush_backends.py's row rule with tie_tol = atol: equal
+    value multisets up to atol, equal (col -> val) maps above the smaller
+    row's cutoff by more than atol (ties at the k-th value may differ)."""
+    for ca, va, cb, vb in zip(cols_a, vals_a, cols_b, vals_b):
+        pa, pb = va > 0, vb > 0
+        sa, sb = np.sort(va[pa])[::-1], np.sort(vb[pb])[::-1]
+        if sa.shape != sb.shape or not np.allclose(sa, sb, rtol=0,
+                                                   atol=atol):
+            raise AssertionError(f"row values differ: {sa} vs {sb}")
+        cutoff = min(sa[-1] if sa.size else 0.0, sb[-1] if sb.size else 0.0)
+        mb = dict(zip(cb[pb].tolist(), vb[pb].tolist()))
+        for c, v in zip(ca[pa].tolist(), va[pa].tolist()):
+            if v > cutoff + atol and (c not in mb or abs(v - mb[c]) > atol):
+                raise AssertionError(f"col {c} ({v}) missing or off")
+
+
+def _time_each_ms(setup, fn, iters: int) -> float:
+    """Mean device time of ``fn()`` alone over ``iters`` calls, each after
+    ``setup()`` (CUDA events around each call)."""
+    total = 0.0
+    for i in range(iters + 1):
+        setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize(DEV)
+        if i:                                   # the first call warms up
+            total += start.elapsed_time(end)
+    return total / iters
+
+
+PUSH_KERNELS = {"jax": {"dense_push_mask", "push_topk", "csr_spmm_prop"},
+                "bucket": {"bucket_expand", "bucket_compact", "push_topk"}}
+PUSH_COUNTED = ("dense_push_mask", "bucket_expand", "bucket_compact",
+                "push_topk")
+
+
+def run_push_path(adj_sl, sources, cfg, backend: str, tag: str):
+    """``gfpush(backend=...)`` on the card as a path of its own: counts set
+    to 0 just before, read just after; the backend's kernels must launch
+    and the other push kernels must not. Returns (TopKProp, launches,
+    seconds)."""
+    _reset_counts()
+    t0 = time.time()
+    tk = gfpush(adj_sl, sources, prop_mode=cfg.prop_mode, order=cfg.order,
+                alpha=cfg.alpha, rmax=cfg.rmax, k=cfg.top_k, backend=backend,
+                device=DEV)
+    seconds = time.time() - t0
+    launches = _read_counts()
+    want = set(PUSH_KERNELS[backend])
+    if adj_sl.shape[0] <= 8192:     # gfpush_dense's dense_threshold: matmul
+        want.discard("csr_spmm_prop")
+    bad = [k for k in PUSH_COUNTED + ("csr_spmm_prop",)
+           if (launches[k] > 0) != (k in want)]
+    if bad:
+        raise AssertionError(f"[{tag}] {backend} push launches {launches}: "
+                             f"wrong for {bad}")
+    print(f"[{tag}] gfpush(backend={backend!r}) on the card: "
+          f"{len(sources)} sources in {seconds} s = {len(sources) / seconds} "
+          f"sources/s; launches {launches}", flush=True)
+    return tk, launches, seconds
+
+
+def _p1_times(g, src, coef, k) -> dict:
+    """P1's push mask, its K2 over A^T and its top-k at one block's shape,
+    on the reserve a real block leaves."""
+    n, b = g.n, src.shape[0]
+    residue = torch.zeros((n, b), device=DEV)
+    residue[src.long(), torch.arange(b, device=DEV)] = 1.0
+    reserve, pushed = torch.zeros_like(residue), torch.empty_like(residue)
+    tele, tele_in = None, None
+    for i in range(coef.shape[0] - 1):       # the block's real carries
+        tele = torch.zeros(b, dtype=torch.int64, device=DEV)
+        dense_push_mask(residue, reserve, pushed, tele_in, tele, src, g.deg,
+                        g.thr, float(coef[i]), False)
+        g.product(pushed, residue)
+        tele_in = tele
+    args = (residue, reserve, pushed, None, tele, src, g.deg, g.thr,
+            float(coef[1]), False)
+    mask_ms = _time_ms(lambda: dense_push_mask(*args), 20)
+    mask_plain = _time_ms(lambda: dense_push_mask_plain(*args), 3, warmup=1)
+    mask_bound = _bound(16 * n * b + 8 * n + 12 * b, 5 * n * b)
+    k2_ms = _time_ms(lambda: g.product(pushed, residue), 20)
+    rows = reserve.t().contiguous().reshape(-1)
+    off = torch.arange(b + 1, device=DEV, dtype=torch.int64) * n
+    dense_rows = rows.view(b, n)
+    topk_ms = _time_ms(lambda: push_topk(None, rows, off, k), 20)
+    topk_plain = _time_ms(lambda: push_topk_plain(None, rows, off, k), 3,
+                          warmup=1)
+    topk_lib = _time_ms(lambda: torch.topk(dense_rows, k, dim=1), 20)
+    topk_bound = _bound(4 * n * b + 8 * b * k + 8 * (b + 1), 2 * n * b)
+    print(f"[3e] P1 block [{n},{b}]: dense_push_mask ms {mask_ms} plain_ms "
+          f"{mask_plain} bound_ms {mask_bound[0]} ({mask_bound[1]}); K2 over "
+          f"A^T ms {k2_ms} per hop; push_topk over [{b},{n}] ms {topk_ms} "
+          f"plain_ms {topk_plain} library_ms {topk_lib} (torch.topk) "
+          f"bound_ms {topk_bound[0]} ({topk_bound[1]})", flush=True)
+    return {"dense_push_mask": {"ms": mask_ms, "plain_ms": mask_plain,
+                                "bound_ms": mask_bound[0],
+                                "bound_by": mask_bound[1],
+                                "library_ms": None,
+                                "shape": f"carries [{n},{b}], per hop"},
+            "push_topk": {"ms": topk_ms, "plain_ms": topk_plain,
+                          "bound_ms": topk_bound[0],
+                          "bound_by": topk_bound[1], "library_ms": topk_lib,
+                          "shape": f"P1 rows [{b},{n}], k {k}"},
+            "k2_over_at_ms": k2_ms}
+
+
+def _p2_times(g, src, coef, k) -> dict:
+    """P2's expansion and compaction at the largest hop of one block, and
+    its reserve merge and top-k, with their plain versions and bounds
+    (bytes from this block's counts)."""
+    fr = bucket_push.initial_frontier(g, src)
+    logs, hops = [], []
+    for i in range(coef.shape[0] - 1):
+        logs.append((fr, float(coef[i])))
+        slots = int(fr.exp.sum())
+        if slots == 0:
+            fr = None
+            break
+        hops.append((fr, slots))
+        fr = bucket_push.push_hop(g, fr, src, slots)
+    if fr is not None:
+        logs.append((fr, float(coef[-1])))
+    fr, slots = max(hops, key=lambda h: h[1])
+    t_off, keys, vals = bucket_push._tables(2 * fr.exp, 2 * slots)
+
+    def reset():
+        keys.fill_(-1)
+        vals.zero_()
+
+    def expand():
+        bucket_push.bucket_expand(fr, src, g, t_off, keys, vals, merge=False)
+
+    expand_ms = _time_each_ms(reset, expand, 10)
+    reset()
+    expand()
+    nxt = bucket_push.bucket_compact(g, t_off, keys, vals, final=False)
+    compact_ms = _time_ms(lambda: bucket_push.bucket_compact(
+        g, t_off, keys, vals, final=False), 10)
+    hop_plain = _time_ms(lambda: bucket_push.push_hop_plain(g, fr, src), 2,
+                         warmup=1)
+    entries, out = int(fr.cnt.sum()), int(nxt.cnt.sum())
+    # frontier ids + q, each entry's row bounds and threshold, the neighbour
+    # ids of the expansion slots, the next frontier written once
+    exp_bound = _bound(entries * 28 + slots * 4 + out * 12, 2 * slots)
+    # the table read once, the frontier written, each entry's degree and
+    # threshold read
+    cmp_bound = _bound(2 * slots * 12 + out * 28 + 16 * src.shape[0],
+                       2 * slots)
+    caps = 2 * sum(f.cnt for f, _ in logs)
+    r_off, r_keys, r_vals = bucket_push._tables(caps, int(caps.sum()))
+    for f, c in logs:
+        bucket_push.bucket_expand(f, src, g, r_off, r_keys, r_vals,
+                                  merge=True, coef=c)
+    f32 = bucket_push.bucket_compact(g, r_off, r_keys, r_vals, final=True)
+    width = int((r_off[1:] - r_off[:-1]).max())
+    padded = torch.zeros((src.shape[0], width), device=DEV)
+    lens = r_off[1:] - r_off[:-1]
+    pos = torch.arange(width, device=DEV)
+    valid = pos[None] < lens[:, None]
+    padded[valid] = f32[(r_off[:-1, None] + pos[None])[valid]]
+    topk_ms = _time_ms(lambda: push_topk(r_keys, f32, r_off, k), 20)
+    topk_plain = _time_ms(lambda: push_topk_plain(r_keys, f32, r_off, k), 3,
+                          warmup=1)
+    topk_lib = _time_ms(lambda: torch.topk(padded, k, dim=1), 20)
+    n_slots = int(r_off[-1])
+    topk_bound = _bound(8 * n_slots + 8 * src.shape[0] * k, 2 * n_slots)
+    print(f"[p2] block of {src.shape[0]}: largest hop {entries} entries, "
+          f"{slots} expansion slots, {out} next entries: bucket_expand ms "
+          f"{expand_ms} bound_ms {exp_bound[0]}; bucket_compact ms "
+          f"{compact_ms} bound_ms {cmp_bound[0]}; plain hop (both) ms "
+          f"{hop_plain}; reserve tables {n_slots} slots: push_topk ms "
+          f"{topk_ms} plain_ms {topk_plain} library_ms {topk_lib} "
+          f"(torch.topk over the rows padded to {width}) bound_ms "
+          f"{topk_bound[0]}", flush=True)
+    shape = (f"block {src.shape[0]}, hop of {entries} entries, {slots} "
+             f"slots, {out} out")
+    return {"bucket_expand": {"ms": expand_ms, "plain_ms": hop_plain,
+                              "bound_ms": exp_bound[0],
+                              "bound_by": exp_bound[1], "library_ms": None,
+                              "shape": shape},
+            "bucket_compact": {"ms": compact_ms, "plain_ms": hop_plain,
+                               "bound_ms": cmp_bound[0],
+                               "bound_by": cmp_bound[1], "library_ms": None,
+                               "shape": shape},
+            "push_topk": {"ms": topk_ms, "plain_ms": topk_plain,
+                          "bound_ms": topk_bound[0],
+                          "bound_by": topk_bound[1], "library_ms": topk_lib,
+                          "shape": f"P2 reserve tables, {src.shape[0]} rows "
+                                   f"of {n_slots} slots, k {k}"}}
+
+
+def _same(a, b) -> bool:
+    return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+def check_push(data, cfg, tag: str, backends) -> dict:
+    """Phases 3e/3f: each device push from the sources ``train()`` builds,
+    run through ``gfpush`` as a path, against native under the row rule,
+    against its plain version on the card, and run twice; then its kernel
+    times. Returns {kernel name: numbers} and each path's launches."""
+    adj_sl = add_self_loops_adj(data.adj)
+    indptr = np.asarray(adj_sl.indptr, np.int32)
+    indices = np.asarray(adj_sl.indices, np.int32)
+    sources = train_sources(cfg, data)
+    coef = np.asarray(build_coef(cfg.prop_mode, cfg.order, cfg.alpha),
+                      np.float32)
+    k, rmax = cfg.top_k, cfg.rmax
+    atol = max(1e-5, 2 * rmax)
+    # the first call compiles the native kernel (g++): not part of its rate
+    gfpush_native(indptr, indices, sources[:1], coef, rmax, k)
+    t0 = time.time()
+    want = gfpush_native(indptr, indices, sources, coef, rmax, k)
+    native_s = time.time() - t0
+    print(f"[{tag}] {cfg.dataset}: ppr order {cfg.order} alpha {cfg.alpha} "
+          f"rmax {rmax} k {k}; native on {os.cpu_count()} host cores: "
+          f"{len(sources)} sources in {native_s} s = "
+          f"{len(sources) / native_s} sources/s", flush=True)
+    out = {"native_sps": len(sources) / native_s,
+           "host_cores": os.cpu_count(), "launches": {}, "sps": {}}
+    for backend in backends:
+        tk, launches, seconds = run_push_path(adj_sl, sources, cfg, backend,
+                                              tag)
+        out["launches"][backend] = launches
+        out["sps"][backend] = len(sources) / seconds
+        got = (tk.cols, tk.vals)
+        _row_rule(want[0], want[1].astype(np.float32), *got, atol)
+        if backend == "jax":
+            g = dense_push.DensePushGraph(indptr, indices, rmax, device=DEV)
+            again = dense_push.gfpush_dense(indptr, indices, sources, coef,
+                                            rmax, k, device=DEV)
+            run_block = dense_push.push_block
+            block = 512
+        else:
+            g = bucket_push.BucketPushGraph(indptr, indices, rmax,
+                                            device=DEV)
+            again = bucket_push.gfpush_bucketed(indptr, indices, sources,
+                                                coef, rmax, k, device=DEV)
+            run_block = bucket_push.push_block
+            block = 1024
+        plain = [[], []]
+        for start in range(0, len(sources), block):
+            src = torch.as_tensor(sources[start:start + block].astype(
+                np.int32), device=DEV)
+            for i, t in enumerate(run_block(g, src, coef, k, plain=True)):
+                plain[i].append(t.cpu().numpy())
+        plain = [np.concatenate(p) for p in plain]
+        if not _same(got, again):
+            raise AssertionError(f"[{tag}] two {backend} runs differ")
+        err = float(np.abs(got[1] - plain[1]).max()) / float(
+            np.abs(plain[1]).max())
+        cols_equal = np.array_equal(got[0], plain[0])
+        exact = _same(got, plain)
+        print(f"[{tag}] {backend}: within {atol} of native under the row "
+              f"rule; two runs identical; against its plain version on the "
+              f"card: cols equal {cols_equal}, vals max_rel_err {err}, bit "
+              f"for bit {exact}", flush=True)
+        # P2 sums in fixed point: bit for bit; P1's K2 adds in edge order
+        if not (exact if backend == "bucket" else
+                (cols_equal and err <= TOL)):
+            raise AssertionError(f"[{tag}] {backend} disagrees with its "
+                                 f"plain version")
+        src = torch.as_tensor(sources[:block].astype(np.int32), device=DEV)
+        times = (_p1_times if backend == "jax" else _p2_times)(g, src, coef,
+                                                                k)
+        out[backend] = {"max_abs_err": float(np.abs(got[1]
+                                                    - plain[1]).max()),
+                        "times": times}
+        del g
+    print(f"[{tag}] sources/s: native {out['native_sps']} ({os.cpu_count()} "
+          f"host cores), card {out['sps']}", flush=True)
+    return out
+
+
 COUNTED = {"dropnode_mean": gather_and_prop, "csr_spmm_prop": spmm_prop_step,
            "csr_spmm_prop_bf16": spmm_prop_step_bf16,
            "quantize_columns": quantize_columns,
            "csr_spmm_q8": spmm_prop_step_q8,
            "csr_spmm_q8mxu": spmm_prop_step_q8mxu,
            "embed_prop_fwd": embed_prop,
-           "embed_prop_bwd": embed_prop_backward}
+           "embed_prop_bwd": embed_prop_backward,
+           "dense_push_mask": dense_push_mask,
+           "bucket_expand": bucket_push.bucket_expand,
+           "bucket_compact": bucket_push.bucket_compact,
+           "push_topk": push_topk}
 HOP_KERNELS = ("csr_spmm_prop", "csr_spmm_prop_bf16", "quantize_columns",
                "csr_spmm_q8", "csr_spmm_q8mxu")
 # the hop kernels of each form a Propagator's hops run
@@ -928,6 +1248,13 @@ def run_path(cfg, data, tag: str) -> tuple:
             raise AssertionError(f"{name} launched {launches[name]} times, "
                                  f"expected {want} (order={cfg.order}, "
                                  f"selected {sorted(selected)})")
+    # the push kernels of the push backend, none for native (and 'auto',
+    # which picks native at these source counts on a host with a core)
+    pushers = PUSH_KERNELS.get(cfg.push_backend, set())
+    for name in PUSH_COUNTED:
+        if (launches[name] > 0) != (name in pushers):
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"with push_backend={cfg.push_backend!r}")
     return r, launches
 
 
@@ -998,6 +1325,44 @@ def profile_path(cfg, data, tag: str) -> None:
             print(f"[{tag}] {t:10.4f} ms {n:6d}x {name[:100]}")
 
 
+def push_entries(push_reddit: dict, push_amazon: dict,
+                 bucket_launches: dict) -> list:
+    """The kernels line's entries of the push kernels: times at the main
+    path's shapes (P2 and its top-k at the Amazon2M stand-in, 3f; P1's mask
+    at the reddit stand-in, 3e), launches by path."""
+    paths = {"amazon_bucket": bucket_launches,
+             "p1_reddit": push_reddit["launches"]["jax"],
+             "p2_reddit": push_reddit["launches"]["bucket"],
+             "p2_amazon": push_amazon["launches"]["bucket"]}
+    p1, p2 = push_reddit["jax"], push_amazon["bucket"]
+    p2_err = max(p2["max_abs_err"], push_reddit["bucket"]["max_abs_err"])
+    rows = [("dense_push_mask", "push_dense.cu", "grandtpu/ppr/jax_push.py:36",
+             p1["times"]["dense_push_mask"], p1["max_abs_err"]),
+            ("bucket_expand", "push_bucket.cu",
+             "grandtpu/ppr/bucket_push.py:141",
+             p2["times"]["bucket_expand"], p2_err),
+            ("bucket_compact", "push_bucket.cu",
+             "grandtpu/ppr/bucket_push.py:117",
+             p2["times"]["bucket_compact"], p2_err),
+            ("push_topk", "push_topk.cu", "grandtpu/ppr/bucket_push.py:262",
+             p2["times"]["push_topk"], max(p2_err, p1["max_abs_err"]))]
+    entries = []
+    for name, src, line, times, err in rows:
+        by_path = {p: la[name] for p, la in paths.items() if la[name]}
+        entry = {"name": name, "route": "cuda",
+                 "source": f"grandtpu_torch/csrc/{src}", "replaces": line,
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path, "max_abs_err": err, **times}
+        if name == "push_topk":
+            entry["p1_form"] = p1["times"]["push_topk"]
+        entries.append(entry)
+    for key, res in (("reddit", push_reddit), ("amazon", push_amazon)):
+        entries[-1].setdefault("sources_per_s", {})[key] = {
+            "native": res["native_sps"], "host_cores": res["host_cores"],
+            **res["sps"]}
+    return entries
+
+
 def main() -> int:
     t_start = time.time()
 
@@ -1014,9 +1379,15 @@ def main() -> int:
           flush=True)
     k1, k2 = check_k1(K1_SHAPE), check_k2(data)
     mark("3 (K1, K2)")
-    check_small_reference(preset("reddit").replace(
-        dataset=SMALL, epochs=3, unlabel_num=500, dropnode_rate=0.0))
+    push_reddit = check_push(data, preset("reddit").replace(dataset=DATASET),
+                             "3e", ("jax", "bucket"))
+    mark("3e")
+    small = preset("reddit").replace(dataset=SMALL, epochs=3,
+                                     unlabel_num=500, dropnode_rate=0.0)
+    check_small_reference(small)
     mark("4")
+    check_small_reference(small.replace(push_backend="bucket"))
+    mark("4d")
     launches = run_main_path(data)
     mark("5")
     profile_path(preset("reddit").replace(dataset=DATASET, epochs=2), data,
@@ -1062,31 +1433,49 @@ def main() -> int:
     mark("7")
     del ops
     torch.cuda.empty_cache()
+    push_amazon = check_push(amazon, amazon_cfg, "3f", ("bucket",))
+    mark("3f")
     check_small_fast()
     check_small_reference(amazon_cfg.replace(
         dataset=AMAZON_SMALL, epochs=3, dropnode_rate=0.0))
     mark("4c")
-    amazon_launches = run_amazon_path(amazon)
+    r_native, amazon_launches = run_amazon_path(amazon, "auto", "amazon")
     mark("5c")
     profile_path(amazon_cfg, amazon, "profile-amazon")
     mark("6c")
+    r_bucket, bucket_launches = run_amazon_path(amazon, "bucket",
+                                                "amazon-bucket")
+    print(f"[amazon-bucket] preprocess_s {r_bucket.preprocess_time} with the "
+          f"bucket push on the card against {r_native.preprocess_time} with "
+          f"native (5c); test_acc {r_bucket.test_acc} (5c: "
+          f"{r_native.test_acc}; anchor 0.996, not gated)", flush=True)
+    mark("5d")
     del amazon
 
-    k1["launches_by_path"] = {"reddit": launches["dropnode_mean"],
-                              "amazon": amazon_launches["dropnode_mean"]}
+    k1["launches_by_path"] = {
+        "reddit": launches["dropnode_mean"],
+        "amazon": amazon_launches["dropnode_mean"],
+        "amazon_bucket": bucket_launches["dropnode_mean"]}
+    p1 = push_reddit["launches"]["jax"]
     k2["launches_by_path"] = {"reddit": launches["csr_spmm_prop"],
                               "mag": mag_launches["csr_spmm_prop"],
                               "amazon": amazon_launches["csr_spmm_prop"],
-                              "sweep": sweep_launches["csr_spmm_prop"]}
+                              "sweep": sweep_launches["csr_spmm_prop"],
+                              "p1_reddit": p1["csr_spmm_prop"]}
+    k2["p1_over_at"] = {"ms": push_reddit["jax"]["times"]["k2_over_at_ms"],
+                        "shape": "A^T of the reddit stand-in, x [233000, "
+                                 "512], per hop"}
     for k in (k1, k2):
         k["launches"] = sum(k["launches_by_path"].values())
     for k in k3:
         k["launches"] = mag_launches[k["name"]]
     for k in fast:
         k["launches_by_path"] = {"amazon": amazon_launches[k["name"]],
+                                 "amazon_bucket": bucket_launches[k["name"]],
                                  "sweep": sweep_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
-    print(json.dumps({"kernels": [k1, k2, *fast, *k3]}))
+    pushes = push_entries(push_reddit, push_amazon, bucket_launches)
+    print(json.dumps({"kernels": [k1, k2, *fast, *k3, *pushes]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -76,9 +76,10 @@ class GrandConfig:
     # at run_model.py:87-90)
     sparse_features: bool = False  # MAG-style embedding input path
     push_backend: str = "auto"     # 'auto' | 'native' | 'bucket' | 'jax'
-    #                                | 'numpy'; auto = TPU bucket push at
-    #                                scale (ppr/api.py:_auto_backend), else
-    #                                native host kernel
+    #                                | 'numpy'; auto = the device bucket
+    #                                push at scale (ppr/api.py:
+    #                                _auto_backend), else the native host
+    #                                kernel
     push_cache_dir: Optional[str] = None  # content-addressed on-disk cache
     #                                of GFPush results (ppr/cache.py) —
     #                                precompute once, train many

@@ -51,6 +51,17 @@ _SIGNATURES = {
     # out | dtable, rows, ktop, P, H, num_aug, keep_prob, stream
     "embed_prop_fwd_f32": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
     "embed_prop_bwd_f32": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
+    # ids (or null), vals, row_off, out_cols, out_vals | num_rows, k, stream
+    "push_topk": [_P] * 3 + [_I, _I, _P, _P, _P],
+    # residue, reserve, pushed, tele_in, tele_out, src, deg, thr |
+    # num_nodes, num_sources, coef, final, stream
+    "dense_push_mask": [_P] * 8 + [_I, _I, ctypes.c_float, _I, _P],
+    # f_ids, f_q, f_off, f_cnt, src, indptr, indices, thr, t_off, keys,
+    # vals | num_sources, merge, coef, stream
+    "bucket_expand": [_P] * 11 + [_I, _I, ctypes.c_double, _P],
+    # keys, vals, t_off, indptr, thr, out_ids, out_q, out_cnt, out_exp,
+    # out_f | num_sources, final, stream
+    "bucket_compact": [_P] * 10 + [_I, _I, _P],
 }
 
 

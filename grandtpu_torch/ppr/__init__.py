@@ -1,6 +1,7 @@
 """GFPush precompute: row-sparse top-k approximation of the generalized
 propagation matrix Pi = sum_n coef_n (D^-1 A)^n, by the native C++/OpenMP
-kernel (host) or the numpy oracle."""
+kernel (host), the numpy oracle, or the dense- and sparse-residue pushes on
+the card (CUDA kernels)."""
 
 from grandtpu_torch.ppr.api import gfpush  # noqa: F401
 from grandtpu_torch.ppr.coef import build_coef  # noqa: F401

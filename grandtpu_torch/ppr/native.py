@@ -75,9 +75,10 @@ def _ptr(arr: np.ndarray, ctype):
 
 def gfpush_native(indptr: np.ndarray, indices: np.ndarray,
                   sources: np.ndarray, coef: np.ndarray, rmax: float,
-                  k: int):
-    """Run the native kernel. Returns (cols int32 [n_src,k],
-    vals float64 [n_src,k]), rows sorted by value descending."""
+                  k: int, num_threads: int = 0):
+    """Run the native kernel on ``num_threads`` OpenMP threads (0: all).
+    Returns (cols int32 [n_src,k], vals float64 [n_src,k]), rows sorted by
+    value descending."""
     lib = load_library()
     indptr = np.ascontiguousarray(indptr, dtype=np.int32)
     indices = np.ascontiguousarray(indices, dtype=np.int32)
@@ -93,7 +94,7 @@ def gfpush_native(indptr: np.ndarray, indices: np.ndarray,
         _ptr(coef, ctypes.c_double), ctypes.c_int32(coef.shape[0]),
         ctypes.c_double(rmax), ctypes.c_int32(k),
         _ptr(out_cols, ctypes.c_int32), _ptr(out_vals, ctypes.c_double),
-        ctypes.c_int32(0))   # 0: all OpenMP threads
+        ctypes.c_int32(num_threads))
     if rc != 0:
         raise RuntimeError(f"gfpush_run failed with code {rc}")
     return out_cols, out_vals

@@ -2,7 +2,8 @@
 CSR features goes to the MAG engine (``trainer_sparse.train_sparse``);
 the dense-feature engine here runs
 
-  load -> self-loops -> unlabeled pool -> GFPush top-k (host C++) ->
+  load -> self-loops -> unlabeled pool -> GFPush top-k (``push_backend``:
+  the host C++ kernel, or the dense or bucketed push on the device) ->
   device-resident features and top-k table -> training loop -> exact
   full-graph propagation with the best weights -> chunked classification.
 """
@@ -24,7 +25,6 @@ from grandtpu_torch.device import resolve_device
 from grandtpu_torch.infer import exact_propagator, test_accuracy
 from grandtpu_torch.nn.mlp import MLPConfig, init_mlp
 from grandtpu_torch.ppr import gfpush
-from grandtpu_torch.ppr.api import BACKENDS
 from grandtpu_torch.train.loop import run_training_loop
 from grandtpu_torch.train.step import (StepConfig, build_eval_step,
                                        build_train_step, make_optimizer)
@@ -46,9 +46,6 @@ def check_supported(cfg: GrandConfig) -> None:
          "ROADMAP Queue A: CUDA-graph step groups"),
         (cfg.num_devices > 1, "num_devices > 1",
          "ROADMAP Queue A: multi-GPU"),
-        (cfg.push_backend not in BACKENDS,
-         f"push_backend={cfg.push_backend!r}",
-         "ROADMAP Queue A: GPU GFPush backend"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -102,7 +99,7 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
     sources = np.concatenate([data.idx_train, idx_unlabel])
     tk = gfpush(adj_sl, sources, prop_mode=cfg.prop_mode, order=cfg.order,
                 alpha=cfg.alpha, rmax=cfg.rmax, k=cfg.top_k,
-                backend=cfg.push_backend)
+                backend=cfg.push_backend, device=device)
     preprocess_time = time.time() - t_start
     verbose(f"preprocessing done, time: {preprocess_time:.3f}s")
 

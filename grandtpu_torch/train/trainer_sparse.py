@@ -134,7 +134,7 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
     sources = np.concatenate([data.idx_train, idx_unlabel])
     tk = gfpush(adj_sl, sources, prop_mode=cfg.prop_mode, order=cfg.order,
                 alpha=cfg.alpha, rmax=cfg.rmax, k=cfg.top_k,
-                backend=cfg.push_backend)
+                backend=cfg.push_backend, device=device)
     padded = PaddedFeatures.from_csr(data.features)
     preprocess_time = time.time() - t_start
     verbose(f"preprocessing done, time: {preprocess_time:.3f}s")

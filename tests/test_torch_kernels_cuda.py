@@ -11,7 +11,10 @@ widths, empty and fully masked rows, hub rows, and for K3 attribute-free
 nodes, input dropout, colliding ids (the backward's atomics) and the node
 form; for the fast-precision hops (K2-bf16, quantize, K2-q8, K2-q8mxu) f32
 and bf16 carries, widths that are not a multiple of 4 or 32, an all-zero
-column, a 9000-nonzero hub row and a one-row operator.
+column, a 9000-nonzero hub row and a one-row operator; for the GFPush
+kernels (top-k, P1's push mask, P2's expansion and compaction) ties, rows
+with fewer than k positives, a dangling node, a 9000-nonzero hub source and
+determinism.
 """
 
 import functools
@@ -22,6 +25,11 @@ import scipy.sparse as sp
 import torch
 
 from grandtpu_torch.nn.dropnode import gather_and_prop, gather_and_prop_plain
+from grandtpu_torch.ppr.coef import build_coef
+from grandtpu_torch.ppr.dense_push import (dense_push_mask,
+                                           dense_push_mask_plain)
+from grandtpu_torch.ppr.push_topk import (push_topk, push_topk_plain,
+                                          row_offsets)
 from grandtpu_torch.nn.sparse_input import (embed_prop, embed_prop_backward,
                                             embed_prop_plain)
 from grandtpu_torch.sparse.spmm import (CSROperator, quantize_columns,
@@ -393,3 +401,127 @@ def test_fast_precision_wrappers_reject_bad_input(device):
                              x.clone(), None, 1.0, False)
     with pytest.raises(ValueError):              # on another device
         spmm_prop_step_q8(op, q, scale.cpu(), x.clone(), None, 1.0, False)
+
+
+# --- GFPush device backends (P1, P2) and their top-k ----------------------
+
+
+def _push_graph(n, hub_degree, seed):
+    """A random graph with self-loops, a dangling node (n - 1, no row) and,
+    where ``hub_degree``, a hub source 0 with that many neighbours."""
+    rs = np.random.RandomState(seed)
+    adj = sp.random(n, n, density=4.0 / n, random_state=rs, format="lil")
+    adj.setdiag(1.0)
+    if hub_degree:
+        adj[0, rs.permutation(n)[:hub_degree]] = 1.0
+    adj[n - 1, :] = 0.0
+    adj = adj.tocsr()
+    adj.data[:] = 1.0
+    return adj
+
+
+@pytest.mark.parametrize("k", [1, 7, 64, 1024])
+@pytest.mark.parametrize("with_ids", [True, False])
+def test_push_topk_kernel_matches_plain(device, k, with_ids):
+    """Ragged rows: empty, fewer than k positives, many ties (values drawn
+    from a few levels), negatives and zeros, and a 233,000-wide row."""
+    rs = np.random.RandomState(k)
+    lens = np.array([0, 3, k, 5000, 233000, 17])
+    vals = rs.choice([0.0, -0.5, 0.25, 0.125, 1e-3, 3e-7],
+                     size=lens.sum()).astype(np.float32)
+    vals[lens[:4].sum():lens[:5].sum()] *= rs.rand(233000) < 0.01
+    ids = np.concatenate([rs.permutation(1 << 20)[:m] for m in lens])
+    vals_t = torch.tensor(vals, device=device)
+    ids_t = torch.tensor(ids.astype(np.int32), device=device) if with_ids \
+        else None
+    off = row_offsets(torch.tensor(lens, device=device))
+    before = push_topk.launches
+    cols, out = push_topk(ids_t, vals_t, off, k)
+    again = push_topk(ids_t, vals_t, off, k)
+    torch.cuda.synchronize()
+    assert push_topk.launches == before + 2
+    want_cols, want_vals = push_topk_plain(ids_t, vals_t, off, k)
+    assert torch.equal(cols, want_cols) and torch.equal(out, want_vals)
+    assert torch.equal(again[0], cols) and torch.equal(again[1], out)
+
+
+def test_push_topk_wrapper_rejects_bad_input(device):
+    vals = torch.ones(4, device=device)
+    off = torch.tensor([0, 4], device=device)
+    with pytest.raises(ValueError):
+        push_topk(None, vals, off, 1025)
+    with pytest.raises(TypeError):
+        push_topk(None, vals.double(), off, 2)
+    with pytest.raises(ValueError):
+        push_topk(torch.zeros(3, dtype=torch.int32, device=device), vals,
+                  off, 2)
+
+
+@pytest.mark.parametrize("final", [False, True])
+def test_dense_push_mask_kernel_matches_plain(device, final):
+    """Bit for bit: the same f32 operations, and the teleport in Q62."""
+    rs = np.random.RandomState(3)
+    n, b = 1000, 37
+    residue = torch.tensor(rs.rand(n, b).astype(np.float32) ** 4,
+                           device=device)
+    deg = torch.tensor(rs.randint(0, 9, n).astype(np.float32), device=device)
+    thr = np.float32(1e-3) * deg
+    src = torch.tensor(rs.randint(0, n, b).astype(np.int32), device=device)
+    tele_in = torch.tensor(rs.randint(0, 1 << 60, b), device=device)
+    outs = []
+    for mask in (dense_push_mask, dense_push_mask_plain):
+        reserve = torch.full_like(residue, 0.5)
+        pushed = torch.zeros_like(residue)
+        tele = torch.zeros(b, dtype=torch.int64, device=device)
+        mask(residue, reserve, pushed, tele_in, None if final else tele, src,
+             deg, thr, 0.15, final)
+        torch.cuda.synchronize()
+        outs.append((reserve, pushed, tele))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dense_threshold", [8192, 0])
+def test_dense_push_kernels_match_plain(device, dense_threshold):
+    """P1 on the card against its plain version on the card, with a
+    dangling node; two kernel runs identical."""
+    from grandtpu_torch.ppr import dense_push
+    adj = _push_graph(600, 0, 4)
+    coef = np.asarray(build_coef("ppr", 6, 0.1), np.float32)
+    g = dense_push.DensePushGraph(adj.indptr, adj.indices, 1e-4,
+                                  dense_threshold, device)
+    src = torch.arange(0, 600, 7, dtype=torch.int32, device=device)
+    before = dense_push_mask.launches
+    cols, vals = dense_push.push_block(g, src, coef, 32)
+    cols2, vals2 = dense_push.push_block(g, src, coef, 32)
+    torch.cuda.synchronize()
+    assert dense_push_mask.launches == before + 14
+    want_cols, want_vals = dense_push.push_block(g, src, coef, 32,
+                                                 plain=True)
+    assert torch.equal(cols, want_cols)
+    assert _rel_err(vals, want_vals) <= TOL
+    assert torch.equal(cols, cols2) and torch.equal(vals, vals2)
+
+
+@pytest.mark.parametrize("rmax", [0.0, 1e-4])
+def test_bucket_push_kernels_match_plain(device, rmax):
+    """P2 on the card against its plain version, bit for bit, on a graph
+    with a dangling node and a 9000-nonzero hub source; two runs
+    identical."""
+    from grandtpu_torch.ppr import bucket_push
+    adj = _push_graph(12000, 9000, 5)
+    coef = np.asarray(build_coef("ppr", 4, 0.2), np.float32)
+    g = bucket_push.BucketPushGraph(adj.indptr, adj.indices, rmax,
+                                    device=device)
+    src = torch.tensor([0, 1, 11999, 5, 0], dtype=torch.int32, device=device)
+    before = (bucket_push.bucket_expand.launches,
+              bucket_push.bucket_compact.launches)
+    got = bucket_push.push_block(g, src, coef, 64)
+    again = bucket_push.push_block(g, src, coef, 64)
+    torch.cuda.synchronize()
+    assert bucket_push.bucket_expand.launches > before[0]
+    assert bucket_push.bucket_compact.launches > before[1]
+    want = bucket_push.push_block(g, src, coef, 64, plain=True)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(got[0][0], got[0][4])     # the same source twice

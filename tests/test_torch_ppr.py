@@ -42,16 +42,19 @@ def test_build_coef_equal(mode):
                                   jax_build_coef(mode, 6, 0.05))
 
 
-@pytest.mark.parametrize("backend", ["native", "numpy"])
+@pytest.mark.parametrize("backend", ["native", "numpy", "native:2"])
 @pytest.mark.parametrize("mode", ["ppr", "avg"])
 def test_gfpush_equal(backend, mode):
+    """``native:2`` runs the native kernel on 2 OpenMP threads
+    (``num_threads``), which must not change its output."""
     d = jax_load_data("synth:500:4:16", split_seed=1)
     adj = jax_self_loops(d.adj)
     sources = np.concatenate([d.idx_train, d.idx_val[:20]])
+    backend, _, threads = backend.partition(":")
     kw = dict(prop_mode=mode, order=6, alpha=0.1, rmax=1e-5, k=16,
               backend=backend)
     want = jax_gfpush(adj, sources, **kw)
-    got = gfpush(adj, sources, **kw)
+    got = gfpush(adj, sources, num_threads=int(threads or 0), **kw)
     np.testing.assert_array_equal(got.cols, want.cols)
     np.testing.assert_array_equal(got.vals, want.vals)
     np.testing.assert_array_equal(got.sources, want.sources)
@@ -75,6 +78,3 @@ def test_unported_inputs_raise():
         load_data("cora")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_data("mag_scholar_c")        # file-based, unlike synth:...:sparse
-    d = load_data("synth:200:4:8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gfpush(add_self_loops_adj(d.adj), d.idx_train, backend="bucket")

@@ -135,12 +135,35 @@ def test_cli_presets_and_unported_flag(capsys):
     ("ckpt_dir", "ckpts"), ("resume", True), ("save_every", 5),
     ("metrics_path", "m.jsonl"), ("profile_dir", "prof"),
     ("scan_steps", True), ("num_devices", 2), ("push_cache_dir", "cache"),
-    ("push_backend", "jax"), ("push_backend", "bucket"),
 ])
 def test_unported_config_raises(field, value):
     cfg = GrandConfig(dataset="synth:200:4:16").replace(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrainer.train(cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def native_push_run():
+    return ttrainer.train(GrandConfig(dataset="synth:400:4:16", epochs=3,
+                                      push_backend="native"), device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("push_backend", "jax"), ("push_backend", "bucket"),
+])
+def test_train_with_device_push_backend(field, value, native_push_run):
+    """train() with the device pushes (their plain versions on the CPU):
+    a finite history, and test accuracy within one test node of the native
+    push's (the top-k rows agree to the pruning granularity, not bit for
+    bit)."""
+    cfg = GrandConfig(dataset="synth:400:4:16", epochs=3)
+    got = ttrainer.train(cfg.replace(**{field: value}), device="cpu")
+    want = native_push_run
+    assert len(got.history) == len(want.history) > 0
+    assert np.all(np.isfinite([v for h in got.history
+                               for v in (h["loss"], h["val_loss"])]))
+    n_test = 400 - 4 * (20 + 30)
+    assert abs(got.test_acc - want.test_acc) * n_test <= 1.0 + 1e-9
 
 
 def test_sparse_flag_on_dense_data_runs_dense_engine():
