@@ -98,22 +98,52 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     deepest of the presets) from the 12,350 sources of its ``train()``,
     against native, its plain version and a second run; its kernels' times
     at these shapes are the kernels line's;
-5d. the slice's main path: the Amazon2M ``train()`` of 5c with
-    ``push_backend="bucket"``: the P2 kernels and the top-k launch, the 5c
-    checks hold, preprocess_time printed beside 5c's (native).
+5d. the Amazon2M ``train()`` of 5c with ``push_backend="bucket"`` and a
+    checkpoint directory: the P2 kernels and the top-k launch, the 5c
+    checks hold, preprocess_time printed beside 5c's (native);
+3g. (after 7, on 3d's graph) K2-seg: 6 ppr hops of ``spmm_segment``
+    against its plain version, one at a time on a shared input (<= 1e-5:
+    a row over several edge runs adds with atomics), the
+    ``Propagator(backend="segment")`` run as a path (K2-seg exactly
+    ``order`` launches) against the csr backend's f32 run (<= 1e-5), its
+    peak device memory against the csr run's, and kernel / plain / library
+    (``torch.sparse.mm`` on the coalesced COO) times with the bound;
+8.  D1, row-partitioned propagation on a 4-shard mesh on the one card
+    (``make_mesh(4, devices=[cuda:0] * 4)``): ``dist_exact_propagate``
+    all_gather in f32, bf16 and int8 and halo (``halo_threshold=1.0``) in
+    f32 and int8, and ``sharded_propagate`` (K2-seg) in f32, each a path of
+    its own with exact launch counts (order x 4 of its hop kernel, and of
+    ``column_absmax``/``quantize_with_amax``/``halo_pack`` where the form
+    runs them), each against its own plain run on the card (<= 1e-5 f32
+    and bf16 terms, 5e-3 int8) and against the one-card ``Propagator`` at
+    the same precision (f32 <= 1e-5; the fast forms within the 5e-3 gate
+    of f32); then the halo kernels', the quantize split's and the
+    collectives' times at the shard shapes, and the halo compression;
+5e. the slice's main path, serving: ``python -m grandtpu_torch.cli.main
+    predict --preset Amazon2M --dataset synth:2000000:47:100 --ckpt
+    <5d's best.npz>`` (run in this process through ``cli()``, its counts
+    read around it) with ``--precision f32`` and ``auto``: its test
+    accuracy equals that of the 5d model at the same precision (auto:
+    5d's own), its npz holds [2000000, 47] logits, its hop kernels launch
+    ``order`` times; the wall time split into data, checkpoint, operator
+    build, hops and classify.
 
 Every path (5, 5b, 5c, 5d, 7) must launch exactly the hop kernels of the
 form its predict's hops ran (``TrainResult.predict_precision``), and the
-push kernels of its push backend only (none with native). It prints one
+push kernels of its push backend only (none with native); the training
+paths launch none of D1's or K2-seg's. It prints one
 ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -122,10 +152,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from grandtpu_torch.cli.main import cli
 from grandtpu_torch.config import preset
 from grandtpu_torch.data import load_data
 from grandtpu_torch.data.preprocess import add_self_loops_adj
-from grandtpu_torch.infer import Propagator, exact_propagate
+from grandtpu_torch.dist import (ShardedGraph, ShardedPropagator,
+                                 dist_exact_propagator, make_mesh)
+from grandtpu_torch.dist.halo import (halo_hop, halo_hop_plain, halo_pack,
+                                      halo_pack_plain)
+from grandtpu_torch.infer import Propagator, exact_propagate, test_accuracy
 from grandtpu_torch.infer.classify import embed_all_nodes
 from grandtpu_torch.nn.dropnode import gather_and_prop, gather_and_prop_plain
 from grandtpu_torch.nn.sparse_input import (PaddedFeatures, embed_prop,
@@ -138,14 +173,18 @@ from grandtpu_torch.ppr.dense_push import (dense_push_mask,
                                            dense_push_mask_plain)
 from grandtpu_torch.ppr.native import gfpush_native
 from grandtpu_torch.ppr.push_topk import push_topk, push_topk_plain
-from grandtpu_torch.sparse.spmm import (quantize_columns,
+from grandtpu_torch.sparse.spmm import (column_absmax, column_absmax_plain,
+                                        quantize_columns,
                                         quantize_columns_plain,
+                                        quantize_with_amax,
+                                        quantize_with_amax_plain,
                                         spmm_prop_step, spmm_prop_step_bf16,
                                         spmm_prop_step_plain,
                                         spmm_prop_step_q8,
                                         spmm_prop_step_q8_plain,
                                         spmm_prop_step_q8mxu,
-                                        spmm_prop_step_q8mxu_plain)
+                                        spmm_prop_step_q8mxu_plain,
+                                        spmm_segment, spmm_segment_plain)
 from grandtpu_torch.train import train
 
 DATASET = "synth:233000:41:602"     # RESULTS.md's reddit scale stand-in
@@ -162,6 +201,8 @@ K3_SHAPE = (40, 32, 2, 240, 10000)
 H_MAG = 64                          # mag_scholar_c hidden width
 AMAZON = "synth:2000000:47:100"     # RESULTS.md's Amazon2M stand-in
 AMAZON_SMALL = "synth:30000:8:64"   # above the dense threshold
+SHARDS = 4                          # phase 8's mesh, on the one card
+CKPT_DIR = os.path.join("build", "chip_smoke_ckpt")   # 5d's best.npz
 TOL = 1e-5                          # max |kernel - plain| / max |plain|
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12             # f32 outside the tensor cores
@@ -828,12 +869,14 @@ def check_small_fast() -> None:
             raise AssertionError(f"{p}: card disagrees with the CPU")
 
 
-def run_amazon_path(data, push_backend: str, tag: str):
+def run_amazon_path(data, push_backend: str, tag: str,
+                    ckpt_dir: str | None = None):
     """The Amazon2M ``train()`` (phase 5c with the native push, 5d with the
-    bucket push); returns (result, launches)."""
+    bucket push and ``ckpt_dir``); returns (result, launches)."""
     cfg = preset("Amazon2M").replace(dataset=AMAZON, epochs=2,
                                      predict_precision="auto",
-                                     push_backend=push_backend)
+                                     push_backend=push_backend,
+                                     ckpt_dir=ckpt_dir)
     r, launches = run_path(cfg, data, tag)
     if launches["dropnode_mean"] < r.num_batches + len(r.history):
         raise AssertionError("K1 was not launched for every step and eval")
@@ -1196,9 +1239,18 @@ COUNTED = {"dropnode_mean": gather_and_prop, "csr_spmm_prop": spmm_prop_step,
            "dense_push_mask": dense_push_mask,
            "bucket_expand": bucket_push.bucket_expand,
            "bucket_compact": bucket_push.bucket_compact,
-           "push_topk": push_topk}
+           "push_topk": push_topk,
+           "coo_spmm": spmm_segment,
+           "column_absmax": column_absmax,
+           "quantize_with_amax": quantize_with_amax,
+           "halo_pack": halo_pack,
+           "halo_hop": halo_hop}
 HOP_KERNELS = ("csr_spmm_prop", "csr_spmm_prop_bf16", "quantize_columns",
                "csr_spmm_q8", "csr_spmm_q8mxu")
+# K2-seg, the quantize split and D1's kernels: none of the training paths
+# runs them
+SERVE_KERNELS = ("coo_spmm", "column_absmax", "quantize_with_amax",
+                 "halo_pack", "halo_hop")
 # the hop kernels of each form a Propagator's hops run
 # (``Propagator.last_precision``; None on the dense backend)
 PRECISION_KERNELS = {
@@ -1214,6 +1266,18 @@ def _reset_counts() -> None:
 
 def _read_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def _check_hops(launches: dict, precision, order: int) -> None:
+    """The hop kernels of ``precision``'s form launched ``order`` times
+    each, the other hop kernels and the serving ones not at all."""
+    selected = PRECISION_KERNELS[precision]
+    for name in HOP_KERNELS + SERVE_KERNELS:
+        want = order if name in selected else 0
+        if launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"expected {want} (order={order}, "
+                                 f"selected {sorted(selected)})")
 
 
 def run_path(cfg, data, tag: str) -> tuple:
@@ -1241,13 +1305,7 @@ def run_path(cfg, data, tag: str) -> tuple:
         raise AssertionError(f"non-finite losses: {r.history}")
     if not 0.0 <= r.test_acc <= 1.0:
         raise AssertionError(f"test_acc {r.test_acc}")
-    selected = PRECISION_KERNELS[r.predict_precision]
-    for name in HOP_KERNELS:
-        want = cfg.order if name in selected else 0
-        if launches[name] != want:
-            raise AssertionError(f"{name} launched {launches[name]} times, "
-                                 f"expected {want} (order={cfg.order}, "
-                                 f"selected {sorted(selected)})")
+    _check_hops(launches, r.predict_precision, cfg.order)
     # the push kernels of the push backend, none for native (and 'auto',
     # which picks native at these source counts on a host with a core)
     pushers = PUSH_KERNELS.get(cfg.push_backend, set())
@@ -1362,6 +1420,349 @@ def push_entries(push_reddit: dict, push_amazon: dict,
             **res["sps"]}
     return entries
 
+def _peak_gb(fn):
+    """(result, peak device memory of ``fn()`` above what was allocated
+    before it, in GB)."""
+    torch.cuda.synchronize(DEV)
+    base = torch.cuda.memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    out = fn()
+    torch.cuda.synchronize(DEV)
+    return out, (torch.cuda.max_memory_allocated(DEV) - base) / 1e9
+
+
+def check_segment(ops: dict) -> dict:
+    """Phase 3g: K2-seg at the Amazon2M shape, hop by hop against its plain
+    version; the segment Propagator as a path against the csr backend's f32
+    run, with both runs' peak memory; times and the bound."""
+    cfg = preset("Amazon2M")
+    adj, x, csr = ops["adj"], ops["x"], ops["f32"]
+    kw = dict(mode="ppr", order=cfg.order, alpha=cfg.alpha)
+    t0 = time.time()
+    seg, build_gb = _peak_gb(lambda: Propagator(adj, backend="segment",
+                                                device=DEV))
+    build_s = time.time() - t0
+    padded = seg.adj_op
+    n, nfeat = x.shape
+    e_pad = padded.num_edges_padded
+    cur, worst = cfg.alpha * x, (0.0, 0.0)
+    for _ in range(cfg.order):
+        got = spmm_segment(padded, cur)
+        torch.cuda.synchronize(DEV)
+        want = spmm_segment_plain(padded, cur)
+        e = _errors(got, want)
+        worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+        cur = want * (1.0 - cfg.alpha)
+        del got, want
+    print(f"[3g] coo_spmm: {cfg.order} ppr hops at [{n},{nfeat}], "
+          f"{e_pad} padded edges, one at a time on a shared input: "
+          f"max_abs_err {worst[0]} max_rel_err {worst[1]} (limit {TOL})",
+          flush=True)
+    if not worst[1] <= TOL:
+        raise AssertionError(f"coo_spmm disagrees with its plain version: "
+                             f"{worst[1]} > {TOL}")
+    ref, csr_gb = _peak_gb(lambda: csr(x, **kw))
+    _reset_counts()
+    out, seg_gb = _peak_gb(lambda: seg(x, **kw))
+    launches = _read_counts()
+    err = _errors(out, ref)
+    struct_csr = 4 * (n + 1) + 8 * csr.adj_op.nnz
+    struct_seg = 12 * e_pad
+    print(f"[3g] Propagator(backend='segment') {cfg.order} ppr hops: "
+          f"launches {launches}; against the csr backend's f32 run "
+          f"max_abs_err {err[0]} max_rel_err {err[1]} (limit {TOL}); peak "
+          f"device memory above the resident operands: segment {seg_gb} GB, "
+          f"csr {csr_gb} GB; operator structure segment {struct_seg / 1e9} "
+          f"GB, csr {struct_csr / 1e9} GB; segment build {build_s} s "
+          f"({build_gb} GB)", flush=True)
+    bad = {k: v for k, v in launches.items()
+           if v != (cfg.order if k == "coo_spmm" else 0)}
+    if bad or not err[1] <= TOL:
+        raise AssertionError(f"segment path: launches {bad}, err {err}")
+    del out, ref
+    x0 = cfg.alpha * x
+    buf = torch.empty((n + 1, nfeat), device=DEV)
+    ms = _time_ms(lambda: spmm_segment(padded, x0, out=buf), 30)
+    plain_ms = _time_ms(lambda: spmm_segment_plain(padded, x0, out=buf), 3,
+                        warmup=1)
+    a = torch.sparse_coo_tensor(
+        torch.stack([padded.rows.long(), padded.cols.long()]), padded.vals,
+        (n + 1, n)).coalesce()
+    library_ms = _time_ms(lambda: torch.sparse.mm(a, x0), 30)
+    del a
+    # each padded edge's 12 bytes, x read once, y [n + 1, F] written once
+    nbytes = 12 * e_pad + 4 * n * nfeat + 4 * (n + 1) * nfeat
+    bound_ms, bound_by = _bound(nbytes, 2 * csr.adj_op.nnz * nfeat)
+    print(f"[3g] coo_spmm per hop at [{n},{nfeat}]: ms {ms} plain_ms "
+          f"{plain_ms} library_ms {library_ms} (torch.sparse.mm, coalesced "
+          f"COO) bound_ms {bound_ms} ({bound_by}, {nbytes / 1e9:.3f} GB)",
+          flush=True)
+    return {"name": "coo_spmm", "route": "cuda",
+            "source": "grandtpu_torch/csrc/coo_spmm.cu",
+            "replaces": "grandtpu/sparse/spmm.py:74",
+            "max_abs_err": worst[0], "max_rel_err": worst[1], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": f"x [{n},{nfeat}], {e_pad} padded edges, per hop",
+            "launches_by_path": {"segment": launches["coo_spmm"]},
+            "peak_extra_GB": {"segment": seg_gb, "csr": csr_gb},
+            "propagate_vs_csr_max_rel_err": err[1]}
+
+
+# phase 8's runs: (name, halo_threshold, precision, the kernels of its
+# hops, each launched order x SHARDS times)
+D1_RUNS = (
+    ("all_gather_f32", None, "f32", {"csr_spmm_prop"}),
+    ("all_gather_bf16", None, "bf16", {"csr_spmm_prop_bf16"}),
+    ("all_gather_int8", None, "int8",
+     {"column_absmax", "quantize_with_amax", "csr_spmm_q8mxu"}),
+    ("halo_f32", 1.0, "f32", {"halo_pack", "halo_hop"}),
+    ("halo_int8", 1.0, "int8", {"column_absmax", "halo_pack", "halo_hop"}),
+    ("scatter_f32", None, "f32", {"coo_spmm"}),
+)
+
+
+def _d1_times(prop, xs, tag: str) -> dict:
+    """The halo kernels (f32 and int8 forms), the quantize split and the
+    collectives at shard 0's shapes of ``prop`` (a HaloPropagator)."""
+    mesh, g = prop.mesh, prop.g
+    S, c_max, nfeat = g.num_shards, g.halo_per_pair, xs[0].shape[1]
+    rows = g.rows_per_shard
+    x0, idx0 = xs[0], prop.send_idx[0]
+    m = idx0.numel()
+    uniq = torch.unique(idx0).numel()
+    amax = mesh.pmax([column_absmax(x) for x in xs])
+    out = {}
+    # halo_pack, f32 and int8: the distinct gathered rows read once, the
+    # index, the send buffer written
+    for form, a in (("f32", None), ("int8", amax[0])):
+        width = 4 if a is None else 1
+        nbytes = uniq * nfeat * 4 + 4 * m + m * nfeat * width + (
+            0 if a is None else 8 * nfeat)
+        ms = _time_ms(lambda: halo_pack(x0, idx0, a), 30)
+        plain_ms = _time_ms(lambda: halo_pack_plain(x0, idx0, a), 3)
+        if a is None:
+            lib = _time_ms(lambda: torch.index_select(x0, 0, idx0), 30)
+        else:
+            lib = _time_ms(lambda: quantize_with_amax_plain(
+                torch.index_select(x0, 0, idx0), a), 10)
+        b = _bound(nbytes, m * nfeat * (0 if a is None else 3))
+        out[f"halo_pack_{form}"] = {"ms": ms, "plain_ms": plain_ms,
+                                    "library_ms": lib, "bound_ms": b[0],
+                                    "bound_by": b[1]}
+    # halo_hop, f32 and the exact int8 form, on a real exchange
+    for form, a in (("f32", None), ("exact", amax)):
+        packs = [halo_pack(x, i, aa) for x, i, aa in
+                 zip(xs, prop.send_idx, a or [None] * S)]
+        recv = mesh.all_to_all([p.view(S, c_max, -1) for p, _ in packs])
+        r0 = recv[0].view(S * c_max, -1)
+        sc = packs[0][1]
+        rv = prop.row_val[0] if form == "exact" else None
+        y, acc = torch.empty_like(x0), torch.zeros_like(x0)
+        diag, halo = prop.diag[0], prop.halo[0]
+
+        def hop(fn):
+            fn(diag, halo, x0, r0, y, acc, 0.8, True, sc, rv)
+
+        ms = _time_ms(lambda: hop(halo_hop), 30)
+        plain_ms = _time_ms(lambda: hop(halo_hop_plain), 3, warmup=1)
+        width = 4 if form == "f32" else 1
+        nbytes = (8 * (rows + 1) + 8 * diag.nnz + 4 * halo.nnz
+                  + (4 * halo.nnz if form == "f32" else 4 * rows + 4 * nfeat)
+                  + rows * nfeat * 4 + S * c_max * nfeat * width
+                  + 3 * rows * nfeat * 4)
+        b = _bound(nbytes, 2 * (diag.nnz + halo.nnz) * nfeat
+                   + 3 * rows * nfeat)
+        out[f"halo_hop_{form}"] = {"ms": ms, "plain_ms": plain_ms,
+                                   "library_ms": None, "bound_ms": b[0],
+                                   "bound_by": b[1]}
+        del packs, recv, r0, y, acc
+    # the quantize split at a shard's block
+    ms = _time_ms(lambda: column_absmax(x0), 30)
+    plain_ms = _time_ms(lambda: column_absmax_plain(x0), 10)
+    lib = _time_ms(lambda: torch.linalg.vector_norm(x0, float("inf"), 0), 30)
+    b = _bound(rows * nfeat * 4 + 4 * nfeat, rows * nfeat)
+    out["column_absmax"] = {"ms": ms, "plain_ms": plain_ms,
+                            "library_ms": lib, "bound_ms": b[0],
+                            "bound_by": b[1]}
+    ms = _time_ms(lambda: quantize_with_amax(x0, amax[0]), 30)
+    plain_ms = _time_ms(lambda: quantize_with_amax_plain(x0, amax[0]), 10)
+    b = _bound(rows * nfeat * 5 + 8 * nfeat, 3 * rows * nfeat)
+    out["quantize_with_amax"] = {"ms": ms, "plain_ms": plain_ms,
+                                 "library_ms": None, "bound_ms": b[0],
+                                 "bound_by": b[1]}
+    # the collectives: copies on the one card
+    sends = [halo_pack(x, i)[0].view(S, c_max, -1)
+             for x, i in zip(xs, prop.send_idx)]
+    out["all_gather_ms"] = _time_ms(lambda: mesh.all_gather(xs), 10)
+    out["all_to_all_ms"] = _time_ms(lambda: mesh.all_to_all(sends), 10)
+    out["pmax_ms"] = _time_ms(lambda: mesh.pmax(amax), 10)
+    for k, v in out.items():
+        print(f"[{tag}] {k} at shard 0 ([{rows},{nfeat}], {m} send rows): "
+              f"{v}", flush=True)
+    return out
+
+
+def check_d1(ops: dict) -> dict:
+    """Phase 8: D1 on a 4-shard mesh on the one card. Returns the launches
+    of each run, the errors and the times."""
+    cfg = preset("Amazon2M")
+    adj, x, single = ops["adj"], ops["x"], ops["f32"]
+    kw = dict(mode="ppr", order=cfg.order, alpha=cfg.alpha)
+    mesh = make_mesh(SHARDS, devices=[DEV] * SHARDS)
+    ref = {p: single(x, precision=p, **kw) for p in ("f32", "bf16", "int8")}
+    res = {"launches": {}, "err": {}, "wall_s": {}}
+    halo_prop = None
+    for name, threshold, precision, kernels in D1_RUNS:
+        t0 = time.time()
+        if name.startswith("scatter"):
+            prop = ShardedPropagator(mesh, ShardedGraph.build(adj, SHARDS))
+            call = {}
+        else:
+            prop, p = dist_exact_propagator(mesh, adj, x.shape[1],
+                                            halo_threshold=threshold,
+                                            precision=precision)
+            call = {"precision": p}
+        torch.cuda.synchronize(DEV)
+        build_s = time.time() - t0
+        _reset_counts()
+        t0 = time.time()
+        out = prop(x, **kw, **call)
+        torch.cuda.synchronize(DEV)
+        hops_s = time.time() - t0
+        launches = _read_counts()
+        plain = prop(x, **kw, **call, plain=True)
+        e_plain = _errors(out, plain)
+        e_single = _errors(out, ref[precision])
+        e_f32 = _errors(out, ref["f32"])
+        limit = 5e-3 if precision == "int8" else TOL
+        want = {k: cfg.order * SHARDS if k in kernels else 0
+                for k in launches}
+        # the one-card run's own distance from f32, which the sharded run
+        # of the same form must not exceed by more than 1e-3
+        own = _errors(ref[precision], ref["f32"])[1]
+        gate = TOL if precision == "f32" else 5e-3
+        print(f"[8] {name} ({type(prop).__name__}, {SHARDS} shards of "
+              f"{prop.g.rows_per_shard} rows): build {build_s} s, "
+              f"{cfg.order} hops {hops_s} s; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; vs its plain "
+              f"run max_rel_err {e_plain[1]} (limit {limit}); vs the "
+              f"one-card Propagator at {precision} {e_single[1]}; vs f32 "
+              f"{e_f32[1]} (the one-card {precision} run: "
+              f"{own}; fast-path gate {gate}: "
+              f"{'held' if e_f32[1] <= gate else 'exceeded'})", flush=True)
+        if launches != want:
+            raise AssertionError(f"[8] {name}: launches {launches}, want "
+                                 f"{want}")
+        # the fast forms against f32 only: the halo's quantizes the
+        # exchanged rows alone, so it need not be near the one-card int8
+        if not (e_plain[1] <= limit and e_f32[1] <= max(gate, own + 1e-3)):
+            raise AssertionError(f"[8] {name}: {e_plain[1]} from its plain "
+                                 f"run, {e_single[1]} from the one-card run, "
+                                 f"{e_f32[1]} from f32 (one-card {own})")
+        res["launches"][name] = launches
+        res["err"][name] = {"vs_plain": e_plain, "vs_single": e_single[1],
+                            "vs_f32": e_f32[1]}
+        res["wall_s"][name] = {"build": build_s, "hops": hops_s}
+        if name == "halo_f32":
+            halo_prop = prop
+        del out, plain
+    print(f"[8] halo compression {halo_prop.g.compression} (C_max "
+          f"{halo_prop.g.halo_per_pair} of {halo_prop.g.rows_per_shard} "
+          f"rows a shard)", flush=True)
+    xs = [b.contiguous() for b in
+          torch.cat([x, x.new_zeros(halo_prop.g.rows_per_shard * SHARDS
+                                    - x.shape[0], x.shape[1])]).split(
+              halo_prop.g.rows_per_shard)]
+    res["times"] = _d1_times(halo_prop, xs, "8")
+    res["compression"] = halo_prop.g.compression
+    res["shape"] = (f"shard [{halo_prop.g.rows_per_shard},{x.shape[1]}], "
+                    f"{halo_prop.g.halo_per_pair} rows a pair")
+    return res
+
+
+def run_serving(r, data, ckpt: str) -> dict:
+    """Phase 5e: the predict CLI from 5d's best.npz, at f32 and auto, each
+    a path of its own; its test accuracy against 5d's model at the same
+    precision. Returns the launches by precision."""
+    cfg = preset("Amazon2M").replace(dataset=AMAZON)
+    adj_sl = add_self_loops_adj(data.adj)
+    feats = torch.as_tensor(data.features, device=DEV)
+    want = {"auto": r.test_acc,
+            "f32": test_accuracy(r.model, exact_propagate(
+                adj_sl, feats, mode=cfg.prop_mode, order=cfg.order,
+                alpha=cfg.alpha, device=DEV), data.idx_test,
+                data.labels_int)}
+    del feats
+    torch.cuda.empty_cache()
+    out_npz = os.path.join(CKPT_DIR, "predictions.npz")
+    res = {}
+    for precision, form in (("f32", "f32"), ("auto", "int8mxu")):
+        argv = ["predict", "--preset", "Amazon2M", "--dataset", AMAZON,
+                "--ckpt", ckpt, "--precision", precision, "--output",
+                out_npz]
+        stdout, stderr = io.StringIO(), io.StringIO()
+        _reset_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            rc = cli(argv)
+        wall = time.time() - t0
+        launches = _read_counts()
+        if rc != 0:
+            raise AssertionError(f"[5e] predict {precision} exited {rc}: "
+                                 f"{stderr.getvalue()[-2000:]}")
+        line = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        seconds = json.loads(stderr.getvalue().strip().splitlines()[-1])
+        with np.load(out_npz) as z:
+            shape = z["logits"].shape
+            finite = bool(np.isfinite(z["logits"]).all())
+        print(f"[5e] python -m grandtpu_torch.cli.main {' '.join(argv)}: "
+              f"{line}; wall {wall} s, {seconds['predict_seconds']}; logits "
+              f"{shape}, finite {finite}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; test_acc "
+              f"{line['test_acc']} against train()'s model at {precision} "
+              f"{want[precision]}", flush=True)
+        if not (shape == (data.num_nodes, data.num_classes) and finite
+                and line["test_acc"] == want[precision]):
+            raise AssertionError(f"[5e] predict {precision}: logits {shape}, "
+                                 f"finite {finite}, test_acc "
+                                 f"{line['test_acc']} != {want[precision]}")
+        _check_hops(launches, form, cfg.order)
+        res[precision] = {"launches": launches, "wall_s": wall,
+                          **seconds["predict_seconds"]}
+    return res
+
+
+def serving_entries(seg: dict, d1: dict, serve: dict) -> list:
+    """The kernels line's entries of K2-seg, the quantize split and D1's
+    kernels, launches by path."""
+    runs = d1["launches"]
+    times = d1["times"]
+    seg["launches_by_path"]["d1_scatter"] = runs["scatter_f32"]["coo_spmm"]
+    seg["launches"] = sum(seg["launches_by_path"].values())
+    entries = [seg]
+    rows = (("column_absmax", "grandtpu/dist/spmm_shard.py:341",
+             times["column_absmax"]),
+            ("quantize_with_amax", "grandtpu/dist/spmm_shard.py:342",
+             times["quantize_with_amax"]),
+            ("halo_pack", "grandtpu/dist/halo.py:311",
+             times["halo_pack_int8"] | {"f32_form": times["halo_pack_f32"]}),
+            ("halo_hop", "grandtpu/dist/halo.py:325",
+             times["halo_hop_exact"] | {"f32_form": times["halo_hop_f32"]}))
+    for name, line, t in rows:
+        by_path = {p: la[name] for p, la in runs.items() if la[name]}
+        err = max([d1["err"][p]["vs_plain"][0] for p in by_path] or [0.0])
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "grandtpu_torch/csrc/" + (
+                "halo.cu" if name.startswith("halo") else "csr_spmm_q8.cu"),
+            "replaces": line, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": err, **t,
+            "shape": d1["shape"]})
+    return entries
+
+
 
 def main() -> int:
     t_start = time.time()
@@ -1431,6 +1832,10 @@ def main() -> int:
     mark("3d")
     sweep_launches = precision_sweep(ops)
     mark("7")
+    seg = check_segment(ops)
+    mark("3g")
+    d1 = check_d1(ops)
+    mark("8")
     del ops
     torch.cuda.empty_cache()
     push_amazon = check_push(amazon, amazon_cfg, "3f", ("bucket",))
@@ -1443,13 +1848,16 @@ def main() -> int:
     mark("5c")
     profile_path(amazon_cfg, amazon, "profile-amazon")
     mark("6c")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     r_bucket, bucket_launches = run_amazon_path(amazon, "bucket",
-                                                "amazon-bucket")
+                                                "amazon-bucket", CKPT_DIR)
     print(f"[amazon-bucket] preprocess_s {r_bucket.preprocess_time} with the "
           f"bucket push on the card against {r_native.preprocess_time} with "
           f"native (5c); test_acc {r_bucket.test_acc} (5c: "
           f"{r_native.test_acc}; anchor 0.996, not gated)", flush=True)
     mark("5d")
+    serve = run_serving(r_bucket, amazon, os.path.join(CKPT_DIR, "best.npz"))
+    mark("5e")
     del amazon
 
     k1["launches_by_path"] = {
@@ -1457,11 +1865,15 @@ def main() -> int:
         "amazon": amazon_launches["dropnode_mean"],
         "amazon_bucket": bucket_launches["dropnode_mean"]}
     p1 = push_reddit["launches"]["jax"]
-    k2["launches_by_path"] = {"reddit": launches["csr_spmm_prop"],
-                              "mag": mag_launches["csr_spmm_prop"],
-                              "amazon": amazon_launches["csr_spmm_prop"],
-                              "sweep": sweep_launches["csr_spmm_prop"],
-                              "p1_reddit": p1["csr_spmm_prop"]}
+    k2["launches_by_path"] = {
+        "reddit": launches["csr_spmm_prop"],
+        "mag": mag_launches["csr_spmm_prop"],
+        "amazon": amazon_launches["csr_spmm_prop"],
+        "sweep": sweep_launches["csr_spmm_prop"],
+        "p1_reddit": p1["csr_spmm_prop"],
+        "d1_all_gather_f32": d1["launches"]["all_gather_f32"][
+            "csr_spmm_prop"],
+        "serve_f32": serve["f32"]["launches"]["csr_spmm_prop"]}
     k2["p1_over_at"] = {"ms": push_reddit["jax"]["times"]["k2_over_at_ms"],
                         "shape": "A^T of the reddit stand-in, x [233000, "
                                  "512], per hop"}
@@ -1470,12 +1882,19 @@ def main() -> int:
     for k in k3:
         k["launches"] = mag_launches[k["name"]]
     for k in fast:
-        k["launches_by_path"] = {"amazon": amazon_launches[k["name"]],
-                                 "amazon_bucket": bucket_launches[k["name"]],
-                                 "sweep": sweep_launches[k["name"]]}
+        k["launches_by_path"] = {
+            "amazon": amazon_launches[k["name"]],
+            "amazon_bucket": bucket_launches[k["name"]],
+            "sweep": sweep_launches[k["name"]],
+            "serve_auto": serve["auto"]["launches"][k["name"]],
+            **{f"d1_{run}": la[k["name"]]
+               for run, la in d1["launches"].items() if la[k["name"]]}}
         k["launches"] = sum(k["launches_by_path"].values())
     pushes = push_entries(push_reddit, push_amazon, bucket_launches)
-    print(json.dumps({"kernels": [k1, k2, *fast, *k3, *pushes]}))
+    served = serving_entries(seg, d1, serve)
+    print(json.dumps({"serving": serve, "d1": {
+        k: d1[k] for k in ("err", "wall_s", "compression")}}))
+    print(json.dumps({"kernels": [k1, k2, *fast, *k3, *pushes, *served]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Experiment driver CLI (port of ``grandtpu/cli/main.py``: ``run`` and
-``presets``; ``predict`` and ``bench`` are not ported yet).
+"""Experiment CLI (port of ``grandtpu/cli/main.py``: ``run``,
+``predict`` and ``presets``; ``bench`` is not ported yet).
 
     python -m grandtpu_torch.cli.main run --preset reddit \
         --dataset synth:233000:41:602 --epochs 2          # on the GPU
@@ -7,6 +7,10 @@
         --epochs 5 --device cpu                           # plain versions
     python -m grandtpu_torch.cli.main run --preset mag_scholar_c \
         --dataset synth:1000000:8:2780000:sparse --epochs 5   # MAG engine
+    python -m grandtpu_torch.cli.main run --dataset synth:400:4:32 \
+        --ckpt-dir /tmp/c --device cpu                    # writes best.npz
+    python -m grandtpu_torch.cli.main predict --dataset synth:400:4:32 \
+        --ckpt /tmp/c/best.npz --device cpu [--num-devices 2]
     python -m grandtpu_torch.cli.main presets
 
 Every GrandConfig field is overridable via a --flag of the same name
@@ -19,6 +23,7 @@ import argparse
 import dataclasses
 import json
 import sys
+import time
 
 import numpy as np
 
@@ -91,6 +96,99 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_predict(args) -> int:
+    """Offline serving: load a checkpoint (the port's or grandtpu's), classify
+    every node after exact full-graph propagation, on one device or
+    row-partitioned over ``--num-devices`` shards, and write the logits and
+    predictions to an npz. Prints grandtpu's JSON line on stdout and the
+    wall time by phase (data, checkpoint, operator build, hops, classify)
+    on stderr."""
+    import torch
+
+    from grandtpu_torch.data import load_data
+    from grandtpu_torch.data.preprocess import add_self_loops_adj
+    from grandtpu_torch.device import resolve_device
+    from grandtpu_torch.infer.classify import (predict_logits,
+                                               predict_logits_sparse)
+    from grandtpu_torch.infer.propagate import exact_propagator
+    from grandtpu_torch.nn.mlp import MLPConfig
+    from grandtpu_torch.nn.sparse_input import PaddedFeatures
+    from grandtpu_torch.train.checkpoint import load_model
+
+    device = resolve_device(args.device)
+    cfg = _build_config(args)
+    seconds = {}
+
+    def lap(name: str, t0: float) -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.time()
+        seconds[name] = now - t0
+        return now
+
+    t = time.time()
+    data = load_data(cfg.dataset, split_seed=cfg.seed1)
+    adj_sl = add_self_loops_adj(data.adj)
+    sparse = cfg.sparse_features or data.has_sparse_features
+    t = lap("data_s", t)
+    # num_features is the attr vocabulary in the sparse case and the dense
+    # feature width otherwise: features.shape[1] either way
+    mlp_cfg = MLPConfig(
+        num_features=data.features.shape[1], num_classes=data.num_classes,
+        hidden=cfg.hidden, nlayers=cfg.nlayers, use_bn=cfg.use_bn,
+        node_norm=cfg.node_norm, input_droprate=cfg.input_droprate,
+        hidden_droprate=cfg.hidden_droprate)
+    model, meta = load_model(args.ckpt, mlp_cfg, sparse=sparse,
+                             device=device)
+    t = lap("checkpoint_s", t)
+    mesh = None
+    if cfg.num_devices > 1:
+        # row-partitioned propagation (all_gather or halo exchange)
+        from grandtpu_torch.dist import dist_exact_propagator, make_mesh
+        mesh = make_mesh(cfg.num_devices, device=device)
+
+    def propagate(x):
+        t0 = time.time()
+        if mesh is None:
+            prop, precision = exact_propagator(
+                adj_sl, x.shape[1], precision=args.precision, device=device)
+        else:
+            prop, precision = dist_exact_propagator(
+                mesh, adj_sl, x.shape[1], precision=args.precision)
+        t0 = lap("build_s", t0)
+        out = prop(x, mode=cfg.prop_mode, order=cfg.order, alpha=cfg.alpha,
+                   precision=precision)
+        lap("hops_s", t0)
+        return out
+
+    if sparse:
+        padded = PaddedFeatures.from_csr(data.features)
+        logits = predict_logits_sparse(
+            model, padded.attr_cols, padded.attr_vals, adj_sl,
+            mode=cfg.prop_mode, order=cfg.order, alpha=cfg.alpha,
+            propagate=propagate)
+        # the embeddings and the head, around the propagation
+        lap("classify_s", t)
+        seconds["classify_s"] -= seconds["build_s"] + seconds["hops_s"]
+    else:
+        prop = propagate(torch.as_tensor(
+            np.asarray(data.features, np.float32), device=device))
+        t = time.time()
+        logits = predict_logits(model, prop)
+        lap("classify_s", t)
+    preds = logits.argmax(1)
+    acc = float(np.equal(preds[data.idx_test],
+                         data.labels_int[data.idx_test]).mean())
+    out = args.output or f"predictions_{cfg.dataset.replace(':', '_')}.npz"
+    np.savez(out, logits=logits, predictions=preds, idx_test=data.idx_test)
+    print(json.dumps({"predict_seconds": seconds, "device": str(device),
+                      "num_devices": cfg.num_devices}), file=sys.stderr)
+    print(json.dumps({"dataset": cfg.dataset, "output": out,
+                      "test_acc": acc,
+                      "ckpt_val_acc": meta.get("best_val_acc")}))
+    return 0
+
+
 def cmd_presets(_args) -> int:
     keep = ("order alpha rmax top_k hidden nlayers lr weight_decay "
             "batch_size unlabel_batch_size lam tem loss warmup "
@@ -115,10 +213,29 @@ def cli(argv=None) -> int:
     p_run.set_defaults(fn=cmd_run)
     p_pre = sub.add_parser("presets", help="list per-dataset presets")
     p_pre.set_defaults(fn=cmd_presets)
+    p_pred = sub.add_parser(
+        "predict", help="classify all nodes from a checkpoint")
+    _add_config_flags(p_pred)
+    p_pred.add_argument("--preset", default=None, choices=sorted(PRESETS),
+                        help="apply this dataset preset's hyperparameters "
+                        "to --dataset")
+    p_pred.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cuda runs the hand-written kernels; cpu runs "
+                        "their plain PyTorch versions")
+    p_pred.add_argument("--ckpt", required=True,
+                        help="checkpoint npz (best.npz from --ckpt-dir)")
+    p_pred.add_argument("--output", default=None, help="output npz path")
+    p_pred.add_argument("--precision", default="f32",
+                        choices=["f32", "bf16", "int8", "auto"],
+                        help="propagation precision: f32 (default), bf16, "
+                        "int8 (quantized gather), or auto (grandtpu's "
+                        "working-set heuristic between int8 and bf16)")
+    p_pred.set_defaults(fn=cmd_predict)
     args = parser.parse_args(argv)
     try:
         return args.fn(args)
-    except (NotImplementedError, KeyError, ValueError) as e:
+    except (NotImplementedError, FileNotFoundError, KeyError,
+            ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
 

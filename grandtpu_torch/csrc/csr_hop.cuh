@@ -1,5 +1,5 @@
 // Shared pieces of the power-iteration hop kernels (csr_spmm.cu,
-// csr_spmm_q8.cu): carry loads, one element or 4 neighbouring ones a lane
+// csr_spmm_q8.cu, halo.cu): carry loads, one element or 4 neighbouring ones a lane
 // (kVec = 4, where F is a multiple of 4 and the arrays aligned to it: one
 // vector load or store instead of four strided ones), and the fused update
 //
@@ -142,6 +142,32 @@ __device__ __forceinline__ void load_x(const __nv_bfloat16* p,
   v[1] = bf16_hi(w.x);
   v[2] = bf16_lo(w.y);
   v[3] = bf16_hi(w.y);
+}
+
+// kVec int8 features of one gathered row, sign-extended (kVec = 4: one
+// 32-bit load, p aligned to 4 bytes).
+__device__ __forceinline__ void load_q(const int8_t* p, int (&v)[1]) {
+  v[0] = __ldg(reinterpret_cast<const signed char*>(p));
+}
+
+__device__ __forceinline__ void load_q(const int8_t* p, int (&v)[4]) {
+  const int w = __ldg(reinterpret_cast<const int*>(p));
+  v[0] = static_cast<int8_t>(w & 0xff);
+  v[1] = static_cast<int8_t>((w >> 8) & 0xff);
+  v[2] = static_cast<int8_t>((w >> 16) & 0xff);
+  v[3] = w >> 24;
+}
+
+// grandtpu's per-column int8 scale, amax / 127 with IEEE division (1 for
+// an all-zero column), and q = clamp(rint(v / scale), +-127), rint rounding
+// half to even as jnp.round does.
+__device__ __forceinline__ float column_scale(float amax) {
+  return amax > 0.0f ? __fdiv_rn(amax, 127.0f) : 1.0f;
+}
+
+__device__ __forceinline__ int8_t quantize_one(float v, float scale) {
+  return static_cast<int8_t>(
+      fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.0f), 127.0f));
 }
 
 // The fused update of kVec neighbouring outputs.

@@ -8,9 +8,12 @@
 //   scale[f] = amax / 127 (1 where amax is 0; rounded to bf16 for bf16 x,
 //   which grandtpu divides in x's dtype); q = clamp(rint(x / scale), +-127)
 //   with IEEE division and round-half-even, so q is bit for bit JAX's.
-//   Three launches: a column-max reduction (per-block partial maxima, then
-//   atomicMax on the float bits, which orders non-negative floats), the
-//   F column scales, then the elementwise quantize.
+//   Three launches behind two entry points: column_absmax, a column-max
+//   reduction (per-block partial maxima, then atomicMax on the float bits,
+//   which orders non-negative floats); quantize_with_amax, the F column
+//   scales, then the elementwise quantize. The row-partitioned int8
+//   propagation (grandtpu/dist/spmm_shard.py:341-344) takes the max of the
+//   shards' maxima between the two.
 // - K2-q8 (spmm_block_q8 / spmm_block_offset_q8 / spmm_split_q8, :460-516):
 //   h = (sum_e bf16(q[col_e, f] * bf16(v_e))) * scale[f], f32 sum. The
 //   product of two bf16 values is exact in f32, so rounding it once equals
@@ -96,18 +99,12 @@ __global__ void column_scale_kernel(const unsigned int* __restrict__ amax_bits,
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= num_features) return;
   const float amax = __uint_as_float(amax_bits[f]);
-  float scale = 1.0f;
-  if (amax > 0.0f) {
-    scale = __fdiv_rn(amax, 127.0f);
-    if (scale_bf16) scale = round_bf16(scale);
-  }
-  col_scale[f] = scale;
+  const float scale = grandtpu::column_scale(amax);
+  col_scale[f] = scale_bf16 && amax > 0.0f ? round_bf16(scale) : scale;
 }
 
-__device__ __forceinline__ int8_t quantize_one(float v, float scale) {
-  return static_cast<int8_t>(
-      fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.0f), 127.0f));
-}
+using grandtpu::load_q;
+using grandtpu::quantize_one;
 
 __device__ __forceinline__ void store_q(int8_t* p, const int8_t (&v)[1]) {
   *p = v[0];
@@ -141,19 +138,6 @@ __global__ void quantize_kernel(const T* __restrict__ x,
     col += col_step;
     if (col >= groups_per_row) col -= groups_per_row;
   }
-}
-
-// kVec int8 features of one gathered row, sign-extended.
-__device__ __forceinline__ void load_q(const int8_t* p, int (&v)[1]) {
-  v[0] = __ldg(reinterpret_cast<const signed char*>(p));
-}
-
-__device__ __forceinline__ void load_q(const int8_t* p, int (&v)[4]) {
-  const int w = __ldg(reinterpret_cast<const int*>(p));
-  v[0] = static_cast<int8_t>(w & 0xff);
-  v[1] = static_cast<int8_t>((w >> 8) & 0xff);
-  v[2] = static_cast<int8_t>((w >> 16) & 0xff);
-  v[3] = w >> 24;
 }
 
 template <int kVec, typename T>
@@ -234,16 +218,22 @@ __global__ void csr_spmm_q8mxu_kernel(const int32_t* __restrict__ indptr,
 }
 
 template <typename T, int kVec>
-int quantize(const void* x, unsigned int* amax_bits, int8_t* q,
-             float* col_scale, int num_rows, int num_features, int scale_bf16,
-             cudaStream_t stream) {
+int absmax(const void* x, unsigned int* amax_bits, int num_rows,
+           int num_features, cudaStream_t stream) {
   const int per_block = (num_rows + kMaxRowBlocks - 1) / kMaxRowBlocks;
   const int rows_per_block = per_block > 8 ? per_block : 8;
   const dim3 grid((num_features + 32 * kVec - 1) / (32 * kVec),
                   (num_rows + rows_per_block - 1) / rows_per_block);
-  const T* xt = static_cast<const T*>(x);
   column_absmax_kernel<T, kVec><<<grid, dim3(32, 8), 0, stream>>>(
-      xt, amax_bits, num_rows, num_features, rows_per_block);
+      static_cast<const T*>(x), amax_bits, num_rows, num_features,
+      rows_per_block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int kVec>
+int quantize(const void* x, const unsigned int* amax_bits, int8_t* q,
+             float* col_scale, int num_rows, int num_features, int scale_bf16,
+             cudaStream_t stream) {
   column_scale_kernel<<<(num_features + 255) / 256, 256, 0, stream>>>(
       amax_bits, col_scale, num_features, scale_bf16);
   const int groups_per_row = num_features / kVec;
@@ -251,7 +241,7 @@ int quantize(const void* x, unsigned int* amax_bits, int8_t* q,
   const int64_t want = (groups + 255) / 256;
   const int64_t blocks = want < 132 * 16 ? want : 132 * 16;
   quantize_kernel<T, kVec><<<static_cast<int>(blocks), 256, 0, stream>>>(
-      xt, col_scale, q, groups, groups_per_row);
+      static_cast<const T*>(x), col_scale, q, groups, groups_per_row);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -287,11 +277,33 @@ int launch(const int32_t* indptr, const int32_t* indices, const float* edge,
 
 // Each returns the cudaError_t of its launches (0 on success).
 
-// x [n, F] f32 (x_bf16 = 0) or bf16; amax_bits [F] zeroed by the caller;
-// writes q [n, F] int8 and col_scale [F] f32. n must be > 0.
-extern "C" int quantize_columns(const void* x, unsigned int* amax_bits,
-                                int8_t* q, float* col_scale, int num_rows,
-                                int num_features, int x_bf16, void* stream) {
+// The quantize in two entry points, so that a row-partitioned caller can
+// take the max of the shards' column maxima between them (grandtpu's
+// lax.pmax, dist/spmm_shard.py:341-344).
+//
+// column_absmax: x [n, F] f32 (x_bf16 = 0) or bf16; amax_bits [F] zeroed
+// by the caller, gets max |x[:, f]| as float bits. n must be > 0.
+extern "C" int column_absmax(const void* x, unsigned int* amax_bits,
+                             int num_rows, int num_features, int x_bf16,
+                             void* stream) {
+  if (num_rows == 0 || num_features == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = grandtpu::carries_vec4(num_features, x, x_bf16);
+  if (x_bf16) {
+    return vec4 ? absmax<__nv_bfloat16, 4>(x, amax_bits, num_rows,
+                                           num_features, s)
+                : absmax<__nv_bfloat16, 1>(x, amax_bits, num_rows,
+                                           num_features, s);
+  }
+  return vec4 ? absmax<float, 4>(x, amax_bits, num_rows, num_features, s)
+              : absmax<float, 1>(x, amax_bits, num_rows, num_features, s);
+}
+
+// quantize_with_amax: the F column scales from amax_bits (rounded to bf16
+// for bf16 x), then q [n, F] int8; writes q and col_scale [F] f32.
+extern "C" int quantize_with_amax(const void* x, const unsigned int* amax_bits,
+                                  int8_t* q, float* col_scale, int num_rows,
+                                  int num_features, int x_bf16, void* stream) {
   if (num_rows == 0 || num_features == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   const bool vec4 = grandtpu::carries_vec4(num_features, x, x_bf16) &&

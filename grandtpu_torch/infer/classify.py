@@ -58,18 +58,25 @@ def embed_all_nodes(table: torch.Tensor, attr_cols: torch.Tensor,
 def predict_logits_sparse(model: nn.Module, attr_cols, attr_vals, adj_sl, *,
                           mode: str = "ppr", order: int = 10,
                           alpha: float = 0.2, batch_size: int = 10000,
+                          propagate=None,
                           precision: str = "f32") -> np.ndarray:
     """Full-graph logits of the MAG model: all-node embeddings in chunks ->
     exact propagation in embedding space -> head. It never forms a dense
     [n, vocab] matrix. ``attr_cols``/``attr_vals`` are the padded features
     [n, P] (arrays or tensors); everything runs on the model's device.
-    ``precision``: that of :func:`exact_propagate` ('f32', 'bf16', 'int8',
-    'auto', 'bf16_carry', ...)."""
+    ``propagate``: an optional override ``embs [n, H] -> propagated [n,
+    H]`` in place of :func:`exact_propagate` (the row-partitioned mesh
+    operator, say); ``precision``: that of :func:`exact_propagate` ('f32',
+    'bf16', 'int8', 'auto', 'bf16_carry', ...) when it is not given."""
     device = model.table.device
     embs = embed_all_nodes(model.table.detach(),
                            torch.as_tensor(attr_cols, device=device),
                            torch.as_tensor(attr_vals, device=device),
                            batch_size)
-    prop = exact_propagate(adj_sl, embs, mode=mode, order=order, alpha=alpha,
-                           precision=precision, device=device)
+    if propagate is None:
+        prop = exact_propagate(adj_sl, embs, mode=mode, order=order,
+                               alpha=alpha, precision=precision,
+                               device=device)
+    else:
+        prop = torch.as_tensor(propagate(embs), device=device)
     return head_logits(model, prop, batch_size)

@@ -8,10 +8,10 @@ With adj already self-looped and D its row sums (``model.py:181-210``):
     single : prop = (D^-1 A)^order X
 
 Backends: 'dense' (``torch.matmul`` on the dense operator, n <= 20000,
-as ``grandtpu`` leaves its dense path to XLA) and 'csr' (the K2 kernels,
+as ``grandtpu`` leaves its dense path to XLA), 'csr' (the K2 kernels,
 in place of ``grandtpu``'s SplitCSR; ``grandtpu``'s name 'block' is
-accepted for it). The 'segment' backend is not ported yet (ROADMAP Queue
-A 4).
+accepted for it) and 'segment' (K2-seg on row-sorted padded COO, no row
+pointers: the low-memory backend, explicit opt-in, as in ``grandtpu``).
 
 Precisions on the 'csr' backend, as in ``grandtpu``: 'f32' (K2), 'bf16'
 (K2-bf16: terms rounded to bf16), 'int8' (per-column int8 quantize each
@@ -19,7 +19,10 @@ hop, then K2-q8mxu when the operator's rows are constant, as D^-1 A's
 are, else K2-q8), 'int8mxu' and 'int8cast' (force one of the two), and
 'auto' (the ``calibrate()`` choice, else :func:`choose_fast_precision`).
 ``exact_propagate`` adds 'bf16_carry': bf16 terms AND bf16 carries (half
-the [n, F] memory). The dense backend ignores the precision.
+the [n, F] memory). The dense backend ignores the precision; so does the
+'segment' one as grandtpu's does ('auto', 'bf16' and 'int8' run its f32
+hop, 'int8mxu' and 'int8cast' raise). 'segment' with bf16 carries raises
+(ROADMAP Queue A 15).
 """
 
 from __future__ import annotations
@@ -31,12 +34,12 @@ import scipy.sparse as sp
 import torch
 
 from grandtpu_torch.device import resolve_device
-from grandtpu_torch.sparse.spmm import (BF16, CSROperator, bf16_round,
-                                        quantize_columns,
+from grandtpu_torch.sparse.spmm import (BF16, CSROperator, PaddedCSR,
+                                        bf16_round, quantize_columns,
                                         row_values_if_constant,
                                         spmm_prop_step, spmm_prop_step_bf16,
                                         spmm_prop_step_q8,
-                                        spmm_prop_step_q8mxu)
+                                        spmm_prop_step_q8mxu, spmm_segment)
 
 DENSE_MAX_NODES = 20000   # grandtpu's dense_threshold: dense at n <= this
 
@@ -48,7 +51,6 @@ INT8_MAX_WORKING_SET_BYTES = 1 << 30
 INT8_MAX_HUB_DEGREE = 8192
 
 PRECISIONS = ("auto", "f32", "bf16", "int8", "int8mxu", "int8cast")
-_SEGMENT = "ROADMAP Queue A 4: K2-seg"
 
 
 def choose_fast_precision(num_rows: int, num_features: int,
@@ -117,11 +119,18 @@ class Propagator:
             if rv is not None:
                 self.row_val = torch.as_tensor(rv, device=self.device)
         elif backend == "segment":
-            raise NotImplementedError(
-                f"backend 'segment' is not ported yet ({_SEGMENT})")
+            if dtype == BF16:
+                # grandtpu's segment hop then scatter-adds in bf16, in an
+                # order atomics cannot keep
+                raise NotImplementedError(
+                    "backend 'segment' with bf16 carries (bf16_carry) is not "
+                    "ported yet (ROADMAP Queue A 15: K2-seg with bf16 "
+                    "carries)")
+            self.adj_op = PaddedCSR.from_scipy(a_norm, device=self.device)
         else:
             raise ValueError(f"unknown propagation backend {backend!r} "
-                             "(the port has 'dense' and 'csr' = 'block')")
+                             "(the port has 'dense', 'csr' = 'block' and "
+                             "'segment')")
         self.backend = backend
         self.dtype = dtype
         self.num_rows = n
@@ -173,14 +182,15 @@ class Propagator:
     def _resolve(self, precision: str, num_features: int) -> str | None:
         """The form the hops run: 'f32', 'bf16', 'int8mxu' or 'int8cast'
         on the 'csr' backend ('int8' is K2-q8mxu where the operator's rows
-        are constant, else K2-q8), None on the dense one."""
+        are constant, else K2-q8), 'f32' on the 'segment' one, None on the
+        dense one."""
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r}")
         if self.backend != "csr":
             if precision in ("int8mxu", "int8cast"):
                 raise ValueError(f"{precision} applies to the 'csr' "
                                  "(= 'block') backend only")
-            return None
+            return "f32" if self.backend == "segment" else None
         if precision == "auto":
             precision = self._auto_precision or choose_fast_precision(
                 self.num_rows, num_features, max_degree=self.max_degree)
@@ -194,7 +204,15 @@ class Propagator:
 
     def _hop(self, precision: str | None, cur_in, cur_out, acc,
              scale: float, accumulate: bool) -> None:
-        if precision is None:          # the dense backend
+        if self.backend == "segment":
+            # the carries are [n + 1, F], the last row K2-seg's discard
+            # row; the update stays outside, as in grandtpu
+            h = spmm_segment(self.adj_op, cur_in[:-1], out=cur_out)
+            if scale != 1.0:
+                h.mul_(scale)
+            if accumulate:
+                acc.add_(h)
+        elif precision is None:          # the dense backend
             h = torch.matmul(self.adj_op, cur_in)
             if cur_out.dtype == BF16:
                 h, scale = h.to(BF16), bf16_round(scale)
@@ -244,6 +262,9 @@ class Propagator:
             cur_in, acc, scale, accumulate = x.clone(), None, 1.0, False
         else:
             raise ValueError(f"unknown propagation mode {mode!r}")
+        if self.backend == "segment":
+            # both carries get a last row, K2-seg's discard row
+            cur_in = torch.cat([cur_in, cur_in[:1]])
         cur_out = torch.empty_like(cur_in)
         for _ in range(order):
             self._hop(precision, cur_in, cur_out, acc, scale, accumulate)
@@ -254,7 +275,7 @@ class Propagator:
             return acc
         if mode == "avg":
             return acc.div_(rnd(order + 1))
-        return cur_in
+        return cur_in[:-1] if self.backend == "segment" else cur_in
 
 
 def exact_propagate(adj: sp.spmatrix, features, *, mode: str = "ppr",

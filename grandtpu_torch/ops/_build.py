@@ -41,8 +41,18 @@ _SIGNATURES = {
     # indptr, indices, values, x, y, acc, num_rows, num_features, scale,
     # accumulate, term_bf16, carry_bf16, stream
     "csr_spmm_prop": [_P] * 6 + [_I, _I, ctypes.c_float, _I, _I, _I, _P],
+    # x, amax_bits, num_rows, num_features, x_bf16, stream
+    "column_absmax": [_P, _P, _I, _I, _I, _P],
     # x, amax_bits, q, col_scale, num_rows, num_features, x_bf16, stream
-    "quantize_columns": [_P] * 4 + [_I, _I, _I, _P],
+    "quantize_with_amax": [_P] * 4 + [_I, _I, _I, _P],
+    # rows, cols, vals, x, y, num_edges, num_rows, num_features, stream
+    "coo_spmm": [_P] * 5 + [ctypes.c_int64, _I, _I, _P],
+    # x, idx, amax, col_scale, out, num_out, num_features, quantize, stream
+    "halo_pack": [_P] * 5 + [_I, _I, _I, _P],
+    # d_ptr, d_idx, d_val, x, h_ptr, h_idx, h_val, recv, col_scale,
+    # row_val, y, acc, num_rows, num_features, scale, accumulate, form,
+    # stream
+    "halo_hop": [_P] * 12 + [_I, _I, ctypes.c_float, _I, _I, _P],
     # indptr, indices, values | row_val, q, col_scale, y, acc, num_rows,
     # num_features, scale, accumulate, carry_bf16, stream
     "csr_spmm_q8": [_P] * 7 + [_I, _I, ctypes.c_float, _I, _I, _P],

@@ -1,0 +1,163 @@
+"""Checkpoints in grandtpu's npz format (port of
+``grandtpu/train/checkpoint.py``), so that each package reads the other's.
+
+A checkpoint is one npz of flat ``"{section}|{path}"`` arrays, ``section``
+one of ``params``, ``state`` and ``opt``, and ``path`` a leaf's place in
+grandtpu's pytree as ``jax.tree_util.tree_flatten_with_path`` prints it:
+dict keys as ``['fcs']``, list indices as ``[0]``, joined by ``/`` (for
+example ``params|['fcs']/[0]/['w']``). ``__meta__`` holds the JSON bytes of
+``num_batch``, ``best_val_acc``, ``best_val_loss`` and ``__row_padded__``
+(leaves a mesh placement row-padded, which a restore may slice back).
+
+The trees are grandtpu's, as numpy: :func:`grandtpu_torch.convert.mlp_to_jax`
+and ``mag_to_jax`` make them from the port's modules, ``mlp_from_jax`` and
+``mag_from_jax`` build modules from them (:func:`load_model`). The orbax
+backend is not ported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+_ORBAX = "ROADMAP Queue A 5: the orbax checkpoint backend"
+
+
+class CheckpointShapeError(ValueError):
+    """A checkpoint leaf does not fit the restore template (names the leaf)."""
+
+
+def _flatten_with_paths(tree, prefix: str = "") -> dict:
+    """``{path: leaf}`` in grandtpu's key order and spelling (dict keys
+    sorted, as JAX flattens them)."""
+    if isinstance(tree, dict):
+        items = [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
+    else:
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for key, sub in items:
+        out.update(_flatten_with_paths(sub, f"{prefix}/{key}" if prefix
+                                       else key))
+    return out
+
+
+def _unflatten(template, leaves: dict, prefix: str = ""):
+    if isinstance(template, dict):
+        return {k: _unflatten(template[k], leaves,
+                              f"{prefix}/[{k!r}]" if prefix else f"[{k!r}]")
+                for k in template}
+    if isinstance(template, (list, tuple)):
+        return type(template)(
+            _unflatten(v, leaves, f"{prefix}/[{i}]" if prefix else f"[{i}]")
+            for i, v in enumerate(template))
+    return leaves[prefix]
+
+
+def save_checkpoint(path: str, *, params, state, opt_state=None,
+                    num_batch: int = 0, best_val_acc: float = 0.0,
+                    best_val_loss: float = float("inf"),
+                    extra: dict | None = None,
+                    row_padded: dict[str, int] | None = None,
+                    backend: str = "npz") -> None:
+    """Write the ``params``/``state``/``opt_state`` trees (numpy leaves, in
+    grandtpu's layout) and the meta to ``path`` (an npz)."""
+    if backend == "orbax":
+        raise NotImplementedError(f"ckpt_backend 'orbax' is not ported yet "
+                                  f"({_ORBAX})")
+    if backend != "npz":
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
+    arrays = {}
+    for name, tree in (("params", params), ("state", state),
+                       ("opt", opt_state)):
+        if tree is not None:
+            for k, v in _flatten_with_paths(tree).items():
+                arrays[f"{name}|{k}"] = v
+    meta = {"num_batch": num_batch, "best_val_acc": best_val_acc,
+            "best_val_loss": best_val_loss,
+            "__row_padded__": row_padded or {}, **(extra or {})}
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
+                                       dtype=np.uint8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **arrays)
+
+
+def _orbax_dir(path: str) -> str:
+    return path[: -len(".npz")] if path.endswith(".npz") else path
+
+
+def load_checkpoint(path: str, *, params_template, state_template,
+                    opt_template=None, backend: str | None = None):
+    """Restore into the shapes of the templates (trees of arrays in
+    grandtpu's layout). Returns (params, state, opt_state, meta) as numpy
+    trees. A leaf whose shape differs raises :class:`CheckpointShapeError`,
+    unless the meta records it as row-padded from the template's leading
+    dimension: then its first rows are taken, as in grandtpu."""
+    if backend is None:
+        backend = "orbax" if os.path.isdir(_orbax_dir(path)) else "npz"
+    if backend != "npz":
+        raise NotImplementedError(f"ckpt_backend {backend!r} is not ported "
+                                  f"yet ({_ORBAX})")
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    with np.load(path) as d:
+        arrays = {k: d[k] for k in d.files}
+    meta = json.loads(bytes(arrays.pop("__meta__")).decode())
+    row_padded = meta.get("__row_padded__") or {}
+
+    def restore(name, template):
+        if template is None:
+            return None
+        leaves = {}
+        for k, ref in _flatten_with_paths(template).items():
+            full_key = f"{name}|{k}"
+            try:
+                arr = arrays[full_key]
+            except KeyError:
+                raise CheckpointShapeError(
+                    f"{full_key}: missing from checkpoint {path!r}") from None
+            if arr.shape != ref.shape:
+                orig = row_padded.get(full_key)
+                if (orig is not None and arr.ndim >= 2
+                        and arr.ndim == ref.ndim
+                        and arr.shape[1:] == ref.shape[1:]
+                        and ref.shape[0] == orig
+                        and arr.shape[0] > ref.shape[0]):
+                    arr = arr[: ref.shape[0]]
+                else:
+                    raise CheckpointShapeError(
+                        f"{full_key}: checkpoint shape {arr.shape} does not"
+                        f" match template {ref.shape}"
+                        + (f" (saved row-padded from dim0={orig})"
+                           if orig is not None else ""))
+            leaves[k] = arr
+        return _unflatten(template, leaves)
+
+    return (restore("params", params_template),
+            restore("state", state_template),
+            restore("opt", opt_template), meta)
+
+
+def model_trees(model) -> tuple:
+    """(params, state) of an ``MLP`` or ``MagMLP`` in grandtpu's layout."""
+    from grandtpu_torch.convert import mag_to_jax, mlp_to_jax
+    from grandtpu_torch.nn.mag_mlp import MagMLP
+
+    return (mag_to_jax if isinstance(model, MagMLP) else mlp_to_jax)(model)
+
+
+def load_model(path: str, mlp_cfg, *, sparse: bool, device="cuda"):
+    """The ``MLP`` (or, ``sparse``, the ``MagMLP``) of ``mlp_cfg`` with the
+    weights of the checkpoint at ``path``, on ``device``; and the meta."""
+    from grandtpu_torch.convert import mag_from_jax, mlp_from_jax
+    from grandtpu_torch.nn.mag_mlp import MagMLP
+    from grandtpu_torch.nn.mlp import MLP
+
+    template = model_trees((MagMLP if sparse else MLP)(mlp_cfg))
+    params, state, _, meta = load_checkpoint(
+        path, params_template=template[0], state_template=template[1])
+    build = mag_from_jax if sparse else mlp_from_jax
+    return build(params, state, mlp_cfg, device), meta

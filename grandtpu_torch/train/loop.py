@@ -5,8 +5,10 @@ Around the step, it does what the reference's epoch x batch loop does
 upload them once, evaluate every ``eval_batch`` steps, early-stop on
 patience with the acc/both rules, and keep the best state. It makes the
 same ``RandomState`` calls in the same order as ``grandtpu``, so both
-packages see identical batch schedules. Checkpointing, resume, metrics
-streams, scan-rolled steps and preemption are not ported
+packages see identical batch schedules. With ``ckpt_dir`` it writes
+``{ckpt_dir}/best.npz`` at every eval that improves, as grandtpu does
+(``grandtpu/train/loop.py:273-281``). Resume, periodic full-state saves, metrics streams,
+scan-rolled steps and preemption are not ported
 (``trainer.check_supported`` rejects their config fields).
 """
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from grandtpu_torch.config import GrandConfig
+from grandtpu_torch.train.checkpoint import model_trees, save_checkpoint
 
 
 def pad_batch(idx: np.ndarray, size: int):
@@ -33,11 +36,13 @@ def pad_batch(idx: np.ndarray, size: int):
 def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
                       step_fn, eval_fn, snapshot, train_positions,
                       sample_positions, train_labels_all, device,
-                      verbose):
+                      verbose, model=None):
     """Run the early-stopped training.
 
     step_fn(batch, num_batch) -> metrics; eval_fn() -> (val_loss, val_acc);
-    snapshot() -> a copy of the model state, kept for the best eval.
+    snapshot() -> a copy of the model state, kept for the best eval;
+    ``model``: the trained module, saved at each improving eval when
+    ``cfg.ckpt_dir`` is set.
     Returns a dict with the best eval (``best``: acc, loss, state, batch,
     epoch), ``num_batch``, per-step host ``batch_times`` and ``history``.
     """
@@ -98,6 +103,14 @@ def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
                                     state=snapshot(), batch=num_batch,
                                     epoch=epoch)
                         bad_counter = 0
+                        if cfg.ckpt_dir:
+                            params, state = model_trees(model)
+                            save_checkpoint(
+                                f"{cfg.ckpt_dir}/best.npz", params=params,
+                                state=state, num_batch=num_batch,
+                                best_val_acc=best["acc"],
+                                best_val_loss=best["loss"],
+                                backend=cfg.ckpt_backend)
                 else:
                     bad_counter += 1
                 if bad_counter >= cfg.patience:

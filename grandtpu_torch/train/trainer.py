@@ -29,23 +29,26 @@ from grandtpu_torch.train.loop import run_training_loop
 from grandtpu_torch.train.step import (StepConfig, build_eval_step,
                                        build_train_step, make_optimizer)
 
-_CKPT = "ROADMAP Queue A: checkpoint/resume/metrics and the predict CLI"
+_CKPT = "ROADMAP Queue A 5: resume, periodic saves, metrics, profiles"
 
 
 def check_supported(cfg: GrandConfig) -> None:
     """Raise NotImplementedError for config fields whose feature the port
-    does not have yet, naming the ROADMAP item; nothing is ignored."""
+    does not have yet, naming the ROADMAP item; nothing is ignored.
+    ``ckpt_dir`` (the best-weights npz) is ported."""
     unported = [
-        (cfg.ckpt_dir is not None, "ckpt_dir", _CKPT),
+        (cfg.ckpt_backend != "npz", f"ckpt_backend {cfg.ckpt_backend!r}",
+         "ROADMAP Queue A 5: the orbax checkpoint backend"),
         (cfg.resume, "resume", _CKPT),
         (cfg.save_every != 0, "save_every", _CKPT),
         (cfg.metrics_path is not None, "metrics_path", _CKPT),
         (cfg.profile_dir is not None, "profile_dir", _CKPT),
-        (cfg.push_cache_dir is not None, "push_cache_dir", _CKPT),
+        (cfg.push_cache_dir is not None, "push_cache_dir",
+         "ROADMAP Queue A 5: the push cache"),
         (cfg.scan_steps, "scan_steps",
          "ROADMAP Queue A: CUDA-graph step groups"),
         (cfg.num_devices > 1, "num_devices > 1",
-         "ROADMAP Queue A: multi-GPU"),
+         "ROADMAP Queue A 8: data-parallel training on a mesh (D2)"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -145,7 +148,7 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
         train_positions=tk.row_positions(data.idx_train),
         sample_positions=tk.row_positions(idx_sample),
         train_labels_all=labels_int[data.idx_train],
-        device=device, verbose=verbose)
+        device=device, verbose=verbose, model=model)
     best = out["best"]
     model.load_state_dict(best["state"])
 

@@ -174,7 +174,7 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
         train_positions=tk.row_positions(data.idx_train),
         sample_positions=tk.row_positions(idx_sample),
         train_labels_all=labels_int[data.idx_train],
-        device=device, verbose=verbose)
+        device=device, verbose=verbose, model=model)
     best = out.pop("best")
     model.load_state_dict(best.pop("state"))
 

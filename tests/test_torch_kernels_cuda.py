@@ -14,7 +14,9 @@ and bf16 carries, widths that are not a multiple of 4 or 32, an all-zero
 column, a 9000-nonzero hub row and a one-row operator; for the GFPush
 kernels (top-k, P1's push mask, P2's expansion and compaction) ties, rows
 with fewer than k positives, a dangling node, a 9000-nonzero hub source and
-determinism.
+determinism; for K2-seg (coo_spmm), D1's halo_pack and halo_hop (each
+form) and the quantize split (column_absmax, quantize_with_amax) 4-wide and
+1-wide lanes, a 9000-nonzero hub row, empty rows and an empty shard.
 """
 
 import functools
@@ -525,3 +527,210 @@ def test_bucket_push_kernels_match_plain(device, rmax):
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b) and torch.equal(a, c)
     assert torch.equal(got[0][0], got[0][4])     # the same source twice
+
+
+# K2-seg, D1's halo kernels and the quantize split
+
+
+def _seg_graph(n, hub, seed=5):
+    """A random row-sorted graph with empty rows and, with ``hub``, a
+    9000-nonzero row 3 that spans hundreds of the kernel's edge runs."""
+    rs = np.random.RandomState(seed)
+    adj = sp.random(n, n, density=min(1.0, 5.0 / n), random_state=rs,
+                    format="lil", dtype=np.float32)
+    if hub:
+        adj[3, rs.permutation(n)[:9000]] = rs.rand(9000) + 0.1
+    adj[[0, n // 2], :] = 0
+    adj = adj.tocsr()
+    adj.data = (np.abs(adj.data) + 0.1).astype(np.float32)
+    return adj
+
+
+@pytest.mark.parametrize("n,nfeat,hub", [(50, 1, False), (300, 33, False),
+                                         (9500, 100, True), (9500, 64, True),
+                                         (2, 4, False)])
+def test_coo_spmm_kernel_matches_plain(device, n, nfeat, hub):
+    """K2-seg against its plain version: rows inside one edge run add in
+    edge order, as the plain version does; a row over several runs adds
+    their partial sums with atomics (in any order where there are more
+    than two: the hub row), so the limit is TOL, not bit for bit."""
+    from grandtpu_torch.sparse.spmm import (PaddedCSR, spmm_segment,
+                                            spmm_segment_plain)
+    adj = _seg_graph(n, hub)
+    padded = PaddedCSR.from_scipy(adj, device=device)
+    x = torch.randn(n, nfeat, device=device,
+                    generator=torch.Generator(device).manual_seed(0))
+    before = spmm_segment.launches
+    out = torch.full((n + 1, nfeat), 3.0, device=device)
+    got = spmm_segment(padded, x, out=out)
+    torch.cuda.synchronize()
+    assert spmm_segment.launches == before + 1
+    want = spmm_segment_plain(padded, x)
+    assert _rel_err(got, want) <= TOL
+    assert float(out[-1].abs().max()) == 0.0          # the discard row
+    assert float(got[0].abs().max()) == 0.0           # an empty row
+    # rows of at most 32 edges span at most two runs: deterministic sums;
+    # and the library's product
+    again = spmm_segment(padded, x)
+    inside = torch.ones(n, dtype=torch.bool, device=device)
+    if hub:
+        inside[3] = False
+    assert torch.equal(again[inside], got[inside])
+    a = torch.sparse_coo_tensor(
+        torch.stack([padded.rows.long(), padded.cols.long()]), padded.vals,
+        (n + 1, n)).coalesce()
+    assert _rel_err(got, torch.sparse.mm(a, x)[:n]) <= TOL
+
+
+def test_coo_spmm_wrapper_checks(device):
+    from grandtpu_torch.sparse.spmm import PaddedCSR, spmm_segment
+    adj = _seg_graph(40, False)
+    padded = PaddedCSR.from_scipy(adj, device=device)
+    with pytest.raises(TypeError):
+        spmm_segment(padded, torch.zeros(40, 4, dtype=torch.float64,
+                                         device=device))
+    with pytest.raises(ValueError):
+        spmm_segment(padded, torch.zeros(41, 4, device=device))
+    with pytest.raises(ValueError):
+        spmm_segment(padded, torch.zeros(40, 4, device=device),
+                     out=torch.zeros(40, 4, device=device))
+    rows = padded.rows.clone()
+    i = int(torch.nonzero(rows[1:] > rows[:-1])[0, 0])
+    rows[[i, i + 1]] = rows[[i + 1, i]]
+    with pytest.raises(ValueError, match="sorted"):
+        PaddedCSR(rows, padded.cols, padded.vals, 40, padded.chunk)
+
+
+@pytest.mark.parametrize("n,nfeat", [(1, 3), (300, 33), (9500, 100)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_split_equals_quantize_columns(device, n, nfeat, dtype):
+    """column_absmax then quantize_with_amax: quantize_columns' launches,
+    bit for bit; and from a larger (global) amax, the plain version's."""
+    from grandtpu_torch.sparse.spmm import (column_absmax,
+                                            column_absmax_plain,
+                                            quantize_with_amax,
+                                            quantize_with_amax_plain)
+    x = _carry(torch.randn(n, nfeat, device=device,
+                           generator=torch.Generator(device).manual_seed(1)),
+               dtype)
+    x[:, 0] = 0.0
+    amax = column_absmax(x)
+    assert torch.equal(amax, column_absmax_plain(x))
+    q, scale = quantize_with_amax(x, amax)
+    q_c, scale_c = quantize_columns(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_c) and torch.equal(scale, scale_c)
+    # maxima in x's dtype, as every caller's are (a shard's, a mesh's max)
+    wider = (amax * 1.7 + 0.3).to(x.dtype).float()
+    q, scale = quantize_with_amax(x, wider)
+    q_p, scale_p = quantize_with_amax_plain(x, wider)
+    assert torch.equal(q, q_p) and torch.equal(scale, scale_p)
+
+
+def _halo_case(device, nfeat, hub, empty_shard):
+    """A 3-shard halo graph and random carries on the card. With
+    ``empty_shard`` the row blocks are so large (rows_per_shard rounded up
+    to them) that two shards hold every row and shard 2 only padding."""
+    from grandtpu_torch.dist import HaloShardedGraph, make_mesh
+    from grandtpu_torch.dist.halo import HaloPropagator
+    n = 9500 if hub else 300
+    # unit weights: D^-1 A's rows are constant, as the exact form needs
+    adj = ((_seg_graph(n, hub, seed=6) + sp.eye(n, format="csr")) > 0)
+    block = (4800 if hub else 160) if empty_shard else 8
+    g = HaloShardedGraph.build(adj.astype(np.float32).tocsr(), 3,
+                               rows_per_block=block)
+    assert (g.rows_per_shard * 2 >= n) == empty_shard
+    prop = HaloPropagator(make_mesh(3, devices=[device] * 3), g)
+    gen = torch.Generator(device).manual_seed(2)
+    xs = [torch.randn(g.rows_per_shard, nfeat, device=device, generator=gen)
+          for _ in range(3)]
+    return prop, xs
+
+
+@pytest.mark.parametrize("nfeat", [1, 33, 100])
+@pytest.mark.parametrize("quant", [False, True])
+def test_halo_pack_kernel_matches_plain(device, nfeat, quant):
+    """The fused gather (and quantize) is bit for bit the plain version's."""
+    from grandtpu_torch.dist.halo import halo_pack, halo_pack_plain
+    prop, xs = _halo_case(device, nfeat, False, False)
+    amax = (torch.stack([x.abs().amax(0) for x in xs]).amax(0)
+            if quant else None)
+    for x, idx in zip(xs, prop.send_idx):
+        before = halo_pack.launches
+        send, scale = halo_pack(x, idx, amax)
+        torch.cuda.synchronize()
+        assert halo_pack.launches == before + 1
+        want, want_scale = halo_pack_plain(x, idx, amax)
+        assert send.dtype == want.dtype and torch.equal(send, want)
+        assert (scale is None) == (not quant)
+        if quant:
+            assert torch.equal(scale, want_scale)
+
+
+@pytest.mark.parametrize("form", ["f32", "cast", "exact"])
+@pytest.mark.parametrize("nfeat,hub,empty_shard", [
+    (1, False, False), (33, False, True), (100, True, False),
+    (64, True, True)])
+@pytest.mark.parametrize("accumulate", [True, False])
+def test_halo_hop_kernel_matches_plain(device, form, nfeat, hub,
+                                       empty_shard, accumulate):
+    """halo_hop against its plain version, each form: both add each partial
+    sum in edge order with rounded products, so a hop is bit for bit the
+    plain one; the hub row (9000 nonzeros, diagonal and halo) included."""
+    from grandtpu_torch.dist.halo import (halo_hop, halo_hop_plain,
+                                          halo_pack)
+    prop, xs = _halo_case(device, nfeat, hub, empty_shard)
+    S, c = 3, prop.g.halo_per_pair
+    quant = form != "f32"
+    amax = (torch.stack([x.abs().amax(0) for x in xs]).amax(0)
+            if quant else None)
+    packs = [halo_pack(x, idx, amax) for x, idx in zip(xs, prop.send_idx)]
+    recv = prop.mesh.all_to_all([p.view(S, c, -1) for p, _ in packs])
+    for s in range(S):
+        row_val = prop.row_val[s] if form == "exact" else None
+        acc = torch.randn_like(xs[s]) if accumulate else None
+        outs = []
+        for hop in (halo_hop, halo_hop_plain):
+            y = torch.empty_like(xs[s])
+            a = acc.clone() if accumulate else None
+            before = halo_hop.launches
+            hop(prop.diag[s], prop.halo[s], xs[s], recv[s].view(S * c, -1),
+                y, a, 0.8, accumulate, packs[s][1], row_val)
+            torch.cuda.synchronize()
+            if hop is halo_hop:
+                assert halo_hop.launches == before + (1 if xs[s].numel()
+                                                      else 0)
+            outs.append((y, a))
+        assert torch.equal(outs[0][0], outs[1][0])
+        if accumulate:
+            assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("variant,precision", [
+    ("scatter", "f32"), *((v, p) for v in ("block", "halo")
+                          for p in ("f32", "bf16", "int8", "int8cast"))])
+def test_sharded_propagators_match_plain_runs(device, variant, precision):
+    """A whole 4-hop run of each D1 variant on a 4-shard mesh on the card
+    against the same run with the plain versions (plain=True)."""
+    from grandtpu_torch.dist import (BlockShardedGraph,
+                                     BlockShardedPropagator,
+                                     HaloPropagator, HaloShardedGraph,
+                                     ShardedGraph, ShardedPropagator,
+                                     make_mesh)
+    adj = _seg_graph(3000, False, seed=7) + sp.eye(3000, format="csr")
+    mesh = make_mesh(4, devices=[device] * 4)
+    x = torch.randn(3000, 36, device=device,
+                    generator=torch.Generator(device).manual_seed(3))
+    if variant == "scatter":
+        prop, kw = ShardedPropagator(mesh, ShardedGraph.build(adj, 4)), {}
+    else:
+        cls, gcls = ((BlockShardedPropagator, BlockShardedGraph)
+                     if variant == "block" else
+                     (HaloPropagator, HaloShardedGraph))
+        prop = cls(mesh, gcls.build(adj, 4, rows_per_block=64))
+        kw = {"precision": precision}
+    got = prop(x, order=4, alpha=0.2, **kw)
+    want = prop(x, order=4, alpha=0.2, plain=True, **kw)
+    torch.cuda.synchronize()
+    limit = TOL if precision in ("f32", "bf16") else 5e-3
+    assert _rel_err(got, want) <= limit

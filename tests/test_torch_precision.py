@@ -352,8 +352,12 @@ def test_grandtpu_keywords_work_on_the_port(small_graph):
         w = np.asarray(jprop(feats, mode="avg", order=3, precision="int8"))
         g = port(feats, mode="avg", order=3, precision="int8")
         assert within_one_bf16_ulp(g.float().numpy(), w.astype(np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 4"):
-        exact_propagate(adj, feats, backend="segment", device="cpu")
+    seg = dict(kw, backend="segment")
+    want = np.asarray(jax_exact_propagate(adj, feats, **seg))
+    assert rel(exact_propagate(adj, feats, device="cpu", **seg).numpy(),
+               want) <= 1e-5
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 15"):
+        Propagator(adj, backend="segment", dtype=jnp.bfloat16, device="cpu")
     with pytest.raises(TypeError, match="bfloat16"):
         Propagator(adj, dtype=np.float64, device="cpu")
 

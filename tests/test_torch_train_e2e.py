@@ -132,7 +132,7 @@ def test_cli_presets_and_unported_flag(capsys):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("ckpt_dir", "ckpts"), ("resume", True), ("save_every", 5),
+    ("ckpt_backend", "orbax"), ("resume", True), ("save_every", 5),
     ("metrics_path", "m.jsonl"), ("profile_dir", "prof"),
     ("scan_steps", True), ("num_devices", 2), ("push_cache_dir", "cache"),
 ])
@@ -193,6 +193,8 @@ import importlib, pkgutil, sys
 import grandtpu_torch
 for m in pkgutil.walk_packages(grandtpu_torch.__path__, "grandtpu_torch."):
     importlib.import_module(m.name)
+import grandtpu_torch.cli.main, grandtpu_torch.dist
+import grandtpu_torch.train.checkpoint
 import chip_smoke
 bad = sorted(n for n in sys.modules if n.split(".")[0] in
              ("jax", "jaxlib", "optax", "grandtpu"))
