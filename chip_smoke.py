@@ -128,6 +128,35 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     ``order`` times; the wall time split into data, checkpoint, operator
     build, hops and classify.
 
+Data-parallel training (D2) on meshes of the one card:
+
+3i. (after 3e) ``sharded_gfpush`` on ``make_mesh(4, devices=[cuda:0] *
+    4)`` over 3e's 12,050 sources, a path of its own: P1's mask, K2 and
+    top-k launched exactly per shard and block, held to 3e's one-card P1
+    under the row rule (max(1e-5, 2 rmax)); sources/s beside 3e's P1;
+9.  (after 6) the dense engine on ``make_mesh(2, devices=[cuda:0] * 2)``:
+    one step of the reddit preset (every drop rate on) against one one-card
+    step from the same state and generator seed (metrics, gradients, Adam
+    moments and BN buffers within 1e-5 of their tensors' largest element,
+    parameter values of the model's largest), both steps' times and the
+    bytes the collectives would move between cards; then ``train(cfg,
+    mesh=...)`` for 2 epochs as a path: K1 once a shard per step and eval,
+    D1's K2 ``order`` x 2 times, nothing else; test accuracy beside 5's;
+3h. (after 3c) K3's vocab-window forms (``embed_prop_window`` forward and
+    backward) on the 4 windows of the 2.78M-word table at the MAG step's
+    shapes (every row of the batch over each window), against their plain
+    versions (<= 1e-5), the windows' forwards summed against the full K3 and
+    their gradients joined against the full backward (<= 1e-5), the padding
+    rows' gradient zero; kernel / plain / library (``F.embedding_bag`` over
+    the window) times and bounds;
+9b. (after 6b) the slice's main path, the MAG engine on
+    ``make_mesh(4, devices=[cuda:0] * 4)``: one step against the one-card
+    step as in 9 (hidden dropout on), then ``train(cfg, mesh=...)`` for 5
+    epochs as a path: the K3 window forms 4 times a step, the full K3 4
+    times an eval and once per predict chunk, D1's K2 ``order`` x 4 times,
+    nothing else; the gathered table's padding rows zero; peak device
+    memory beside 5b's.
+
 Every path (5, 5b, 5c, 5d, 7) must launch exactly the hop kernels of the
 form its predict's hops ran (``TrainResult.predict_precision``), and the
 push kernels of its push backend only (none with native); the training
@@ -139,6 +168,7 @@ paths launch none of D1's or K2-seg's. It prints one
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import itertools
 import json
@@ -157,15 +187,21 @@ from grandtpu_torch.config import preset
 from grandtpu_torch.data import load_data
 from grandtpu_torch.data.preprocess import add_self_loops_adj
 from grandtpu_torch.dist import (ShardedGraph, ShardedPropagator,
-                                 dist_exact_propagator, make_mesh)
+                                 dist_exact_propagator, make_mesh,
+                                 shard_batch, shard_sparse_train_inputs,
+                                 shard_train_inputs, sharded_gfpush)
 from grandtpu_torch.dist.halo import (halo_hop, halo_hop_plain, halo_pack,
                                       halo_pack_plain)
 from grandtpu_torch.infer import Propagator, exact_propagate, test_accuracy
 from grandtpu_torch.infer.classify import embed_all_nodes
 from grandtpu_torch.nn.dropnode import gather_and_prop, gather_and_prop_plain
+from grandtpu_torch.nn.mag_mlp import init_mag_mlp
+from grandtpu_torch.nn.mlp import MLPConfig, init_mlp
 from grandtpu_torch.nn.sparse_input import (PaddedFeatures, embed_prop,
                                             embed_prop_backward,
-                                            embed_prop_plain)
+                                            embed_prop_plain,
+                                            embed_prop_window,
+                                            embed_prop_window_backward)
 from grandtpu_torch.ops._build import build, build_dir
 from grandtpu_torch.ppr import bucket_push, dense_push, gfpush
 from grandtpu_torch.ppr.coef import build_coef
@@ -186,6 +222,9 @@ from grandtpu_torch.sparse.spmm import (column_absmax, column_absmax_plain,
                                         spmm_prop_step_q8mxu_plain,
                                         spmm_segment, spmm_segment_plain)
 from grandtpu_torch.train import train
+from grandtpu_torch.train.step import (StepConfig, build_train_step,
+                                       make_optimizer)
+from grandtpu_torch.train.trainer_sparse import build_sparse_steps
 
 DATASET = "synth:233000:41:602"     # RESULTS.md's reddit scale stand-in
 SMALL = "synth:2000:8:64"
@@ -202,6 +241,9 @@ H_MAG = 64                          # mag_scholar_c hidden width
 AMAZON = "synth:2000000:47:100"     # RESULTS.md's Amazon2M stand-in
 AMAZON_SMALL = "synth:30000:8:64"   # above the dense threshold
 SHARDS = 4                          # phase 8's mesh, on the one card
+DENSE_SHARDS = 2                    # phase 9's mesh (reddit's 50 + 200)
+MAG_SHARDS = 4                      # 3h's windows, 9b's mesh (20 + 20)
+PEAK_GB: dict = {}                  # peak device memory of each train() path
 CKPT_DIR = os.path.join("build", "chip_smoke_ckpt")   # 5d's best.npz
 TOL = 1e-5                          # max |kernel - plain| / max |plain|
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
@@ -484,10 +526,10 @@ def _k3_bytes(table, s, num_aug):
             table.numel() * 4 + common + out, flops)
 
 
-def check_k3(data) -> list:
+def check_k3(padded) -> list:
     """K3 forward and backward against the plain version and autograd, in
-    the train (with and without input dropout), eval and node forms."""
-    padded = PaddedFeatures.from_csr(data.features)
+    the train (with and without input dropout), eval and node forms, on
+    the MAG stand-in's ``padded`` features."""
     g = torch.Generator(device=DEV).manual_seed(1)
     table = torch.randn(padded.num_features, H_MAG, generator=g, device=DEV)
     table.requires_grad_(True)
@@ -1181,6 +1223,7 @@ def check_push(data, cfg, tag: str, backends) -> dict:
         out["launches"][backend] = launches
         out["sps"][backend] = len(sources) / seconds
         got = (tk.cols, tk.vals)
+        out.setdefault("tables", {})[backend] = got
         _row_rule(want[0], want[1].astype(np.float32), *got, atol)
         if backend == "jax":
             g = dense_push.DensePushGraph(indptr, indices, rmax, device=DEV)
@@ -1236,6 +1279,8 @@ COUNTED = {"dropnode_mean": gather_and_prop, "csr_spmm_prop": spmm_prop_step,
            "csr_spmm_q8mxu": spmm_prop_step_q8mxu,
            "embed_prop_fwd": embed_prop,
            "embed_prop_bwd": embed_prop_backward,
+           "embed_prop_window_fwd": embed_prop_window,
+           "embed_prop_window_bwd": embed_prop_window_backward,
            "dense_push_mask": dense_push_mask,
            "bucket_expand": bucket_push.bucket_expand,
            "bucket_compact": bucket_push.bucket_compact,
@@ -1300,6 +1345,7 @@ def run_path(cfg, data, tag: str) -> tuple:
           f"{r.batch_time_median}, propagate_s {r.propagate_time}, total_s "
           f"{r.total_time}, train_call_s {wall}, peak_mem_GB "
           f"{torch.cuda.max_memory_allocated(DEV) / 1e9}", flush=True)
+    PEAK_GB[tag] = torch.cuda.max_memory_allocated(DEV) / 1e9
     losses = [v for h in r.history for v in (h["loss"], h["val_loss"])]
     if not (r.history and np.all(np.isfinite(losses))):
         raise AssertionError(f"non-finite losses: {r.history}")
@@ -1316,12 +1362,12 @@ def run_path(cfg, data, tag: str) -> tuple:
     return r, launches
 
 
-def run_main_path(data) -> dict:
+def run_main_path(data) -> tuple:
     cfg = preset("reddit").replace(dataset=DATASET, epochs=2)
     r, launches = run_path(cfg, data, "main")
     if launches["dropnode_mean"] < r.num_batches + len(r.history):
         raise AssertionError("K1 was not launched for every step and eval")
-    return launches
+    return launches, r
 
 
 def run_mag_path(data) -> dict:
@@ -1384,14 +1430,15 @@ def profile_path(cfg, data, tag: str) -> None:
 
 
 def push_entries(push_reddit: dict, push_amazon: dict,
-                 bucket_launches: dict) -> list:
+                 bucket_launches: dict, sharded: dict) -> list:
     """The kernels line's entries of the push kernels: times at the main
     path's shapes (P2 and its top-k at the Amazon2M stand-in, 3f; P1's mask
     at the reddit stand-in, 3e), launches by path."""
     paths = {"amazon_bucket": bucket_launches,
              "p1_reddit": push_reddit["launches"]["jax"],
              "p2_reddit": push_reddit["launches"]["bucket"],
-             "p2_amazon": push_amazon["launches"]["bucket"]}
+             "p2_amazon": push_amazon["launches"]["bucket"],
+             "p1_sharded_reddit": sharded["launches"]}
     p1, p2 = push_reddit["jax"], push_amazon["bucket"]
     p2_err = max(p2["max_abs_err"], push_reddit["bucket"]["max_abs_err"])
     rows = [("dense_push_mask", "push_dense.cu", "grandtpu/ppr/jax_push.py:36",
@@ -1418,6 +1465,8 @@ def push_entries(push_reddit: dict, push_amazon: dict,
         entries[-1].setdefault("sources_per_s", {})[key] = {
             "native": res["native_sps"], "host_cores": res["host_cores"],
             **res["sps"]}
+    entries[-1]["sources_per_s"]["reddit"]["jax_sharded_4"] = \
+        sharded["sources_per_s"]
     return entries
 
 def _peak_gb(fn):
@@ -1603,6 +1652,46 @@ def _d1_times(prop, xs, tag: str) -> dict:
     return out
 
 
+def _d1_bound(prop, precision: str, nfeat: int, order: int) -> float:
+    """Least time of one D1 run of ``order`` hops: every kernel launch's
+    least bytes (its inputs read once, its outputs written once: each
+    shard's operator, the whole gathered or received input, the shard's
+    carries) plus the collectives' copies (read and written once on the
+    one card), over the card's memory rate. Their operations are far
+    below the f32 peak's time."""
+    g, S = prop.g, prop.mesh.size
+    rows, n_pad = g.rows_per_shard, g.rows_per_shard * S
+    carries = 3 * rows * nfeat * 4           # y written, acc read + written
+    width = 1 if precision == "int8" else 4
+    quantize = (rows * nfeat * 4 + rows * nfeat * 5 + 12 * nfeat
+                if precision == "int8" else 0)   # column max, quantize
+    nbytes = 0
+    if isinstance(prop, ShardedPropagator):
+        for s in range(S):
+            edges = int(np.count_nonzero(g.vals[s]))
+            nbytes += 12 * edges + n_pad * nfeat * 4 + 4 * rows + carries
+        nbytes += 2 * n_pad * nfeat * 4                  # the all_gather
+    elif hasattr(prop, "send_idx"):                      # the halo exchange
+        c_max = g.halo_per_pair
+        for s in range(S):
+            idx = prop.send_idx[s]
+            m, uniq = idx.numel(), torch.unique(idx).numel()
+            diag, halo = prop.diag[s], prop.halo[s]
+            pack = uniq * nfeat * 4 + 4 * m + m * nfeat * width
+            hop = (8 * (rows + 1) + 8 * diag.nnz + 4 * halo.nnz
+                   + (4 * halo.nnz if width == 4 else 4 * rows + 4 * nfeat)
+                   + rows * nfeat * 4 + S * c_max * nfeat * width + carries)
+            nbytes += pack + hop + quantize
+        nbytes += 2 * S * S * c_max * nfeat * width      # the all_to_all
+    else:                                                # all_gather
+        for s, op in enumerate(prop.ops):
+            graph = (4 * op.nnz + 8 * rows if precision == "int8"
+                     and prop.row_val is not None else 8 * op.nnz)
+            nbytes += (graph + 4 * (rows + 1) + n_pad * nfeat * width
+                       + carries + quantize)
+        nbytes += 2 * n_pad * nfeat * width              # the all_gather
+    return order * nbytes / HBM_BYTES_PER_S * 1e3
+
 def check_d1(ops: dict) -> dict:
     """Phase 8: D1 on a 4-shard mesh on the one card. Returns the launches
     of each run, the errors and the times."""
@@ -1633,6 +1722,7 @@ def check_d1(ops: dict) -> dict:
         launches = _read_counts()
         plain = prop(x, **kw, **call, plain=True)
         e_plain = _errors(out, plain)
+        bound_ms = _d1_bound(prop, precision, x.shape[1], cfg.order)
         e_single = _errors(out, ref[precision])
         e_f32 = _errors(out, ref["f32"])
         limit = 5e-3 if precision == "int8" else TOL
@@ -1644,7 +1734,7 @@ def check_d1(ops: dict) -> dict:
         gate = TOL if precision == "f32" else 5e-3
         print(f"[8] {name} ({type(prop).__name__}, {SHARDS} shards of "
               f"{prop.g.rows_per_shard} rows): build {build_s} s, "
-              f"{cfg.order} hops {hops_s} s; launches "
+              f"{cfg.order} hops {hops_s} s (bound {bound_ms} ms); launches "
               f"{ {k: v for k, v in launches.items() if v} }; vs its plain "
               f"run max_rel_err {e_plain[1]} (limit {limit}); vs the "
               f"one-card Propagator at {precision} {e_single[1]}; vs f32 "
@@ -1663,7 +1753,8 @@ def check_d1(ops: dict) -> dict:
         res["launches"][name] = launches
         res["err"][name] = {"vs_plain": e_plain, "vs_single": e_single[1],
                             "vs_f32": e_f32[1]}
-        res["wall_s"][name] = {"build": build_s, "hops": hops_s}
+        res["wall_s"][name] = {"build": build_s, "hops": hops_s,
+                               "bound_ms": bound_ms}
         if name == "halo_f32":
             halo_prop = prop
         del out, plain
@@ -1764,6 +1855,448 @@ def serving_entries(seg: dict, d1: dict, serve: dict) -> list:
 
 
 
+# ------------------------------------------------------------ D2 (phases 3h,
+# 3i, 9, 9b): data-parallel training on a mesh of shards of the one card
+
+
+def _mesh(shards: int):
+    return make_mesh(shards, devices=[DEV] * shards)
+
+
+def _named_state(model, optimizer) -> dict:
+    """{name: (value, grad, exp_avg, exp_avg_sq)} and {buffer: (value,)},
+    a vocab-sharded table joined as ``table``."""
+    out = {}
+    for name, p in model.named_parameters():
+        st = optimizer.state[p]
+        out[name] = (p.detach(), p.grad, st.get("exp_avg"),
+                     st.get("exp_avg_sq"))
+    shards = [k for k in out if k.startswith("table_shards.")]
+    if shards:
+        parts = [out.pop(k) for k in sorted(shards,
+                                            key=lambda k: int(k[13:]))]
+        out["table"] = tuple(torch.cat([p[i] for p in parts])
+                             for i in range(4))
+    for name, buf in model.named_buffers():
+        out[name] = (buf,)
+    return out
+
+
+def _state_errors(one, opt1, sharded, opt2, vocab: int) -> dict:
+    """max relative error of every parameter, its gradient and Adam moments,
+    and every buffer, of the sharded model against the one-device one; a
+    joined table's padding rows must be zero. Gradients, moments and
+    buffers: relative to the tensor's largest element. Parameter values:
+    relative to the model's largest parameter, since Adam's first update
+    lr g / (|g| + 1e-8) magnifies an f32 difference of a gradient element
+    near 0 up to 1e8 times, and a zero-initialised tensor (a BN bias) is
+    after one step nothing but that update."""
+    want, got = _named_state(one, opt1), _named_state(sharded, opt2)
+    if want.keys() != got.keys():
+        raise AssertionError(f"state names differ: {sorted(want)} vs "
+                             f"{sorted(got)}")
+    scale = max(float(p.detach().abs().max()) for p in one.parameters())
+    errs = {}
+    for name, w in want.items():
+        for i, what in enumerate(("value", "grad", "exp_avg",
+                                  "exp_avg_sq")[:len(w)]):
+            g = got[name][i]
+            if (g is None) != (w[i] is None):
+                raise AssertionError(f"{name}.{what}: one of the steps has "
+                                     f"none")
+            if g is None:
+                continue
+            if name == "table":
+                if g[vocab:].any():
+                    raise AssertionError(f"table.{what}: a padding row "
+                                         f"moved")
+                g = g[:vocab]
+            if what == "value" and len(w) > 1:
+                errs[f"{name}.{what}"] = _errors(g, w[i])[0] / scale
+            else:
+                errs[f"{name}.{what}"] = _errors(g, w[i])[1]
+    return errs
+
+
+def _synced_ms(fn, iters: int) -> float:
+    """Host wall time of one ``fn()`` with the device synchronized (a
+    whole step: host dispatch and device work)."""
+    fn()
+    torch.cuda.synchronize(DEV)
+    t0 = time.time()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize(DEV)
+    return (time.time() - t0) / iters * 1e3
+
+
+def _mesh_batch(cfg, n_src: int, n_class: int, g) -> dict:
+    nt, nu = cfg.batch_size, cfg.unlabel_batch_size
+    lmask = torch.ones(nt, device=DEV)
+    lmask[-2:] = 0.0                       # a wrap-padded tail
+    return {"rows": torch.randperm(n_src, generator=g, device=DEV)[:nt + nu],
+            "labels": torch.randint(0, n_class, (nt,), generator=g,
+                                    device=DEV),
+            "label_mask": lmask, "unlabel_mask": torch.ones(nu, device=DEV)}
+
+
+def _collective_bytes(cfg, shards: int, width_in: int, params: int,
+                      vocab_parallel: bool) -> dict:
+    """Bytes the step's collectives would move between S cards (each
+    shard's send, summed; none moves on one card): the BN moments (three
+    all-reduces a BatchNorm and augmentation), the gradient sum onto the
+    first shard's parameters, and for the vocab-parallel MAG step the
+    gather of the batch's top-k rows and masks, the reduce-scatter of the
+    [K, B, H] partials and its backward all-gather."""
+    s, k = shards, cfg.sample
+    b = cfg.batch_size + cfg.unlabel_batch_size
+    ar = 2 * (s - 1)                        # reduce, then broadcast
+    bn = 0
+    if cfg.use_bn:
+        widths = ([width_in] if not vocab_parallel else []) + \
+            [cfg.hidden] * (cfg.nlayers - 1)
+        bn = k * sum(ar * (1 + 2 * w) * 4 for w in widths)
+    out = {"bn_moments": bn, "grad_sum": (s - 1) * params * 4}
+    if vocab_parallel:
+        h = cfg.hidden
+        out["topk_rows_and_masks"] = (s - 1) * (b * cfg.top_k * 8
+                                                + k * b * cfg.top_k)
+        out["partials_reduce_scatter"] = (s - 1) * k * b * h * 4 * 2
+        out["grad_all_gather"] = (s - 1) * k * b * h * 4
+    out["total"] = sum(out.values())
+    return out
+
+
+def check_mesh_step(engine: str, data, padded=None) -> dict:
+    """Phases 9 and 9b, first part: one step on a mesh of the card against
+    one one-card step from the same state and generator seed: metrics,
+    parameters, gradients, BN buffers and Adam moments within 1e-5; then
+    both steps' times and the collectives' bytes."""
+    n_class = data.num_classes
+    if engine == "dense":
+        # every drop rate on
+        cfg = preset("reddit").replace(dataset=DATASET, input_droprate=0.5,
+                                       hidden_droprate=0.5)
+        shards, nfeat = DENSE_SHARDS, data.num_features
+        operands = [torch.as_tensor(np.asarray(data.features, np.float32),
+                                    device=DEV)]
+    else:
+        cfg = preset("mag_scholar_c").replace(dataset=MAG_DATASET)
+        shards = MAG_SHARDS
+        nfeat = padded.num_features
+        operands = [torch.as_tensor(a, device=DEV)
+                    for a in (padded.attr_cols, padded.attr_vals)]
+    mesh = _mesh(shards)
+    g = torch.Generator(device=DEV).manual_seed(3)
+    n_src = len(train_sources(cfg, data))
+    operands += [torch.randint(0, data.num_nodes, (n_src, cfg.top_k),
+                               generator=g, device=DEV, dtype=torch.int32),
+                 torch.rand(n_src, cfg.top_k, generator=g, device=DEV)]
+    mcfg = MLPConfig(num_features=nfeat, num_classes=n_class,
+                     hidden=cfg.hidden, nlayers=cfg.nlayers,
+                     use_bn=cfg.use_bn, node_norm=cfg.node_norm,
+                     input_droprate=cfg.input_droprate,
+                     hidden_droprate=cfg.hidden_droprate)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = (init_mlp if engine == "dense" else init_mag_mlp)(mcfg, cfg.seed2,
+                                                            DEV)
+    sharded = copy.deepcopy(one)
+    if engine == "dense":
+        placed = shard_train_inputs(mesh, model=sharded, features=operands[0],
+                                    tk_cols=operands[1], tk_vals=operands[2])
+        scfg = StepConfig(
+            mlp=mcfg, k_aug=cfg.sample, dropnode_rate=cfg.dropnode_rate,
+            n_train=cfg.batch_size, lam=cfg.lam, warmup=cfg.warmup,
+            tem=cfg.tem, conf=cfg.resolve_conf(n_class), loss_kind=cfg.loss,
+            clip_norm=cfg.clip_norm)
+        opt1 = make_optimizer(one, cfg.lr, cfg.weight_decay)
+        opt2 = make_optimizer(sharded, cfg.lr, cfg.weight_decay)
+        step1 = build_train_step(scfg, one, opt1)
+        step2 = build_train_step(scfg, sharded, opt2, mesh=mesh)
+    else:
+        placed = shard_sparse_train_inputs(
+            mesh, model=sharded, attr_cols=operands[0],
+            attr_vals=operands[1], tk_cols=operands[2], tk_vals=operands[3])
+        opt1 = make_optimizer(one, cfg.lr, cfg.weight_decay)
+        opt2 = make_optimizer(sharded, cfg.lr, cfg.weight_decay)
+        step1 = build_sparse_steps(cfg, one, opt1, n_class)[0]
+        step2 = build_sparse_steps(cfg, sharded, opt2, n_class, mesh=mesh)[0]
+    batch = _mesh_batch(cfg, n_src, n_class, g)
+    parts = shard_batch(mesh, batch)
+    g1 = torch.Generator(device=DEV).manual_seed(cfg.seed2)
+    g2 = torch.Generator(device=DEV).manual_seed(cfg.seed2)
+    m1 = step1(*operands, batch, g1, 100)
+    m2 = step2(*placed, parts, g2, 100)
+    torch.cuda.synchronize(DEV)
+    errs = {k: _errors(m2[k], m1[k])[1] for k in m1}
+    errs.update(_state_errors(one, opt1, sharded, opt2, nfeat))
+    worst = max(errs, key=errs.get)
+    # the parameters every shard reads (a vocab-sharded table is not)
+    n_params = sum(p.numel() for name, p in one.named_parameters()
+                   if name != "table")
+    one_ms = _synced_ms(lambda: step1(*operands, batch, g1, 100), 10)
+    mesh_ms = _synced_ms(lambda: step2(*placed, parts, g2, 100), 10)
+    nbytes = _collective_bytes(cfg, shards, nfeat, n_params,
+                               engine == "mag")
+    tag = "9" if engine == "dense" else "9b"
+    print(f"[{tag}] one {engine} step on {shards} shards of the card against "
+          f"the one-card step (every drop rate of the run on: dropnode "
+          f"{cfg.dropnode_rate}, input {cfg.input_droprate}, hidden "
+          f"{cfg.hidden_droprate}): {len(errs)} quantities, worst "
+          f"{worst} {errs[worst]}; metrics "
+          f"{ {k: float(v) for k, v in m2.items()} }; step ms (synchronized "
+          f"wall) one-card {one_ms} mesh {mesh_ms}; collective bytes a step "
+          f"between {shards} cards {nbytes}", flush=True)
+    if errs[worst] > TOL:
+        raise AssertionError(f"[{tag}] the mesh step differs from the "
+                             f"one-card step: {errs}")
+    return {"max_rel_err": errs[worst], "one_card_step_ms": one_ms,
+            "mesh_step_ms": mesh_ms, "collective_bytes": nbytes}
+
+
+def run_mesh_path(cfg, data, shards: int, tag: str) -> tuple:
+    """``train()`` with ``num_devices=shards`` on a mesh of the card, a path
+    of its own (counts set to 0 just before, read just after), with exact
+    launch counts: dense, K1 once a shard per step and eval; MAG, the K3
+    window forms once a shard per step, the full K3 once a shard per eval
+    and once per predict chunk; D1's hops ``order`` times a shard; nothing
+    else."""
+    mesh = _mesh(shards)
+    cfg = cfg.replace(num_devices=shards)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    t0 = time.time()
+    r = train(cfg, data=data, device=DEV, mesh=mesh)
+    wall = time.time() - t0
+    launches = _read_counts()
+    PEAK_GB[tag] = torch.cuda.max_memory_allocated(DEV) / 1e9
+    steps, evals = r.num_batches, len(r.history)
+    want = dict.fromkeys(launches, 0)
+    want["csr_spmm_prop"] = cfg.order * shards
+    if data.has_sparse_features:
+        want["embed_prop_window_fwd"] = shards * steps
+        want["embed_prop_window_bwd"] = shards * steps
+        want["embed_prop_fwd"] = (shards * evals
+                                  + -(-data.num_nodes // K3_SHAPE[4]))
+    else:
+        want["dropnode_mean"] = shards * (steps + evals)
+    print(f"[{tag}] train(num_devices={shards}, mesh of the card) "
+          f"{cfg.dataset}, {cfg.epochs} epochs: steps {steps}, evals "
+          f"{evals}, launches { {k: v for k, v in launches.items() if v} }, "
+          f"test_acc {r.test_acc}, best_val_acc {r.best_val_acc}, "
+          f"preprocess_s {r.preprocess_time}, batch_time_median_s "
+          f"{r.batch_time_median}, propagate_s {r.propagate_time}, total_s "
+          f"{r.total_time}, train_call_s {wall}, peak_mem_GB {PEAK_GB[tag]}",
+          flush=True)
+    losses = [v for h in r.history for v in (h["loss"], h["val_loss"])]
+    if not (r.history and np.all(np.isfinite(losses))
+            and 0.0 <= r.test_acc <= 1.0):
+        raise AssertionError(f"[{tag}] history {r.history}, test_acc "
+                             f"{r.test_acc}")
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches}, want {want}")
+    return r, launches
+
+
+def _window_bytes(shard_rows: int, lo: int, hi: int, s: dict, num_aug: int):
+    """Least bytes and ops of one K3 window forward and backward on set
+    ``s``: the window's distinct gathered rows once, the ids and values of
+    the rows' nodes, the top-k rows and the mask once, the output (and for
+    the backward the grad) once; the backward zero-fills the window."""
+    h = H_MAG
+    idx = s["tk_cols"].long()
+    ids = s["attr_cols"][idx]
+    live = s["attr_vals"][idx] != 0
+    inside = live & (ids >= lo) & (ids < hi)
+    uniq = torch.unique(ids[inside]).numel()
+    rows, ktop = s["tk_cols"].shape
+    p = s["attr_cols"].shape[1]
+    common = (torch.unique(s["tk_cols"]).numel() * p * 8 + rows * ktop * 8
+              + s["keep"].numel())
+    out = num_aug * rows * h * 4
+    flops = 2 * int(inside.sum()) * h + 2 * num_aug * rows * ktop * h
+    return (uniq * h * 4 + common + out, flops,
+            shard_rows * h * 4 + common + out, flops)
+
+
+def check_k3_window(padded) -> list:
+    """Phase 3h: K3's window forms over the 4 vocab windows of the MAG
+    table at the MAG step's shapes (every row of the batch over each
+    window, as the vocab-parallel step runs them), against their plain
+    versions; the windows' forwards summed against the full K3, their
+    gradients joined against the full backward; times and bounds."""
+    g = torch.Generator(device=DEV).manual_seed(2)
+    v, h, shards = padded.num_features, H_MAG, MAG_SHARDS
+    per = -(-v // shards)
+    table = torch.randn(per * shards, h, generator=g, device=DEV)
+    table[v:] = 0.0
+    attr_cols = torch.as_tensor(padded.attr_cols, device=DEV)
+    attr_vals = torch.as_tensor(padded.attr_vals, device=DEV)
+    sets = _k3_form_sets(attr_cols, attr_vals, "train", g)
+    num_aug = sets[0]["keep"].shape[0]
+    wins = [(s * per, (s + 1) * per) for s in range(shards)]
+    shard_t = [table[lo:hi].clone().requires_grad_(True) for lo, hi in wins]
+    full_t = table[:v].clone().requires_grad_(True)
+    s0 = sets[0]
+    full = embed_prop(full_t, **s0)
+    gout = torch.randn(full.shape, generator=g, device=DEV)
+    d_full, = torch.autograd.grad(full, full_t, gout)
+    outs, grads, e_f, e_b = [], [], [0.0, 0.0], [0.0, 0.0]
+    for t, (lo, hi) in zip(shard_t, wins):
+        out = embed_prop_window(t, lo, hi, **s0)
+        d_k, = torch.autograd.grad(out, t, gout)
+        plain = embed_prop_plain(t, **s0, vocab_lo=lo, vocab_hi=hi)
+        d_p, = torch.autograd.grad(plain, t, gout)
+        ef, eb = _errors(out.detach(), plain.detach()), _errors(d_k, d_p)
+        e_f = [max(a, b) for a, b in zip(e_f, ef)]
+        e_b = [max(a, b) for a, b in zip(e_b, eb)]
+        outs.append(out.detach())
+        grads.append(d_k)
+    e_sum = _errors(sum(outs), full.detach())
+    joined = torch.cat(grads)
+    e_cat = _errors(joined[:v], d_full)
+    pad_zero = not joined[v:].any()
+    print(f"[3h] K3 window forms on {shards} windows of {per} rows "
+          f"([{num_aug},{s0['tk_cols'].shape[0]},{h}] each): fwd vs plain "
+          f"{e_f}, bwd vs plain {e_b}; windows summed vs the full K3 "
+          f"{e_sum}, gradients joined vs the full backward {e_cat}, "
+          f"padding rows' gradient zero {pad_zero}", flush=True)
+    if not (e_f[1] <= TOL and e_b[1] <= TOL and e_sum[1] <= TOL
+            and e_cat[1] <= TOL and pad_zero):
+        raise AssertionError("[3h] the K3 window forms disagree")
+    del outs, grads, joined, d_full, full
+
+    # times: every (window, set) in turn, as a step runs the 4 windows
+    cases = [(t, lo, hi, st) for st in sets for t, (lo, hi) in
+             zip(shard_t, wins)]
+    it = itertools.cycle(cases)
+
+    def fwd_next(fn):
+        t, lo, hi, st = next(it)
+        if fn is embed_prop_window:
+            return fn(t, lo, hi, **st)
+        return fn(t, **st, vocab_lo=lo, vocab_hi=hi)
+
+    with torch.no_grad():
+        ms_f = _time_ms(lambda: fwd_next(embed_prop_window), 200)
+        plain_f = _time_ms(lambda: fwd_next(embed_prop_plain), 16)
+    outs = [embed_prop_window(t, lo, hi, **st) for t, lo, hi, st in cases]
+    it_o = itertools.cycle(zip(outs, cases))
+    ms_b = _time_ms(lambda: _window_grad(next(it_o), gout), 64)
+    plains = [embed_prop_plain(t, **st, vocab_lo=lo, vocab_hi=hi)
+              for t, lo, hi, st in cases[:8]]
+    it_p = itertools.cycle(zip(plains, cases))
+    plain_b = _time_ms(lambda: _window_grad(next(it_p), gout), 16)
+    # the library yardstick: embedding_bag over the window, ids outside it
+    # weighted 0 (with the full rows' weights it is the same function
+    # when nothing is dropped; timed only)
+    libs = []
+    for t, lo, hi, st in cases:
+        ids, w = _k3_library(None, st)
+        inside = (ids >= lo) & (ids < hi)
+        libs.append((torch.where(inside, ids - lo, 0),
+                     torch.where(inside, w, 0.0), t))
+    it_l = itertools.cycle(libs)
+
+    def bag(lib):
+        return F.embedding_bag(lib[0], lib[2], mode="sum",
+                               per_sample_weights=lib[1])
+
+    with torch.no_grad():
+        lib_err = _errors(bag(libs[0]),
+                          outs[0].detach().reshape(-1, h))[1]
+        lib_f = _time_ms(lambda: bag(next(it_l)), 200)
+    lib_outs = [bag(lb) for lb in libs[:8]]
+    lg = torch.randn(lib_outs[0].shape, generator=g, device=DEV)
+    it_lo = itertools.cycle(zip(lib_outs, libs))
+    lib_b = _time_ms(lambda: (lambda o: torch.autograd.grad(
+        o[0], o[1][2], lg, retain_graph=True))(next(it_lo)), 32)
+    # where the backward's time goes: the function called directly (no
+    # autograd), and its zero-fill alone; the same for the full table
+    ktop_p = (s0["tk_cols"].shape[1], s0["attr_cols"].shape[1])
+    dims = (s0["tk_cols"].shape[0], *ktop_p, h, num_aug)
+    saved = (s0["attr_cols"], s0["attr_vals"], s0["tk_cols"],
+             s0["tk_vals"], s0["keep"], None, 0.0, dims)
+    direct = {
+        "window_call_ms": _time_ms(lambda: embed_prop_window_backward(
+            gout, 0, per, *saved), 64),
+        "window_fill_ms": _time_ms(lambda: torch.zeros((per, h),
+                                                       device=DEV), 64),
+        "full_call_ms": _time_ms(lambda: embed_prop_backward(
+            gout, v, *saved), 32),
+        "full_fill_ms": _time_ms(lambda: torch.zeros((v, h), device=DEV),
+                                 32)}
+    print(f"[3h] backward called directly (no autograd): {direct}",
+          flush=True)
+    nb = [_window_bytes(per, lo, hi, st, num_aug) for _, lo, hi, st in cases]
+    b_f, o_f, b_b, o_b = (float(np.mean([x[i] for x in nb]))
+                          for i in range(4))
+    (bound_f, by_f), (bound_b, by_b) = _bound(b_f, o_f), _bound(b_b, o_b)
+    print(f"[3h] per window call: fwd ms {ms_f} plain_ms {plain_f} "
+          f"library_ms {lib_f} (embedding_bag, {lib_err} from the kernel) "
+          f"bound_ms {bound_f} ({by_f}, {b_f / 1e6:.3f} MB); bwd ms {ms_b} "
+          f"plain_ms {plain_b} library_ms {lib_b} bound_ms {bound_b} "
+          f"({by_b}, {b_b / 1e6:.1f} MB)", flush=True)
+    shape = (f"[{num_aug},{s0['tk_cols'].shape[0]},{h}] over a window of "
+             f"{per} of {v} rows")
+    entries = []
+    for key, line, err, ms, plain_ms, lib, bound, by in (
+            ("fwd", 80, e_f, ms_f, plain_f, lib_f, bound_f, by_f),
+            ("bwd", 87, e_b, ms_b, plain_b, lib_b, bound_b, by_b)):
+        entries.append({
+            "name": f"embed_prop_window_{key}", "route": "cuda",
+            "source": "grandtpu_torch/csrc/embed_prop.cu",
+            "replaces": f"grandtpu/nn/sparse_input.py:{line}",
+            "sharded_by": "grandtpu/dist/data_parallel.py:96",
+            "max_abs_err": err[0], "max_rel_err": err[1],
+            "windows_vs_full": e_sum[1] if key == "fwd" else e_cat[1],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib, "shape": shape})
+    entries[1]["direct"] = direct
+    return entries
+
+
+def _window_grad(out_case, gout):
+    out, (t, _, _, _) = out_case
+    return torch.autograd.grad(out, t, gout, retain_graph=True)
+
+
+def check_sharded_push(data, cfg, push_reddit: dict) -> dict:
+    """Phase 3i: ``sharded_gfpush`` on 4 shards of the card over 3e's
+    sources, a path of its own, against the one-card P1 under the row rule;
+    P1's launches per shard; sources/s beside 3e's P1."""
+    adj_sl = add_self_loops_adj(data.adj)
+    indptr = np.asarray(adj_sl.indptr, np.int32)
+    indices = np.asarray(adj_sl.indices, np.int32)
+    sources = train_sources(cfg, data)
+    coef = np.asarray(build_coef(cfg.prop_mode, cfg.order, cfg.alpha),
+                      np.float32)
+    mesh = _mesh(SHARDS)
+    _reset_counts()
+    t0 = time.time()
+    got = sharded_gfpush(mesh, indptr, indices, sources, coef, cfg.rmax,
+                         cfg.top_k)
+    seconds = time.time() - t0
+    launches = _read_counts()
+    per = -(-len(sources) // SHARDS)
+    blocks = SHARDS * -(-per // 512)
+    want = dict.fromkeys(launches, 0)
+    want.update(dense_push_mask=blocks * (cfg.order + 1),
+                csr_spmm_prop=blocks * cfg.order, push_topk=blocks)
+    one = push_reddit["tables"]["jax"]
+    _row_rule(one[0], one[1], *got, max(1e-5, 2 * cfg.rmax))
+    same = _same(got, one)
+    sps = len(sources) / seconds
+    print(f"[3i] sharded_gfpush on {SHARDS} shards of the card: "
+          f"{len(sources)} sources ({per} a shard) in {seconds} s = {sps} "
+          f"sources/s (one-card P1, 3e: {push_reddit['sps']['jax']}); "
+          f"launches { {k: v for k, v in launches.items() if v} }; within "
+          f"the row rule of the one-card P1, bit for bit {same}", flush=True)
+    if launches != want:
+        raise AssertionError(f"[3i] launches {launches}, want {want}")
+    return {"launches": launches, "sources_per_s": sps, "same": same}
+
+
 def main() -> int:
     t_start = time.time()
 
@@ -1783,26 +2316,40 @@ def main() -> int:
     push_reddit = check_push(data, preset("reddit").replace(dataset=DATASET),
                              "3e", ("jax", "bucket"))
     mark("3e")
+    push_sharded = check_sharded_push(
+        data, preset("reddit").replace(dataset=DATASET), push_reddit)
+    mark("3i")
     small = preset("reddit").replace(dataset=SMALL, epochs=3,
                                      unlabel_num=500, dropnode_rate=0.0)
     check_small_reference(small)
     mark("4")
     check_small_reference(small.replace(push_backend="bucket"))
     mark("4d")
-    launches = run_main_path(data)
+    launches, r_main = run_main_path(data)
     mark("5")
     profile_path(preset("reddit").replace(dataset=DATASET, epochs=2), data,
                  "profile")
     mark("6")
+    mesh_steps = {"dense": check_mesh_step("dense", data)}
+    r_mesh, mesh_launches = run_mesh_path(
+        preset("reddit").replace(dataset=DATASET, epochs=2), data,
+        DENSE_SHARDS, "9")
+    print(f"[9] test_acc on {DENSE_SHARDS} shards {r_mesh.test_acc}, on one "
+          f"card (5) {r_main.test_acc}; train_call total_s "
+          f"{r_mesh.total_time} against {r_main.total_time}", flush=True)
+    mark("9")
     del data
 
     t0 = time.time()
     mag = load_data(MAG_DATASET, split_seed=preset("mag_scholar_c").seed1)
     print(f"[data] {MAG_DATASET} generated in {time.time() - t0:.3f} s",
           flush=True)
-    k3 = check_k3(mag)
+    mag_padded = PaddedFeatures.from_csr(mag.features)
+    k3 = check_k3(mag_padded)
     check_k2_mag(mag, k2)
     mark("3c")
+    k3_window = check_k3_window(mag_padded)
+    mark("3h")
     check_small_reference(preset("mag_scholar_c").replace(
         dataset=MAG_SMALL, epochs=3, dropnode_rate=0.0, input_droprate=0.0,
         hidden_droprate=0.0))
@@ -1812,6 +2359,22 @@ def main() -> int:
     profile_path(preset("mag_scholar_c").replace(dataset=MAG_DATASET,
                                                  epochs=5), mag, "profile-mag")
     mark("6b")
+    mesh_steps["mag"] = check_mesh_step("mag", mag, mag_padded)
+    del mag_padded
+    r_mag_mesh, mag_mesh_launches = run_mesh_path(
+        preset("mag_scholar_c").replace(dataset=MAG_DATASET, epochs=5), mag,
+        MAG_SHARDS, "9b")
+    table = r_mag_mesh.model.gathered_table()
+    vocab = r_mag_mesh.model.cfg.num_features
+    if table[vocab:].any():
+        raise AssertionError("[9b] a padding row of the table moved")
+    print(f"[9b] the gathered table [{table.shape[0]},{table.shape[1]}]: "
+          f"{table.shape[0] - vocab} padding rows, all zero; peak device "
+          f"memory {PEAK_GB['9b']} GB on {MAG_SHARDS} shards of the card "
+          f"against {PEAK_GB['mag']} GB on one (5b); test_acc "
+          f"{r_mag_mesh.test_acc}", flush=True)
+    del table, r_mag_mesh
+    mark("9b")
     del mag
 
     amazon_cfg = preset("Amazon2M").replace(dataset=AMAZON, epochs=2,
@@ -1862,6 +2425,7 @@ def main() -> int:
 
     k1["launches_by_path"] = {
         "reddit": launches["dropnode_mean"],
+        "reddit_mesh": mesh_launches["dropnode_mean"],
         "amazon": amazon_launches["dropnode_mean"],
         "amazon_bucket": bucket_launches["dropnode_mean"]}
     p1 = push_reddit["launches"]["jax"]
@@ -1873,14 +2437,19 @@ def main() -> int:
         "p1_reddit": p1["csr_spmm_prop"],
         "d1_all_gather_f32": d1["launches"]["all_gather_f32"][
             "csr_spmm_prop"],
-        "serve_f32": serve["f32"]["launches"]["csr_spmm_prop"]}
+        "serve_f32": serve["f32"]["launches"]["csr_spmm_prop"],
+        "p1_sharded_reddit": push_sharded["launches"]["csr_spmm_prop"],
+        "d1_reddit_mesh": mesh_launches["csr_spmm_prop"],
+        "d1_mag_mesh": mag_mesh_launches["csr_spmm_prop"]}
     k2["p1_over_at"] = {"ms": push_reddit["jax"]["times"]["k2_over_at_ms"],
                         "shape": "A^T of the reddit stand-in, x [233000, "
                                  "512], per hop"}
     for k in (k1, k2):
         k["launches"] = sum(k["launches_by_path"].values())
-    for k in k3:
-        k["launches"] = mag_launches[k["name"]]
+    for k in k3 + k3_window:
+        k["launches_by_path"] = {"mag": mag_launches[k["name"]],
+                                 "mag_mesh": mag_mesh_launches[k["name"]]}
+        k["launches"] = sum(k["launches_by_path"].values())
     for k in fast:
         k["launches_by_path"] = {
             "amazon": amazon_launches[k["name"]],
@@ -1890,11 +2459,14 @@ def main() -> int:
             **{f"d1_{run}": la[k["name"]]
                for run, la in d1["launches"].items() if la[k["name"]]}}
         k["launches"] = sum(k["launches_by_path"].values())
-    pushes = push_entries(push_reddit, push_amazon, bucket_launches)
+    pushes = push_entries(push_reddit, push_amazon, bucket_launches,
+                          push_sharded)
     served = serving_entries(seg, d1, serve)
     print(json.dumps({"serving": serve, "d1": {
-        k: d1[k] for k in ("err", "wall_s", "compression")}}))
-    print(json.dumps({"kernels": [k1, k2, *fast, *k3, *pushes, *served]}))
+        k: d1[k] for k in ("err", "wall_s", "compression")},
+        "mesh_steps": mesh_steps, "peak_gb": PEAK_GB}))
+    print(json.dumps({"kernels": [k1, k2, *fast, *k3, *k3_window, *pushes,
+                                  *served]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,15 +12,19 @@ of it:
                              its bf16/int8 forms); padded-COO SpMM (K2-seg)
 - ``grandtpu_torch.nn``      MLP with masked BatchNorm, DropNode mean
                              (kernel K1), losses; the MAG model and its
-                             embedding-bag + DropNode mean (kernel K3)
+                             embedding-bag + DropNode mean (kernel K3, and
+                             its vocab-window form)
 - ``grandtpu_torch.train``   train/eval steps, early-stopped loop, ``train``
                              (dense engine, or the MAG engine on CSR data),
                              npz checkpoints in grandtpu's format
 - ``grandtpu_torch.infer``   exact propagation (dense, csr, segment),
                              chunked classification, the MAG predict in
                              embedding space
-- ``grandtpu_torch.dist``    the device mesh; row-partitioned propagation
-                             (all_gather and halo exchange, D1)
+- ``grandtpu_torch.dist``    the device mesh and its collectives;
+                             data-parallel training placement (D2, the
+                             vocab-sharded MAG table); row-partitioned
+                             propagation (all_gather and halo exchange,
+                             D1); the source-sharded push
 - ``grandtpu_torch.cli``     ``run`` / ``predict`` / ``presets``
 - ``grandtpu_torch.ops``     nvcc build of ``csrc/*.cu`` for sm_90a
 

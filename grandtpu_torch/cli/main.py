@@ -9,6 +9,8 @@
         --dataset synth:1000000:8:2780000:sparse --epochs 5   # MAG engine
     python -m grandtpu_torch.cli.main run --dataset synth:400:4:32 \
         --ckpt-dir /tmp/c --device cpu                    # writes best.npz
+    python -m grandtpu_torch.cli.main run --dataset synth:400:4:32 \
+        --num-devices 2 --device cpu                      # data-parallel
     python -m grandtpu_torch.cli.main predict --dataset synth:400:4:32 \
         --ckpt /tmp/c/best.npz --device cpu [--num-devices 2]
     python -m grandtpu_torch.cli.main presets

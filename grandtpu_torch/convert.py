@@ -10,7 +10,9 @@ and the MAG model adds ``params['emb'] = {'table': [V, out]}``.
 ``MagMLP`` from them (``nn.Linear`` stores ``w`` as [out, in], so it is
 transposed) and :func:`mlp_to_jax` / :func:`mag_to_jax` go back, so tests
 can start both packages from the same weights and compare what they end
-with.
+with. With a mesh, :func:`mag_from_jax` splits the table over its shards
+(``MagMLP.shard_vocab``) and :func:`mag_to_jax` joins them back, padded
+as grandtpu's vocab-sharded table is.
 """
 
 from __future__ import annotations
@@ -54,19 +56,25 @@ def mlp_to_jax(model: MLP | MagMLP):
     return params, state
 
 
-def mag_from_jax(params, state, mlp_cfg: MLPConfig, device) -> MagMLP:
+def mag_from_jax(params, state, mlp_cfg: MLPConfig, device,
+                 mesh=None) -> MagMLP:
     """``MagMLP`` from ``grandtpu``'s ``init_mag_mlp`` pytrees: the table
-    [V, out] as it is, the fcs and BatchNorms as in :func:`mlp_from_jax`."""
+    [V, out] (its first V rows, if a mesh placement padded it), the fcs and
+    BatchNorms as in :func:`mlp_from_jax`. With ``mesh``, the model is on
+    its first device and its table vocab-sharded over it."""
     model = MagMLP(mlp_cfg)
+    table = np.asarray(params["emb"]["table"])[: mlp_cfg.num_features]
     with torch.no_grad():
-        model.table.copy_(torch.tensor(np.asarray(params["emb"]["table"])))
+        model.table.copy_(torch.tensor(table))
     _load_head(model, params, state)
-    return model.to(device)
+    if mesh is None:
+        return model.to(device)
+    return model.to(mesh.devices[0]).shard_vocab(mesh)
 
 
 def mag_to_jax(model: MagMLP):
     """(params, state) pytrees of numpy arrays in ``init_mag_mlp``'s
-    layout."""
+    layout; a vocab-sharded table joined, with its zero padding rows."""
     params, state = mlp_to_jax(model)
-    params["emb"] = {"table": model.table.detach().cpu().numpy()}
+    params["emb"] = {"table": model.gathered_table().cpu().numpy()}
     return params, state

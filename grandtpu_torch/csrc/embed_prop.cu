@@ -19,6 +19,15 @@
 // The backward scatter-adds into a zeroed dense dT [V, H] with float
 // atomics:  dT[c, h] += sum_k g[k,r,h] / D[k,r] * w[k,r,j] / S * a * drop/keep_prob.
 //
+// Vocab window [lo, hi) (the vocab-sharded table of data-parallel training,
+// grandtpu/dist/data_parallel.py:96-150): T holds rows lo..hi-1 only. The
+// forward adds only the terms whose id c lies in the window, reading
+// T[c - lo]; the backward adds only those, into a [hi - lo, H] gradient. S
+// stays the whole row's attr mass and D does not depend on the table, so
+// the windows' forwards sum to the full forward and their gradients
+// concatenate to the full gradient. lo = 0, hi = V is the unsharded call,
+// bit for bit (the window test never skips a term).
+//
 // What bounds it on an H100: bytes, and mostly the gathers. A MAG train step
 // (R = 40 rows, Ktop = 32, P = 24, H = 64) gathers 30,720 table rows of
 // 256 B; the node form over 1M nodes gathers 24M rows from a 712 MB table
@@ -59,7 +68,8 @@ __global__ void __launch_bounds__(kThreads) embed_prop_fwd_kernel(
     const float* __restrict__ attr_vals, const int32_t* __restrict__ tk_cols,
     const float* __restrict__ tk_vals, const uint8_t* __restrict__ keep,
     const uint8_t* __restrict__ drop, float* __restrict__ out, int rows,
-    int ktop, int P, int H, float keep_prob, int wpr) {
+    int ktop, int P, int H, float keep_prob, int wpr, int vocab_lo,
+    int vocab_hi) {
   extern __shared__ float smem[];
   const int nwarps = blockDim.x >> 5;
   const int rpb = nwarps / wpr;                 // rows per block
@@ -124,8 +134,9 @@ __global__ void __launch_bounds__(kThreads) embed_prop_fwd_kernel(
           for (int q = 0; q < np; ++q) {
             const int64_t c = __shfl_sync(kFull, c_l, q);
             const float a = __shfl_sync(kFull, a_l, q);
-            if (a == 0.0f) continue;               // padding; warp-uniform
-            const float* trow = table + c * H;
+            // padding, or an id outside the window; warp-uniform
+            if (a == 0.0f || c < vocab_lo || c >= vocab_hi) continue;
+            const float* trow = table + (c - vocab_lo) * H;
             const float ta = ha < H ? __ldg(trow + ha) : 0.0f;
             const float tb = hb < H ? __ldg(trow + hb) : 0.0f;
             if (!DROP) {
@@ -181,7 +192,7 @@ __global__ void __launch_bounds__(kThreads) embed_prop_bwd_kernel(
     const float* __restrict__ attr_vals, const int32_t* __restrict__ tk_cols,
     const float* __restrict__ tk_vals, const uint8_t* __restrict__ keep,
     const uint8_t* __restrict__ drop, float* __restrict__ dtable, int rows,
-    int ktop, int P, int H, float keep_prob) {
+    int ktop, int P, int H, float keep_prob, int vocab_lo, int vocab_hi) {
   const int lane = threadIdx.x & 31;
   const int64_t gw = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) +
                      (threadIdx.x >> 5);
@@ -250,7 +261,7 @@ __global__ void __launch_bounds__(kThreads) embed_prop_bwd_kernel(
       for (int q = 0; q < np; ++q) {
         const int64_t c = __shfl_sync(kFull, c_l, q);
         const float a = __shfl_sync(kFull, a_l, q);
-        if (a == 0.0f) continue;                         // warp-uniform
+        if (a == 0.0f || c < vocab_lo || c >= vocab_hi) continue;  // uniform
         float va = tot[0], vb = tot[1];
         if (DROP) {
           va = vb = 0.0f;
@@ -263,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) embed_prop_bwd_kernel(
             if (hb < H && dmask[hb] != 0) vb += gn[k][1] / keep_prob;
           }
         }
-        float* trow = dtable + c * H;
+        float* trow = dtable + (c - vocab_lo) * H;
         if (ha < H) atomicAdd(trow + ha, va * a);
         if (hb < H) atomicAdd(trow + hb, vb * a);
       }
@@ -280,7 +291,8 @@ cudaError_t launch_fwd(const float* table, const int32_t* attr_cols,
                        const float* attr_vals, const int32_t* tk_cols,
                        const float* tk_vals, const uint8_t* keep,
                        const uint8_t* drop, float* out, int rows, int ktop,
-                       int P, int H, float keep_prob, cudaStream_t stream) {
+                       int P, int H, float keep_prob, int vocab_lo,
+                       int vocab_hi, cudaStream_t stream) {
   const int wpr = warps_per_row(ktop);
   const int rpb = (kThreads / 32) / wpr;
   const int threads = rpb * wpr * 32;
@@ -290,7 +302,7 @@ cudaError_t launch_fwd(const float* table, const int32_t* attr_cols,
   const int blocks = (rows + rpb - 1) / rpb;
   embed_prop_fwd_kernel<K, DROP><<<blocks, threads, smem, stream>>>(
       table, attr_cols, attr_vals, tk_cols, tk_vals, keep, drop, out, rows,
-      ktop, P, H, keep_prob, wpr);
+      ktop, P, H, keep_prob, wpr, vocab_lo, vocab_hi);
   return cudaGetLastError();
 }
 
@@ -299,13 +311,14 @@ cudaError_t launch_bwd(const float* grad, const int32_t* attr_cols,
                        const float* attr_vals, const int32_t* tk_cols,
                        const float* tk_vals, const uint8_t* keep,
                        const uint8_t* drop, float* dtable, int rows, int ktop,
-                       int P, int H, float keep_prob, cudaStream_t stream) {
+                       int P, int H, float keep_prob, int vocab_lo,
+                       int vocab_hi, cudaStream_t stream) {
   const int64_t warps = static_cast<int64_t>(rows) * ktop;
   const int64_t blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
   embed_prop_bwd_kernel<K, DROP><<<static_cast<unsigned>(blocks), kThreads, 0,
                                    stream>>>(
       grad, attr_cols, attr_vals, tk_cols, tk_vals, keep, drop, dtable, rows,
-      ktop, P, H, keep_prob);
+      ktop, P, H, keep_prob, vocab_lo, vocab_hi);
   return cudaGetLastError();
 }
 
@@ -335,18 +348,21 @@ cudaError_t launch_bwd(const float* grad, const int32_t* attr_cols,
 // Both return the cudaError_t of the launch (0 on success). num_aug is K,
 // 1..8. tk_cols == nullptr selects the node form (ktop must be 1, tk_vals
 // and keep null); keep == nullptr keeps every slot; drop == nullptr applies
-// no input dropout (keep_prob is then unused). The backward adds into
-// dtable, which the caller zeroes.
+// no input dropout (keep_prob is then unused). table (and dtable) hold the
+// rows [vocab_lo, vocab_hi) of the vocabulary; 0 and V for the whole
+// table. The backward adds into dtable, which the caller zeroes.
 extern "C" int embed_prop_fwd_f32(const float* table, const int32_t* attr_cols,
                                   const float* attr_vals,
                                   const int32_t* tk_cols, const float* tk_vals,
                                   const uint8_t* keep, const uint8_t* drop,
                                   float* out, int rows, int ktop, int P, int H,
-                                  int num_aug, float keep_prob, void* stream) {
+                                  int num_aug, float keep_prob, int vocab_lo,
+                                  int vocab_hi, void* stream) {
   if (rows == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   EMBED_PROP_DISPATCH(launch_fwd, table, attr_cols, attr_vals, tk_cols,
-                      tk_vals, keep, drop, out, rows, ktop, P, H, keep_prob, s)
+                      tk_vals, keep, drop, out, rows, ktop, P, H, keep_prob,
+                      vocab_lo, vocab_hi, s)
 }
 
 extern "C" int embed_prop_bwd_f32(const float* grad, const int32_t* attr_cols,
@@ -355,10 +371,10 @@ extern "C" int embed_prop_bwd_f32(const float* grad, const int32_t* attr_cols,
                                   const uint8_t* keep, const uint8_t* drop,
                                   float* dtable, int rows, int ktop, int P,
                                   int H, int num_aug, float keep_prob,
-                                  void* stream) {
+                                  int vocab_lo, int vocab_hi, void* stream) {
   if (rows == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   EMBED_PROP_DISPATCH(launch_bwd, grad, attr_cols, attr_vals, tk_cols,
                       tk_vals, keep, drop, dtable, rows, ktop, P, H,
-                      keep_prob, s)
+                      keep_prob, vocab_lo, vocab_hi, s)
 }

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import scipy.sparse as sp
 
+from grandtpu_torch.data.preprocess import sym_renormalize
 from grandtpu_torch.data.splits import get_train_val_test_split
 from grandtpu_torch.data.synthetic import synthetic_graph
 
@@ -51,9 +52,12 @@ class GraphData:
         return sp.issparse(self.features)
 
 
-def load_data(dataset_str: str, split_seed: int = 0) -> GraphData:
+def load_data(dataset_str: str, split_seed: int = 0,
+              renormalize: bool = False) -> GraphData:
     """Spec: 'synth:<nodes>[:<classes>[:<features>[:sparse]]]'; with
-    ``sparse`` the features are a CSR bag of words (the MAG engine)."""
+    ``sparse`` the features are a CSR bag of words (the MAG engine).
+    ``renormalize`` replaces the adjacency by D^-1/2 (A+I) D^-1/2, as
+    grandtpu's ``load_data`` does."""
     if not dataset_str.startswith("synth:"):
         raise NotImplementedError(
             f"dataset {dataset_str!r}: the port loads only 'synth:' graphs "
@@ -70,5 +74,5 @@ def load_data(dataset_str: str, split_seed: int = 0) -> GraphData:
     itr, iva, ite = get_train_val_test_split(
         rs, labels, train_examples_per_class=20, val_examples_per_class=30)
     iun = np.concatenate((iva, ite))
-    return GraphData(adj.tocsr(), feats, labels, itr, iva, ite, iun,
-                     dataset_str)
+    adj = sym_renormalize(adj) if renormalize else adj.tocsr()
+    return GraphData(adj, feats, labels, itr, iva, ite, iun, dataset_str)

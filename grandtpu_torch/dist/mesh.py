@@ -8,8 +8,18 @@ per-shard tensor lists, built from ``Tensor.to`` copies (peer copies
 between cards) and ``torch.cat``/``torch.stack``. A device may stand in the
 list more than once: several shards then share one card (or the CPU), as
 ``chip_smoke.py`` runs four shards on one card and the tests run them on
-the CPU. Meshes that span processes (``torch.distributed``/NCCL) come with
-data-parallel training (ROADMAP Queue A 8).
+the CPU.
+
+The collectives the data-parallel step uses (:meth:`Mesh.broadcast`,
+:meth:`Mesh.reduce_sum`, :meth:`Mesh.all_reduce_sum`,
+:meth:`Mesh.scatter_rows`, :meth:`Mesh.reduce_scatter_rows`,
+:meth:`Mesh.all_gather`) are differentiable: autograd differentiates the
+copies and sums they are made of, so each one's backward is its adjoint
+(broadcast <-> reduce to the first shard, all-reduce <-> all-reduce,
+reduce-scatter <-> all-gather). Every cross-shard operation of the step
+is one of these methods, so that a mesh over processes can replace them.
+Such meshes (``torch.distributed``/NCCL) and tensor parallelism are
+ROADMAP Queue A 8.
 """
 
 from __future__ import annotations
@@ -20,7 +30,8 @@ import torch
 
 from grandtpu_torch.device import resolve_device
 
-_TP = "ROADMAP Queue A 8: data-parallel and tensor-parallel training (D2)"
+_TP = ("ROADMAP Queue A 8: multi-process meshes and tensor parallelism "
+       "(_shard_params_tp, emb_mode='tp')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,20 +47,64 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
-    def _per_device(self, make):
-        """``make(device)`` once for each distinct device, in shard order."""
+    def per_device(self, make):
+        """``make(device)`` once for each distinct device, in shard order
+        (shards on one device share the result)."""
         made = {}
         for d in self.devices:
             if d not in made:
                 made[d] = make(d)
         return [made[d] for d in self.devices]
 
-    def all_gather(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
-        """Each shard's [r, ...] block, concatenated in shard order on every
-        shard's device ([S * r, ...]); shards on one device share the copy,
-        which they must only read."""
-        return self._per_device(
-            lambda d: torch.cat([x.to(d) for x in xs]))
+    def all_gather(self, xs: list[torch.Tensor],
+                   dim: int = 0) -> list[torch.Tensor]:
+        """Each shard's block, concatenated in shard order along ``dim`` on
+        every shard's device ([S * r, ...] for dim 0); shards on one device
+        share the copy, which they must only read. Differentiable: the
+        backward sums each copy's gradient slices back onto their shards
+        (a reduce-scatter)."""
+        return self.per_device(
+            lambda d: torch.cat([x.to(d) for x in xs], dim))
+
+    def broadcast(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """``x`` (on any device) on every shard's device; shards on one
+        device share it. The backward sums the shards' gradients (a reduce
+        onto ``x``'s device)."""
+        return self.per_device(lambda d: x.to(d))
+
+    def reduce_sum(self, xs: list[torch.Tensor]) -> torch.Tensor:
+        """The sum of every shard's tensor on the first device, added in
+        shard order. The backward broadcasts the gradient."""
+        root = self.devices[0]
+        out = xs[0].to(root)
+        for x in xs[1:]:
+            out = out + x.to(root)
+        return out
+
+    def all_reduce_sum(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The sum of every shard's tensor, on every shard's device (the
+        same sum in shard order everywhere). Its backward is again an
+        all-reduce."""
+        return self.broadcast(self.reduce_sum(xs))
+
+    def scatter_rows(self, x: torch.Tensor,
+                     dim: int = 0) -> list[torch.Tensor]:
+        """``x``'s S equal blocks along ``dim``, block s on shard s's
+        device, contiguous (the kernels take them as they are). The
+        backward gathers the blocks' gradients."""
+        n = x.shape[dim]
+        if n % self.size:
+            raise ValueError(f"{n} rows do not split over {self.size} "
+                             "shards")
+        return [b.to(d).contiguous()
+                for b, d in zip(x.split(n // self.size, dim), self.devices)]
+
+    def reduce_scatter_rows(self, xs: list[torch.Tensor],
+                            dim: int = 0) -> list[torch.Tensor]:
+        """The sum of every shard's [S * r, ...] tensor, block s of its rows
+        (along ``dim``) on shard s's device. The backward all-gathers the
+        blocks' gradients."""
+        return self.scatter_rows(self.reduce_sum(xs), dim)
 
     def all_to_all(self, sends: list[torch.Tensor]) -> list[torch.Tensor]:
         """``sends[s]`` [S, C, ...] holds what shard s sends to each shard;
@@ -68,7 +123,7 @@ class Mesh:
                 torch.maximum(out, x.to(d), out=out)
             return out
 
-        return self._per_device(make)
+        return self.per_device(make)
 
     def gather_rows(self, xs: list[torch.Tensor]) -> torch.Tensor:
         """The shards' row blocks concatenated on the first device."""

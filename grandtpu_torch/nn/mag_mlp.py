@@ -10,6 +10,13 @@ input BatchNorm: the layout differs from the dense ``MLP``. With
 ``nlayers == 1`` the table maps straight to classes and the head is the
 identity. As in ``grandtpu``, the BatchNorms exist whatever ``use_bn``
 says and are applied only when it is set.
+
+For data-parallel training (D2) :meth:`MagMLP.shard_vocab` splits the
+table over a mesh's shards by vocabulary rows (``table_shards``, one
+``nn.Parameter`` a shard on its device, the vocabulary row-padded with
+zero rows to a multiple of S, as grandtpu's ``emb_mode="vocab"``);
+:meth:`MagMLP.forward_sharded` is the head over the shards' row blocks,
+as ``MLP.forward_sharded``.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 from torch import nn
 
 from grandtpu_torch.nn.mlp import (MaskedBatchNorm, MLPConfig, _dropout,
+                                   _dropout_sharded, _linear_sharded,
                                    _node_normalize)
 from grandtpu_torch.nn.sparse_input import init_embedding
 
@@ -35,6 +43,36 @@ class MagMLP(nn.Module):
                 if cfg.nlayers >= 2 else [])
         self.fcs = nn.ModuleList(nn.Linear(i, o) for i, o in dims)
         self.bns = nn.ModuleList(MaskedBatchNorm(h) for _ in dims)
+        self.vocab_mesh = None      # set by shard_vocab
+
+    def shard_vocab(self, mesh) -> "MagMLP":
+        """Split ``table`` [V, H] over ``mesh``'s shards by rows, in place:
+        the table becomes ``table_shards``, shard s holding the rows
+        :meth:`vocab_window` (s) of the vocabulary padded with zero rows to
+        a multiple of S, on ``mesh.devices[s]``."""
+        table = self.table.detach()
+        v, h = table.shape
+        per = -(-v // mesh.size)
+        padded = torch.cat([table, table.new_zeros(per * mesh.size - v, h)])
+        del self.table
+        self.table_shards = nn.ParameterList(
+            nn.Parameter(block.to(d, copy=True))
+            for block, d in zip(padded.split(per), mesh.devices))
+        self.vocab_mesh = mesh
+        return self
+
+    def vocab_window(self, s: int) -> tuple[int, int]:
+        """The rows [lo, hi) of the (padded) vocabulary shard s holds."""
+        per = self.table_shards[0].shape[0]
+        return s * per, (s + 1) * per
+
+    def gathered_table(self) -> torch.Tensor:
+        """The whole table (with a sharded one's zero padding rows) on the
+        first device, detached."""
+        if self.vocab_mesh is None:
+            return self.table.detach()
+        return self.vocab_mesh.gather_rows(
+            [t.detach() for t in self.table_shards])
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> "MagMLP":
@@ -60,6 +98,25 @@ class MagMLP(nn.Module):
             x = _dropout(x, cfg.hidden_droprate, self.training, generator)
             x = fc(x)
         return x
+
+    def forward_sharded(self, mesh, xs: list, batch_masks: list | None = None,
+                        generator: torch.Generator | None = None,
+                        split=None) -> list:
+        """The head on the shards' [b_s, H] embeddings, equal to
+        :meth:`forward` on the batch they make up (arguments as
+        ``MLP.forward_sharded``)."""
+        cfg = self.cfg
+        split = split or mesh.scatter_rows
+        for fc, bn in zip(self.fcs, self.bns):
+            xs = [torch.relu(x) for x in xs]
+            if cfg.node_norm:
+                xs = [_node_normalize(x) for x in xs]
+            if cfg.use_bn:
+                xs = bn.forward_sharded(mesh, xs, batch_masks)
+            xs = _dropout_sharded(xs, cfg.hidden_droprate, self.training,
+                                  generator, split)
+            xs = _linear_sharded(mesh, fc, xs)
+        return xs
 
 
 def init_mag_mlp(cfg: MLPConfig, seed: int, device) -> MagMLP:

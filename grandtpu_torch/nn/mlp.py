@@ -16,6 +16,16 @@ running stats. The BatchNorms exist whatever ``use_bn`` says, as in the
 reference and in ``grandtpu``'s parameter tree; they are applied only when
 it is set. Linear init is U(+-1/sqrt(fan_in)) for weight and bias, drawn
 from the caller's generator.
+
+:meth:`MLP.forward_sharded` is the same forward over the row blocks of one
+batch on the shards of a mesh (data-parallel training), equal to
+:meth:`MLP.forward` on the whole batch: each shard reads the parameters
+through the mesh's differentiable broadcast (so autograd sums the shards'
+gradients), dropout masks are drawn at the batch's shape in ``forward``'s
+order and handed out by rows, and train-mode BatchNorm takes its masked
+moments over the mesh (mean first, then the centered sums; only
+[width]-sized partials cross the shards) and updates its running stats
+once.
 """
 
 from __future__ import annotations
@@ -85,6 +95,34 @@ class MaskedBatchNorm(nn.Module):
         y = (x - mean) * torch.rsqrt(var + BN_EPS)
         return y * self.weight + self.bias
 
+    def forward_sharded(self, mesh, xs: list, masks: list | None = None
+                        ) -> list:
+        """:meth:`forward` over the shards' row blocks ``xs`` (with their
+        [b_s] row weights ``masks``), with the batch's moments."""
+        if self.training:
+            if masks is None:
+                masks = [x.new_ones(x.shape[0]) for x in xs]
+            m = [c.clamp(min=1.0) for c in
+                 mesh.all_reduce_sum([mk.sum() for mk in masks])]
+            sums = mesh.all_reduce_sum([(x * mk[:, None]).sum(0)
+                                        for x, mk in zip(xs, masks)])
+            means = [a / c for a, c in zip(sums, m)]
+            sq = mesh.all_reduce_sum([(((x - mu) ** 2) * mk[:, None]).sum(0)
+                                      for x, mu, mk in zip(xs, means, masks)])
+            vars_ = [a / c for a, c in zip(sq, m)]
+            with torch.no_grad():
+                unbiased = vars_[0] * (m[0] / (m[0] - 1.0).clamp(min=1.0))
+                self.running_mean.mul_(1 - BN_MOMENTUM).add_(
+                    BN_MOMENTUM * means[0].to(self.running_mean.device))
+                self.running_var.mul_(1 - BN_MOMENTUM).add_(
+                    BN_MOMENTUM * unbiased.to(self.running_var.device))
+        else:
+            means = mesh.broadcast(self.running_mean)
+            vars_ = mesh.broadcast(self.running_var)
+        ws, bs = mesh.broadcast(self.weight), mesh.broadcast(self.bias)
+        return [(x - mu) * torch.rsqrt(v + BN_EPS) * w + b
+                for x, mu, v, w, b in zip(xs, means, vars_, ws, bs)]
+
 
 def _node_normalize(x: torch.Tensor) -> torch.Tensor:
     """x / (1e-12 + ||x||), the reference's epsilon placement."""
@@ -97,6 +135,24 @@ def _dropout(x, rate: float, training: bool, generator):
     keep = torch.rand(x.shape, generator=generator, device=x.device) \
         < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def _dropout_sharded(xs: list, rate: float, training: bool, generator,
+                     split) -> list:
+    """:func:`_dropout` of the batch the row blocks ``xs`` make up: one
+    mask of the batch's shape drawn on the generator's device, handed out
+    by ``split`` (batch rows -> the shards' blocks)."""
+    if not training or rate <= 0.0:
+        return xs
+    shape = (sum(x.shape[0] for x in xs), xs[0].shape[1])
+    keeps = split(torch.rand(shape, generator=generator,
+                             device=generator.device) < 1.0 - rate)
+    return [torch.where(k, x / (1.0 - rate), 0.0) for k, x in zip(keeps, xs)]
+
+
+def _linear_sharded(mesh, fc: nn.Linear, xs: list) -> list:
+    return [torch.nn.functional.linear(x, w, b) for x, w, b in
+            zip(xs, mesh.broadcast(fc.weight), mesh.broadcast(fc.bias))]
 
 
 class MLP(nn.Module):
@@ -135,6 +191,34 @@ class MLP(nn.Module):
             x = _dropout(x, cfg.hidden_droprate, self.training, generator)
             x = self.fcs[i](x)
         return x
+
+    def forward_sharded(self, mesh, xs: list, batch_masks: list | None = None,
+                        generator: torch.Generator | None = None,
+                        split=None) -> list:
+        """Logits of each shard's rows: ``xs[s]`` [b_s, F] are shard s's
+        rows of one batch, on ``mesh.devices[s]``; ``batch_masks[s]`` their
+        BN row weights. ``split`` hands a batch-shaped tensor's rows out to
+        the shards (default: ``mesh.scatter_rows``, the batch in shard
+        order); dropout draws from ``generator`` as :meth:`forward` does."""
+        cfg = self.cfg
+        split = split or mesh.scatter_rows
+        if cfg.node_norm:
+            xs = [_node_normalize(x).detach() for x in xs]
+        if cfg.use_bn:
+            xs = self.bns[0].forward_sharded(mesh, xs, batch_masks)
+        xs = _dropout_sharded(xs, cfg.input_droprate, self.training,
+                              generator, split)
+        xs = _linear_sharded(mesh, self.fcs[0], xs)
+        for i in range(1, cfg.nlayers):
+            xs = [torch.relu(x) for x in xs]
+            if cfg.node_norm:
+                xs = [_node_normalize(x) for x in xs]
+            if cfg.use_bn:
+                xs = self.bns[i].forward_sharded(mesh, xs, batch_masks)
+            xs = _dropout_sharded(xs, cfg.hidden_droprate, self.training,
+                                  generator, split)
+            xs = _linear_sharded(mesh, self.fcs[i], xs)
+        return xs
 
 
 def init_mlp(cfg: MLPConfig, seed: int, device) -> MLP:

@@ -21,6 +21,12 @@ flow into the table only. On CUDA tensors the forward and the backward
 (a scatter-add into the table) are the hand-written kernels of
 ``csrc/embed_prop.cu``; on CPU tensors :func:`embed_prop_plain` runs and
 autograd gives the same gradient.
+
+:func:`embed_prop_window` is the same op over a vocab window: the table
+holds the vocabulary's rows [lo, hi) (one shard of the vocab-sharded
+table of data-parallel training), only the ids in the window add terms,
+the denominator stays the whole row's attr mass, and the gradient is the
+window's [hi - lo, H]. The windows' outputs sum to :func:`embed_prop`'s.
 """
 
 from __future__ import annotations
@@ -88,11 +94,19 @@ def init_embedding(num_features: int, dim: int,
 
 def embed_nodes_plain(table: torch.Tensor, attr_cols: torch.Tensor,
                       attr_vals: torch.Tensor, drop: torch.Tensor | None = None,
-                      droprate: float = 0.0) -> torch.Tensor:
+                      droprate: float = 0.0, vocab_lo: int = 0,
+                      vocab_hi: int | None = None) -> torch.Tensor:
     """Weighted-mean embedding of padded attr rows [..., P] -> [..., H];
     ``drop`` (bool, broadcastable to [..., P, H], leading dims allowed) keeps
-    gathered elements, scaled by 1/(1 - droprate)."""
-    e = table[attr_cols.long()]                          # [..., P, H]
+    gathered elements, scaled by 1/(1 - droprate). With ``vocab_hi``, the
+    table holds the rows [vocab_lo, vocab_hi) and ids outside add 0."""
+    if vocab_hi is None:
+        e = table[attr_cols.long()]                      # [..., P, H]
+    else:
+        c = attr_cols.long() - vocab_lo
+        inside = (c >= 0) & (c < vocab_hi - vocab_lo)
+        e = torch.where(inside[..., None],
+                        table[torch.where(inside, c, 0)], 0.0)
     if drop is not None:
         e = torch.where(drop, e / (1.0 - droprate), 0.0)
     num = torch.einsum("...p,...ph->...h",
@@ -113,16 +127,21 @@ def embed_prop_plain(table: torch.Tensor, attr_cols: torch.Tensor,
                      tk_vals: torch.Tensor | None = None,
                      keep: torch.Tensor | None = None,
                      drop: torch.Tensor | None = None,
-                     droprate: float = 0.0) -> torch.Tensor:
+                     droprate: float = 0.0, vocab_lo: int = 0,
+                     vocab_hi: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the K3 kernels (gather, mask, einsum means;
-    differentiable in ``table``). Arguments as :func:`embed_prop`."""
+    differentiable in ``table``). Arguments as :func:`embed_prop`; with
+    ``vocab_hi``, as :func:`embed_prop_window` (``table`` holds the rows
+    [vocab_lo, vocab_hi))."""
     num_aug = _num_aug(keep, drop)
+    win = {"vocab_lo": vocab_lo, "vocab_hi": vocab_hi}
     if tk_cols is None:
-        e = embed_nodes_plain(table, attr_cols, attr_vals, drop, droprate)
+        e = embed_nodes_plain(table, attr_cols, attr_vals, drop, droprate,
+                              **win)
         return e.expand(num_aug, *e.shape[-2:])          # [K, R, H]
     idx = tk_cols.long()
     e = embed_nodes_plain(table, attr_cols[idx], attr_vals[idx], drop,
-                          droprate)                      # [(K,) R, Ktop, H]
+                          droprate, **win)               # [(K,) R, Ktop, H]
     e = e.expand(num_aug, *e.shape[-3:])
     w = tk_vals[None] if keep is None else torch.where(keep, tk_vals[None],
                                                        0.0)
@@ -187,11 +206,13 @@ def _ptr(t):
 
 
 class _EmbedProp(torch.autograd.Function):
-    """The K3 forward kernel, with the K3 scatter-add kernel as backward."""
+    """The K3 forward kernel, with the K3 scatter-add kernel as backward;
+    over the vocab window [lo, hi) when ``window`` is set (the window forms
+    count their launches apart)."""
 
     @staticmethod
     def forward(ctx, table, attr_cols, attr_vals, tk_cols, tk_vals, keep,
-                drop, droprate, dims):
+                drop, droprate, dims, lo, hi, window):
         rows, ktop, p, h, num_aug = dims
         out = torch.empty((num_aug, rows, h), dtype=torch.float32,
                           device=table.device)
@@ -200,23 +221,43 @@ class _EmbedProp(torch.autograd.Function):
                 table.data_ptr(), attr_cols.data_ptr(), attr_vals.data_ptr(),
                 _ptr(tk_cols), _ptr(tk_vals), _ptr(keep), _ptr(drop),
                 out.data_ptr(), rows, ktop, p, h, num_aug,
-                1.0 - droprate,
+                1.0 - droprate, lo, hi,
                 torch.cuda.current_stream(table.device).cuda_stream)
             check(rc, "embed_prop_fwd_f32")
-            embed_prop.launches += 1
+            (embed_prop_window if window else embed_prop).launches += 1
         ctx.save_for_backward(attr_cols, attr_vals, tk_cols, tk_vals, keep,
                               drop)
-        ctx.num_embeddings = table.shape[0]
         ctx.droprate, ctx.dims = droprate, dims
+        ctx.lo, ctx.hi, ctx.window = lo, hi, window
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        attr_cols, attr_vals, tk_cols, tk_vals, keep, drop = ctx.saved_tensors
-        d_table = embed_prop_backward(
-            grad.contiguous(), ctx.num_embeddings, attr_cols, attr_vals,
-            tk_cols, tk_vals, keep, drop, ctx.droprate, ctx.dims)
-        return (d_table,) + (None,) * 8
+        args = ctx.saved_tensors + (ctx.droprate, ctx.dims)
+        if ctx.window:
+            d_table = embed_prop_window_backward(grad.contiguous(), ctx.lo,
+                                                 ctx.hi, *args)
+        else:
+            d_table = embed_prop_backward(grad.contiguous(), ctx.hi, *args)
+        return (d_table,) + (None,) * 11
+
+
+def _launch_backward(grad, lo, hi, attr_cols, attr_vals, tk_cols, tk_vals,
+                     keep, drop, droprate, dims) -> torch.Tensor:
+    rows, ktop, p, h, num_aug = dims
+    if grad.shape != (num_aug, rows, h) or grad.dtype != torch.float32:
+        raise ValueError(f"embed_prop_backward: grad must be f32 "
+                         f"{(num_aug, rows, h)}")
+    d_table = torch.zeros((hi - lo, h), dtype=torch.float32,
+                          device=grad.device)
+    if grad.numel():
+        rc = load_kernels().embed_prop_bwd_f32(
+            grad.data_ptr(), attr_cols.data_ptr(), attr_vals.data_ptr(),
+            _ptr(tk_cols), _ptr(tk_vals), _ptr(keep), _ptr(drop),
+            d_table.data_ptr(), rows, ktop, p, h, num_aug, 1.0 - droprate,
+            lo, hi, torch.cuda.current_stream(grad.device).cuda_stream)
+        check(rc, "embed_prop_bwd_f32")
+    return d_table
 
 
 def embed_prop_backward(grad: torch.Tensor, num_embeddings: int,
@@ -224,20 +265,25 @@ def embed_prop_backward(grad: torch.Tensor, num_embeddings: int,
                         droprate: float, dims) -> torch.Tensor:
     """The K3 backward kernel: a zeroed [V, H] table gradient that ``grad``
     [K, R, H] is scatter-added into (float atomics)."""
-    rows, ktop, p, h, num_aug = dims
-    if grad.shape != (num_aug, rows, h) or grad.dtype != torch.float32:
-        raise ValueError(f"embed_prop_backward: grad must be f32 "
-                         f"{(num_aug, rows, h)}")
-    d_table = torch.zeros((num_embeddings, h), dtype=torch.float32,
-                          device=grad.device)
+    d_table = _launch_backward(grad, 0, num_embeddings, attr_cols, attr_vals,
+                               tk_cols, tk_vals, keep, drop, droprate, dims)
     if grad.numel():
-        rc = load_kernels().embed_prop_bwd_f32(
-            grad.data_ptr(), attr_cols.data_ptr(), attr_vals.data_ptr(),
-            _ptr(tk_cols), _ptr(tk_vals), _ptr(keep), _ptr(drop),
-            d_table.data_ptr(), rows, ktop, p, h, num_aug, 1.0 - droprate,
-            torch.cuda.current_stream(grad.device).cuda_stream)
-        check(rc, "embed_prop_bwd_f32")
         embed_prop_backward.launches += 1
+    return d_table
+
+
+def embed_prop_window_backward(grad: torch.Tensor, vocab_lo: int,
+                               vocab_hi: int, attr_cols, attr_vals, tk_cols,
+                               tk_vals, keep, drop, droprate: float,
+                               dims) -> torch.Tensor:
+    """The K3 backward kernel over the vocab window [vocab_lo, vocab_hi):
+    the window's zeroed [hi - lo, H] gradient, into which ``grad``'s terms
+    of in-window ids are scatter-added."""
+    d_table = _launch_backward(grad, vocab_lo, vocab_hi, attr_cols,
+                               attr_vals, tk_cols, tk_vals, keep, drop,
+                               droprate, dims)
+    if grad.numel():
+        embed_prop_window_backward.launches += 1
     return d_table
 
 
@@ -264,11 +310,43 @@ def embed_prop(table: torch.Tensor, attr_cols: torch.Tensor,
     dims = _check_args(table, attr_cols, attr_vals, tk_cols, tk_vals, keep,
                        drop, droprate)
     return _EmbedProp.apply(table, attr_cols, attr_vals, tk_cols, tk_vals,
-                            keep, drop, droprate, dims)
+                            keep, drop, droprate, dims, 0, table.shape[0],
+                            False)
+
+
+def embed_prop_window(table: torch.Tensor, vocab_lo: int, vocab_hi: int,
+                      attr_cols: torch.Tensor, attr_vals: torch.Tensor,
+                      tk_cols: torch.Tensor | None = None,
+                      tk_vals: torch.Tensor | None = None,
+                      keep: torch.Tensor | None = None,
+                      drop: torch.Tensor | None = None,
+                      droprate: float = 0.0) -> torch.Tensor:
+    """K3 over the vocab window [vocab_lo, vocab_hi): ``table`` [hi - lo, H]
+    holds those rows of the vocabulary; only attr ids inside the window
+    add terms, the denominators are the full rows' (so the windows of a
+    vocabulary sum to :func:`embed_prop`). Other arguments as
+    :func:`embed_prop`; the gradient is the window's [hi - lo, H]."""
+    if not (0 <= vocab_lo and vocab_hi - vocab_lo == table.shape[0]
+            and vocab_hi < 2 ** 31):
+        raise ValueError(f"embed_prop_window: the table's {table.shape[0]} "
+                         f"rows are not the window [{vocab_lo}, {vocab_hi})")
+    if table.device.type == "cpu":
+        return embed_prop_plain(table, attr_cols, attr_vals, tk_cols,
+                                tk_vals, keep, drop, droprate, vocab_lo,
+                                vocab_hi)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    dims = _check_args(table, attr_cols, attr_vals, tk_cols, tk_vals, keep,
+                       drop, droprate)
+    return _EmbedProp.apply(table, attr_cols, attr_vals, tk_cols, tk_vals,
+                            keep, drop, droprate, dims, vocab_lo, vocab_hi,
+                            True)
 
 
 embed_prop.launches = 0
 embed_prop_backward.launches = 0
+embed_prop_window.launches = 0
+embed_prop_window_backward.launches = 0
 
 
 def embed_nodes(table: torch.Tensor, attr_cols: torch.Tensor,

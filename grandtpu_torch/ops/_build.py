@@ -58,9 +58,10 @@ _SIGNATURES = {
     "csr_spmm_q8": [_P] * 7 + [_I, _I, ctypes.c_float, _I, _I, _P],
     "csr_spmm_q8mxu": [_P] * 7 + [_I, _I, ctypes.c_float, _I, _I, _P],
     # table | grad, attr_cols, attr_vals, tk_cols, tk_vals, keep, drop,
-    # out | dtable, rows, ktop, P, H, num_aug, keep_prob, stream
-    "embed_prop_fwd_f32": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
-    "embed_prop_bwd_f32": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
+    # out | dtable, rows, ktop, P, H, num_aug, keep_prob, vocab_lo,
+    # vocab_hi, stream
+    "embed_prop_fwd_f32": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _I, _P],
+    "embed_prop_bwd_f32": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _I, _P],
     # ids (or null), vals, row_off, out_cols, out_vals | num_rows, k, stream
     "push_topk": [_P] * 3 + [_I, _I, _P, _P, _P],
     # residue, reserve, pushed, tele_in, tele_out, src, deg, thr |

@@ -17,6 +17,7 @@ backend is not ported.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 
@@ -29,11 +30,31 @@ class CheckpointShapeError(ValueError):
     """A checkpoint leaf does not fit the restore template (names the leaf)."""
 
 
+# optax's Adam state, as grandtpu's ``make_optimizer`` chains it: the
+# decayed weights' empty state (with weight decay only), the moments, the
+# scale's empty state
+EmptyState = collections.namedtuple("EmptyState", [])
+ScaleByAdamState = collections.namedtuple("ScaleByAdamState",
+                                          ["count", "mu", "nu"])
+
+
+def adam_tree(mu, nu=None, count=0, weight_decay: float = 0.0):
+    """grandtpu's optimizer-state tree with the Adam moments ``mu`` and
+    ``nu`` (``mu`` again by default: a template of their shapes), each in
+    the params' layout, for ``make_optimizer(lr, weight_decay)``."""
+    adam = ScaleByAdamState(np.asarray(count, np.int32), mu,
+                            mu if nu is None else nu)
+    decay = (EmptyState(),) if weight_decay > 0 else ()
+    return decay + (adam, EmptyState())
+
+
 def _flatten_with_paths(tree, prefix: str = "") -> dict:
     """``{path: leaf}`` in grandtpu's key order and spelling (dict keys
-    sorted, as JAX flattens them)."""
+    sorted, as JAX flattens them; a namedtuple's fields as ``.name``)."""
     if isinstance(tree, dict):
         items = [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    elif hasattr(tree, "_fields"):
+        items = [(f".{f}", getattr(tree, f)) for f in tree._fields]
     elif isinstance(tree, (list, tuple)):
         items = [(f"[{i}]", v) for i, v in enumerate(tree)]
     else:
@@ -50,11 +71,33 @@ def _unflatten(template, leaves: dict, prefix: str = ""):
         return {k: _unflatten(template[k], leaves,
                               f"{prefix}/[{k!r}]" if prefix else f"[{k!r}]")
                 for k in template}
+    if hasattr(template, "_fields"):
+        return type(template)(*(
+            _unflatten(getattr(template, f), leaves,
+                       f"{prefix}/.{f}" if prefix else f".{f}")
+            for f in template._fields))
     if isinstance(template, (list, tuple)):
         return type(template)(
             _unflatten(v, leaves, f"{prefix}/[{i}]" if prefix else f"[{i}]")
             for i, v in enumerate(template))
     return leaves[prefix]
+
+
+def row_padded_meta(before: dict, after: dict) -> dict[str, int]:
+    """``{"{section}|{path}": original dim 0}`` of every leaf that a mesh
+    placement row-padded (its leading dimension grew, the others did
+    not), comparing section trees (``{"params": ..., "opt": ...}``)
+    before and after; stored in the checkpoint's meta so that a restore
+    slices those leaves and nothing else (grandtpu ``checkpoint.py:32``)."""
+    out: dict[str, int] = {}
+    for name, tree_b in before.items():
+        flat_a = _flatten_with_paths(after[name])
+        for key, leaf in _flatten_with_paths(tree_b).items():
+            sb, sa = np.shape(leaf), np.shape(flat_a[key])
+            if (sb != sa and len(sa) >= 2 and len(sa) == len(sb)
+                    and sa[1:] == sb[1:] and sa[0] > sb[0]):
+                out[f"{name}|{key}"] = int(sb[0])
+    return out
 
 
 def save_checkpoint(path: str, *, params, state, opt_state=None,

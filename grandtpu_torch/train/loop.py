@@ -36,13 +36,17 @@ def pad_batch(idx: np.ndarray, size: int):
 def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
                       step_fn, eval_fn, snapshot, train_positions,
                       sample_positions, train_labels_all, device,
-                      verbose, model=None):
+                      verbose, model=None, batch_transform=None,
+                      row_padded=None):
     """Run the early-stopped training.
 
     step_fn(batch, num_batch) -> metrics; eval_fn() -> (val_loss, val_acc);
     snapshot() -> a copy of the model state, kept for the best eval;
     ``model``: the trained module, saved at each improving eval when
-    ``cfg.ckpt_dir`` is set.
+    ``cfg.ckpt_dir`` is set (a vocab-sharded table gathered, with the
+    ``row_padded`` meta, as grandtpu writes a mesh run's);
+    ``batch_transform``: applied to each step's batch (a mesh's
+    ``shard_batch``, grandtpu ``loop.py:236-237``).
     Returns a dict with the best eval (``best``: acc, loss, state, batch,
     epoch), ``num_batch``, per-step host ``batch_times`` and ``history``.
     """
@@ -81,9 +85,11 @@ def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
 
         for i in range(n_steps):
             bt0 = time.time()
-            metrics = step_fn({"rows": rows_e[i], "labels": labels_e[i],
-                               "label_mask": masks_e[i],
-                               "unlabel_mask": umasks_e[i]}, num_batch)
+            batch = {"rows": rows_e[i], "labels": labels_e[i],
+                     "label_mask": masks_e[i], "unlabel_mask": umasks_e[i]}
+            if batch_transform is not None:
+                batch = batch_transform(batch)
+            metrics = step_fn(batch, num_batch)
             batch_times.append(time.time() - bt0)
 
             if num_batch % cfg.eval_batch == 0:
@@ -110,6 +116,7 @@ def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
                                 state=state, num_batch=num_batch,
                                 best_val_acc=best["acc"],
                                 best_val_loss=best["loss"],
+                                row_padded=row_padded,
                                 backend=cfg.ckpt_backend)
                 else:
                     bad_counter += 1

@@ -12,6 +12,15 @@ One training step is the reference inner loop (``model.py:303-334``):
 Batches are wrap-padded to a fixed size; the masks weight the padding out
 of the NLL, the BN statistics and the consistency loss, so a padded step
 equals a step on the true smaller batch.
+
+With ``mesh=``, :func:`build_train_step` and :func:`build_eval_step`
+return the data-parallel step and eval (D2, ``dist/data_parallel.py``),
+equal to the one-device ones: each shard
+runs K1 and the MLP on its rows of the batch, every random mask is drawn
+at the batch's shape in the one-device order and handed out by rows, the
+BN moments and the loss normalizers are the batch's, and autograd sums
+the shards' gradients onto the one copy of the parameters, where the
+grad norm, the clip and Adam run.
 """
 
 from __future__ import annotations
@@ -21,8 +30,9 @@ from typing import Callable
 
 import torch
 
+from grandtpu_torch.dist.data_parallel import BatchSplit
 from grandtpu_torch.nn.dropnode import gather_and_prop
-from grandtpu_torch.nn.losses import consis_loss
+from grandtpu_torch.nn.losses import consis_loss, consis_loss_sharded
 from grandtpu_torch.nn.mlp import MLP, MLPConfig
 
 
@@ -49,24 +59,55 @@ def make_optimizer(model: MLP, lr: float,
                             eps=1e-8, weight_decay=weight_decay)
 
 
-def _masked_nll(logps_k, labels, mask):
-    """Mean over K augs of masked-mean NLL. logps_k [K, B, C]."""
+def _nll_sums(logps_k, labels, mask):
+    """[K] masked NLL sums of logps_k [K, B, C]."""
     picked = logps_k.gather(
         -1, labels[None, :, None].expand(logps_k.shape[0], -1, 1))[..., 0]
-    per_k = -(picked * mask[None]).sum(-1) / mask.sum().clamp(min=1.0)
+    return -(picked * mask[None]).sum(-1)
+
+
+def _masked_nll(logps_k, labels, mask):
+    """Mean over K augs of masked-mean NLL. logps_k [K, B, C]."""
+    per_k = _nll_sums(logps_k, labels, mask) / mask.sum().clamp(min=1.0)
     return per_k.mean()
 
 
+def _masked_nll_sharded(mesh, logps_k, labels, masks):
+    """:func:`_masked_nll` of the batch the shards' lists make up."""
+    sums = mesh.reduce_sum([_nll_sums(lp, lab, m)
+                            for lp, lab, m in zip(logps_k, labels, masks)])
+    count = mesh.reduce_sum([m.sum() for m in masks])
+    return (sums / count.clamp(min=1.0)).mean()
+
+
+def _accuracy_sharded(mesh, logps, labels, masks):
+    """Masked accuracy of the shards' log-probs [b_s, C] on the first
+    device."""
+    hits = mesh.reduce_sum([((lp.argmax(-1) == lab) * m).sum()
+                            for lp, lab, m in zip(logps, labels, masks)])
+    return hits / mesh.reduce_sum([m.sum() for m in masks]).clamp(min=1.0)
+
+
 def _global_norm(grads) -> torch.Tensor:
+    """The norm of all ``grads``, on the first one's device."""
+    dev = grads[0].device
     return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        torch.stack([torch.linalg.vector_norm(g).to(dev) for g in grads]))
 
 
 def _clip_(grads, gnorm: torch.Tensor, clip_norm: float) -> None:
     """Scale ``grads`` in place by min(1, clip_norm / (gnorm + 1e-6))."""
     scale = (clip_norm / (gnorm + 1e-6)).clamp(max=1.0)
     for g in grads:
-        g.mul_(scale)
+        g.mul_(scale.to(g.device))
+
+
+def _unlabel_mask(batch, n_train: int):
+    um = batch.get("unlabel_mask")
+    if um is None:
+        um = torch.ones(batch["rows"].shape[0] - n_train,
+                        device=batch["rows"].device)
+    return um
 
 
 def _eval_metrics(logps, labels, mask):
@@ -79,14 +120,22 @@ def _eval_metrics(logps, labels, mask):
 
 
 def build_train_step(cfg: StepConfig, model: MLP,
-                     optimizer: torch.optim.Optimizer) -> Callable:
+                     optimizer: torch.optim.Optimizer,
+                     mesh=None) -> Callable:
     """Returns step(features, tk_cols, tk_vals, batch, generator, num_batch)
     -> metrics (0-d tensors), updating ``model`` and ``optimizer`` in place.
 
     batch = dict(rows [B] positions into the top-k table, labels [n_train],
     label_mask [n_train] f32, optional unlabel_mask [B - n_train] f32), all
     on the features' device; B = n_train + n_unlabeled.
+
+    With ``mesh``: the data-parallel step. features, tk_cols and tk_vals
+    are per-shard lists (``shard_train_inputs``), batch is
+    ``shard_batch``'s list, the model and ``generator`` are on the mesh's
+    first device, and so are the metrics.
     """
+    if mesh is not None:
+        return _build_sharded_train_step(cfg, model, optimizer, mesh)
     params = list(model.parameters())
 
     def step(features, tk_cols, tk_vals, batch, generator, num_batch):
@@ -94,9 +143,7 @@ def build_train_step(cfg: StepConfig, model: MLP,
         cols = tk_cols[batch["rows"]]                        # [B, Ktop]
         vals = tk_vals[batch["rows"]]
         nt = cfg.n_train
-        um = batch.get("unlabel_mask")
-        if um is None:
-            um = torch.ones(cols.shape[0] - nt, device=cols.device)
+        um = _unlabel_mask(batch, nt)
         bmask = torch.cat([batch["label_mask"], um])
         keep = torch.rand((cfg.k_aug, *cols.shape), generator=generator,
                           device=cols.device) < 1.0 - cfg.dropnode_rate
@@ -118,14 +165,7 @@ def build_train_step(cfg: StepConfig, model: MLP,
         preds = logps[-1, :nt].argmax(-1)
         acc = ((preds == labels) * lmask).sum() / lmask.sum().clamp(min=1.0)
 
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = [p.grad for p in params if p.grad is not None]
-        # the reference measures the grad norm even with clipping off
-        gnorm = _global_norm(grads)
-        if cfg.clip_norm > 0:
-            _clip_(grads, gnorm, cfg.clip_norm)
-        optimizer.step()
+        gnorm = _step_update(loss, params, optimizer, cfg.clip_norm)
         return {"loss": loss.detach(), "sup_loss": sup.detach(),
                 "consis_loss": unsup.detach(), "train_acc": acc,
                 "grad_norm": gnorm}
@@ -133,10 +173,106 @@ def build_train_step(cfg: StepConfig, model: MLP,
     return step
 
 
-def build_eval_step(cfg: StepConfig, model: MLP) -> Callable:
+def _step_update(loss, params, optimizer, clip_norm: float) -> torch.Tensor:
+    """Backward, the grad norm (always measured), the clip, Adam; returns
+    the norm."""
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    grads = [p.grad for p in params if p.grad is not None]
+    # the reference measures the grad norm even with clipping off
+    gnorm = _global_norm(grads)
+    if clip_norm > 0:
+        _clip_(grads, gnorm, clip_norm)
+    optimizer.step()
+    return gnorm
+
+
+def _sharded_batch(mesh, batches, n_train: int):
+    """(labeled rows a shard, unlabel masks, BN row masks, the batch's
+    :class:`BatchSplit`) of ``shard_batch``'s list."""
+    nts = n_train // mesh.size
+    ums = [_unlabel_mask(b, nts) for b in batches]
+    bmasks = [torch.cat([b["label_mask"], um]) for b, um in zip(batches, ums)]
+    n_unlabeled = sum(um.shape[0] for um in ums)
+    return nts, ums, bmasks, BatchSplit(mesh, n_train, n_unlabeled)
+
+
+def _sharded_losses(mesh, logps, batches, nts: int, ums, ramp: float,
+                    tem: float, conf: float, loss_kind: str):
+    """(loss, sup, unsup, train accuracy) of the shards' log-probs
+    [K, b_s, C], each of the batch, on the first device."""
+    labels = [b["labels"] for b in batches]
+    lmasks = [b["label_mask"] for b in batches]
+    sup = _masked_nll_sharded(mesh, [lp[:, :nts] for lp in logps], labels,
+                              lmasks)
+    unsup = consis_loss_sharded(mesh, [lp[:, nts:] for lp in logps], tem,
+                                conf, loss_kind, row_masks=ums)
+    acc = _accuracy_sharded(mesh, [lp[-1, :nts] for lp in logps], labels,
+                            lmasks)
+    return sup + ramp * unsup, sup, unsup, acc
+
+
+def _build_sharded_train_step(cfg: StepConfig, model: MLP,
+                              optimizer: torch.optim.Optimizer,
+                              mesh) -> Callable:
+    params = list(model.parameters())
+
+    def step(features, tk_cols, tk_vals, batches, generator, num_batch):
+        model.train()
+        nts, ums, bmasks, split = _sharded_batch(mesh, batches, cfg.n_train)
+        cols = [tc[b["rows"]] for tc, b in zip(tk_cols, batches)]
+        vals = [tv[b["rows"]] for tv, b in zip(tk_vals, batches)]
+        shape = (cfg.k_aug, sum(c.shape[0] for c in cols), cols[0].shape[1])
+        keeps = split(torch.rand(shape, generator=generator,
+                                 device=generator.device)
+                      < 1.0 - cfg.dropnode_rate, dim=1)
+        xs = [gather_and_prop(f, c, v, k)                    # [K, b_s, F]
+              for f, c, v, k in zip(features, cols, vals, keeps)]
+        outs = [model.forward_sharded(
+            mesh, [x[k] for x in xs],
+            batch_masks=bmasks if cfg.mlp.use_bn else None,
+            generator=generator, split=split) for k in range(cfg.k_aug)]
+        logps = [torch.stack([torch.log_softmax(o[s], dim=-1) for o in outs])
+                 for s in range(mesh.size)]
+        ramp = min(cfg.lam, cfg.lam * float(num_batch) / cfg.warmup)
+        loss, sup, unsup, acc = _sharded_losses(
+            mesh, logps, batches, nts, ums, ramp, cfg.tem, cfg.conf,
+            cfg.loss_kind)
+        gnorm = _step_update(loss, params, optimizer, cfg.clip_norm)
+        return {"loss": loss.detach(), "sup_loss": sup.detach(),
+                "consis_loss": unsup.detach(), "train_acc": acc,
+                "grad_norm": gnorm}
+
+    return step
+
+
+def _eval_sharded(mesh, model, xs, labels, masks):
+    """(nll, acc) of eval-mode ``model`` on the shards' inputs ``xs``, on
+    the first device."""
+    logps = [torch.log_softmax(o, dim=-1)
+             for o in model.forward_sharded(mesh, xs)]
+    picked = [lp.gather(-1, lab[:, None])[:, 0]
+              for lp, lab in zip(logps, labels)]
+    denom = mesh.reduce_sum([m.sum() for m in masks]).clamp(min=1.0)
+    nll = -mesh.reduce_sum([(p * m).sum() for p, m in zip(picked, masks)])
+    return nll / denom, _accuracy_sharded(mesh, logps, labels, masks)
+
+
+def build_eval_step(cfg: StepConfig, model: MLP, mesh=None) -> Callable:
     """Returns evaluate(features, tk_cols, tk_vals, rows, labels, mask) ->
     (nll, acc). Reference ``valid`` (``model.py:143-166``): no DropNode,
-    no dropout, BN on its running stats."""
+    no dropout, BN on its running stats. With ``mesh``, every argument is
+    a per-shard list (the operands replicated, the rows, labels and mask
+    split by ``split_rows``): each shard evaluates its rows."""
+    if mesh is not None:
+        @torch.no_grad()
+        def evaluate_sharded(features, tk_cols, tk_vals, rows, labels, mask):
+            model.eval()
+            xs = [gather_and_prop(f, tc[r], tv[r])[0] for f, tc, tv, r in
+                  zip(features, tk_cols, tk_vals, rows)]
+            return _eval_sharded(mesh, model, xs, labels, mask)
+
+        return evaluate_sharded
 
     @torch.no_grad()
     def evaluate(features, tk_cols, tk_vals, rows, labels, mask):

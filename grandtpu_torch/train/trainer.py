@@ -6,6 +6,10 @@ the dense-feature engine here runs
   the host C++ kernel, or the dense or bucketed push on the device) ->
   device-resident features and top-k table -> training loop -> exact
   full-graph propagation with the best weights -> chunked classification.
+
+With ``num_devices > 1`` both engines train data-parallel on a mesh (D2,
+``dist/data_parallel.py``) and predict through the row-partitioned
+``dist_exact_propagate`` (D1), as grandtpu's trainers do.
 """
 
 from __future__ import annotations
@@ -18,10 +22,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from grandtpu_torch import dist
 from grandtpu_torch.config import GrandConfig
 from grandtpu_torch.data import GraphData, load_data
 from grandtpu_torch.data.preprocess import add_self_loops_adj
 from grandtpu_torch.device import resolve_device
+from grandtpu_torch.dist.data_parallel import (check_batch_split,
+                                               shard_batch,
+                                               shard_train_inputs,
+                                               split_rows)
 from grandtpu_torch.infer import exact_propagator, test_accuracy
 from grandtpu_torch.nn.mlp import MLPConfig, init_mlp
 from grandtpu_torch.ppr import gfpush
@@ -47,12 +56,30 @@ def check_supported(cfg: GrandConfig) -> None:
          "ROADMAP Queue A 5: the push cache"),
         (cfg.scan_steps, "scan_steps",
          "ROADMAP Queue A: CUDA-graph step groups"),
-        (cfg.num_devices > 1, "num_devices > 1",
-         "ROADMAP Queue A 8: data-parallel training on a mesh (D2)"),
     ]
     for bad, what, item in unported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def train_mesh(cfg: GrandConfig, mesh, device: torch.device):
+    """The mesh a trainer runs on: None for ``num_devices == 1``, else
+    ``mesh`` (default ``make_mesh(num_devices, device=device)``), checked
+    to have ``num_devices`` shards of ``device``'s type and a batch that
+    splits over them (``ValueError`` before any step)."""
+    if cfg.num_devices <= 1:
+        if mesh is not None and mesh.size != 1:
+            raise ValueError(f"a mesh of {mesh.size} shards with "
+                             f"num_devices={cfg.num_devices}")
+        return None
+    if mesh is None:
+        mesh = dist.make_mesh(cfg.num_devices, device=device)
+    if mesh.size != cfg.num_devices or mesh.devices[0].type != device.type:
+        raise ValueError(f"num_devices={cfg.num_devices} on {device.type} "
+                         f"but the mesh has {mesh.size} shards on "
+                         f"{mesh.devices[0].type}")
+    check_batch_split(mesh, cfg.batch_size, cfg.unlabel_batch_size)
+    return mesh
 
 
 @dataclasses.dataclass
@@ -67,17 +94,24 @@ class TrainResult:
     preprocess_time: float
     propagate_time: float      # exact propagation, synchronized
     # the form the predict's hops ran (Propagator.last_precision: 'f32',
-    # 'bf16', 'int8mxu', 'int8cast'; None on the dense backend)
+    # 'bf16', 'int8mxu', 'int8cast'; None on the dense backend and on a
+    # mesh)
     predict_precision: Optional[str] = None
     model: Optional[nn.Module] = None   # MLP or MagMLP, best weights
     history: list = dataclasses.field(default_factory=list)
 
 
 def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
-          device="cuda") -> TrainResult:
-    """Run one GRAND+ training + exact-propagation test on ``device``."""
+          device="cuda", *, mesh=None) -> TrainResult:
+    """Run one GRAND+ training + exact-propagation test on ``device``.
+    With ``cfg.num_devices > 1``, data-parallel on ``mesh`` (default
+    ``make_mesh(num_devices, device=device)``; pass
+    ``make_mesh(S, devices=[card] * S)`` to put S shards on one card)."""
     device = resolve_device(device)
     check_supported(cfg)
+    mesh = train_mesh(cfg, mesh, device)
+    if mesh is not None:
+        device = mesh.devices[0]
     # f32 parity with grandtpu: no TF32 in matmuls or cuDNN, set
     # explicitly rather than trusting the build's defaults
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -91,7 +125,8 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
         # dispatch on the feature format, as grandtpu does (the
         # sparse_features flag is not read)
         from grandtpu_torch.train.trainer_sparse import train_sparse
-        return train_sparse(cfg, data=data, log=log, device=device)
+        return train_sparse(cfg, data=data, log=log, device=device,
+                            mesh=mesh)
 
     t_start = time.time()
     adj_sl = add_self_loops_adj(data.adj)
@@ -125,42 +160,59 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
         clip_norm=cfg.clip_norm)
     model = init_mlp(mlp_cfg, cfg.seed2, device)
     optimizer = make_optimizer(model, cfg.lr, cfg.weight_decay)
-    train_step = build_train_step(step_cfg, model, optimizer)
-    eval_step = build_eval_step(step_cfg, model)
+    train_step = build_train_step(step_cfg, model, optimizer, mesh=mesh)
+    eval_step = build_eval_step(step_cfg, model, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(cfg.seed2)
 
     # the whole val set in one eval call (BN in eval mode, so batching has
-    # no numeric effect)
+    # no numeric effect); on a mesh each shard evaluates a block of it
     val_rows = torch.as_tensor(tk.row_positions(data.idx_val),
                                dtype=torch.long, device=device)
     val_labels = torch.as_tensor(labels_int[data.idx_val], dtype=torch.long,
                                  device=device)
     val_mask = torch.ones(len(data.idx_val), device=device)
+    step_operands, batch_transform = (features, tk_cols, tk_vals), None
+    if mesh is not None:
+        step_operands = shard_train_inputs(
+            mesh, model=model, features=features, tk_cols=tk_cols,
+            tk_vals=tk_vals)
+        val_rows, val_labels, val_mask = (split_rows(mesh, t) for t in
+                                          (val_rows, val_labels, val_mask))
+        batch_transform = lambda b: shard_batch(mesh, b)  # noqa: E731
 
     out = run_training_loop(
         cfg, rng,
-        step_fn=lambda batch, nb: train_step(features, tk_cols, tk_vals,
-                                             batch, generator, nb),
-        eval_fn=lambda: eval_step(features, tk_cols, tk_vals, val_rows,
-                                  val_labels, val_mask),
+        step_fn=lambda batch, nb: train_step(*step_operands, batch,
+                                             generator, nb),
+        eval_fn=lambda: eval_step(*step_operands, val_rows, val_labels,
+                                  val_mask),
         snapshot=lambda: {k: v.detach().clone()
                           for k, v in model.state_dict().items()},
         train_positions=tk.row_positions(data.idx_train),
         sample_positions=tk.row_positions(idx_sample),
         train_labels_all=labels_int[data.idx_train],
-        device=device, verbose=verbose, model=model)
+        device=device, verbose=verbose, model=model,
+        batch_transform=batch_transform)
     best = out["best"]
     model.load_state_dict(best["state"])
+    step_operands = None
 
-    # exact full-graph propagation test with the best weights
+    # exact full-graph propagation test with the best weights; on a mesh
+    # row-partitioned (D1), as grandtpu's
     t_prop = time.time()
-    propagator, precision = exact_propagator(
-        adj_sl, features.shape[1], precision=cfg.predict_precision,
-        device=device)
-    prop = propagator(features, mode=cfg.prop_mode, order=cfg.order,
-                      alpha=cfg.alpha, precision=precision)
-    predict_precision = propagator.last_precision
-    del propagator      # the operator, before the head's activations
+    if mesh is not None:
+        prop = dist.dist_exact_propagate(
+            mesh, adj_sl, features, mode=cfg.prop_mode, order=cfg.order,
+            alpha=cfg.alpha, precision=cfg.predict_precision)
+        predict_precision = None
+    else:
+        propagator, precision = exact_propagator(
+            adj_sl, features.shape[1], precision=cfg.predict_precision,
+            device=device)
+        prop = propagator(features, mode=cfg.prop_mode, order=cfg.order,
+                          alpha=cfg.alpha, precision=precision)
+        predict_precision = propagator.last_precision
+        del propagator      # the operator, before the head's activations
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     propagate_time = time.time() - t_prop

@@ -9,7 +9,9 @@ machine with a card and without JAX, run them with
 cases the full-width checks in ``chip_smoke.py`` do not: K = 1..8, odd
 widths, empty and fully masked rows, hub rows, and for K3 attribute-free
 nodes, input dropout, colliding ids (the backward's atomics) and the node
-form; for the fast-precision hops (K2-bf16, quantize, K2-q8, K2-q8mxu) f32
+form, and its vocab-window form (an empty window, the whole vocabulary,
+ids on the window's edges, the windows summing to the full op); for the
+fast-precision hops (K2-bf16, quantize, K2-q8, K2-q8mxu) f32
 and bf16 carries, widths that are not a multiple of 4 or 32, an all-zero
 column, a 9000-nonzero hub row and a one-row operator; for the GFPush
 kernels (top-k, P1's push mask, P2's expansion and compaction) ties, rows
@@ -33,7 +35,9 @@ from grandtpu_torch.ppr.dense_push import (dense_push_mask,
 from grandtpu_torch.ppr.push_topk import (push_topk, push_topk_plain,
                                           row_offsets)
 from grandtpu_torch.nn.sparse_input import (embed_prop, embed_prop_backward,
-                                            embed_prop_plain)
+                                            embed_prop_plain,
+                                            embed_prop_window,
+                                            embed_prop_window_backward)
 from grandtpu_torch.sparse.spmm import (CSROperator, quantize_columns,
                                         quantize_columns_plain,
                                         row_values_if_constant,
@@ -222,6 +226,75 @@ def test_embed_prop_wrapper_rejects_bad_input(device):
         embed_prop(table, cols, vals,
                    drop=torch.ones(1, 3, 2, 5, dtype=torch.bool,
                                    device=device), droprate=0.5)
+
+
+def _k3_window_run(fn, table, lo, hi, args, grad, q):
+    t = table.clone().requires_grad_(True)
+    out = fn(t, lo, hi, **args, droprate=q) if hi is not None else \
+        fn(t, **args, droprate=q)
+    (out * grad).sum().backward()
+    return out.detach(), t.grad
+
+
+@pytest.mark.parametrize("window", ["empty", "all", "edges"])
+@pytest.mark.parametrize("q,node_form", [(0.0, False), (0.5, False),
+                                         (0.5, True)])
+def test_embed_prop_window_kernels_match_plain(device, window, q,
+                                               node_form):
+    """K3 over a vocab window against its plain version: an empty window
+    (past the vocabulary: nothing added, a zero gradient), the whole
+    vocabulary (the full op bit for bit) and ids just inside and just
+    outside both edges."""
+    table, args, grad = _k3_inputs(device, 2, 40, 1 if node_form else 32,
+                                   24, 64, q, False, node_form)
+    lo, hi = {"empty": (300, 340), "all": (0, 300),
+              "edges": (100, 200)}[window]
+    # ids on the edges, in a node every form reads (node 3 has no values)
+    args["attr_cols"][0, :4] = torch.tensor([99, 100, 199, 200])
+    if not node_form:
+        args["tk_cols"][:, 0] = 0
+    shard = (torch.randn(hi - lo, 64, device=device) if window == "empty"
+             else table[lo:hi].contiguous())
+    fwd0 = embed_prop_window.launches
+    bwd0 = embed_prop_window_backward.launches
+    out_k, d_k = _k3_window_run(embed_prop_window, shard, lo, hi, args,
+                                grad, q)
+    torch.cuda.synchronize()
+    assert embed_prop_window.launches == fwd0 + 1
+    assert embed_prop_window_backward.launches == bwd0 + 1
+    t_p = shard.clone().requires_grad_(True)
+    want = embed_prop_plain(t_p, **args, droprate=q, vocab_lo=lo,
+                            vocab_hi=hi)
+    (want * grad).sum().backward()
+    assert d_k.shape == (hi - lo, 64)
+    if window == "empty":
+        assert not out_k.any() and not d_k.any()
+        return
+    assert _rel_err(out_k, want.detach()) <= TOL
+    assert _rel_err(d_k, t_p.grad) <= TOL
+    if window == "all":
+        full, d_full = _k3_window_run(embed_prop, table, None, None, args,
+                                      grad, q)
+        assert torch.equal(out_k, full)
+    else:
+        assert float(d_k[0].abs().max()) > 0.0      # id 100 is in
+        assert float(d_k[-1].abs().max()) > 0.0     # id 199 is in
+
+
+@pytest.mark.parametrize("shards", [3, 4])
+def test_embed_prop_windows_sum_to_the_full_op(device, shards):
+    table, args, grad = _k3_inputs(device, 2, 40, 32, 24, 64, 0.5, False,
+                                   False)
+    per = -(-300 // shards)
+    padded = torch.cat([table, table.new_zeros(per * shards - 300, 64)])
+    full, d_full = _k3_window_run(embed_prop, table, None, None, args, grad,
+                                  0.5)
+    outs, grads = zip(*(_k3_window_run(
+        embed_prop_window, padded[s * per:(s + 1) * per].contiguous(),
+        s * per, (s + 1) * per, args, grad, 0.5) for s in range(shards)))
+    assert _rel_err(sum(outs), full) <= TOL
+    assert _rel_err(torch.cat(grads)[:300], d_full) <= TOL
+    assert not torch.cat(grads)[300:].any()
 
 
 @functools.lru_cache(maxsize=None)

@@ -20,6 +20,20 @@ from grandtpu_torch.data.preprocess import add_self_loops_adj
 from grandtpu_torch.ppr import build_coef, gfpush
 
 
+@pytest.mark.parametrize("spec", ["synth:100:2:8", "synth:300:4:16:sparse"])
+def test_renormalize_option(spec):
+    """``load_data(renormalize=True)``: D^-1/2 (A+I) D^-1/2 as grandtpu's
+    (tests/test_data.py::test_renormalize_option), symmetric, with
+    self-loop mass on the diagonal."""
+    want = jax_load_data(spec, split_seed=0, renormalize=True)
+    got = load_data(spec, split_seed=0, renormalize=True)
+    assert (abs(got.adj - want.adj)).max() == 0
+    assert (abs(got.adj - got.adj.T)).max() < 1e-6
+    assert got.adj.diagonal().min() > 0
+    assert (load_data(spec, split_seed=0).adj
+            != jax_load_data(spec, split_seed=0).adj).nnz == 0
+
+
 @pytest.mark.parametrize("spec,seed", [("synth:400:4:32", 0),
                                        ("synth:900:7:20", 42)])
 def test_synth_loader_equal(spec, seed):
