@@ -24,8 +24,11 @@ Phases, in order; any failure exits non-zero without the result line:
     tests/test_gfpush_backends.py (atol = tie_tol = max(1e-5, 2 rmax)), to
     its plain version on the card (P2 bit for bit, its sums being fixed
     point; P1 cols equal and vals <= 1e-5, K2 adding in edge order), and to
-    a second run (identical); kernel / plain / library (``torch.topk``)
-    times and bounds, and sources/s beside native's with the host's cores;
+    a second run (identical); push_topk bit for bit its plain version at
+    P1's form [512, 233000], at 4 of its rows made all positive (past the
+    kernel's shared buffer) and at P2's form; kernel / plain / library
+    (``torch.topk``) times and bounds, and sources/s beside native's with
+    the host's cores;
 4. reference on a small input: ``train()`` with DropNode off on
    ``synth:2000:8:64`` on the card and on the CPU (plain versions) gives
    the same validation history (|d val_loss| <= 1e-4) and test accuracy
@@ -48,8 +51,9 @@ Then the same for the MAG (sparse-feature) engine, on
     Ktop = 32, K = 2) without and with a q = 0.5 input-dropout mask, the
     eval form (K = 1, the 240 val rows) and the node form on a
     10,000-node chunk; max relative error <= 1e-5 (the backward's
-    atomics sum in another order); K2 timed at H = 64 on the MAG
-    operator;
+    atomics sum in another order); each forward form's kernel also timed
+    on the device alone (torch.profiler over 100 calls) beside its wrapper
+    time; K2 timed at H = 64 on the MAG operator;
 4b. reference on a small input: ``train()`` with the mag_scholar_c
     preset, every drop rate 0, on ``synth:2000:8:500:sparse`` on the card
     and on the CPU: |d val_loss| <= 1e-4 at every eval, test accuracy
@@ -128,6 +132,22 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     ``order`` times; the wall time split into data, checkpoint, operator
     build, hops and classify.
 
+3j. (after 3i) hub rows: grandtpu/bench/skew_probe.py's skew graph
+    (the ``synth`` SBM base, 300,000 nodes, degree 20, with self-loops,
+    plus 200 hub rows of 15,000 random neighbours, F 128), whose operator
+    splits the hub rows into chunks: one hop of K2, K2-bf16 and K2-bf16
+    with bf16 carries against their plain versions (which follow the same
+    plan; <= 1e-5, bf16 carries bit for bit), a whole 5-hop ppr run of K2
+    and of K2-bf16 as a path (each exactly 5 launches) against the plain
+    run (<= 1e-5); the split hop's time beside the unsplit hop's (a cap
+    above the longest row), the plain, ``torch.sparse.mm`` and the bound,
+    the gathered bytes, the split rows and chunks, the host seconds of
+    the graph, the operator and the plan.
+
+Every K2 time is printed beside the bytes its gathers read (nnz rows of
+x) at the HBM rate, the floor of a gathering kernel when the L2 catches no
+reuse.
+
 Data-parallel training (D2) on meshes of the one card:
 
 3i. (after 3e) ``sharded_gfpush`` on ``make_mesh(4, devices=[cuda:0] *
@@ -179,6 +199,7 @@ import sys
 import time
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
@@ -186,6 +207,7 @@ from grandtpu_torch.cli.main import cli
 from grandtpu_torch.config import preset
 from grandtpu_torch.data import load_data
 from grandtpu_torch.data.preprocess import add_self_loops_adj
+from grandtpu_torch.data.synthetic import synthetic_graph
 from grandtpu_torch.dist import (ShardedGraph, ShardedPropagator,
                                  dist_exact_propagator, make_mesh,
                                  shard_batch, shard_sparse_train_inputs,
@@ -209,7 +231,8 @@ from grandtpu_torch.ppr.dense_push import (dense_push_mask,
                                            dense_push_mask_plain)
 from grandtpu_torch.ppr.native import gfpush_native
 from grandtpu_torch.ppr.push_topk import push_topk, push_topk_plain
-from grandtpu_torch.sparse.spmm import (column_absmax, column_absmax_plain,
+from grandtpu_torch.sparse.spmm import (CSROperator, SplitPlan,
+                                        column_absmax, column_absmax_plain,
                                         quantize_columns,
                                         quantize_columns_plain,
                                         quantize_with_amax,
@@ -240,6 +263,10 @@ K3_SHAPE = (40, 32, 2, 240, 10000)
 H_MAG = 64                          # mag_scholar_c hidden width
 AMAZON = "synth:2000000:47:100"     # RESULTS.md's Amazon2M stand-in
 AMAZON_SMALL = "synth:30000:8:64"   # above the dense threshold
+# 3j: grandtpu/bench/skew_probe.py's skew graph (n, degree, hubs, hub
+# degree, F) and its ppr order; alpha is the Propagator's default
+HUB_GRAPH = (300000, 20, 200, 15000, 128)
+HUB_ORDER, HUB_ALPHA = 5, 0.2
 SHARDS = 4                          # phase 8's mesh, on the one card
 DENSE_SHARDS = 2                    # phase 9's mesh (reddit's 50 + 200)
 MAG_SHARDS = 4                      # 3h's windows, 9b's mesh (20 + 20)
@@ -265,6 +292,26 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize(DEV)
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int, kernel: str):
+    """Mean device time a call of the kernels whose name holds ``kernel``,
+    over ``iters`` calls of ``fn()`` under torch.profiler (device activity
+    only): the kernel's own time, without the host's dispatch that
+    :func:`_time_ms` sees when launches are short. None if the profiler
+    recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(DEV)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize(DEV)
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    return sum(times) / 1e3 / iters if times else None
 
 
 def _bound(nbytes: float, flops: float):
@@ -371,9 +418,18 @@ def check_k1(shape, features=None, tag: str = "K1") -> dict:
             "eval_bound_ms": eval_bound_ms, "eval_max_abs_err": abs_e}
 
 
-def _k2_times(op, x, scale: float):
-    """One hop's ms, plain_ms, library_ms (torch.sparse.mm, A x only) and
-    bound on operator ``op`` with input ``x`` [n, F]."""
+def _gathers(op, x) -> dict:
+    """The bytes a hop's row gathers read if the L2 catches no reuse
+    (nnz rows of x), and their time at the HBM rate: the floor of a
+    gathering kernel, beside the bound's x read once."""
+    nbytes = op.nnz * x.shape[1] * x.element_size()
+    return {"gather_bytes": nbytes,
+            "gather_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _k2_times(op, x, scale: float) -> dict:
+    """One hop's ms, plain_ms, library_ms (torch.sparse.mm, A x only),
+    bound and gathered bytes on operator ``op`` with input ``x`` [n, F]."""
     n, nnz, nfeat = op.num_rows, op.nnz, x.shape[1]
     y, acc = torch.empty_like(x), torch.zeros_like(x)
     ms = _time_ms(lambda: spmm_prop_step(op, x, y, acc, scale, True), 30)
@@ -385,7 +441,18 @@ def _k2_times(op, x, scale: float):
     nbytes = 4 * n * nfeat * 4 + 8 * nnz + 4 * (n + 1)
     flops = 2 * nnz * nfeat + 2 * n * nfeat
     bound_ms, bound_by = _bound(nbytes, flops)
-    return ms, plain_ms, library_ms, bound_ms, bound_by, nbytes
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            **_gathers(op, x)}
+
+
+def _k2_line(t: dict) -> str:
+    return (f"ms {t['ms']} plain_ms {t['plain_ms']} library_ms "
+            f"{t['library_ms']} (torch.sparse.mm, y = A x only; K2 no slower "
+            f"{'held' if t['ms'] <= t['library_ms'] else 'missed'}) bound_ms "
+            f"{t['bound_ms']} ({t['bound_by']}, {t['bytes'] / 1e9:.3f} GB); "
+            f"gathered {t['gather_bytes'] / 1e9:.3f} GB = {t['gather_ms']} "
+            f"ms at the HBM rate")
 
 
 def _k2_hops_error(op, x, cfg):
@@ -418,17 +485,13 @@ def check_k2(data) -> dict:
     if not rel_err <= TOL:
         raise AssertionError(f"K2 disagrees with its plain version: "
                              f"{rel_err} > {TOL}")
-    ms, plain_ms, library_ms, bound_ms, bound_by, nbytes = _k2_times(
-        op, x, 1.0 - cfg.alpha)
-    print(f"[K2] per hop: ms {ms} plain_ms {plain_ms} library_ms "
-          f"{library_ms} (torch.sparse.mm, y = A x only) bound_ms "
-          f"{bound_ms} ({bound_by}, {nbytes / 1e9:.3f} GB)", flush=True)
+    t = _k2_times(op, x, 1.0 - cfg.alpha)
+    print(f"[K2] per hop: {_k2_line(t)}", flush=True)
     return {"name": "csr_spmm_prop", "route": "cuda",
             "source": "grandtpu_torch/csrc/csr_spmm.cu",
             "replaces": "grandtpu/sparse/spmm.py:431",
             "max_abs_err": abs_err, "max_rel_err": rel_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            **{k: v for k, v in t.items() if k != "bytes"},
             "shape": f"x [{n},{nfeat}], nnz {nnz}, per hop"}
 
 
@@ -441,22 +504,153 @@ def check_k2_mag(data, k2: dict) -> None:
     g = torch.Generator(device=DEV).manual_seed(2)
     x = torch.randn(op.num_rows, cfg.hidden, generator=g, device=DEV)
     abs_err, rel_err = _k2_hops_error(op, x, cfg)
-    ms, plain_ms, library_ms, bound_ms, bound_by, nbytes = _k2_times(
-        op, x, 1.0 - cfg.alpha)
+    t = _k2_times(op, x, 1.0 - cfg.alpha)
     print(f"[K2] MAG operator, {cfg.order} ppr hops at H {cfg.hidden}, n "
           f"{op.num_rows} nnz {op.nnz}: max_abs_err {abs_err} max_rel_err "
-          f"{rel_err}; per hop ms {ms} plain_ms {plain_ms} library_ms "
-          f"{library_ms} bound_ms {bound_ms} ({bound_by}, "
-          f"{nbytes / 1e9:.3f} GB)", flush=True)
+          f"{rel_err}; per hop {_k2_line(t)}", flush=True)
     if not rel_err <= TOL:
         raise AssertionError(f"K2 (H=64) disagrees with its plain version: "
                              f"{rel_err} > {TOL}")
     k2["max_abs_err"] = max(k2["max_abs_err"], abs_err)
     k2["max_rel_err"] = max(k2["max_rel_err"], rel_err)
     k2["mag"] = {"shape": f"x [{op.num_rows},{cfg.hidden}], nnz {op.nnz}, "
-                          "per hop", "ms": ms, "plain_ms": plain_ms,
-                 "library_ms": library_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by}
+                          "per hop",
+                 **{k: v for k, v in t.items() if k != "bytes"}}
+
+
+def hub_graph():
+    """grandtpu/bench/skew_probe.py:47-55 with the port's generator: the
+    ``synth`` SBM base (degree 20) with self-loops, plus 200 hub rows of
+    15,000 random neighbours, re-binarised; features U[0, 1) from
+    RandomState(1) as its build_graph draws them."""
+    n, deg, hubs, hub_deg, nfeat = HUB_GRAPH
+    base, _, _ = synthetic_graph(num_nodes=n, num_classes=8, num_features=4,
+                                 avg_degree=deg, seed=0)
+    adj = add_self_loops_adj(base)
+    rs = np.random.RandomState(7)
+    hub_rows = np.repeat(rs.choice(n, hubs, replace=False), hub_deg)
+    hub_cols = rs.randint(0, n, hub_rows.size)
+    adj = (adj + sp.csr_matrix((np.ones(hub_rows.size, np.float32),
+                                (hub_rows, hub_cols)), shape=adj.shape)
+           ).tocsr()
+    adj.data[:] = 1.0
+    feats = np.random.RandomState(1).rand(n, nfeat).astype(np.float32)
+    return adj, feats
+
+
+def check_hub_graph() -> dict:
+    """Phase 3j: K2 and K2-bf16 on the skew graph, whose hub rows the
+    operator splits: one hop of each against its plain version (which
+    follows the same plan), a whole ppr run of each as a path against the
+    plain run, and the split hop's time beside the unsplit one's (the same
+    operator built with a cap above its longest row), the bound, the
+    gathered bytes and ``torch.sparse.mm``'s time."""
+    t0 = time.time()
+    adj, feats = hub_graph()
+    gen_s = time.time() - t0
+    t0 = time.time()
+    prop = Propagator(adj, backend="csr", device=DEV)
+    build_s = time.time() - t0
+    op = prop.adj_op
+    t0 = time.time()
+    SplitPlan.build(op.indptr.cpu().numpy(), op.split_cap, DEV)
+    plan_s = time.time() - t0
+    plan = op.plan
+    if plan is None:
+        raise AssertionError("[3j] the skew graph's operator split no row")
+    max_deg = int((op.indptr[1:] - op.indptr[:-1]).max())
+    whole = CSROperator(op.indptr, op.indices, op.values, op.num_rows,
+                        split_cap=max_deg)
+    n, nnz, nfeat = op.num_rows, op.nnz, feats.shape[1]
+    print(f"[3j] skew graph n {n} nnz {nnz} F {nfeat}, longest row "
+          f"{max_deg}: generated in {gen_s:.3f} s, operator (D^-1, CSR, "
+          f"plan) built in {build_s:.3f} s, of it the plan {plan_s:.3f} s; "
+          f"cap {plan.cap}: {plan.rows.numel()} split rows, "
+          f"{plan.num_chunks} chunks", flush=True)
+    x = torch.as_tensor(feats, device=DEV)
+    x_b = x.to(torch.bfloat16)
+    scale = 1.0 - HUB_ALPHA
+    forms = {"csr_spmm_prop": (spmm_prop_step, "f32", x, TOL),
+             "csr_spmm_prop_bf16": (spmm_prop_step_bf16, "bf16", x, TOL),
+             # the plain hop adds in the kernel's order: bit for bit
+             "csr_spmm_prop_bf16_carry": (spmm_prop_step_bf16, "bf16", x_b,
+                                          0.0)}
+    out = {"plan": {"cap": plan.cap, "split_rows": int(plan.rows.numel()),
+                    "chunks": plan.num_chunks},
+           "host_s": {"generate": gen_s, "operator": build_s,
+                      "plan": plan_s}, "hop": {}}
+    for name, (fn, term, xin, limit) in forms.items():
+        acc0 = xin.flip(0).contiguous()
+        out_k, acc_k = torch.empty_like(xin), acc0.clone()
+        out_p, acc_p = torch.empty_like(xin), acc0.clone()
+        fn(op, xin, out_k, acc_k, scale, True)
+        torch.cuda.synchronize(DEV)
+        spmm_prop_step_plain(op, xin, out_p, acc_p, scale, True, term)
+        err = max(_errors(out_k.float(), out_p.float()),
+                  _errors(acc_k.float(), acc_p.float()), key=lambda e: e[1])
+        del out_k, acc_k, out_p, acc_p, acc0
+        print(f"[3j] {name}: one hop against its plain version max_abs_err "
+              f"{err[0]} max_rel_err {err[1]} (limit {limit})", flush=True)
+        if not err[1] <= limit:
+            raise AssertionError(f"[3j] {name} disagrees with its plain "
+                                 f"version: {err[1]} > {limit}")
+        out["hop"][name] = {"max_abs_err": err[0], "max_rel_err": err[1]}
+
+    kw = dict(mode="ppr", order=HUB_ORDER, alpha=HUB_ALPHA)
+    x0 = HUB_ALPHA * x
+    _reset_counts()
+    runs = {"f32": prop(x, **kw), "bf16": prop(x, precision="bf16", **kw)}
+    launches = _read_counts()
+    want = {"csr_spmm_prop": HUB_ORDER, "csr_spmm_prop_bf16": HUB_ORDER}
+    bad = {k: v for k, v in launches.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"[3j] ppr runs launched {bad}, want {want}")
+    out["launches"] = launches
+    out["run"] = {}
+    for term, got in runs.items():
+        plain = _plain_ppr_run(
+            lambda ci, co, ac, term=term: spmm_prop_step_plain(
+                op, ci, co, ac, scale, True, term), x0, HUB_ORDER, False)
+        err = _errors(got, plain)
+        print(f"[3j] whole {HUB_ORDER}-hop ppr run, {term} terms, as a path "
+              f"(launches {want}): against the plain run max_abs_err "
+              f"{err[0]} max_rel_err {err[1]} (limit {TOL})", flush=True)
+        if not err[1] <= TOL:
+            raise AssertionError(f"[3j] {term} run disagrees with its plain "
+                                 f"run: {err[1]} > {TOL}")
+        out["run"][term] = {"max_abs_err": err[0], "max_rel_err": err[1]}
+    del runs, plain
+
+    y, acc = torch.empty_like(x), torch.zeros_like(x)
+    ms = {}
+    for tag, o in (("split", op), ("unsplit", whole)):
+        for term, fn in (("f32", spmm_prop_step),
+                         ("bf16", spmm_prop_step_bf16)):
+            ms[f"{tag}_{term}"] = _time_ms(
+                lambda o=o, fn=fn: fn(o, x, y, acc, scale, True), 30)
+    plain_ms = _time_ms(
+        lambda: spmm_prop_step_plain(op, x, y, acc, scale, True), 3, warmup=1)
+    a_csr = torch.sparse_csr_tensor(op.indptr, op.indices, op.values,
+                                    size=(n, n))
+    library_ms = _time_ms(lambda: torch.sparse.mm(a_csr, x), 30)
+    nbytes = 4 * n * nfeat * 4 + 8 * nnz + 4 * (n + 1)
+    bound_ms, bound_by = _bound(nbytes, 2 * nnz * nfeat + 2 * n * nfeat)
+    gathers = _gathers(op, x)
+    print(f"[3j] per hop at [{n},{nfeat}], nnz {nnz}: K2 split ms "
+          f"{ms['split_f32']} unsplit ms {ms['unsplit_f32']}; K2-bf16 split "
+          f"ms {ms['split_bf16']} unsplit ms {ms['unsplit_bf16']}; plain_ms "
+          f"{plain_ms} library_ms {library_ms} (torch.sparse.mm) bound_ms "
+          f"{bound_ms} ({bound_by}, {nbytes / 1e9:.3f} GB); gathered "
+          f"{gathers['gather_bytes'] / 1e9:.3f} GB = {gathers['gather_ms']} "
+          f"ms at the HBM rate; split faster than unsplit "
+          f"{'held' if ms['split_f32'] < ms['unsplit_f32'] else 'missed'}, "
+          f"than torch.sparse.mm "
+          f"{'held' if ms['split_f32'] < library_ms else 'missed'}",
+          flush=True)
+    out.update(shape=f"skew graph x [{n},{nfeat}], nnz {nnz}, per hop",
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, **gathers)
+    return out
 
 
 def _k3_form_sets(attr_cols, attr_vals, form: str, g):
@@ -563,6 +757,9 @@ def check_k3(padded) -> list:
                                                droprate=q), 200)
             plain_f = _time_ms(lambda: embed_prop_plain(
                 table, **next(it), droprate=q), 20)
+            dev_f = _device_ms(lambda: embed_prop(table, **next(it),
+                                                  droprate=q), 100,
+                               "embed_prop_fwd_kernel")
         it_o, it_p = itertools.cycle(outs), itertools.cycle(plains)
         ms_b = _time_ms(lambda: torch.autograd.grad(
             next(it_o), table, gout, retain_graph=True), 50)
@@ -593,13 +790,15 @@ def check_k3(padded) -> list:
         (bound_f, by_f), (bound_b, by_b) = _bound(b_f, o_f), _bound(b_b, o_b)
         shape = (f"[{num_aug},{outs[0].shape[1]},{H_MAG}]" if form != "node"
                  else f"[1,{K3_SHAPE[4]},{H_MAG}] node form")
-        times["fwd"][form] = {"shape": shape, "ms": ms_f, "plain_ms": plain_f,
+        times["fwd"][form] = {"shape": shape, "ms": ms_f, "device_ms": dev_f,
+                              "plain_ms": plain_f,
                               "library_ms": lib_f, "bound_ms": bound_f,
                               "bound_by": by_f, "max_rel_err": e_f[1]}
         times["bwd"][form] = {"shape": shape, "ms": ms_b, "plain_ms": plain_b,
                               "library_ms": lib_b, "bound_ms": bound_b,
                               "bound_by": by_b, "max_rel_err": e_b[1]}
-        print(f"[K3] {form} {shape}: fwd ms {ms_f} plain_ms {plain_f} "
+        print(f"[K3] {form} {shape}: fwd ms {ms_f} (on the device, "
+              f"profiled: {dev_f}) plain_ms {plain_f} "
               f"library_ms {lib_f} bound_ms {bound_f} ({by_f}, "
               f"{b_f / 1e6:.2f} MB) err {e_f}; bwd ms {ms_b} plain_ms "
               f"{plain_b} library_ms {lib_b} bound_ms {bound_b} ({by_b}, "
@@ -634,6 +833,7 @@ def check_k3(padded) -> list:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
+            **({"device_ms": main["device_ms"]} if key == "fwd" else {}),
             "forms": times[key]})
     return entries
 
@@ -844,20 +1044,22 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
         times[name] = {"ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by}
+        gathers = ""
+        if name.startswith("csr_spmm_prop"):
+            times[name].update(_gathers(op, x0_b if "carry" in name else x0))
+            gathers = (f"; gathered {times[name]['gather_bytes'] / 1e9:.3f} "
+                       f"GB = {times[name]['gather_ms']} ms at the HBM rate")
         print(f"[3d] {name} at [{n},{nfeat}], nnz {nnz}: ms {ms} plain_ms "
               f"{plain_ms} library_ms {library_ms} bound_ms {bound_ms} "
-              f"({bound_by}, {nbytes / 1e9:.3f} GB)", flush=True)
+              f"({bound_by}, {nbytes / 1e9:.3f} GB){gathers}", flush=True)
     del y, acc, y_b, acc_b, q
-    ms, plain_ms, library_ms, bound_ms, bound_by, nbytes = _k2_times(
-        op, x0, scale)
-    print(f"[3d] csr_spmm_prop at [{n},{nfeat}], nnz {nnz}: ms {ms} plain_ms "
-          f"{plain_ms} library_ms {library_ms} (torch.sparse.mm) bound_ms "
-          f"{bound_ms} ({bound_by}, {nbytes / 1e9:.3f} GB)", flush=True)
+    t = _k2_times(op, x0, scale)
+    print(f"[3d] csr_spmm_prop at [{n},{nfeat}], nnz {nnz}: {_k2_line(t)}",
+          flush=True)
     k2["max_abs_err"] = max(k2["max_abs_err"], f32_err[0])
     k2["max_rel_err"] = max(k2["max_rel_err"], f32_err[1])
     k2["amazon"] = {"shape": f"x [{n},{nfeat}], nnz {nnz}, per hop",
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    **{k: v for k, v in t.items() if k != "bytes"},
                     "max_abs_err": f32_err[0], "max_rel_err": f32_err[1]}
     carry = times.pop("csr_spmm_prop_bf16_carry")
     shape = f"x [{n},{nfeat}], nnz {nnz}, per hop"
@@ -1082,11 +1284,28 @@ def _p1_times(g, src, coef, k) -> dict:
     rows = reserve.t().contiguous().reshape(-1)
     off = torch.arange(b + 1, device=DEV, dtype=torch.int64) * n
     dense_rows = rows.view(b, n)
+    # the P1 form, and 4 of its rows made all positive (233,000 keys a row,
+    # past the kernel's shared buffer; ties at 1e-6 ordered by id)
+    over = (dense_rows[:4].abs() + 1e-6).reshape(-1)
+    exact = {}
+    for form, (v, o) in {"p1": (rows, off), "overflow": (
+            over, torch.arange(5, device=DEV, dtype=torch.int64) * n)}.items():
+        got, want = push_topk(None, v, o, k), push_topk_plain(None, v, o, k)
+        exact[form] = bool(torch.equal(got[0], want[0])
+                           and torch.equal(got[1], want[1]))
+    del over
+    print(f"[3e] push_topk bit for bit its plain version: {exact}",
+          flush=True)
+    if not all(exact.values()):
+        raise AssertionError(f"push_topk differs from its plain version: "
+                             f"{exact}")
     topk_ms = _time_ms(lambda: push_topk(None, rows, off, k), 20)
     topk_plain = _time_ms(lambda: push_topk_plain(None, rows, off, k), 3,
                           warmup=1)
     topk_lib = _time_ms(lambda: torch.topk(dense_rows, k, dim=1), 20)
     topk_bound = _bound(4 * n * b + 8 * b * k + 8 * (b + 1), 2 * n * b)
+    print(f"[3e] push_topk P1 form below torch.topk: "
+          f"{'held' if topk_ms < topk_lib else 'missed'}", flush=True)
     print(f"[3e] P1 block [{n},{b}]: dense_push_mask ms {mask_ms} plain_ms "
           f"{mask_plain} bound_ms {mask_bound[0]} ({mask_bound[1]}); K2 over "
           f"A^T ms {k2_ms} per hop; push_topk over [{b},{n}] ms {topk_ms} "
@@ -1158,6 +1377,12 @@ def _p2_times(g, src, coef, k) -> dict:
     pos = torch.arange(width, device=DEV)
     valid = pos[None] < lens[:, None]
     padded[valid] = f32[(r_off[:-1, None] + pos[None])[valid]]
+    got, want = (push_topk(r_keys, f32, r_off, k),
+                 push_topk_plain(r_keys, f32, r_off, k))
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("push_topk (P2 form) differs from its plain "
+                             "version")
+    del got, want
     topk_ms = _time_ms(lambda: push_topk(r_keys, f32, r_off, k), 20)
     topk_plain = _time_ms(lambda: push_topk_plain(r_keys, f32, r_off, k), 3,
                           warmup=1)
@@ -1460,6 +1685,7 @@ def push_entries(push_reddit: dict, push_amazon: dict,
                  "launches_by_path": by_path, "max_abs_err": err, **times}
         if name == "push_topk":
             entry["p1_form"] = p1["times"]["push_topk"]
+            entry["p1_library_ms"] = p1["times"]["push_topk"]["library_ms"]
         entries.append(entry)
     for key, res in (("reddit", push_reddit), ("amazon", push_amazon)):
         entries[-1].setdefault("sources_per_s", {})[key] = {
@@ -2319,6 +2545,8 @@ def main() -> int:
     push_sharded = check_sharded_push(
         data, preset("reddit").replace(dataset=DATASET), push_reddit)
     mark("3i")
+    hub = check_hub_graph()
+    mark("3j")
     small = preset("reddit").replace(dataset=SMALL, epochs=3,
                                      unlabel_num=500, dropnode_rate=0.0)
     check_small_reference(small)
@@ -2441,6 +2669,8 @@ def main() -> int:
         "p1_sharded_reddit": push_sharded["launches"]["csr_spmm_prop"],
         "d1_reddit_mesh": mesh_launches["csr_spmm_prop"],
         "d1_mag_mesh": mag_mesh_launches["csr_spmm_prop"]}
+    k2["launches_by_path"]["hub"] = hub["launches"]["csr_spmm_prop"]
+    k2["hub"] = {k: v for k, v in hub.items() if k != "launches"}
     k2["p1_over_at"] = {"ms": push_reddit["jax"]["times"]["k2_over_at_ms"],
                         "shape": "A^T of the reddit stand-in, x [233000, "
                                  "512], per hop"}
@@ -2451,11 +2681,18 @@ def main() -> int:
                                  "mag_mesh": mag_mesh_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
     for k in fast:
+        if k["name"] == "csr_spmm_prop_bf16":
+            k["hub"] = {"ms": hub["ms"]["split_bf16"],
+                        "unsplit_ms": hub["ms"]["unsplit_bf16"],
+                        "hop": {f: hub["hop"][f] for f in (
+                            "csr_spmm_prop_bf16", "csr_spmm_prop_bf16_carry")},
+                        "run": hub["run"]["bf16"]}
         k["launches_by_path"] = {
             "amazon": amazon_launches[k["name"]],
             "amazon_bucket": bucket_launches[k["name"]],
             "sweep": sweep_launches[k["name"]],
             "serve_auto": serve["auto"]["launches"][k["name"]],
+            "hub": hub["launches"][k["name"]],
             **{f"d1_{run}": la[k["name"]]
                for run, la in d1["launches"].items() if la[k["name"]]}}
         k["launches"] = sum(k["launches_by_path"].values())

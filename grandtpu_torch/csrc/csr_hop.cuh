@@ -1,7 +1,8 @@
 // Shared pieces of the power-iteration hop kernels (csr_spmm.cu,
-// csr_spmm_q8.cu, halo.cu): carry loads, one element or 4 neighbouring ones a lane
-// (kVec = 4, where F is a multiple of 4 and the arrays aligned to it: one
-// vector load or store instead of four strided ones), and the fused update
+// csr_spmm_q8.cu, halo.cu): carry loads, one element or 2 or 4 neighbouring
+// ones a lane (kVec = 4 or 2, where F is a multiple of it and the arrays
+// aligned to it: one vector load or store instead of strided ones), and the
+// fused update
 //
 //   y   = scale * h          h = the hop's f32 product for one element
 //   acc = acc + y            only if accumulate
@@ -116,8 +117,39 @@ __device__ __forceinline__ void store_hop4(const float (&h)[4], float scale,
   }
 }
 
+// The same update for two neighbouring elements at i (a multiple of 2, y
+// and acc aligned to 2 elements): one 8-byte f32 or 4-byte bf16 access.
+__device__ __forceinline__ void store_hop2(const float (&h)[2], float scale,
+                                           float* y, float* acc, int64_t i,
+                                           int accumulate) {
+  const float2 out = make_float2(__fmul_rn(scale, h[0]),
+                                 __fmul_rn(scale, h[1]));
+  *reinterpret_cast<float2*>(y + i) = out;
+  if (accumulate) {
+    float2 a = *reinterpret_cast<const float2*>(acc + i);
+    a.x = __fadd_rn(a.x, out.x);
+    a.y = __fadd_rn(a.y, out.y);
+    *reinterpret_cast<float2*>(acc + i) = a;
+  }
+}
+
+__device__ __forceinline__ void store_hop2(const float (&h)[2], float scale,
+                                           __nv_bfloat16* y,
+                                           __nv_bfloat16* acc, int64_t i,
+                                           int accumulate) {
+  const float out0 = round_bf16(__fmul_rn(scale, round_bf16(h[0])));
+  const float out1 = round_bf16(__fmul_rn(scale, round_bf16(h[1])));
+  *reinterpret_cast<unsigned int*>(y + i) = pack_bf16x2(out0, out1);
+  if (accumulate) {
+    const unsigned int a = *reinterpret_cast<const unsigned int*>(acc + i);
+    *reinterpret_cast<unsigned int*>(acc + i) = pack_bf16x2(
+        __fadd_rn(bf16_lo(a), out0), __fadd_rn(bf16_hi(a), out1));
+  }
+}
+
 // kVec neighbouring elements of x as floats (kVec = 4: one 16-byte f32 or
-// 8-byte bf16 load, x + i aligned to 4 elements).
+// 8-byte bf16 load, x + i aligned to 4 elements; kVec = 2: one 8-byte f32
+// or 4-byte bf16 load, aligned to 2 elements).
 __device__ __forceinline__ void load_x(const float* p, float (&v)[1]) {
   v[0] = __ldg(p);
 }
@@ -125,6 +157,19 @@ __device__ __forceinline__ void load_x(const float* p, float (&v)[1]) {
 __device__ __forceinline__ void load_x(const __nv_bfloat16* p,
                                        float (&v)[1]) {
   v[0] = load_carry(p);
+}
+
+__device__ __forceinline__ void load_x(const float* p, float (&v)[2]) {
+  const float2 w = __ldg(reinterpret_cast<const float2*>(p));
+  v[0] = w.x;
+  v[1] = w.y;
+}
+
+__device__ __forceinline__ void load_x(const __nv_bfloat16* p,
+                                       float (&v)[2]) {
+  const unsigned int w = __ldg(reinterpret_cast<const unsigned int*>(p));
+  v[0] = bf16_lo(w);
+  v[1] = bf16_hi(w);
 }
 
 __device__ __forceinline__ void load_x(const float* p, float (&v)[4]) {
@@ -176,6 +221,13 @@ __device__ __forceinline__ void store_hops(const float (&h)[1], float scale,
                                            T* y, T* acc, int64_t i,
                                            int accumulate) {
   store_hop(h[0], scale, y, acc, i, accumulate);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_hops(const float (&h)[2], float scale,
+                                           T* y, T* acc, int64_t i,
+                                           int accumulate) {
+  store_hop2(h, scale, y, acc, i, accumulate);
 }
 
 template <typename T>

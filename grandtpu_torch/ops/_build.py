@@ -39,8 +39,10 @@ _SIGNATURES = {
     # stream
     "dropnode_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # indptr, indices, values, x, y, acc, num_rows, num_features, scale,
-    # accumulate, term_bf16, carry_bf16, stream
-    "csr_spmm_prop": [_P] * 6 + [_I, _I, ctypes.c_float, _I, _I, _I, _P],
+    # accumulate, term_bf16, carry_bf16, split_rows, chunk_ptr, chunk_row,
+    # chunk_lo, num_chunks, cap, partial, counters, stream
+    "csr_spmm_prop": [_P] * 6 + [_I, _I, ctypes.c_float, _I, _I, _I]
+                     + [_P] * 4 + [_I, _I, _P, _P, _P],
     # x, amax_bits, num_rows, num_features, x_bf16, stream
     "column_absmax": [_P, _P, _I, _I, _I, _P],
     # x, amax_bits, q, col_scale, num_rows, num_features, x_bf16, stream

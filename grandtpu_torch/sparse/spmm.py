@@ -4,7 +4,10 @@ CSR, and K2-seg on padded COO.
 Port of the math of ``grandtpu/sparse/spmm.py``: ``y = A @ x`` for the
 row-normalized propagation operator ``A = D^-1 (adj + I)``. The TPU's
 SplitCSR one-hot-matmul layout is not carried over; the operator is plain
-CSR on the device. Each hop is one step of the power iteration in
+CSR on the device, and SplitCSR's overflow level becomes the operator's
+:class:`SplitPlan`: K2 and K2-bf16 cut each hub row into chunks, sum each
+chunk apart and add the chunks in order. Each hop is one step of the power
+iteration in
 ``grandtpu/infer/propagate.py`` with its update fused in:
 
     cur_out = scale * h;   acc += cur_out  (if accumulate)
@@ -39,7 +42,8 @@ bf16 each.
 On CUDA tensors the wrappers launch ``csrc/csr_spmm.cu``,
 ``csrc/csr_spmm_q8.cu`` and ``csrc/coo_spmm.cu``; on CPU tensors they run
 the ``*_plain`` versions, which repeat the kernels' arithmetic and
-roundings and add each row's terms in the kernels' order (edge order), so
+roundings and add each row's terms in the kernels' order (edge order; for
+a split row, each chunk in edge order, then the chunks in order), so
 that wherever the terms are rounded the same way (every form but K2's
 fused multiply-add) a hop is bit for bit the kernel's (K2-seg: but for the
 rows that span several of its edge runs).
@@ -58,26 +62,93 @@ from grandtpu_torch.ops._build import check, load_kernels
 BF16 = torch.bfloat16
 
 
+SPLIT_MIN_CAP = 512     # no row of at most this many nonzeros is split
+
+
+def default_split_cap(num_rows: int, nnz: int) -> int:
+    """The operator's own cap on a K2 work item: 8 times the mean row
+    length, and at least :data:`SPLIT_MIN_CAP`. A row above it is a hub,
+    whose one warp would finish long after the rest of the hop."""
+    return max(SPLIT_MIN_CAP, 8 * -(-nnz // max(num_rows, 1)))
+
+
+@dataclasses.dataclass
+class SplitPlan:
+    """The hub rows of a CSR operator cut into chunks of at most ``cap``
+    edges (the port's counterpart of SplitCSR's overflow level,
+    ``grandtpu/sparse/spmm.py:270-375``). Split row ``rows[i]`` has the
+    chunks ``chunk_ptr[i]:chunk_ptr[i + 1]``; chunk ``c`` covers edges
+    ``chunk_lo[c]:min(chunk_lo[c] + cap, indptr[row + 1])`` of row
+    ``rows[chunk_row[c]]``. Chunks are in row order, and within a row in
+    edge order."""
+    cap: int
+    rows: torch.Tensor        # int32 [S], ascending
+    chunk_ptr: torch.Tensor   # int32 [S + 1]
+    chunk_row: torch.Tensor   # int32 [C], index into rows
+    chunk_lo: torch.Tensor    # int32 [C]
+
+    @property
+    def num_chunks(self) -> int:
+        return int(self.chunk_row.shape[0])
+
+    @staticmethod
+    def build(indptr: np.ndarray, cap: int, device) -> "SplitPlan | None":
+        """The plan of the rows of ``indptr`` with more than ``cap``
+        nonzeros; None when there is none."""
+        if cap < 1:
+            raise ValueError(f"SplitPlan: cap must be >= 1, got {cap}")
+        indptr = np.asarray(indptr, np.int64)
+        deg = np.diff(indptr)
+        rows = np.flatnonzero(deg > cap)
+        if rows.size == 0:
+            return None
+        per_row = -(-deg[rows] // cap)
+        chunk_ptr = np.concatenate([[0], np.cumsum(per_row)])
+        if chunk_ptr[-1] >= 2 ** 31:
+            raise ValueError(f"SplitPlan: {chunk_ptr[-1]} chunks do not fit "
+                             "int32")
+        chunk_row = np.repeat(np.arange(rows.size), per_row)
+        chunk_lo = (indptr[rows][chunk_row]
+                    + (np.arange(chunk_row.size) - chunk_ptr[chunk_row])
+                    * cap)
+        return SplitPlan(cap, *(torch.as_tensor(a.astype(np.int32),
+                                                device=device)
+                                for a in (rows, chunk_ptr, chunk_row,
+                                          chunk_lo)))
+
+
 @dataclasses.dataclass
 class CSROperator:
     """A CSR matrix on a device: int32 structure, f32 values. Its hops read
-    ``num_cols`` input rows (default: square) and write ``num_rows``."""
+    ``num_cols`` input rows (default: square) and write ``num_rows``.
+
+    Building one builds its K2 split plan (:class:`SplitPlan`, None when no
+    row has more than ``split_cap`` nonzeros). ``split_cap`` defaults to
+    :func:`default_split_cap`; a caller may set it (at least the longest
+    row's length to run every row whole)."""
     indptr: torch.Tensor      # int32 [num_rows + 1]
     indices: torch.Tensor     # int32 [nnz], in [0, num_cols)
     values: torch.Tensor      # f32 [nnz]
     num_rows: int
     num_cols: int | None = None
+    split_cap: int | None = None
+    plan: SplitPlan | None = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         if self.num_cols is None:
             self.num_cols = self.num_rows
+        if self.split_cap is None:
+            self.split_cap = default_split_cap(self.num_rows, self.nnz)
+        self.plan = SplitPlan.build(self.indptr.cpu().numpy(),
+                                    self.split_cap, self.indptr.device)
 
     @property
     def nnz(self) -> int:
         return int(self.indices.shape[0])
 
     @staticmethod
-    def from_scipy(mat: sp.spmatrix, device) -> "CSROperator":
+    def from_scipy(mat: sp.spmatrix, device,
+                   split_cap: int | None = None) -> "CSROperator":
         mat = mat.tocsr()
         if mat.nnz >= 2 ** 31:
             raise ValueError("CSROperator: nnz must fit int32")
@@ -88,7 +159,8 @@ class CSROperator:
                                     device=device),
             values=torch.as_tensor(mat.data.astype(np.float32),
                                    device=device),
-            num_rows=mat.shape[0], num_cols=mat.shape[1])
+            num_rows=mat.shape[0], num_cols=mat.shape[1],
+            split_cap=split_cap)
 
 
 def row_values_if_constant(adj: sp.spmatrix, rtol: float = 1e-6):
@@ -128,7 +200,13 @@ def _row_sums(indptr: torch.Tensor, term,
     add per step and the sums are the same on every device (CUDA's
     ``index_add_`` over all edges adds with atomics in any order)."""
     starts = indptr[:-1].long()
-    deg = indptr[1:].long() - starts
+    return _ranged_sums(starts, indptr[1:].long() - starts, term, out)
+
+
+def _ranged_sums(starts: torch.Tensor, deg: torch.Tensor, term,
+                 out: torch.Tensor) -> torch.Tensor:
+    """:func:`_row_sums` over the edges ``starts[r]:starts[r] + deg[r]``
+    of each output row ``r``."""
     _, rows = torch.sort(deg, descending=True, stable=True)
     starts = starts[rows]
     # live[j]: the count of rows with more than j edges, a prefix of rows
@@ -159,8 +237,30 @@ def spmm_prop_step_plain(op: CSROperator, cur_in: torch.Tensor,
         p = cur_in[op.indices[e].long()].float() * op.values[e, None]
         return p.to(BF16).float() if term == "bf16" else p
 
-    h = _row_sums(op.indptr, prod, torch.zeros(cur_out.shape,
-                                               device=cur_out.device))
+    h = torch.zeros(cur_out.shape, device=cur_out.device)
+    plan = op.plan
+    if plan is None:
+        _row_sums(op.indptr, prod, h)
+    else:
+        # as the kernel: rows under the cap whole; each chunk of a split
+        # row in edge order, then the row's chunks in chunk order
+        starts = op.indptr[:-1].long()
+        deg = op.indptr[1:].long() - starts
+        split = plan.rows.long()
+        whole = deg.clone()
+        whole[split] = 0
+        _ranged_sums(starts, whole, prod, h)
+        lo = plan.chunk_lo.long()
+        hi = torch.minimum(lo + plan.cap,
+                           op.indptr[1:].long()[split[plan.chunk_row.long()]])
+        part = _ranged_sums(lo, hi - lo, prod,
+                            torch.zeros((plan.num_chunks, h.shape[1]),
+                                        device=h.device))
+        first = plan.chunk_ptr[:-1].long()
+        h[split] = _ranged_sums(first, plan.chunk_ptr[1:].long() - first,
+                                lambda c: part[c],
+                                torch.zeros((split.numel(), h.shape[1]),
+                                            device=h.device))
     _epilogue_plain(h, cur_out, acc, scale, accumulate)
 
 
@@ -255,12 +355,31 @@ def _k2(op, cur_in, cur_out, acc, scale, accumulate, term, counter):
     if not _check_launch(counter.__name__, op, cur_in, carries, [op.values]):
         return
     bf16 = cur_out.dtype == BF16
+    plan = op.plan
+    split = (None,) * 4
+    partial = counters = None
+    if plan is not None:
+        tensors = (plan.rows, plan.chunk_ptr, plan.chunk_row, plan.chunk_lo)
+        if any(t.device != cur_in.device or t.dtype != torch.int32
+               for t in tensors):
+            raise ValueError(f"{counter.__name__}: the split plan must be "
+                             f"int32 on {cur_in.device}")
+        split = tuple(t.data_ptr() for t in tensors)
+        # each chunk's f32 partial sums; one finish counter a split row
+        partial = torch.empty((plan.num_chunks, cur_in.shape[1]),
+                              device=cur_in.device)
+        counters = torch.zeros(plan.rows.shape[0], dtype=torch.int32,
+                               device=cur_in.device)
     rc = load_kernels().csr_spmm_prop(
         op.indptr.data_ptr(), op.indices.data_ptr(), op.values.data_ptr(),
         cur_in.data_ptr(), cur_out.data_ptr(),
         acc.data_ptr() if accumulate else None, op.num_rows,
         cur_in.shape[1], bf16_round(scale) if bf16 else float(scale),
-        int(accumulate), int(term == "bf16"), int(bf16),
+        int(accumulate), int(term == "bf16"), int(bf16), *split,
+        0 if plan is None else plan.num_chunks,
+        0 if plan is None else plan.cap,
+        None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         torch.cuda.current_stream(cur_in.device).cuda_stream)
     check(rc, "csr_spmm_prop")
     counter.launches += 1

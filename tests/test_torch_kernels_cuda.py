@@ -16,7 +16,12 @@ and bf16 carries, widths that are not a multiple of 4 or 32, an all-zero
 column, a 9000-nonzero hub row and a one-row operator; for the GFPush
 kernels (top-k, P1's push mask, P2's expansion and compaction) ties, rows
 with fewer than k positives, a dangling node, a 9000-nonzero hub source and
-determinism; for K2-seg (coo_spmm), D1's halo_pack and halo_hop (each
+determinism, and for the top-k rows past its shared-memory candidate buffer
+(233,000 and 20,000 positives, one row all equal) and P1's and P2's full
+shapes at k 64 and 1024; for K2 and K2-bf16 split hub rows (20,000 and
+150,000 nonzeros beside empty rows) at F 1, 33, 64, 100 and 602, both
+carry types, with and without accumulate, against the plain version (which
+follows the same split plan) and the unsplit hop; for K2-seg (coo_spmm), D1's halo_pack and halo_hop (each
 form) and the quantize split (column_absmax, quantize_with_amax) 4-wide and
 1-wide lanes, a 9000-nonzero hub row, empty rows and an empty shard.
 """
@@ -325,6 +330,84 @@ def _carry(x, carry):
     return x.to(torch.bfloat16) if carry == "bf16" else x
 
 
+@functools.lru_cache(maxsize=None)
+def _split_operator():
+    """A varied-value operator of 160,000 rows with hub rows of 20,000
+    (row 7) and 150,000 (row 11) nonzeros, above the split cap, beside
+    empty rows 5 and 6."""
+    n = 160000
+    rs = np.random.RandomState(9)
+    # COO built directly: sp.random at this size samples from n^2 slots
+    rows = np.concatenate([rs.randint(0, n, 4 * n), np.arange(n),
+                           np.full(20000, 7), np.full(150000, 11)])
+    cols = np.concatenate([rs.randint(0, n, 4 * n), np.arange(n),
+                           rs.permutation(n)[:20000],
+                           rs.permutation(n)[:150000]])
+    keep = (rows != 5) & (rows != 6)
+    adj = sp.csr_matrix((np.ones(keep.sum(), np.float32),
+                         (rows[keep], cols[keep])), shape=(n, n))
+    adj.data = rs.uniform(0.5, 1.5, adj.nnz).astype(np.float32)
+    deg = np.maximum(np.asarray(adj.sum(1)).ravel(), 1e-12)
+    return sp.diags(1.0 / deg).dot(adj).tocsr().astype(np.float32)
+
+
+@pytest.mark.parametrize("term", ["f32", "bf16"])
+@pytest.mark.parametrize("carry", ["f32", "bf16"])
+@pytest.mark.parametrize("nfeat", [1, 33, 64, 100, 602])
+@pytest.mark.parametrize("accumulate", [True, False])
+def test_split_hops_match_plain(device, term, carry, nfeat, accumulate):
+    """K2 and K2-bf16 on hub rows above the cap: the chunks' partial sums
+    and the in-launch fix-up against the plain version, which follows the
+    same split plan; one launch a hop."""
+    adj = _split_operator()
+    op = CSROperator.from_scipy(adj, device)
+    assert op.plan is not None and op.plan.rows.tolist() == [7, 11]
+    n = adj.shape[0]
+    rs = np.random.RandomState(nfeat)
+    x = _carry(torch.tensor(rs.randn(n, nfeat).astype(np.float32),
+                            device=device), carry)
+    acc0 = _carry(torch.tensor(rs.randn(n, nfeat).astype(np.float32),
+                               device=device), carry)
+    wrapper = spmm_prop_step if term == "f32" else spmm_prop_step_bf16
+    out_k, acc_k = torch.empty_like(x), acc0.clone()
+    out_p, acc_p = torch.empty_like(x), acc0.clone()
+    before = wrapper.launches
+    wrapper(op, x, out_k, acc_k, 0.8, accumulate)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    spmm_prop_step_plain(op, x, out_p, acc_p, 0.8, accumulate, term)
+    for got, want in ((out_k, out_p), (acc_k, acc_p)):
+        _assert_hop_matches(got, want, term, carry)
+    assert float(out_k[5:7].float().abs().max()) == 0.0
+    again = torch.empty_like(x)
+    wrapper(op, x, again, acc0.clone(), 0.8, accumulate)
+    assert torch.equal(again, out_k)                  # deterministic
+
+
+@pytest.mark.parametrize("nfeat", [64, 100, 602])
+def test_split_hop_matches_the_unsplit_hop(device, nfeat):
+    """The split and the unsplit kernel on the same operator: the same
+    terms grouped another way (TOL), and the split hop on misaligned
+    views."""
+    adj = _split_operator()
+    split = CSROperator.from_scipy(adj, device)
+    whole = CSROperator.from_scipy(adj, device, split_cap=adj.nnz)
+    assert whole.plan is None
+    rs = np.random.RandomState(nfeat)
+    x = torch.tensor(rs.randn(adj.shape[0], nfeat).astype(np.float32),
+                     device=device)
+    acc0 = torch.tensor(rs.randn(adj.shape[0], nfeat).astype(np.float32),
+                        device=device)
+    outs = []
+    for op, view in ((split, _misaligned), (whole, lambda t: t)):
+        out, acc = view(torch.empty_like(x)), view(acc0.clone())
+        spmm_prop_step(op, view(x), out, acc, 0.8, True)
+        outs.append((out, acc))
+    torch.cuda.synchronize()
+    for got, want in zip(*outs):
+        assert _rel_err(got, want) <= TOL
+
+
 def _assert_hop_matches(got, want, kernel, carry):
     """A hop's carry against the plain version's. The plain versions add
     in the kernels' order, so a hop whose terms round as the plain's do
@@ -518,6 +601,69 @@ def test_push_topk_kernel_matches_plain(device, k, with_ids):
     want_cols, want_vals = push_topk_plain(ids_t, vals_t, off, k)
     assert torch.equal(cols, want_cols) and torch.equal(out, want_vals)
     assert torch.equal(again[0], cols) and torch.equal(again[1], out)
+
+
+def _topk_twice_matches_plain(ids_t, vals_t, off, k):
+    before = push_topk.launches
+    cols, out = push_topk(ids_t, vals_t, off, k)
+    again = push_topk(ids_t, vals_t, off, k)
+    torch.cuda.synchronize()
+    assert push_topk.launches == before + 2
+    want_cols, want_vals = push_topk_plain(ids_t, vals_t, off, k)
+    assert torch.equal(cols, want_cols) and torch.equal(out, want_vals)
+    assert torch.equal(again[0], cols) and torch.equal(again[1], out)
+    return cols, out
+
+
+@pytest.mark.parametrize("k", [64, 1024])
+@pytest.mark.parametrize("with_ids", [True, False])
+def test_push_topk_rows_past_the_shared_buffer(device, k, with_ids):
+    """Rows with more positive entries than the kernel's shared-memory
+    candidate buffer (12,288 keys): 233,000 and 20,000 all positive, one of
+    them all equal (ordered by id), beside a short row."""
+    rs = np.random.RandomState(k + with_ids)
+    lens = np.array([233000, 5, 20000, 233000])
+    vals = (rs.rand(lens.sum()) + 1e-3).astype(np.float32)
+    vals[lens[:3].sum():] = 0.5                  # the last row all equal
+    ids = np.concatenate([rs.permutation(1 << 20)[:m] for m in lens])
+    ids_t = (torch.tensor(ids.astype(np.int32), device=device) if with_ids
+             else None)
+    cols, out = _topk_twice_matches_plain(
+        ids_t, torch.tensor(vals, device=device),
+        row_offsets(torch.tensor(lens, device=device)), k)
+    assert bool((out[3] == 0.5).all())
+    assert bool((cols[3][1:] > cols[3][:-1]).all())
+
+
+@pytest.mark.parametrize("k", [64, 1024])
+@pytest.mark.parametrize("form", ["p1", "p2"])
+def test_push_topk_at_the_push_shapes(device, k, form):
+    """P1's form (512 rows of 233,000 entries, about 1 % positive, no ids)
+    and P2's (1,024 hash tables of about 6,500 slots with ids, about half
+    empty), with values from a few levels so that ties cross the k-th."""
+    rs = np.random.RandomState(k)
+    if form == "p1":
+        rows, width = 512, 233000
+        lens = np.full(rows, width)
+        live = rs.rand(rows * width) < 0.01
+    else:
+        rows = 1024
+        lens = rs.randint(5000, 8000, rows)
+        live = rs.rand(lens.sum()) < 0.5
+    levels = np.array([1e-6, 3e-5, 2e-4, 1e-3, 0.01, 0.25], np.float32)
+    vals = np.where(live, rs.choice(levels, lens.sum())
+                    * rs.choice([1.0, 1.0, 1.5], lens.sum()), 0.0)
+    vals = vals.astype(np.float32)
+    ids_t = None
+    if form == "p2":
+        # unique in each row: a row's positions shuffled, spread over 2M
+        spread = np.argsort(rs.rand(rows, lens.max()), axis=1) * 250
+        spread += rs.randint(0, 250, (rows, 1))
+        ids = np.concatenate([spread[r, :m] for r, m in enumerate(lens)])
+        ids_t = torch.tensor(ids.astype(np.int32), device=device)
+    _topk_twice_matches_plain(ids_t, torch.tensor(vals, device=device),
+                              row_offsets(torch.tensor(lens, device=device)),
+                              k)
 
 
 def test_push_topk_wrapper_rejects_bad_input(device):
