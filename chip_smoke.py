@@ -137,12 +137,41 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     plus 200 hub rows of 15,000 random neighbours, F 128), whose operator
     splits the hub rows into chunks: one hop of K2, K2-bf16 and K2-bf16
     with bf16 carries against their plain versions (which follow the same
-    plan; <= 1e-5, bf16 carries bit for bit), a whole 5-hop ppr run of K2
-    and of K2-bf16 as a path (each exactly 5 launches) against the plain
-    run (<= 1e-5); the split hop's time beside the unsplit hop's (a cap
-    above the longest row), the plain, ``torch.sparse.mm`` and the bound,
-    the gathered bytes, the split rows and chunks, the host seconds of
-    the graph, the operator and the plan.
+    plan; <= 1e-5, bf16 carries bit for bit); one hop of K2-q8 and of
+    K2-q8mxu, split and unsplit (a cap above the longest row), each bit
+    for bit its plain version on the same q, and K2-q8mxu's split hop bit
+    for bit its unsplit one (int32 sums); whole 5-hop ppr runs at f32,
+    bf16, int8 (K2-q8mxu) and int8cast (K2-q8) as one path (each hop
+    kernel exactly 5 launches, quantize 10) against their plain runs
+    (<= 1e-5), each run's error against the f32 run printed beside the
+    5e-3 gate (reported, not gated); the split hops' times beside the
+    unsplit hops' (K2, K2-bf16, K2-q8, K2-q8mxu) and quantize's, the
+    plain, ``torch.sparse.mm`` (K2) and the bounds, the gathered bytes,
+    the split rows and chunks, the host seconds of the graph, the
+    operator and the plan.
+5f. (after 5e) the slice's path, serving a power-law graph from its
+    files: 5d's in-memory ``synth:2000000:47:100`` plus 200 hub rows of
+    4,096 random neighbours (skew_probe's construction, RandomState(7),
+    re-binarised, no self-loops), above the operator's split cap (512)
+    and below the int8 hub guard (8,192), written in the Amazon2M file
+    layout (``Amazon2M_adj.npz`` uncompressed, ``Amazon2M_feat.npy``,
+    ``Amazon2M_labels.npy`` as class ids) to a temporary directory that
+    is removed at the end; with ``GRANDTPU_DATA_DIR`` pointing there,
+    ``train()`` with the Amazon2M preset (full width, 1 epoch, ``auto``,
+    a checkpoint directory) as a path: it loads the files, ``auto``
+    resolves to int8, quantize and K2-q8mxu launch ``order`` times each,
+    every K2-q8mxu hop on a split plan; then ``python -m
+    grandtpu_torch.cli.main predict --preset Amazon2M --ckpt <its
+    best.npz>`` at f32, int8 and auto, each in a child process with its
+    launch counts (each a path: ``order`` launches of its hop kernels, the
+    int8 ones on a split plan), each int8 predict's test accuracy within
+    2e-3 of the f32 predict's and auto's equal to ``train()``'s; the
+    int8 propagation's error against f32 (reported beside the 5e-3 gate),
+    one split K2-q8mxu hop on the loaded graph's operator bit for bit its
+    plain version and the unsplit hop, the split and unsplit K2-q8mxu hop
+    times on the loaded graph, and
+    ``data_s`` from the files beside the 11.25 s that generating the
+    graph took in ``predict`` on an H100 80GB HBM3 at 700 W.
 
 Every K2 time is printed beside the bytes its gathers read (nnz rows of
 x) at the HBM rate, the floor of a gathering kernel when the L2 catches no
@@ -196,6 +225,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -206,7 +236,8 @@ import torch.nn.functional as F
 from grandtpu_torch.cli.main import cli
 from grandtpu_torch.config import preset
 from grandtpu_torch.data import load_data
-from grandtpu_torch.data.preprocess import add_self_loops_adj
+from grandtpu_torch.data.preprocess import (add_self_loops_adj,
+                                            eliminate_self_loops_adj)
 from grandtpu_torch.data.synthetic import synthetic_graph
 from grandtpu_torch.dist import (ShardedGraph, ShardedPropagator,
                                  dist_exact_propagator, make_mesh,
@@ -215,6 +246,7 @@ from grandtpu_torch.dist import (ShardedGraph, ShardedPropagator,
 from grandtpu_torch.dist.halo import (halo_hop, halo_hop_plain, halo_pack,
                                       halo_pack_plain)
 from grandtpu_torch.infer import Propagator, exact_propagate, test_accuracy
+from grandtpu_torch.infer import propagate as propagate_mod
 from grandtpu_torch.infer.classify import embed_all_nodes
 from grandtpu_torch.nn.dropnode import gather_and_prop, gather_and_prop_plain
 from grandtpu_torch.nn.mag_mlp import init_mag_mlp
@@ -267,6 +299,9 @@ AMAZON_SMALL = "synth:30000:8:64"   # above the dense threshold
 # degree, F) and its ppr order; alpha is the Propagator's default
 HUB_GRAPH = (300000, 20, 200, 15000, 128)
 HUB_ORDER, HUB_ALPHA = 5, 0.2
+# 5f: hub rows and their random neighbours added to the Amazon2M stand-in,
+# above its operator's split cap (512) and below INT8_MAX_HUB_DEGREE
+FILE_HUBS = (200, 4096)
 SHARDS = 4                          # phase 8's mesh, on the one card
 DENSE_SHARDS = 2                    # phase 9's mesh (reddit's 50 + 200)
 MAG_SHARDS = 4                      # 3h's windows, 9b's mesh (20 + 20)
@@ -518,6 +553,21 @@ def check_k2_mag(data, k2: dict) -> None:
                  **{k: v for k, v in t.items() if k != "bytes"}}
 
 
+def add_hub_rows(adj, hubs: int, hub_deg: int):
+    """grandtpu/bench/skew_probe.py:47-55's hubs: ``hubs`` rows drawn with
+    RandomState(7), each joined to ``hub_deg`` random columns (which may
+    repeat), then the matrix re-binarised."""
+    n = adj.shape[0]
+    rs = np.random.RandomState(7)
+    hub_rows = np.repeat(rs.choice(n, hubs, replace=False), hub_deg)
+    hub_cols = rs.randint(0, n, hub_rows.size)
+    adj = (adj + sp.csr_matrix((np.ones(hub_rows.size, np.float32),
+                                (hub_rows, hub_cols)), shape=adj.shape)
+           ).tocsr()
+    adj.data[:] = 1.0
+    return adj
+
+
 def hub_graph():
     """grandtpu/bench/skew_probe.py:47-55 with the port's generator: the
     ``synth`` SBM base (degree 20) with self-loops, plus 200 hub rows of
@@ -526,25 +576,19 @@ def hub_graph():
     n, deg, hubs, hub_deg, nfeat = HUB_GRAPH
     base, _, _ = synthetic_graph(num_nodes=n, num_classes=8, num_features=4,
                                  avg_degree=deg, seed=0)
-    adj = add_self_loops_adj(base)
-    rs = np.random.RandomState(7)
-    hub_rows = np.repeat(rs.choice(n, hubs, replace=False), hub_deg)
-    hub_cols = rs.randint(0, n, hub_rows.size)
-    adj = (adj + sp.csr_matrix((np.ones(hub_rows.size, np.float32),
-                                (hub_rows, hub_cols)), shape=adj.shape)
-           ).tocsr()
-    adj.data[:] = 1.0
+    adj = add_hub_rows(add_self_loops_adj(base), hubs, hub_deg)
     feats = np.random.RandomState(1).rand(n, nfeat).astype(np.float32)
     return adj, feats
 
 
 def check_hub_graph() -> dict:
-    """Phase 3j: K2 and K2-bf16 on the skew graph, whose hub rows the
-    operator splits: one hop of each against its plain version (which
-    follows the same plan), a whole ppr run of each as a path against the
-    plain run, and the split hop's time beside the unsplit one's (the same
-    operator built with a cap above its longest row), the bound, the
-    gathered bytes and ``torch.sparse.mm``'s time."""
+    """Phase 3j: the K2 family on the skew graph, whose hub rows the
+    operator splits: one hop of each form against its plain version (which
+    follows the same plan; the int8 forms bit for bit, split and
+    unsplit), whole ppr runs at f32, bf16, int8 and int8cast as a path
+    against the plain runs, and the split hops' times beside the unsplit
+    ones' (the same operator built with a cap above its longest row), the
+    bounds, the gathered bytes and ``torch.sparse.mm``'s time."""
     t0 = time.time()
     adj, feats = hub_graph()
     gen_s = time.time() - t0
@@ -596,29 +640,94 @@ def check_hub_graph() -> dict:
                                  f"version: {err[1]} > {limit}")
         out["hop"][name] = {"max_abs_err": err[0], "max_rel_err": err[1]}
 
-    kw = dict(mode="ppr", order=HUB_ORDER, alpha=HUB_ALPHA)
+    row_val = prop.row_val
+    if row_val is None:
+        raise AssertionError("[3j] the skew operator's rows are not constant")
     x0 = HUB_ALPHA * x
+    # the int8 hops on the plain quantize's q, split and unsplit, each bit
+    # for bit its plain version (which groups the terms as the kernel
+    # does); K2-q8mxu's split hop bit for bit its unsplit one (int32 sums)
+    q, q_scale = quantize_columns_plain(x0)
+    int8 = {"csr_spmm_q8": (spmm_prop_step_q8, spmm_prop_step_q8_plain,
+                            (q, q_scale)),
+            "csr_spmm_q8mxu": (spmm_prop_step_q8mxu,
+                               spmm_prop_step_q8mxu_plain,
+                               (q, q_scale, row_val))}
+    acc0 = x0.flip(0).contiguous()
+    for name, (fn, plain_fn, args) in int8.items():
+        kernel_out = {}
+        for tag, o in (("split", op), ("unsplit", whole)):
+            out_k, acc_k = torch.empty_like(x0), acc0.clone()
+            out_p, acc_p = torch.empty_like(x0), acc0.clone()
+            fn(o, *args, out_k, acc_k, scale, True)
+            torch.cuda.synchronize(DEV)
+            plain_fn(o, *args, out_p, acc_p, scale, True)
+            err = max(_errors(out_k, out_p), _errors(acc_k, acc_p),
+                      key=lambda e: e[1])
+            differ = int((out_k != out_p).sum()) + int((acc_k != acc_p).sum())
+            print(f"[3j] {name} {tag}: one hop against its plain version "
+                  f"max_abs_err {err[0]} max_rel_err {err[1]}, elements "
+                  f"differing {differ} (limit 0: bit for bit)", flush=True)
+            if differ:
+                raise AssertionError(f"[3j] {name} {tag} is not bit for bit "
+                                     f"its plain version: {differ} differ")
+            out["hop"][f"{name}_{tag}"] = {"max_abs_err": err[0],
+                                           "max_rel_err": err[1],
+                                           "elements_differing": differ}
+            kernel_out[tag] = (out_k, acc_k)
+            del out_p, acc_p
+        same = all(torch.equal(a, b) for a, b in zip(kernel_out["split"],
+                                                     kernel_out["unsplit"]))
+        print(f"[3j] {name}: split hop bit for bit the unsplit hop {same}"
+              + (" (required: int32 sums)" if name == "csr_spmm_q8mxu"
+                 else ""), flush=True)
+        if name == "csr_spmm_q8mxu" and not same:
+            raise AssertionError("[3j] the split K2-q8mxu hop differs from "
+                                 "the unsplit one")
+        del kernel_out
+    del acc0
+
+    kw = dict(mode="ppr", order=HUB_ORDER, alpha=HUB_ALPHA)
     _reset_counts()
-    runs = {"f32": prop(x, **kw), "bf16": prop(x, precision="bf16", **kw)}
+    runs = {"f32": prop(x, **kw), "bf16": prop(x, precision="bf16", **kw),
+            "int8": prop(x, precision="int8", **kw),
+            "int8cast": prop(x, precision="int8cast", **kw)}
     launches = _read_counts()
-    want = {"csr_spmm_prop": HUB_ORDER, "csr_spmm_prop_bf16": HUB_ORDER}
+    want = {"csr_spmm_prop": HUB_ORDER, "csr_spmm_prop_bf16": HUB_ORDER,
+            "quantize_columns": 2 * HUB_ORDER, "csr_spmm_q8mxu": HUB_ORDER,
+            "csr_spmm_q8": HUB_ORDER}
     bad = {k: v for k, v in launches.items() if v != want.get(k, 0)}
     if bad:
         raise AssertionError(f"[3j] ppr runs launched {bad}, want {want}")
     out["launches"] = launches
     out["run"] = {}
+    plain_hops = {
+        "f32": (lambda ci, co, ac: spmm_prop_step_plain(
+            op, ci, co, ac, scale, True, "f32"), False),
+        "bf16": (lambda ci, co, ac: spmm_prop_step_plain(
+            op, ci, co, ac, scale, True, "bf16"), False),
+        "int8": (lambda q_, s_, co, ac: spmm_prop_step_q8mxu_plain(
+            op, q_, s_, row_val, co, ac, scale, True), True),
+        "int8cast": (lambda q_, s_, co, ac: spmm_prop_step_q8_plain(
+            op, q_, s_, co, ac, scale, True), True)}
     for term, got in runs.items():
-        plain = _plain_ppr_run(
-            lambda ci, co, ac, term=term: spmm_prop_step_plain(
-                op, ci, co, ac, scale, True, term), x0, HUB_ORDER, False)
+        plain_hop, quantize = plain_hops[term]
+        plain = _plain_ppr_run(plain_hop, x0, HUB_ORDER, quantize)
         err = _errors(got, plain)
-        print(f"[3j] whole {HUB_ORDER}-hop ppr run, {term} terms, as a path "
+        differ = int((got != plain).sum())
+        vs_f32 = _errors(got, runs["f32"])[1]
+        print(f"[3j] whole {HUB_ORDER}-hop ppr run, {term}, as a path "
               f"(launches {want}): against the plain run max_abs_err "
-              f"{err[0]} max_rel_err {err[1]} (limit {TOL})", flush=True)
+              f"{err[0]} max_rel_err {err[1]} (limit {TOL}), elements "
+              f"differing {differ}; against the f32 run max_rel_err "
+              f"{vs_f32} (fast-path gate 5e-3, reported: "
+              f"{'within' if vs_f32 <= 5e-3 else 'over'})", flush=True)
         if not err[1] <= TOL:
             raise AssertionError(f"[3j] {term} run disagrees with its plain "
                                  f"run: {err[1]} > {TOL}")
-        out["run"][term] = {"max_abs_err": err[0], "max_rel_err": err[1]}
+        out["run"][term] = {"max_abs_err": err[0], "max_rel_err": err[1],
+                            "elements_differing": differ,
+                            "rel_err_vs_f32": vs_f32}
     del runs, plain
 
     y, acc = torch.empty_like(x), torch.zeros_like(x)
@@ -650,7 +759,61 @@ def check_hub_graph() -> dict:
     out.update(shape=f"skew graph x [{n},{nfeat}], nnz {nnz}, per hop",
                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by, **gathers)
+    out["int8"] = _hub_int8_times(op, whole, x0, q, q_scale, row_val, scale)
     return out
+
+
+def _hub_int8_times(op, whole, x0, q, q_scale, row_val, scale) -> dict:
+    """3j's times of quantize and of the split and unsplit K2-q8 and
+    K2-q8mxu hops on the skew graph, each beside its bytes bound."""
+    n, nnz, nfeat = op.num_rows, op.nnz, x0.shape[1]
+    y, acc = torch.empty_like(x0), torch.zeros_like(x0)
+    struct = 4 * (n + 1) + 4 * nnz
+    # q read, f32 y written, acc read and written, the structure; K2-q8
+    # reads the values, K2-q8mxu the row values
+    q8_bytes = n * nfeat * 13 + nfeat * 4 + struct
+    table = {
+        "quantize_columns": (
+            {"split": lambda: quantize_columns(x0)},
+            lambda: quantize_columns_plain(x0), n * nfeat * 5 + nfeat * 4,
+            3 * n * nfeat),
+        "csr_spmm_q8": (
+            {tag: (lambda o=o: spmm_prop_step_q8(o, q, q_scale, y, acc,
+                                                 scale, True))
+             for tag, o in (("split", op), ("unsplit", whole))},
+            lambda: spmm_prop_step_q8_plain(op, q, q_scale, y, acc, scale,
+                                            True),
+            q8_bytes + 4 * nnz, 2 * nnz * nfeat + 3 * n * nfeat),
+        "csr_spmm_q8mxu": (
+            {tag: (lambda o=o: spmm_prop_step_q8mxu(o, q, q_scale, row_val,
+                                                    y, acc, scale, True))
+             for tag, o in (("split", op), ("unsplit", whole))},
+            lambda: spmm_prop_step_q8mxu_plain(op, q, q_scale, row_val, y,
+                                               acc, scale, True),
+            q8_bytes + 4 * n, nnz * nfeat + 4 * n * nfeat)}
+    gathers = nnz * nfeat          # int8 rows of q
+    times = {}
+    for name, (kernels, plain, nbytes, ops_) in table.items():
+        t = {tag: _time_ms(fn, 30) for tag, fn in kernels.items()}
+        plain_ms = _time_ms(plain, 3, warmup=1)
+        bound_ms, bound_by = _bound(nbytes, ops_)
+        times[name] = {"ms": t["split"], "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": None}
+        line = f"ms {t['split']}"
+        if "unsplit" in t:
+            times[name].update(unsplit_ms=t["unsplit"],
+                               gather_bytes=gathers,
+                               gather_ms=gathers / HBM_BYTES_PER_S * 1e3)
+            line = (f"split ms {t['split']} unsplit ms {t['unsplit']} "
+                    f"(split faster by {t['unsplit'] / t['split']:.3f}x; at "
+                    f"least 2x predicted for K2-q8mxu); gathered "
+                    f"{gathers / 1e9:.3f} GB = {times[name]['gather_ms']} ms "
+                    f"at the HBM rate;")
+        print(f"[3j] {name} at [{n},{nfeat}], nnz {nnz}: {line} plain_ms "
+              f"{plain_ms} bound_ms {bound_ms} ({bound_by}, "
+              f"{nbytes / 1e9:.3f} GB)", flush=True)
+    return times
 
 
 def _k3_form_sets(attr_cols, attr_vals, form: str, g):
@@ -2051,6 +2214,202 @@ def run_serving(r, data, ckpt: str) -> dict:
     return res
 
 
+# The predict CLI in a child process, with the launch counts of the
+# counted wrappers (COUNTED, imported from this script) and whether each K2-q8mxu hop ran on a split plan, on stderr
+# after the CLI's own line.
+_PREDICT_CHILD = """
+import json, sys
+import grandtpu_torch.infer.propagate as propagate
+from chip_smoke import COUNTED
+from grandtpu_torch.cli.main import cli
+split = []
+real = propagate.spmm_prop_step_q8mxu
+def spy(op, *args, **kwargs):
+    split.append(op.plan is not None)
+    return real(op, *args, **kwargs)
+propagate.spmm_prop_step_q8mxu = spy
+rc = cli(sys.argv[1:])
+print(json.dumps({"launches": {k: f.launches for k, f in COUNTED.items()},
+                  "q8mxu_split": split}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def write_amazon2m_files(data, path: str) -> tuple:
+    """5d's graph with FILE_HUBS hub rows (self-loops dropped, as the
+    Amazon2M adjacency has none) in the Amazon2M file layout
+    (grandtpu/data/registry.py:149-159): the adjacency npz uncompressed,
+    the features, the labels as class ids. Returns the adjacency and the
+    seconds of the hubs and of the writes."""
+    t0 = time.time()
+    adj = eliminate_self_loops_adj(add_hub_rows(data.adj, *FILE_HUBS))
+    hub_s = time.time() - t0
+    t0 = time.time()
+    sp.save_npz(os.path.join(path, "Amazon2M_adj.npz"), adj,
+                compressed=False)
+    np.save(os.path.join(path, "Amazon2M_feat.npy"),
+            np.asarray(data.features, np.float32))
+    np.save(os.path.join(path, "Amazon2M_labels.npy"), data.labels_int)
+    return adj, hub_s, time.time() - t0
+
+
+def _files_propagation(adj, x, cfg) -> dict:
+    """5f's propagation on the card: the int8 run's error against f32; one
+    split K2-q8mxu hop on the loaded graph's operator bit for bit its plain
+    version and the unsplit hop; the split hop's time against the unsplit
+    one's."""
+    prop = Propagator(add_self_loops_adj(adj), backend="csr", device=DEV)
+    op, row_val = prop.adj_op, prop.row_val
+    if op.plan is None or row_val is None:
+        raise AssertionError("[5f] the operator has no split plan or its rows "
+                             "are not constant")
+    kw = dict(mode="ppr", order=cfg.order, alpha=cfg.alpha)
+    ref = prop(x, **kw)
+    err = _errors(prop(x, precision="int8", **kw), ref)[1]
+    del ref
+    max_deg = int((op.indptr[1:] - op.indptr[:-1]).max())
+    whole = CSROperator(op.indptr, op.indices, op.values, op.num_rows,
+                        split_cap=max_deg)
+    x0 = cfg.alpha * x
+    q, q_scale = quantize_columns(x0)
+    scale = 1.0 - cfg.alpha
+    # one split hop at the path's shape bit for bit its plain version
+    # (which follows the same plan) and the unsplit hop (int32 sums)
+    acc0 = x0.flip(0).contiguous()
+    hops = {}
+    for tag, o, fn in (("split", op, spmm_prop_step_q8mxu),
+                       ("plain", op, spmm_prop_step_q8mxu_plain),
+                       ("unsplit", whole, spmm_prop_step_q8mxu)):
+        y, acc = torch.empty_like(x0), acc0.clone()
+        fn(o, q, q_scale, row_val, y, acc, scale, True)
+        hops[tag] = (y, acc)
+    torch.cuda.synchronize(DEV)
+    differ = {tag: sum(int((a != b).sum())
+                       for a, b in zip(hops["split"], hops[tag]))
+              for tag in ("plain", "unsplit")}
+    print(f"[5f] K2-q8mxu split hop at the path's shape: elements differing "
+          f"from its plain version {differ['plain']}, from the unsplit hop "
+          f"{differ['unsplit']} (limit 0 each: bit for bit)", flush=True)
+    if differ["plain"] or differ["unsplit"]:
+        raise AssertionError(f"[5f] the split K2-q8mxu hop is not bit for "
+                             f"bit: {differ} elements differ")
+    del hops, acc0
+    y, acc = torch.empty_like(x0), torch.zeros_like(x0)
+    ms = {tag: _time_ms(lambda o=o: spmm_prop_step_q8mxu(
+              o, q, q_scale, row_val, y, acc, scale, True), 30)
+          for tag, o in (("split", op), ("unsplit", whole))}
+    out = {"int8_rel_err_vs_f32": err, "nnz": op.nnz, "longest_row": max_deg,
+           "cap": op.plan.cap, "split_rows": int(op.plan.rows.numel()),
+           "chunks": op.plan.num_chunks, "q8mxu_split_ms": ms["split"],
+           "q8mxu_unsplit_ms": ms["unsplit"],
+           "elements_differing": differ}
+    print(f"[5f] the loaded graph's operator: nnz {op.nnz}, longest row "
+          f"{max_deg}, cap {op.plan.cap}: {out['split_rows']} split rows, "
+          f"{out['chunks']} chunks; {cfg.order}-hop ppr at int8 against f32 "
+          f"max_rel_err {err} (fast-path gate 5e-3, reported: "
+          f"{'within' if err <= 5e-3 else 'over'}); K2-q8mxu hop split "
+          f"{ms['split']} ms, unsplit {ms['unsplit']} ms (predicted "
+          f"1.8-2.1 ms split)", flush=True)
+    return out
+
+
+def run_serving_files(data) -> dict:
+    """Phase 5f: the slice's path, serving a power-law graph from its files.
+    5d's graph plus hub rows is written in the Amazon2M layout to a
+    temporary directory (removed at the end), ``train()`` with the
+    Amazon2M preset (full width, 1 epoch, ``auto``) loads it through
+    $GRANDTPU_DATA_DIR and writes best.npz, then the predict CLI runs from
+    it at f32, int8 and auto, each in a child process, each a path."""
+    cfg = preset("Amazon2M").replace(dataset="Amazon2M", epochs=1,
+                                     predict_precision="auto")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5f_")
+    old_dir = os.environ.get("GRANDTPU_DATA_DIR")
+    try:
+        adj, hub_s, write_s = write_amazon2m_files(data, tmp)
+        os.environ["GRANDTPU_DATA_DIR"] = tmp
+        print(f"[5f] {data.name} with {FILE_HUBS[0]} hub rows x "
+              f"{FILE_HUBS[1]} random neighbours: nnz {adj.nnz} (no "
+              f"self-loops), hubs added in {hub_s:.3f} s, the Amazon2M files "
+              f"written to a temporary directory in {write_s:.3f} s",
+              flush=True)
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        # the train path's K2-q8mxu hops, each on a split plan or not
+        real, split = propagate_mod.spmm_prop_step_q8mxu, []
+        propagate_mod.spmm_prop_step_q8mxu = (
+            lambda op, *a, **k: (split.append(op.plan is not None),
+                                 real(op, *a, **k))[1])
+        try:
+            r, train_launches = run_path(cfg.replace(ckpt_dir=ckpt_dir), None,
+                                         "5f-train")
+        finally:
+            propagate_mod.spmm_prop_step_q8mxu = real
+        if r.predict_precision != "int8mxu" or not split or not all(split):
+            raise AssertionError(f"[5f] train() ran {r.predict_precision}, "
+                                 f"K2-q8mxu hops on a split plan: {split}")
+        if train_launches["dropnode_mean"] < r.num_batches + len(r.history):
+            raise AssertionError("[5f] K1 was not launched for every step "
+                                 "and eval")
+        res = {"train": {"launches": train_launches,
+                         "total_s": r.total_time, "test_acc": r.test_acc}}
+        out_npz = os.path.join(tmp, "predictions.npz")
+        here = os.path.dirname(os.path.abspath(__file__))
+        torch.cuda.empty_cache()      # the children allocate on the card
+        for precision, form in (("f32", "f32"), ("int8", "int8mxu"),
+                                ("auto", "int8mxu")):
+            argv = ["predict", "--preset", "Amazon2M", "--ckpt",
+                    os.path.join(ckpt_dir, "best.npz"), "--precision",
+                    precision, "--output", out_npz]
+            t0 = time.time()
+            child = subprocess.run(
+                [sys.executable, "-c", _PREDICT_CHILD, *argv], cwd=here,
+                capture_output=True, text=True, timeout=600)
+            wall = time.time() - t0
+            if child.returncode != 0:
+                raise AssertionError(f"[5f] predict {precision} exited "
+                                     f"{child.returncode}: "
+                                     f"{child.stderr[-3000:]}")
+            line = json.loads(child.stdout.strip().splitlines()[-1])
+            err_lines = child.stderr.strip().splitlines()
+            seconds = json.loads(err_lines[-2])["predict_seconds"]
+            counts = json.loads(err_lines[-1])
+            launches = counts["launches"]
+            print(f"[5f] python -m grandtpu_torch.cli.main {' '.join(argv)} "
+                  f"(a child process): {line}; wall {wall} s, {seconds}; "
+                  f"launches { {k: v for k, v in launches.items() if v} }, "
+                  f"K2-q8mxu hops on a split plan {counts['q8mxu_split']}; "
+                  f"data_s {seconds['data_s']} from the files against 11.25 "
+                  f"s of generating synth:2000000:47:100 (H100 80GB HBM3, "
+                  f"700 W)", flush=True)
+            _check_hops(launches, form, cfg.order)
+            if form == "int8mxu" and not (counts["q8mxu_split"]
+                                          and all(counts["q8mxu_split"])):
+                raise AssertionError(f"[5f] predict {precision}: K2-q8mxu "
+                                     "ran without the split plan")
+            res[precision] = {"launches": launches, "wall_s": wall,
+                              "test_acc": line["test_acc"], **seconds}
+        for precision in ("int8", "auto"):
+            gap = abs(res[precision]["test_acc"] - res["f32"]["test_acc"])
+            print(f"[5f] test_acc {precision} {res[precision]['test_acc']} "
+                  f"against f32 {res['f32']['test_acc']}: |d| {gap} (limit "
+                  f"2e-3); train()'s own (auto) {r.test_acc}", flush=True)
+            if gap > 2e-3:
+                raise AssertionError(f"[5f] {precision} test_acc is {gap} "
+                                     "from f32's")
+        if res["auto"]["test_acc"] != r.test_acc:
+            raise AssertionError(f"[5f] predict auto test_acc "
+                                 f"{res['auto']['test_acc']} != train()'s "
+                                 f"{r.test_acc}")
+        res["propagation"] = _files_propagation(
+            adj, torch.as_tensor(data.features, device=DEV), cfg)
+        return res
+    finally:
+        if old_dir is None:
+            os.environ.pop("GRANDTPU_DATA_DIR", None)
+        else:
+            os.environ["GRANDTPU_DATA_DIR"] = old_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def serving_entries(seg: dict, d1: dict, serve: dict) -> list:
     """The kernels line's entries of K2-seg, the quantize split and D1's
     kernels, launches by path."""
@@ -2649,6 +3008,8 @@ def main() -> int:
     mark("5d")
     serve = run_serving(r_bucket, amazon, os.path.join(CKPT_DIR, "best.npz"))
     mark("5e")
+    files = run_serving_files(amazon)
+    mark("5f")
     del amazon
 
     k1["launches_by_path"] = {
@@ -2666,11 +3027,13 @@ def main() -> int:
         "d1_all_gather_f32": d1["launches"]["all_gather_f32"][
             "csr_spmm_prop"],
         "serve_f32": serve["f32"]["launches"]["csr_spmm_prop"],
+        "files_predict_f32": files["f32"]["launches"]["csr_spmm_prop"],
         "p1_sharded_reddit": push_sharded["launches"]["csr_spmm_prop"],
         "d1_reddit_mesh": mesh_launches["csr_spmm_prop"],
         "d1_mag_mesh": mag_mesh_launches["csr_spmm_prop"]}
     k2["launches_by_path"]["hub"] = hub["launches"]["csr_spmm_prop"]
-    k2["hub"] = {k: v for k, v in hub.items() if k != "launches"}
+    k2["hub"] = {k: v for k, v in hub.items()
+                 if k not in ("launches", "int8")}
     k2["p1_over_at"] = {"ms": push_reddit["jax"]["times"]["k2_over_at_ms"],
                         "shape": "A^T of the reddit stand-in, x [233000, "
                                  "512], per hop"}
@@ -2687,11 +3050,23 @@ def main() -> int:
                         "hop": {f: hub["hop"][f] for f in (
                             "csr_spmm_prop_bf16", "csr_spmm_prop_bf16_carry")},
                         "run": hub["run"]["bf16"]}
+        if k["name"] in hub["int8"]:
+            k["hub"] = {**hub["int8"][k["name"]], "hop": {
+                f: e for f, e in hub["hop"].items()
+                if f.rsplit("_", 1)[0] == k["name"]}}
+        if k["name"] in ("csr_spmm_q8", "csr_spmm_q8mxu"):
+            k["hub"]["run"] = hub["run"][
+                "int8cast" if k["name"] == "csr_spmm_q8" else "int8"]
+            k["split"] = ("hub rows split by the operator's SplitPlan "
+                          "(3j; 5f for K2-q8mxu)")
         k["launches_by_path"] = {
             "amazon": amazon_launches[k["name"]],
             "amazon_bucket": bucket_launches[k["name"]],
             "sweep": sweep_launches[k["name"]],
             "serve_auto": serve["auto"]["launches"][k["name"]],
+            "files_train": files["train"]["launches"][k["name"]],
+            **{f"files_predict_{p}": files[p]["launches"][k["name"]]
+               for p in ("int8", "auto")},
             "hub": hub["launches"][k["name"]],
             **{f"d1_{run}": la[k["name"]]
                for run, la in d1["launches"].items() if la[k["name"]]}}
@@ -2699,7 +3074,7 @@ def main() -> int:
     pushes = push_entries(push_reddit, push_amazon, bucket_launches,
                           push_sharded)
     served = serving_entries(seg, d1, serve)
-    print(json.dumps({"serving": serve, "d1": {
+    print(json.dumps({"serving": serve, "serving_files": files, "d1": {
         k: d1[k] for k in ("err", "wall_s", "compression")},
         "mesh_steps": mesh_steps, "peak_gb": PEAK_GB}))
     print(json.dumps({"kernels": [k1, k2, *fast, *k3, *k3_window, *pushes,

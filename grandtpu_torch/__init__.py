@@ -5,8 +5,11 @@ the reference the port is tested against, and the port imports nothing
 of it:
 
 - ``grandtpu_torch.config``  own copy of ``GrandConfig`` and the presets
-- ``grandtpu_torch.data``    ``synth:`` loader (dense or CSR bag-of-words
-                             features), splits, self-loops (numpy)
+- ``grandtpu_torch.data``    ``load_data`` for every file family of
+                             grandtpu (planetoid, aminer, the SparseGraph
+                             npz family, reddit, Amazon2M, MAG) and the
+                             ``synth:`` graphs; splits, preprocessing
+                             (numpy/scipy)
 - ``grandtpu_torch.ppr``     GFPush precompute: native C++ kernel, numpy
 - ``grandtpu_torch.sparse``  ``TopKProp`` table; CSR SpMM (kernel K2 and
                              its bf16/int8 forms); padded-COO SpMM (K2-seg)

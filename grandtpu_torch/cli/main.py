@@ -13,10 +13,15 @@
         --num-devices 2 --device cpu                      # data-parallel
     python -m grandtpu_torch.cli.main predict --dataset synth:400:4:32 \
         --ckpt /tmp/c/best.npz --device cpu [--num-devices 2]
+    GRANDTPU_DATA_DIR=/data python -m grandtpu_torch.cli.main predict \
+        --preset Amazon2M --ckpt /tmp/c/best.npz --precision int8
     python -m grandtpu_torch.cli.main presets
 
-Every GrandConfig field is overridable via a --flag of the same name
-(underscores become dashes).
+``--dataset`` takes a ``synth:`` spec or a dataset's name (``reddit``,
+``Amazon2M``, ``cora``, ...), whose files ``load_data`` reads from
+$GRANDTPU_DATA_DIR; a preset without ``--dataset`` loads its own
+dataset's files. Every GrandConfig field is overridable via a --flag of
+the same name (underscores become dashes).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 // Shared pieces of the power-iteration hop kernels (csr_spmm.cu,
-// csr_spmm_q8.cu, halo.cu): carry loads, one element or 2 or 4 neighbouring
+// csr_spmm_q8.cu, halo.cu): the hub-row split's work items and finish
+// (csr_spmm.cu and csr_spmm_q8.cu), carry loads, one element or 2 or 4 neighbouring
 // ones a lane (kVec = 4 or 2, where F is a multiple of it and the arrays
 // aligned to it: one vector load or store instead of strided ones), and the
 // fused update
@@ -257,6 +258,64 @@ __device__ __forceinline__ int64_t warp_row(int num_rows) {
 
 inline int hop_blocks(int num_rows) {
   return (num_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+}
+
+// The hub-row split plan of a hop (sparse/spmm.py::SplitPlan; num_chunks
+// 0: none) and its scratch: partial [num_chunks, F] (f32, or int32 for
+// K2-q8mxu) and counters [split rows], zero before the launch.
+struct Split {
+  const int32_t* rows;        // the split rows, ascending
+  const int32_t* chunk_ptr;   // split row i has chunks chunk_ptr[i]:[i + 1]
+  const int32_t* chunk_row;   // each chunk's split-row index
+  const int32_t* chunk_lo;    // each chunk's first edge
+  int num_chunks;
+  int cap;                    // edges a chunk, and the longest whole row
+  void* partial;
+  int* counters;
+};
+
+// A group's work item: the plan's chunks first (the heavy work starts
+// first), then the rows. Sets the row and its edge range lo:hi; false past
+// the end and for a split row's own item, whose chunks add it.
+__device__ __forceinline__ bool hop_item(const int32_t* __restrict__ indptr,
+                                         int num_rows, const Split& s,
+                                         int64_t item, int64_t& row, int& lo,
+                                         int& hi) {
+  if (item >= static_cast<int64_t>(s.num_chunks) + num_rows) return false;
+  if (item < s.num_chunks) {
+    row = s.rows[s.chunk_row[item]];
+    lo = s.chunk_lo[item];
+    const int end = indptr[row + 1];
+    hi = end - lo > s.cap ? lo + s.cap : end;
+    return true;
+  }
+  row = item - s.num_chunks;
+  lo = indptr[row];
+  hi = indptr[row + 1];
+  return hi - lo <= s.cap;
+}
+
+// After a chunk's group of `lanes` lanes (a power of two up to 32, aligned
+// in its warp) wrote its partial: whether it finished its split row's last
+// chunk (an integer counter a split row, no float atomics). The whole group
+// calls it; the fences make every chunk's partial visible to the group
+// that adds them.
+__device__ __forceinline__ bool last_chunk(const Split& s, int64_t item,
+                                           int lanes = 32) {
+  const int lane = threadIdx.x & 31;
+  const unsigned mask = lanes == 32
+      ? 0xffffffffu : ((1u << lanes) - 1u) << (lane & ~(lanes - 1));
+  __threadfence();
+  __syncwarp(mask);
+  const int i = s.chunk_row[item];
+  int last = 0;
+  if ((lane & (lanes - 1)) == 0) {
+    last = atomicAdd(s.counters + i, 1) ==
+           s.chunk_ptr[i + 1] - s.chunk_ptr[i] - 1;
+  }
+  last = __shfl_sync(mask, last, 0, lanes);
+  if (last) __threadfence();
+  return last;
 }
 
 }  // namespace grandtpu

@@ -76,32 +76,18 @@ csr_spmm_prop_kernel(const int32_t* __restrict__ indptr,
                      const T* __restrict__ x, T* __restrict__ y,
                      T* __restrict__ acc, int num_rows, int num_features,
                      float scale, int accumulate, int lanes, int log_lanes,
-                     const int32_t* __restrict__ split_rows,
-                     const int32_t* __restrict__ chunk_ptr,
-                     const int32_t* __restrict__ chunk_row,
-                     const int32_t* __restrict__ chunk_lo, int num_chunks,
-                     int cap, float* __restrict__ partial,
-                     int* __restrict__ counters) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane & (lanes - 1);
+                     grandtpu::Split split) {
+  const int g = threadIdx.x & (lanes - 1);
   const int64_t item =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >>
       log_lanes;
-  if (item >= static_cast<int64_t>(num_chunks) + num_rows) return;
-  const bool is_chunk = item < num_chunks;
   int64_t row;
   int lo, hi;
-  if (is_chunk) {
-    row = split_rows[chunk_row[item]];
-    lo = chunk_lo[item];
-    hi = static_cast<int>(min(static_cast<int64_t>(lo) + cap,
-                              static_cast<int64_t>(indptr[row + 1])));
-  } else {
-    row = item - num_chunks;
-    lo = indptr[row];
-    hi = indptr[row + 1];
-    if (hi - lo > cap) return;          // a split row: its chunks add it
+  if (!grandtpu::hop_item(indptr, num_rows, split, item, row, lo, hi)) {
+    return;
   }
+  const bool is_chunk = item < split.num_chunks;
+  float* partial = static_cast<float*>(split.partial);
   const int F = num_features;
   const int tile = lanes * NPER * V;
   for (int f_tile = 0; f_tile < F; f_tile += tile) {
@@ -176,24 +162,12 @@ csr_spmm_prop_kernel(const int32_t* __restrict__ indptr,
       }
     }
   }
-  if (!is_chunk) return;
+  if (!is_chunk || !grandtpu::last_chunk(split, item, lanes)) return;
   // the last chunk of a split row to finish adds the row's partials in
   // chunk order and applies the update
-  const unsigned mask = lanes == 32
-      ? 0xffffffffu : ((1u << lanes) - 1u) << (lane & ~(lanes - 1));
-  __threadfence();
-  __syncwarp(mask);
-  const int i = chunk_row[item];
-  int last = 0;
-  if (g == 0) {
-    const int done = atomicAdd(counters + i, 1);
-    last = done == chunk_ptr[i + 1] - chunk_ptr[i] - 1;
-  }
-  last = __shfl_sync(mask, last, 0, lanes);
-  if (!last) return;
-  __threadfence();
-  const int c0 = chunk_ptr[i];
-  const int c1 = chunk_ptr[i + 1];
+  const int i = split.chunk_row[item];
+  const int c0 = split.chunk_ptr[i];
+  const int c1 = split.chunk_ptr[i + 1];
   for (int f = g; f < F; f += lanes) {
     float h = 0.0f;
     for (int c = c0; c < c1; ++c) {
@@ -275,8 +249,9 @@ int launch(const int32_t* indptr, const int32_t* indices, const float* values,
   kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
       indptr, indices, values, static_cast<const T*>(x), static_cast<T*>(y),
       static_cast<T*>(acc), num_rows, num_features, scale, accumulate, lanes,
-      log_lanes, split_rows, chunk_ptr, chunk_row, chunk_lo, num_chunks,
-      num_chunks ? cap : 0x7fffffff, partial, counters);
+      log_lanes,
+      grandtpu::Split{split_rows, chunk_ptr, chunk_row, chunk_lo, num_chunks,
+                      num_chunks ? cap : 0x7fffffff, partial, counters});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,9 +56,12 @@ _SIGNATURES = {
     # stream
     "halo_hop": [_P] * 12 + [_I, _I, ctypes.c_float, _I, _I, _P],
     # indptr, indices, values | row_val, q, col_scale, y, acc, num_rows,
-    # num_features, scale, accumulate, carry_bf16, stream
-    "csr_spmm_q8": [_P] * 7 + [_I, _I, ctypes.c_float, _I, _I, _P],
-    "csr_spmm_q8mxu": [_P] * 7 + [_I, _I, ctypes.c_float, _I, _I, _P],
+    # num_features, scale, accumulate, carry_bf16, split_rows, chunk_ptr,
+    # chunk_row, chunk_lo, num_chunks, cap, partial, counters, stream
+    "csr_spmm_q8": [_P] * 7 + [_I, _I, ctypes.c_float, _I, _I] + [_P] * 4
+                   + [_I, _I, _P, _P, _P],
+    "csr_spmm_q8mxu": [_P] * 7 + [_I, _I, ctypes.c_float, _I, _I]
+                      + [_P] * 4 + [_I, _I, _P, _P, _P],
     # table | grad, attr_cols, attr_vals, tk_cols, tk_vals, keep, drop,
     # out | dtable, rows, ktop, P, H, num_aug, keep_prob, vocab_lo,
     # vocab_hi, stream

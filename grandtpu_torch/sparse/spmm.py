@@ -5,9 +5,10 @@ Port of the math of ``grandtpu/sparse/spmm.py``: ``y = A @ x`` for the
 row-normalized propagation operator ``A = D^-1 (adj + I)``. The TPU's
 SplitCSR one-hot-matmul layout is not carried over; the operator is plain
 CSR on the device, and SplitCSR's overflow level becomes the operator's
-:class:`SplitPlan`: K2 and K2-bf16 cut each hub row into chunks, sum each
-chunk apart and add the chunks in order. Each hop is one step of the power
-iteration in
+:class:`SplitPlan`, which every form of the CSR hop follows (K2, K2-bf16,
+K2-q8, K2-q8mxu): each hub row is cut into chunks, each chunk summed apart
+(K2-q8mxu in int32, so its split hop is bit for bit its unsplit one) and
+the chunks added in order. Each hop is one step of the power iteration in
 ``grandtpu/infer/propagate.py`` with its update fused in:
 
     cur_out = scale * h;   acc += cur_out  (if accumulate)
@@ -227,40 +228,48 @@ def _epilogue_plain(h: torch.Tensor, cur_out: torch.Tensor,
         acc.add_(cur_out)
 
 
+def _hop_sums(op: CSROperator, term, out: torch.Tensor) -> torch.Tensor:
+    """``out[r] += term(e)`` over the edges of each row ``r``, grouped as
+    the hop kernels group them under the operator's plan: a row under the
+    cap in edge order; each chunk of a split row in edge order from 0, then
+    the row's chunks in chunk order from 0."""
+    plan = op.plan
+    if plan is None:
+        return _row_sums(op.indptr, term, out)
+    starts = op.indptr[:-1].long()
+    deg = op.indptr[1:].long() - starts
+    split = plan.rows.long()
+    whole = deg.clone()
+    whole[split] = 0
+    _ranged_sums(starts, whole, term, out)
+    lo = plan.chunk_lo.long()
+    hi = torch.minimum(lo + plan.cap,
+                       op.indptr[1:].long()[split[plan.chunk_row.long()]])
+
+    def zeros(rows):
+        return torch.zeros((rows, out.shape[1]), dtype=out.dtype,
+                           device=out.device)
+
+    part = _ranged_sums(lo, hi - lo, term, zeros(plan.num_chunks))
+    first = plan.chunk_ptr[:-1].long()
+    out[split] = _ranged_sums(first, plan.chunk_ptr[1:].long() - first,
+                              lambda c: part[c], zeros(split.numel()))
+    return out
+
+
 def spmm_prop_step_plain(op: CSROperator, cur_in: torch.Tensor,
                          cur_out: torch.Tensor, acc: torch.Tensor | None,
                          scale: float, accumulate: bool,
                          term: str = "f32") -> None:
     """Plain PyTorch version of K2 (``term="f32"``) and K2-bf16
-    (``term="bf16"``): gather, scale, round, sum in edge order."""
+    (``term="bf16"``): gather, scale, round, sum as the kernel groups the
+    terms."""
     def prod(e):
         p = cur_in[op.indices[e].long()].float() * op.values[e, None]
         return p.to(BF16).float() if term == "bf16" else p
 
-    h = torch.zeros(cur_out.shape, device=cur_out.device)
-    plan = op.plan
-    if plan is None:
-        _row_sums(op.indptr, prod, h)
-    else:
-        # as the kernel: rows under the cap whole; each chunk of a split
-        # row in edge order, then the row's chunks in chunk order
-        starts = op.indptr[:-1].long()
-        deg = op.indptr[1:].long() - starts
-        split = plan.rows.long()
-        whole = deg.clone()
-        whole[split] = 0
-        _ranged_sums(starts, whole, prod, h)
-        lo = plan.chunk_lo.long()
-        hi = torch.minimum(lo + plan.cap,
-                           op.indptr[1:].long()[split[plan.chunk_row.long()]])
-        part = _ranged_sums(lo, hi - lo, prod,
-                            torch.zeros((plan.num_chunks, h.shape[1]),
-                                        device=h.device))
-        first = plan.chunk_ptr[:-1].long()
-        h[split] = _ranged_sums(first, plan.chunk_ptr[1:].long() - first,
-                                lambda c: part[c],
-                                torch.zeros((split.numel(), h.shape[1]),
-                                            device=h.device))
+    h = _hop_sums(op, prod, torch.zeros(cur_out.shape,
+                                        device=cur_out.device))
     _epilogue_plain(h, cur_out, acc, scale, accumulate)
 
 
@@ -289,15 +298,15 @@ def spmm_prop_step_q8_plain(op: CSROperator, q: torch.Tensor,
                             col_scale: torch.Tensor, cur_out: torch.Tensor,
                             acc: torch.Tensor | None, scale: float,
                             accumulate: bool) -> None:
-    """Plain PyTorch version of K2-q8."""
+    """Plain PyTorch version of K2-q8 (f32 sums, grouped as the kernel's)."""
     vals = op.values.to(BF16).float()
 
     def prod(e):
         return (q[op.indices[e].long()].float()
                 * vals[e, None]).to(BF16).float()
 
-    h = _row_sums(op.indptr, prod, torch.zeros(cur_out.shape,
-                                               device=cur_out.device))
+    h = _hop_sums(op, prod, torch.zeros(cur_out.shape,
+                                        device=cur_out.device))
     _epilogue_plain(h * col_scale, cur_out, acc, scale, accumulate)
 
 
@@ -307,7 +316,7 @@ def spmm_prop_step_q8mxu_plain(op: CSROperator, q: torch.Tensor,
                                acc: torch.Tensor | None, scale: float,
                                accumulate: bool) -> None:
     """Plain PyTorch version of K2-q8mxu (int32 sums)."""
-    isum = _row_sums(op.indptr, lambda e: q[op.indices[e].long()].int(),
+    isum = _hop_sums(op, lambda e: q[op.indices[e].long()].int(),
                      torch.zeros(cur_out.shape, dtype=torch.int32,
                                  device=cur_out.device))
     h = isum.float() * row_val[:, None] * col_scale
@@ -341,6 +350,29 @@ def _check_launch(name: str, op: CSROperator, x: torch.Tensor,
     return carries[0].numel() > 0
 
 
+def _plan_args(name: str, op: CSROperator, x: torch.Tensor,
+               partial_dtype: torch.dtype) -> tuple:
+    """The split-plan arguments of a hop launch (the plan's four arrays,
+    its chunk count and cap, the partial-sum scratch and the finish
+    counters), and the scratch tensors, which the caller keeps until the
+    launch is queued."""
+    plan = op.plan
+    if plan is None:
+        return (None,) * 4 + (0, 0, None, None), ()
+    tensors = (plan.rows, plan.chunk_ptr, plan.chunk_row, plan.chunk_lo)
+    if any(t.device != x.device or t.dtype != torch.int32
+           or not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: the split plan must be contiguous int32 "
+                         f"on {x.device}")
+    # each chunk's partial sums; one finish counter a split row
+    partial = torch.empty((plan.num_chunks, x.shape[1]), dtype=partial_dtype,
+                          device=x.device)
+    counters = torch.zeros(plan.rows.shape[0], dtype=torch.int32,
+                           device=x.device)
+    return ((*(t.data_ptr() for t in tensors), plan.num_chunks, plan.cap,
+             partial.data_ptr(), counters.data_ptr()), (partial, counters))
+
+
 def _k2(op, cur_in, cur_out, acc, scale, accumulate, term, counter):
     if cur_in.device.type == "cpu":
         spmm_prop_step_plain(op, cur_in, cur_out, acc, scale, accumulate,
@@ -355,31 +387,13 @@ def _k2(op, cur_in, cur_out, acc, scale, accumulate, term, counter):
     if not _check_launch(counter.__name__, op, cur_in, carries, [op.values]):
         return
     bf16 = cur_out.dtype == BF16
-    plan = op.plan
-    split = (None,) * 4
-    partial = counters = None
-    if plan is not None:
-        tensors = (plan.rows, plan.chunk_ptr, plan.chunk_row, plan.chunk_lo)
-        if any(t.device != cur_in.device or t.dtype != torch.int32
-               for t in tensors):
-            raise ValueError(f"{counter.__name__}: the split plan must be "
-                             f"int32 on {cur_in.device}")
-        split = tuple(t.data_ptr() for t in tensors)
-        # each chunk's f32 partial sums; one finish counter a split row
-        partial = torch.empty((plan.num_chunks, cur_in.shape[1]),
-                              device=cur_in.device)
-        counters = torch.zeros(plan.rows.shape[0], dtype=torch.int32,
-                               device=cur_in.device)
+    split, _scratch = _plan_args(counter.__name__, op, cur_in, torch.float32)
     rc = load_kernels().csr_spmm_prop(
         op.indptr.data_ptr(), op.indices.data_ptr(), op.values.data_ptr(),
         cur_in.data_ptr(), cur_out.data_ptr(),
         acc.data_ptr() if accumulate else None, op.num_rows,
         cur_in.shape[1], bf16_round(scale) if bf16 else float(scale),
         int(accumulate), int(term == "bf16"), int(bf16), *split,
-        0 if plan is None else plan.num_chunks,
-        0 if plan is None else plan.cap,
-        None if partial is None else partial.data_ptr(),
-        None if counters is None else counters.data_ptr(),
         torch.cuda.current_stream(cur_in.device).cuda_stream)
     check(rc, "csr_spmm_prop")
     counter.launches += 1
@@ -511,7 +525,8 @@ def spmm_prop_step_q8(op: CSROperator, q: torch.Tensor,
                       accumulate: bool) -> None:
     """One K2-q8 hop on the quantized input (``q``, ``col_scale`` of
     :func:`quantize_columns`): ``h = (sum_e bf16(q[c]·bf16(v))) ·
-    col_scale``, then the fused update into the carries."""
+    col_scale``, then the fused update into the carries. A hub row of the
+    operator's plan is summed by chunks, then the chunks in order."""
     if q.device.type == "cpu":
         spmm_prop_step_q8_plain(op, q, col_scale, cur_out, acc, scale,
                                 accumulate)
@@ -520,12 +535,13 @@ def spmm_prop_step_q8(op: CSROperator, q: torch.Tensor,
                     accumulate, None):
         return
     bf16 = cur_out.dtype == BF16
+    split, _scratch = _plan_args("spmm_prop_step_q8", op, q, torch.float32)
     rc = load_kernels().csr_spmm_q8(
         op.indptr.data_ptr(), op.indices.data_ptr(), op.values.data_ptr(),
         q.data_ptr(), col_scale.data_ptr(), cur_out.data_ptr(),
         acc.data_ptr() if accumulate else None, op.num_rows, q.shape[1],
         bf16_round(scale) if bf16 else float(scale), int(accumulate),
-        int(bf16), torch.cuda.current_stream(q.device).cuda_stream)
+        int(bf16), *split, torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, "csr_spmm_q8")
     spmm_prop_step_q8.launches += 1
 
@@ -536,7 +552,9 @@ def spmm_prop_step_q8mxu(op: CSROperator, q: torch.Tensor,
                          scale: float, accumulate: bool) -> None:
     """One K2-q8mxu hop: ``h = (float(sum_e q[c]) · row_val[r]) ·
     col_scale`` with the sum exact in int32, then the fused update. The
-    operator's values are not read: ``row_val`` [n] f32 stands for them."""
+    operator's values are not read: ``row_val`` [n] f32 stands for them.
+    A hub row of the operator's plan is summed by chunks in int32, so the
+    split hop equals the unsplit one bit for bit."""
     if q.device.type == "cpu":
         spmm_prop_step_q8mxu_plain(op, q, col_scale, row_val, cur_out, acc,
                                    scale, accumulate)
@@ -545,12 +563,13 @@ def spmm_prop_step_q8mxu(op: CSROperator, q: torch.Tensor,
                     accumulate, row_val):
         return
     bf16 = cur_out.dtype == BF16
+    split, _scratch = _plan_args("spmm_prop_step_q8mxu", op, q, torch.int32)
     rc = load_kernels().csr_spmm_q8mxu(
         op.indptr.data_ptr(), op.indices.data_ptr(), row_val.data_ptr(),
         q.data_ptr(), col_scale.data_ptr(), cur_out.data_ptr(),
         acc.data_ptr() if accumulate else None, op.num_rows, q.shape[1],
         bf16_round(scale) if bf16 else float(scale), int(accumulate),
-        int(bf16), torch.cuda.current_stream(q.device).cuda_stream)
+        int(bf16), *split, torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, "csr_spmm_q8mxu")
     spmm_prop_step_q8mxu.launches += 1
 

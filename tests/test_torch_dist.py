@@ -42,6 +42,7 @@ from grandtpu_torch.dist import (BlockShardedGraph, BlockShardedPropagator,
                                  sharded_propagate)
 from grandtpu_torch.dist.halo import halo_pack
 from grandtpu_torch.infer import exact_propagate
+from grandtpu_torch.infer.propagate import exact_propagator
 from grandtpu_torch.sparse import column_absmax, quantize_with_amax
 
 # The suite runs in several worker processes at once (pytest-xdist), and
@@ -267,3 +268,42 @@ def test_plain_flag_runs_the_same_arithmetic(graph_feats, variant):
         kw = {"precision": "int8"}
     assert torch.equal(prop(feats, **KW, **kw),
                        prop(feats, **KW, **kw, plain=True))
+
+
+def _hub_graph(n=2000, hub=1500, seed=3):
+    """A self-looped SBM graph with node 5 joined to ``hub`` others, both
+    ways: a row above the operators' split cap (max(512, 8 x mean row))
+    and below the int8 hub guard, so 'auto' picks int8."""
+    adj, feats = self_looped(n, 4.0, seed)
+    nbrs = np.random.RandomState(seed).permutation(n)[:hub]
+    star = sp.csr_matrix((np.ones(hub, np.float32), (np.full(hub, 5), nbrs)),
+                         shape=(n, n))
+    adj = ((adj + star + star.T) > 0).astype(np.float32).tocsr()
+    return adj, feats
+
+
+@pytest.mark.parametrize("precision", ["int8", "int8cast", "auto"])
+def test_block_int8_split_matches_one_card(precision):
+    """D1's all_gather variant on 2 shards with a hub row that the shard's
+    operator splits: 'int8', 'int8cast' and 'auto' (int8 here) run the
+    split hop on the shard and on one card, and the D1 run equals the
+    one-card split run (the same global q, and each row's terms grouped by
+    the same plan: int32 sums for int8, the same f32 order for
+    int8cast)."""
+    adj, feats = _hub_graph()
+    mesh = make_mesh(2, device="cpu")
+    prop, resolved = tshard.dist_exact_propagator(mesh, adj, feats.shape[1],
+                                                  precision=precision)
+    assert isinstance(prop, BlockShardedPropagator)
+    assert resolved == ("int8" if precision == "auto" else precision)
+    plans = [op.plan for op in prop.ops]
+    assert plans[0] is not None and plans[0].rows.tolist() == [5]
+    one, one_p = exact_propagator(adj, feats.shape[1], backend="csr",
+                                  precision=precision, device="cpu")
+    assert one.adj_op.plan is not None and one_p == resolved
+    kw = dict(mode="ppr", **KW)
+    got = prop(feats, precision=resolved, **kw)
+    want = one(feats, precision=one_p, **kw)
+    assert one.last_precision == ("int8cast" if precision == "int8cast"
+                                  else "int8mxu")
+    assert torch.equal(got, want), rel(got, want)

@@ -21,7 +21,9 @@ determinism, and for the top-k rows past its shared-memory candidate buffer
 shapes at k 64 and 1024; for K2 and K2-bf16 split hub rows (20,000 and
 150,000 nonzeros beside empty rows) at F 1, 33, 64, 100 and 602, both
 carry types, with and without accumulate, against the plain version (which
-follows the same split plan) and the unsplit hop; for K2-seg (coo_spmm), D1's halo_pack and halo_hop (each
+follows the same split plan) and the unsplit hop, and for K2-q8 and
+K2-q8mxu the same hub rows at F 1, 33, 100 and 128 bit for bit their plain
+versions (K2-q8mxu's split hop bit for bit its unsplit one); for K2-seg (coo_spmm), D1's halo_pack and halo_hop (each
 form) and the quantize split (column_absmax, quantize_with_amax) 4-wide and
 1-wide lanes, a 9000-nonzero hub row, empty rows and an empty shard.
 """
@@ -406,6 +408,67 @@ def test_split_hop_matches_the_unsplit_hop(device, nfeat):
     torch.cuda.synchronize()
     for got, want in zip(*outs):
         assert _rel_err(got, want) <= TOL
+
+
+def _split_operator_rows_constant():
+    """The structure of :func:`_split_operator` with each row's values
+    1 / its nonzeros (D^-1 A's form, which K2-q8mxu needs)."""
+    adj = _split_operator()
+    deg = np.diff(adj.indptr)
+    vals = np.repeat(1.0 / np.maximum(deg, 1), deg).astype(np.float32)
+    return sp.csr_matrix((vals, adj.indices, adj.indptr), shape=adj.shape)
+
+
+@pytest.mark.parametrize("kernel", ["q8", "q8mxu"])
+@pytest.mark.parametrize("carry", ["f32", "bf16"])
+@pytest.mark.parametrize("nfeat", [1, 33, 100, 128])
+@pytest.mark.parametrize("accumulate", [True, False])
+def test_split_int8_hops_match_plain(device, kernel, carry, nfeat,
+                                     accumulate):
+    """K2-q8 and K2-q8mxu on hub rows above the cap: the chunks' partials
+    (f32 and int32) and the in-launch fix-up against the plain version,
+    which groups the terms the same way, bit for bit; one launch a hop;
+    the same bits on a second run; and K2-q8mxu's split hop bit for bit its
+    unsplit hop (int32 sums)."""
+    adj = (_split_operator_rows_constant() if kernel == "q8mxu"
+           else _split_operator())
+    op = CSROperator.from_scipy(adj, device)
+    assert op.plan is not None and op.plan.rows.tolist() == [7, 11]
+    n = adj.shape[0]
+    rs = np.random.RandomState(nfeat)
+    x = torch.tensor(rs.randn(n, nfeat).astype(np.float32), device=device)
+    acc0 = _carry(torch.tensor(rs.randn(n, nfeat).astype(np.float32),
+                               device=device), carry)
+    q, scale = quantize_columns_plain(x)
+    rv = row_values_if_constant(adj)
+    row_val = None if rv is None else torch.tensor(rv, device=device)
+
+    def hop(fn, o):
+        out, acc = torch.empty_like(acc0), acc0.clone()
+        if fn is spmm_prop_step_q8 or fn is spmm_prop_step_q8_plain:
+            fn(o, q, scale, out, acc, 0.8, accumulate)
+        else:
+            fn(o, q, scale, row_val, out, acc, 0.8, accumulate)
+        return out, acc
+
+    wrapper, plain = ((spmm_prop_step_q8, spmm_prop_step_q8_plain)
+                      if kernel == "q8" else
+                      (spmm_prop_step_q8mxu, spmm_prop_step_q8mxu_plain))
+    before = wrapper.launches
+    got = hop(wrapper, op)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = hop(plain, op)
+    again = hop(wrapper, op)
+    for g, w, a in zip(got, want, again):
+        assert torch.equal(g, w), int((g != w).sum())
+        assert torch.equal(g, a)                      # deterministic
+    assert float(got[0][5:7].float().abs().max()) == 0.0
+    if kernel == "q8mxu":
+        whole = CSROperator.from_scipy(adj, device, split_cap=adj.nnz)
+        assert whole.plan is None
+        for g, w in zip(got, hop(wrapper, whole)):
+            assert torch.equal(g, w)
 
 
 def _assert_hop_matches(got, want, kernel, carry):

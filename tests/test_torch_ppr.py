@@ -87,8 +87,18 @@ def test_config_and_presets_equal():
                     == dataclasses.asdict(jcfg.preset(name, mode)))
 
 
-def test_unported_inputs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_data("cora")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_data("mag_scholar_c")        # file-based, unlike synth:...:sparse
+def test_unported_inputs_raise(tmp_path, monkeypatch):
+    """A file dataset whose files are missing raises FileNotFoundError, as
+    grandtpu's loader does, naming the same missing file and
+    $GRANDTPU_DATA_DIR; a name no family knows, NotImplementedError."""
+    monkeypatch.setenv("GRANDTPU_DATA_DIR", str(tmp_path))
+    for name in ("cora", "mag_scholar_c", "Amazon2M", "reddit", "aminer",
+                 "cora_full"):
+        with pytest.raises(FileNotFoundError, match="GRANDTPU_DATA_DIR") as e:
+            load_data(name)
+        with pytest.raises(FileNotFoundError) as want:
+            jax_load_data(name)
+        assert (str(e.value).split(" — ")[0]
+                == str(want.value).split(" — ")[0])
+    with pytest.raises(NotImplementedError, match="unknown dataset"):
+        load_data("no_such_graph")

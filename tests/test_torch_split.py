@@ -1,5 +1,5 @@
-"""The K2 split plan (hub rows cut into chunks) and the plain split hop,
-against grandtpu's SplitCSR hop.
+"""The K2 split plan (hub rows cut into chunks) and the plain split hops
+(K2, K2-bf16, K2-q8, K2-q8mxu), against grandtpu's SplitCSR hops.
 
 The plan (``grandtpu_torch.sparse.spmm.SplitPlan``) must put every edge of
 a split row in exactly one chunk of at most ``cap`` edges, in row order,
@@ -8,7 +8,10 @@ the kernel does (each chunk in edge order, then the chunks in order), so it
 is held within 1e-6 of the unsplit plain hop (the same terms added in
 another grouping) and within 1e-5 of grandtpu's ``spmm_split`` on
 ``SplitCSR.from_scipy`` (JAX on the CPU, f32 at HIGHEST precision, sums in
-another order). Tolerances are max |a - b| / max |b|.
+another order). The int8 split hops are held to grandtpu's
+``spmm_split_q8``/``spmm_split_q8mxu`` on a SplitCSR with an overflow level
+(1e-5 and 1e-6), and to the unsplit plain hop (K2-q8mxu bit for bit, its
+chunk partials being int32). Tolerances are max |a - b| / max |b|.
 """
 
 import jax.numpy as jnp
@@ -17,12 +20,22 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from grandtpu.sparse.spmm import SplitCSR, spmm_split
+from grandtpu.sparse.spmm import SplitCSR
+from grandtpu.sparse.spmm import quantize_columns as jax_quantize_columns
+from grandtpu.sparse.spmm import \
+    row_values_if_constant as jax_row_values_if_constant
+from grandtpu.sparse.spmm import spmm_split, spmm_split_q8, spmm_split_q8mxu
 
 from grandtpu_torch.sparse.spmm import (SPLIT_MIN_CAP, CSROperator,
                                         SplitPlan, default_split_cap,
+                                        quantize_columns,
+                                        row_values_if_constant,
                                         spmm_prop_step, spmm_prop_step_bf16,
-                                        spmm_prop_step_plain)
+                                        spmm_prop_step_plain,
+                                        spmm_prop_step_q8,
+                                        spmm_prop_step_q8_plain,
+                                        spmm_prop_step_q8mxu,
+                                        spmm_prop_step_q8mxu_plain)
 
 SPLIT_TOL = 1e-6
 JAX_TOL = 1e-5
@@ -126,3 +139,111 @@ def test_plain_split_hop_matches_unsplit_and_grandtpu(term, nfeat, cap):
         ref = 0.8 * np.asarray(spmm_split(scsr, jnp.asarray(x_np),
                                           fast=False))
         assert rel(got[0], ref) <= JAX_TOL
+
+
+def _small_skew():
+    """A few hundred nodes with a handful of hub rows: D^-1 (A + I), whose
+    rows are constant (K2-q8mxu's operator)."""
+    return _hub_adj(n=400, hubs=((5, 300), (17, 220), (230, 150),
+                                 (399, 120)), seed=3)
+
+
+def _int8_hop(op, kind, q, s, row_val, accumulate=False, scale=1.0,
+              acc0=None):
+    """One port int8 hop (the wrapper on CPU tensors: the plain version)
+    at ``scale`` with or without accumulate; returns (cur_out, acc)."""
+    out = torch.empty(q.shape, dtype=torch.float32)
+    acc = None if acc0 is None else acc0.clone()
+    if kind == "q8":
+        spmm_prop_step_q8(op, q, s, out, acc, scale, accumulate)
+    else:
+        spmm_prop_step_q8mxu(op, q, s, row_val, out, acc, scale, accumulate)
+    return out, acc
+
+
+@pytest.mark.parametrize("kind", ["q8", "q8mxu"])
+@pytest.mark.parametrize("nfeat", [1, 33, 128])
+@pytest.mark.parametrize("cap", [16, 100])
+def test_int8_split_hop_matches_grandtpu(kind, nfeat, cap):
+    """The port's split K2-q8 / K2-q8mxu (plain, on the CPU) against
+    grandtpu's spmm_split_q8 / spmm_split_q8mxu on a SplitCSR with an
+    overflow level, at scale 1 with no accumulate, on the same x: the
+    quantized input bit for bit first, then the hop within 1e-6 (q8mxu:
+    the int32 sum is exact, only grandtpu's f32 rescale order differs) or
+    1e-5 (q8: bf16 terms summed in f32 in another order).
+
+    K2-q8 reads the edge values, and here they are powers of two: XLA's
+    CPU backend drops the bf16 rounding of grandtpu's products q·bf16(v)
+    inside the one-hot dot (on D^-1 (A + I)'s values its hop equals the
+    unrounded sum to 3e-8 and is 1.7e-3 from the rounded one), while the
+    port rounds each term as the TPU does. With v = 2^-k every product is
+    exact in bf16, so both packages' terms agree and the test holds the
+    split and the sums."""
+    adj = _small_skew()
+    if kind == "q8":
+        adj = adj.copy()
+        adj.data = (2.0 ** -np.random.RandomState(1).randint(
+            0, 6, adj.nnz)).astype(np.float32)
+    n = adj.shape[0]
+    x_np = np.random.RandomState(nfeat + cap).randn(n, nfeat).astype(
+        np.float32)
+    op = CSROperator.from_scipy(adj, "cpu", split_cap=cap)
+    assert op.plan is not None and op.plan.rows.numel() >= 4
+    q, s = quantize_columns(torch.tensor(x_np))
+    jq, js = jax_quantize_columns(jnp.asarray(x_np))
+    assert np.array_equal(q.numpy(), np.asarray(jq))
+    assert np.array_equal(s.numpy(), np.asarray(js))
+
+    scsr = SplitCSR.from_scipy(adj, rows_per_block=32, pad_multiple=32,
+                               max_eb=96)
+    assert scsr.levels                                # hubs spill there
+    rv = jax_row_values_if_constant(adj)
+    row_val = None if rv is None else torch.tensor(rv)
+    if kind == "q8":
+        want = np.asarray(spmm_split_q8(scsr, jnp.asarray(x_np)))
+        limit = 1e-5
+    else:
+        rv_pad = np.zeros(scsr.num_blocks * scsr.rows_per_block, np.float32)
+        rv_pad[:n] = rv
+        want = np.asarray(spmm_split_q8mxu(scsr, jnp.asarray(x_np),
+                                           jnp.asarray(rv_pad)))
+        limit = 1e-6
+    got, _ = _int8_hop(op, kind, q, s, row_val)
+    assert got.shape == want.shape
+    assert rel(got, want) <= limit, (rel(got, want), limit)
+
+
+@pytest.mark.parametrize("kind", ["q8", "q8mxu"])
+@pytest.mark.parametrize("nfeat", [1, 33, 128])
+@pytest.mark.parametrize("accumulate", [True, False])
+def test_int8_split_hop_matches_unsplit(kind, nfeat, accumulate):
+    """The split plain hop against the unsplit one on the same q: K2-q8mxu
+    bit for bit (int32 partials), K2-q8 within 1e-6 (the same f32 terms
+    grouped by chunks). The wrapper on CPU tensors is the plain version."""
+    adj = _small_skew()
+    n = adj.shape[0]
+    rs = np.random.RandomState(nfeat)
+    q, s = quantize_columns(torch.tensor(rs.randn(n, nfeat)
+                                         .astype(np.float32)))
+    acc0 = torch.tensor(rs.randn(n, nfeat).astype(np.float32))
+    row_val = torch.tensor(row_values_if_constant(adj))
+    split = CSROperator.from_scipy(adj, "cpu", split_cap=24)
+    whole = CSROperator.from_scipy(adj, "cpu", split_cap=adj.nnz)
+    assert split.plan is not None and whole.plan is None
+    kw = dict(accumulate=accumulate, scale=0.8, acc0=acc0)
+    got = _int8_hop(split, kind, q, s, row_val, **kw)
+    want = _int8_hop(whole, kind, q, s, row_val, **kw)
+    for g, w in zip(got, want):
+        if kind == "q8mxu":
+            assert torch.equal(g, w)
+        else:
+            assert rel(g, w) <= SPLIT_TOL
+    out_p = torch.empty_like(got[0])
+    acc_p = acc0.clone()
+    if kind == "q8":
+        spmm_prop_step_q8_plain(split, q, s, out_p, acc_p, 0.8, accumulate)
+    else:
+        spmm_prop_step_q8mxu_plain(split, q, s, row_val, out_p, acc_p, 0.8,
+                                   accumulate)
+    assert torch.equal(out_p, got[0]) and torch.equal(acc_p, got[1])
+    assert float(got[0][3].abs().max()) == 0.0         # the empty row
