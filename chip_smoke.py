@@ -18,17 +18,26 @@ Phases, in order; any failure exits non-zero without the result line:
 3e. GFPush on the card, with the reddit preset's push (ppr, order 6, alpha
     0.05, rmax 1e-5, k 64) from the 12,050 sources ``train()`` builds:
     ``gfpush(backend="jax")`` (P1: the push mask, K2 over A^T at [233000,
-    512], the top-k) and ``gfpush(backend="bucket")`` (P2: expansion,
-    compaction, top-k), each a path of its own (counts set to 0 before,
-    read after), each held to the native push under the row rule of
-    tests/test_gfpush_backends.py (atol = tie_tol = max(1e-5, 2 rmax)), to
-    its plain version on the card (P2 bit for bit, its sums being fixed
-    point; P1 cols equal and vals <= 1e-5, K2 adding in edge order), and to
-    a second run (identical); push_topk bit for bit its plain version at
+    512], the top-k) and ``gfpush(backend="bucket")`` (P2: ``bucket_hop``
+    a hop, ``bucket_reserve`` a block, top-k), each a path of its own
+    (counts set to 0 before, read after), each held to the native push
+    under the row rule of tests/test_gfpush_backends.py (atol = tie_tol =
+    max(1e-5, 2 rmax)), to its plain version on the card (P2 bit for bit,
+    its sums being fixed point; P1 cols equal and vals <= 1e-5, K2 adding
+    in edge order), and to a second run (identical; P2's peak device
+    memory); on the first block (1,024 sources, or the block the push's
+    back-off settled on) every ``bucket_hop`` bit
+    for bit the plain hop from the same frontier (each source's next
+    frontier ordered by id, cnt, exp) and ``bucket_reserve`` bit for bit
+    the plain reserve table (ids ordered, u64 sums, f32 values), with each
+    hop's share of sources on the global table, the kernels' shared bytes,
+    registers and CTAs an SM; push_topk bit for bit its plain version at
     P1's form [512, 233000], at 4 of its rows made all positive (past the
     kernel's shared buffer) and at P2's form; kernel / plain / library
-    (``torch.topk``) times and bounds, and sources/s beside native's with
-    the host's cores;
+    (``torch.topk``) times and bounds (P2's kernels by their device time,
+    with the wrapper's call time beside it; P2's hop also with its random
+    record reads counted as 32-byte sectors, and its global tables'
+    traffic apart), and sources/s beside native's with the host's cores;
 4. reference on a small input: ``train()`` with DropNode off on
    ``synth:2000:8:64`` on the card and on the CPU (plain versions) gives
    the same validation history (|d val_loss| <= 1e-4) and test accuracy
@@ -149,6 +158,13 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     plain, ``torch.sparse.mm`` (K2) and the bounds, the gathered bytes,
     the split rows and chunks, the host seconds of the graph, the
     operator and the plan.
+3k. (after 3j) P2 on 3j's skew graph with the Amazon2M preset's push (ppr
+    order 6, alpha 0.2, rmax 1e-6, k 64) from 1,024 sources: the first 512
+    by id of the nodes whose rows hold a hub, then 512 others drawn with
+    RandomState(0); checked as in 3e (path with its launches, native
+    under the row rule, plain version bit for bit, two runs, each kernel
+    bit for bit), and the largest hop must put sources on the global
+    table (a hub's 15,000 slots are over the shared table's 6,144);
 5f. (after 5e) the slice's path, serving a power-law graph from its
     files: 5d's in-memory ``synth:2000000:47:100`` plus 200 hub rows of
     4,096 random neighbours (skew_probe's construction, RandomState(7),
@@ -227,6 +243,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import scipy.sparse as sp
@@ -347,6 +364,23 @@ def _device_ms(fn, iters: int, kernel: str):
              if e.device_type == torch.autograd.DeviceType.CUDA
              and kernel in e.name]
     return sum(times) / 1e3 / iters if times else None
+
+
+def _busy_ms(fn):
+    """(device busy ms, wall ms) of one ``fn()`` under torch.profiler: the
+    summed device time of its kernels, copies and fills (one stream, so
+    they do not overlap) against the host's clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(DEV)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize(DEV)
+        wall = (time.time() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return busy, wall
 
 
 def _bound(nbytes: float, flops: float):
@@ -579,6 +613,29 @@ def hub_graph():
     adj = add_hub_rows(add_self_loops_adj(base), hubs, hub_deg)
     feats = np.random.RandomState(1).rand(n, nfeat).astype(np.float32)
     return adj, feats
+
+
+def hub_push_sources(adj) -> np.ndarray:
+    """3k's 1,024 sources: the first 512 by id of the nodes whose rows hold
+    a hub (a row of over half the hub degree), then 512 other nodes drawn
+    with RandomState(0)."""
+    deg = np.diff(adj.indptr)
+    rows = np.repeat(np.arange(adj.shape[0]), deg)
+    near = np.unique(rows[deg[adj.indices] > HUB_GRAPH[3] // 2])[:512]
+    rest = np.setdiff1d(np.arange(adj.shape[0]), near)
+    return np.concatenate([near, np.random.RandomState(0).choice(
+        rest, 512, replace=False)]).astype(np.int32)
+
+
+def check_hub_push() -> dict:
+    """Phase 3k: P2 on 3j's skew graph with the Amazon2M preset's push,
+    from sources whose tables a hub fills (see :func:`hub_push_sources`):
+    the path, native, the plain version and a second run as in 3e, its
+    largest hop putting sources on the global table."""
+    adj, _ = hub_graph()
+    sources = hub_push_sources(adj)
+    return check_push_graph(adj, sources, preset("Amazon2M"), "3k",
+                            ("bucket",), spill=True)
 
 
 def check_hub_graph() -> dict:
@@ -1375,26 +1432,9 @@ def _row_rule(cols_a, vals_a, cols_b, vals_b, atol: float) -> None:
                 raise AssertionError(f"col {c} ({v}) missing or off")
 
 
-def _time_each_ms(setup, fn, iters: int) -> float:
-    """Mean device time of ``fn()`` alone over ``iters`` calls, each after
-    ``setup()`` (CUDA events around each call)."""
-    total = 0.0
-    for i in range(iters + 1):
-        setup()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize(DEV)
-        if i:                                   # the first call warms up
-            total += start.elapsed_time(end)
-    return total / iters
-
-
 PUSH_KERNELS = {"jax": {"dense_push_mask", "push_topk", "csr_spmm_prop"},
-                "bucket": {"bucket_expand", "bucket_compact", "push_topk"}}
-PUSH_COUNTED = ("dense_push_mask", "bucket_expand", "bucket_compact",
+                "bucket": {"bucket_hop", "bucket_reserve", "push_topk"}}
+PUSH_COUNTED = ("dense_push_mask", "bucket_hop", "bucket_reserve",
                 "push_topk")
 
 
@@ -1486,95 +1526,177 @@ def _p1_times(g, src, coef, k) -> dict:
             "k2_over_at_ms": k2_ms}
 
 
-def _p2_times(g, src, coef, k) -> dict:
-    """P2's expansion and compaction at the largest hop of one block, and
-    its reserve merge and top-k, with their plain versions and bounds
-    (bytes from this block's counts)."""
+def _check_hop(g, fr, src, got, tag: str, hop: int) -> None:
+    """``bucket_hop``'s next frontier bit for bit the plain hop's from the
+    same frontier: cnt and exp, and each source's entries ordered by id."""
+    want = bucket_push.push_hop_plain(g, fr, src)
+    ids, q = bucket_push.by_row_and_id(got.off, got.cnt, got.ids, got.q)
+    if not (torch.equal(got.cnt, want.cnt) and torch.equal(got.exp, want.exp)
+            and torch.equal(ids, want.ids) and torch.equal(q, want.q)):
+        raise AssertionError(f"[{tag}] bucket_hop differs from its plain "
+                             f"version at hop {hop}")
+
+
+def _check_reserve(g, logs, layout, tag: str):
+    """``bucket_reserve`` over the block's log bit for bit the plain
+    reserve table (each source's ids ordered, their u64 sums and f32
+    values); returns the kernel's (ids, f32 values)."""
+    ids, sums, vals, cnt = bucket_push.bucket_reserve(logs, layout,
+                                                      sums=True)
+    row_off, want_ids, want_sums = bucket_push.reserve_table_plain(g, logs)
+    got = bucket_push.by_row_and_id(layout.out_off[:-1], cnt, ids, sums,
+                                    vals)
+    if not (torch.equal(cnt, row_off[1:] - row_off[:-1])
+            and torch.equal(got[0], want_ids)
+            and torch.equal(got[1], want_sums)
+            and torch.equal(got[2], (want_sums.double()
+                                     / bucket_push.ONE).float())):
+        raise AssertionError(f"[{tag}] bucket_reserve differs from its "
+                             f"plain version")
+    return ids, vals
+
+
+def _global_table_slots(n: torch.Tensor) -> int:
+    """The table slots the P2 kernels fill in global memory for sources of
+    ``n`` inserts: a power of two >= 2 n for each source over 3/4 of the
+    shared table (``bucket_push.table_layout``). Traffic of the design,
+    24 B a slot (filled, read back), which no bound counts."""
+    n = n[4 * n > 3 * bucket_push.SMEM_SLOTS].double()
+    return int(torch.exp2(torch.ceil(torch.log2(2 * n))).sum())
+
+
+def _p2_times(g, src, coef, k, tag: str, spill: bool = False) -> dict:
+    """P2's kernels on one block: every hop of ``bucket_hop`` held bit for
+    bit to the plain hop from the same frontier, ``bucket_reserve`` over
+    the block's log bit for bit to the plain reserve table, and push_topk
+    to its plain version; their times at the largest hop and over the
+    log, with the plain versions' and the bounds (bytes from this block's
+    counts), and each hop's global-table share. With ``spill`` the
+    largest hop must put sources on the global table, else some on the
+    shared one."""
+    b = src.shape[0]
     fr = bucket_push.initial_frontier(g, src)
     logs, hops = [], []
     for i in range(coef.shape[0] - 1):
         logs.append((fr, float(coef[i])))
-        slots = int(fr.exp.sum())
-        if slots == 0:
+        layout = bucket_push.table_layout(fr.exp)
+        if layout.slots == 0:
             fr = None
             break
-        hops.append((fr, slots))
-        fr = bucket_push.push_hop(g, fr, src, slots)
+        nxt = bucket_push.bucket_hop(g, fr, src, layout)
+        _check_hop(g, fr, src, nxt, tag, i)
+        hops.append((fr, layout, nxt))
+        fr = nxt
     if fr is not None:
         logs.append((fr, float(coef[-1])))
-    fr, slots = max(hops, key=lambda h: h[1])
-    t_off, keys, vals = bucket_push._tables(2 * fr.exp, 2 * slots)
+    shares = [lay.global_sources / b for _, lay, _ in hops]
+    fr, layout, nxt = max(hops, key=lambda h: h[1].slots)
+    if spill and layout.global_sources == 0:
+        raise AssertionError(f"[{tag}] no source took the global table at "
+                             f"the largest hop")
+    if not spill and layout.global_sources == b:
+        raise AssertionError(f"[{tag}] no source took the shared table at "
+                             f"the largest hop")
 
-    def reset():
-        keys.fill_(-1)
-        vals.zero_()
+    def hop():
+        bucket_push.bucket_hop(g, fr, src, layout)
 
-    def expand():
-        bucket_push.bucket_expand(fr, src, g, t_off, keys, vals, merge=False)
-
-    expand_ms = _time_each_ms(reset, expand, 10)
-    reset()
-    expand()
-    nxt = bucket_push.bucket_compact(g, t_off, keys, vals, final=False)
-    compact_ms = _time_ms(lambda: bucket_push.bucket_compact(
-        g, t_off, keys, vals, final=False), 10)
+    # the kernel's device time; the wrapper's call adds its error-word read
+    hop_ms = _device_ms(hop, 10, "bucket_hop_kernel")
+    hop_call = _time_ms(hop, 10)
     hop_plain = _time_ms(lambda: bucket_push.push_hop_plain(g, fr, src), 2,
                          warmup=1)
-    entries, out = int(fr.cnt.sum()), int(nxt.cnt.sum())
-    # frontier ids + q, each entry's row bounds and threshold, the neighbour
-    # ids of the expansion slots, the next frontier written once
-    exp_bound = _bound(entries * 28 + slots * 4 + out * 12, 2 * slots)
-    # the table read once, the frontier written, each entry's degree and
-    # threshold read
-    cmp_bound = _bound(2 * slots * 12 + out * 28 + 16 * src.shape[0],
-                       2 * slots)
-    caps = 2 * sum(f.cnt for f, _ in logs)
-    r_off, r_keys, r_vals = bucket_push._tables(caps, int(caps.sum()))
-    for f, c in logs:
-        bucket_push.bucket_expand(f, src, g, r_off, r_keys, r_vals,
-                                  merge=True, coef=c)
-    f32 = bucket_push.bucket_compact(g, r_off, r_keys, r_vals, final=True)
+    entries, slots, out = int(fr.cnt.sum()), layout.slots, int(nxt.cnt.sum())
+    table = _global_table_slots(fr.exp)
+    # the function's bytes: the frontier (12 B) and one record (16 B) an
+    # entry, the neighbour ids (4 B a slot), the next frontier (12 B) and
+    # one record an out entry
+    hop_bound = _bound(28 * entries + 4 * slots + 28 * out, 2 * slots)
+    # the records read as whole 32-byte sectors (they are random)
+    hop_sectors_ms = (44 * entries + 4 * slots + 44 * out) \
+        / HBM_BYTES_PER_S * 1e3
+    table_ms = 24 * table / HBM_BYTES_PER_S * 1e3
+    r_layout = bucket_push.reserve_layout(logs)
+    r_ids, f32 = _check_reserve(g, logs, r_layout, tag)
+
+    def reserve():
+        bucket_push.bucket_reserve(logs, r_layout)
+
+    res_ms = _device_ms(reserve, 10, "bucket_reserve_kernel")
+    res_call = _time_ms(reserve, 10)
+    res_plain = _time_ms(lambda: bucket_push.reserve_table_plain(g, logs),
+                         2, warmup=1)
+    n_log = r_layout.slots
+    r_table = _global_table_slots(r_layout.out_off[1:]
+                                  - r_layout.out_off[:-1])
+    r_table_ms = 24 * r_table / HBM_BYTES_PER_S * 1e3
+    # the function's bytes: the log read (12 B an entry), ids and f32
+    # values written over the same regions (8 B)
+    res_bound = _bound(20 * n_log, 2 * n_log)
+    if hop_ms is None or res_ms is None:
+        raise AssertionError(f"[{tag}] the profiler recorded no P2 kernel")
+    r_off = r_layout.out_off
     width = int((r_off[1:] - r_off[:-1]).max())
-    padded = torch.zeros((src.shape[0], width), device=DEV)
+    padded = torch.zeros((b, width), device=DEV)
     lens = r_off[1:] - r_off[:-1]
     pos = torch.arange(width, device=DEV)
     valid = pos[None] < lens[:, None]
     padded[valid] = f32[(r_off[:-1, None] + pos[None])[valid]]
-    got, want = (push_topk(r_keys, f32, r_off, k),
-                 push_topk_plain(r_keys, f32, r_off, k))
+    got, want = (push_topk(r_ids, f32, r_off, k),
+                 push_topk_plain(r_ids, f32, r_off, k))
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError("push_topk (P2 form) differs from its plain "
                              "version")
     del got, want
-    topk_ms = _time_ms(lambda: push_topk(r_keys, f32, r_off, k), 20)
-    topk_plain = _time_ms(lambda: push_topk_plain(r_keys, f32, r_off, k), 3,
+    topk_ms = _time_ms(lambda: push_topk(r_ids, f32, r_off, k), 20)
+    topk_plain = _time_ms(lambda: push_topk_plain(r_ids, f32, r_off, k), 3,
                           warmup=1)
     topk_lib = _time_ms(lambda: torch.topk(padded, k, dim=1), 20)
-    n_slots = int(r_off[-1])
-    topk_bound = _bound(8 * n_slots + 8 * src.shape[0] * k, 2 * n_slots)
-    print(f"[p2] block of {src.shape[0]}: largest hop {entries} entries, "
-          f"{slots} expansion slots, {out} next entries: bucket_expand ms "
-          f"{expand_ms} bound_ms {exp_bound[0]}; bucket_compact ms "
-          f"{compact_ms} bound_ms {cmp_bound[0]}; plain hop (both) ms "
-          f"{hop_plain}; reserve tables {n_slots} slots: push_topk ms "
-          f"{topk_ms} plain_ms {topk_plain} library_ms {topk_lib} "
-          f"(torch.topk over the rows padded to {width}) bound_ms "
-          f"{topk_bound[0]}", flush=True)
-    shape = (f"block {src.shape[0]}, hop of {entries} entries, {slots} "
-             f"slots, {out} out")
-    return {"bucket_expand": {"ms": expand_ms, "plain_ms": hop_plain,
-                              "bound_ms": exp_bound[0],
-                              "bound_by": exp_bound[1], "library_ms": None,
-                              "shape": shape},
-            "bucket_compact": {"ms": compact_ms, "plain_ms": hop_plain,
-                               "bound_ms": cmp_bound[0],
-                               "bound_by": cmp_bound[1], "library_ms": None,
-                               "shape": shape},
+    topk_bound = _bound(8 * n_log + 8 * b * k, 2 * n_log)
+    occ = bucket_push.occupancy()
+    print(f"[{tag}] P2 block of {b}: every hop bit for bit its plain "
+          f"version, the reserve table too; global-table share by hop "
+          f"{shares}; largest hop {entries} entries, {slots} expansion "
+          f"slots (at most {int(fr.exp.max())} a source), {out} next "
+          f"entries, {layout.global_sources} sources ({table} table slots, "
+          f"{table_ms} ms of their traffic at 24 B a slot, in no bound) "
+          f"on the global table: bucket_hop ms (device) "
+          f"{hop_ms} call_ms {hop_call} bound_ms {hop_bound[0]} "
+          f"({hop_bound[1]}; {hop_sectors_ms} with the records as 32-byte "
+          f"sectors); plain hop ms {hop_plain}; reserve log {n_log} entries "
+          f"over {len(logs)} hops, {r_layout.global_sources} sources "
+          f"({r_table} table slots, {r_table_ms} ms of their traffic) on "
+          f"the global table: bucket_reserve ms (device) {res_ms} call_ms "
+          f"{res_call} bound_ms {res_bound[0]} plain_ms {res_plain}; "
+          f"push_topk ms {topk_ms} plain_ms {topk_plain} library_ms "
+          f"{topk_lib} (torch.topk over the rows padded to {width}) "
+          f"bound_ms {topk_bound[0]}; smem table {bucket_push.SMEM_SLOTS} "
+          f"slots: {occ}", flush=True)
+    shape = (f"block {b}, hop of {entries} entries, {slots} slots, {out} "
+             f"out, {layout.global_sources} sources global")
+    return {"bucket_hop": {"ms": hop_ms, "call_ms": hop_call,
+                           "plain_ms": hop_plain, "bound_ms": hop_bound[0],
+                           "bound_by": hop_bound[1],
+                           "sectors_bound_ms": hop_sectors_ms,
+                           "global_table_ms": table_ms,
+                           "library_ms": None, "shape": shape,
+                           "global_share_by_hop": shares,
+                           **occ["bucket_hop"]},
+            "bucket_reserve": {"ms": res_ms, "call_ms": res_call,
+                               "plain_ms": res_plain,
+                               "bound_ms": res_bound[0],
+                               "global_table_ms": r_table_ms,
+                               "bound_by": res_bound[1], "library_ms": None,
+                               "shape": f"block {b}, log of {n_log} entries "
+                                        f"over {len(logs)} hops, "
+                                        f"{r_layout.global_sources} sources "
+                                        f"global",
+                               **occ["bucket_reserve"]},
             "push_topk": {"ms": topk_ms, "plain_ms": topk_plain,
                           "bound_ms": topk_bound[0],
                           "bound_by": topk_bound[1], "library_ms": topk_lib,
-                          "shape": f"P2 reserve tables, {src.shape[0]} rows "
-                                   f"of {n_slots} slots, k {k}"}}
+                          "shape": f"P2 reserve tables, {b} rows of "
+                                   f"{n_log} slots, k {k}"}}
 
 
 def _same(a, b) -> bool:
@@ -1582,14 +1704,22 @@ def _same(a, b) -> bool:
 
 
 def check_push(data, cfg, tag: str, backends) -> dict:
-    """Phases 3e/3f: each device push from the sources ``train()`` builds,
-    run through ``gfpush`` as a path, against native under the row rule,
-    against its plain version on the card, and run twice; then its kernel
-    times. Returns {kernel name: numbers} and each path's launches."""
-    adj_sl = add_self_loops_adj(data.adj)
+    """Phases 3e/3f: each device push from the sources ``train()`` builds
+    (see :func:`check_push_graph`)."""
+    return check_push_graph(add_self_loops_adj(data.adj),
+                            train_sources(cfg, data), cfg, tag, backends)
+
+
+def check_push_graph(adj_sl, sources, cfg, tag: str, backends,
+                     spill: bool = False) -> dict:
+    """Each device push from ``sources`` over ``adj_sl``, run through
+    ``gfpush`` as a path, against native under the row rule, against its
+    plain version on the card, and run twice (P2's peak device memory
+    taken on the second run); then its kernel times on the first block
+    (``spill``: P2's largest hop there must use the global table).
+    Returns {kernel name: numbers} and each path's launches."""
     indptr = np.asarray(adj_sl.indptr, np.int32)
     indices = np.asarray(adj_sl.indices, np.int32)
-    sources = train_sources(cfg, data)
     coef = np.asarray(build_coef(cfg.prop_mode, cfg.order, cfg.alpha),
                       np.float32)
     k, rmax = cfg.top_k, cfg.rmax
@@ -1599,7 +1729,8 @@ def check_push(data, cfg, tag: str, backends) -> dict:
     t0 = time.time()
     want = gfpush_native(indptr, indices, sources, coef, rmax, k)
     native_s = time.time() - t0
-    print(f"[{tag}] {cfg.dataset}: ppr order {cfg.order} alpha {cfg.alpha} "
+    print(f"[{tag}] {adj_sl.shape[0]} nodes, {adj_sl.nnz} nonzeros: ppr "
+          f"order {cfg.order} alpha {cfg.alpha} "
           f"rmax {rmax} k {k}; native on {os.cpu_count()} host cores: "
           f"{len(sources)} sources in {native_s} s = "
           f"{len(sources) / native_s} sources/s", flush=True)
@@ -1622,10 +1753,25 @@ def check_push(data, cfg, tag: str, backends) -> dict:
         else:
             g = bucket_push.BucketPushGraph(indptr, indices, rmax,
                                             device=DEV)
-            again = bucket_push.gfpush_bucketed(indptr, indices, sources,
-                                                coef, rmax, k, device=DEV)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                again, peak = _peak_gb(lambda: bucket_push.gfpush_bucketed(
+                    indptr, indices, sources, coef, rmax, k, graph=g))
+            # the block the push settled on: 1,024, halved at each back-off
+            halvings = sum("retrying at block=" in str(w.message)
+                           for w in caught)
+            block = 1024 >> halvings
+            busy, wall = _busy_ms(lambda: bucket_push.gfpush_bucketed(
+                indptr, indices, sources, coef, rmax, k, block=block,
+                graph=g))
+            out["peak_gb"] = peak
+            out["busy_ms"] = {"device": busy, "wall": wall}
+            print(f"[{tag}] bucket push: block {block} ({halvings} "
+                  f"back-offs from 1024 over slot_limit); peak device memory "
+                  f"{peak} GB above its graph's tables, back-offs included; "
+                  f"a push at block {block} under the profiler: device busy "
+                  f"{busy} ms of {wall} ms wall", flush=True)
             run_block = bucket_push.push_block
-            block = 1024
         plain = [[], []]
         for start in range(0, len(sources), block):
             src = torch.as_tensor(sources[start:start + block].astype(
@@ -1649,8 +1795,8 @@ def check_push(data, cfg, tag: str, backends) -> dict:
             raise AssertionError(f"[{tag}] {backend} disagrees with its "
                                  f"plain version")
         src = torch.as_tensor(sources[:block].astype(np.int32), device=DEV)
-        times = (_p1_times if backend == "jax" else _p2_times)(g, src, coef,
-                                                                k)
+        times = (_p1_times(g, src, coef, k) if backend == "jax" else
+                 _p2_times(g, src, coef, k, tag, spill))
         out[backend] = {"max_abs_err": float(np.abs(got[1]
                                                     - plain[1]).max()),
                         "times": times}
@@ -1670,8 +1816,8 @@ COUNTED = {"dropnode_mean": gather_and_prop, "csr_spmm_prop": spmm_prop_step,
            "embed_prop_window_fwd": embed_prop_window,
            "embed_prop_window_bwd": embed_prop_window_backward,
            "dense_push_mask": dense_push_mask,
-           "bucket_expand": bucket_push.bucket_expand,
-           "bucket_compact": bucket_push.bucket_compact,
+           "bucket_hop": bucket_push.bucket_hop,
+           "bucket_reserve": bucket_push.bucket_reserve,
            "push_topk": push_topk,
            "coo_spmm": spmm_segment,
            "column_absmax": column_absmax,
@@ -1817,26 +1963,29 @@ def profile_path(cfg, data, tag: str) -> None:
             print(f"[{tag}] {t:10.4f} ms {n:6d}x {name[:100]}")
 
 
-def push_entries(push_reddit: dict, push_amazon: dict,
+def push_entries(push_reddit: dict, push_amazon: dict, push_hub: dict,
                  bucket_launches: dict, sharded: dict) -> list:
     """The kernels line's entries of the push kernels: times at the main
-    path's shapes (P2 and its top-k at the Amazon2M stand-in, 3f; P1's mask
-    at the reddit stand-in, 3e), launches by path."""
+    path's shapes (P2 and its top-k at the Amazon2M stand-in, 3f, with
+    3e's and 3k's beside them; P1's mask at the reddit stand-in, 3e),
+    launches by path."""
     paths = {"amazon_bucket": bucket_launches,
              "p1_reddit": push_reddit["launches"]["jax"],
              "p2_reddit": push_reddit["launches"]["bucket"],
              "p2_amazon": push_amazon["launches"]["bucket"],
+             "p2_hub": push_hub["launches"]["bucket"],
              "p1_sharded_reddit": sharded["launches"]}
     p1, p2 = push_reddit["jax"], push_amazon["bucket"]
-    p2_err = max(p2["max_abs_err"], push_reddit["bucket"]["max_abs_err"])
+    p2_err = max(p2["max_abs_err"], push_reddit["bucket"]["max_abs_err"],
+                 push_hub["bucket"]["max_abs_err"])
     rows = [("dense_push_mask", "push_dense.cu", "grandtpu/ppr/jax_push.py:36",
              p1["times"]["dense_push_mask"], p1["max_abs_err"]),
-            ("bucket_expand", "push_bucket.cu",
+            ("bucket_hop", "push_bucket.cu",
              "grandtpu/ppr/bucket_push.py:141",
-             p2["times"]["bucket_expand"], p2_err),
-            ("bucket_compact", "push_bucket.cu",
-             "grandtpu/ppr/bucket_push.py:117",
-             p2["times"]["bucket_compact"], p2_err),
+             p2["times"]["bucket_hop"], p2_err),
+            ("bucket_reserve", "push_bucket.cu",
+             "grandtpu/ppr/bucket_push.py:329,262",
+             p2["times"]["bucket_reserve"], p2_err),
             ("push_topk", "push_topk.cu", "grandtpu/ppr/bucket_push.py:262",
              p2["times"]["push_topk"], max(p2_err, p1["max_abs_err"]))]
     entries = []
@@ -1846,14 +1995,21 @@ def push_entries(push_reddit: dict, push_amazon: dict,
                  "source": f"grandtpu_torch/csrc/{src}", "replaces": line,
                  "launches": sum(by_path.values()),
                  "launches_by_path": by_path, "max_abs_err": err, **times}
+        if name in ("bucket_hop", "bucket_reserve"):
+            entry["reddit"] = push_reddit["bucket"]["times"][name]
+            entry["hub"] = push_hub["bucket"]["times"][name]
         if name == "push_topk":
             entry["p1_form"] = p1["times"]["push_topk"]
             entry["p1_library_ms"] = p1["times"]["push_topk"]["library_ms"]
         entries.append(entry)
-    for key, res in (("reddit", push_reddit), ("amazon", push_amazon)):
+    for key, res in (("reddit", push_reddit), ("amazon", push_amazon),
+                     ("hub", push_hub)):
         entries[-1].setdefault("sources_per_s", {})[key] = {
             "native": res["native_sps"], "host_cores": res["host_cores"],
             **res["sps"]}
+        if "peak_gb" in res:
+            entries[-1].setdefault("p2_peak_gb", {})[key] = res["peak_gb"]
+            entries[-1].setdefault("p2_busy_ms", {})[key] = res["busy_ms"]
     entries[-1]["sources_per_s"]["reddit"]["jax_sharded_4"] = \
         sharded["sources_per_s"]
     return entries
@@ -2906,6 +3062,8 @@ def main() -> int:
     mark("3i")
     hub = check_hub_graph()
     mark("3j")
+    push_hub = check_hub_push()
+    mark("3k")
     small = preset("reddit").replace(dataset=SMALL, epochs=3,
                                      unlabel_num=500, dropnode_rate=0.0)
     check_small_reference(small)
@@ -3071,8 +3229,8 @@ def main() -> int:
             **{f"d1_{run}": la[k["name"]]
                for run, la in d1["launches"].items() if la[k["name"]]}}
         k["launches"] = sum(k["launches_by_path"].values())
-    pushes = push_entries(push_reddit, push_amazon, bucket_launches,
-                          push_sharded)
+    pushes = push_entries(push_reddit, push_amazon, push_hub,
+                          bucket_launches, push_sharded)
     served = serving_entries(seg, d1, serve)
     print(json.dumps({"serving": serve, "serving_files": files, "d1": {
         k: d1[k] for k in ("err", "wall_s", "compression")},

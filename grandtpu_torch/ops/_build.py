@@ -72,12 +72,14 @@ _SIGNATURES = {
     # residue, reserve, pushed, tele_in, tele_out, src, deg, thr |
     # num_nodes, num_sources, coef, final, stream
     "dense_push_mask": [_P] * 8 + [_I, _I, ctypes.c_float, _I, _P],
-    # f_ids, f_q, f_off, f_cnt, src, indptr, indices, thr, t_off, keys,
-    # vals | num_sources, merge, coef, stream
-    "bucket_expand": [_P] * 11 + [_I, _I, ctypes.c_double, _P],
-    # keys, vals, t_off, indptr, thr, out_ids, out_q, out_cnt, out_exp,
-    # out_f | num_sources, final, stream
-    "bucket_compact": [_P] * 10 + [_I, _I, _P],
+    # f_ids, f_q, f_off, f_cnt, f_exp, src, rec, indices, g_off, g_keys,
+    # g_vals, o_off, o_ids, o_q, o_cnt, o_exp, err | num_sources, stream
+    "bucket_hop": [_P] * 17 + [_I, _P],
+    # hops, num_hops | r_off, g_off, g_keys, g_vals, o_ids, o_sum, o_f,
+    # o_cnt, err | num_sources, stream
+    "bucket_reserve": [_P, _I] + [_P] * 9 + [_I, _P],
+    # out[7]
+    "bucket_push_occupancy": [_P],
 }
 
 

@@ -14,7 +14,7 @@ ids on the window's edges, the windows summing to the full op); for the
 fast-precision hops (K2-bf16, quantize, K2-q8, K2-q8mxu) f32
 and bf16 carries, widths that are not a multiple of 4 or 32, an all-zero
 column, a 9000-nonzero hub row and a one-row operator; for the GFPush
-kernels (top-k, P1's push mask, P2's expansion and compaction) ties, rows
+kernels (top-k, P1's push mask, P2's hop and reserve merge) ties, rows
 with fewer than k positives, a dangling node, a 9000-nonzero hub source and
 determinism, and for the top-k rows past its shared-memory candidate buffer
 (233,000 and 20,000 positives, one row all equal) and P1's and P2's full
@@ -798,17 +798,163 @@ def test_bucket_push_kernels_match_plain(device, rmax):
     g = bucket_push.BucketPushGraph(adj.indptr, adj.indices, rmax,
                                     device=device)
     src = torch.tensor([0, 1, 11999, 5, 0], dtype=torch.int32, device=device)
-    before = (bucket_push.bucket_expand.launches,
-              bucket_push.bucket_compact.launches)
+    before = (bucket_push.bucket_hop.launches,
+              bucket_push.bucket_reserve.launches)
     got = bucket_push.push_block(g, src, coef, 64)
     again = bucket_push.push_block(g, src, coef, 64)
     torch.cuda.synchronize()
-    assert bucket_push.bucket_expand.launches > before[0]
-    assert bucket_push.bucket_compact.launches > before[1]
+    # 4 hops and one reserve merge a block (rmax 0: every hop pushes)
+    if rmax == 0.0:
+        assert bucket_push.bucket_hop.launches == before[0] + 8
+    assert bucket_push.bucket_hop.launches > before[0]
+    assert bucket_push.bucket_reserve.launches == before[1] + 2
+    # the hub source's reserves (9001 entries at hop 1) are over the shared
+    # table
+    assert bucket_push.bucket_reserve.global_sources >= 2
     want = bucket_push.push_block(g, src, coef, 64, plain=True)
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b) and torch.equal(a, c)
     assert torch.equal(got[0][0], got[0][4])     # the same source twice
+
+
+# the sources of a block, its rmax and whether a table goes global: no hub
+# (the hub 0 never pushes at 1e-4 unless it is the source); the hub source
+# (9001 slots at hop 1, over the shared table's 6,144); the hub source twice
+# beside a dangling one with every node pushing
+_P2_BLOCKS = [([1, 2, 11999, 5, 5, 7], 1e-4, False),
+              ([0, 3, 11999], 1e-4, True),
+              ([0, 1, 11999, 5, 0], 0.0, True)]
+
+
+def _p2_log(bucket_push, g, src, hops, kernel):
+    """The frontiers of a block's hops (from the kernel or the plain hop)
+    and the global-table sources of each kernel hop."""
+    fr = bucket_push.initial_frontier(g, src)
+    frontiers, spilled = [fr], []
+    for _ in range(hops):
+        layout = bucket_push.table_layout(fr.exp)
+        if layout.slots == 0:
+            break
+        if kernel:
+            fr = bucket_push.bucket_hop(g, fr, src, layout)
+            spilled.append(bucket_push.bucket_hop.global_sources)
+        else:
+            fr = bucket_push.push_hop_plain(g, fr, src)
+        frontiers.append(fr)
+    return frontiers, spilled
+
+
+@pytest.mark.parametrize("sources,rmax,spill", _P2_BLOCKS)
+def test_bucket_hop_kernel_matches_plain(device, sources, rmax, spill):
+    """Each hop of a block: the kernel's next frontier, ordered by id within
+    each source, bit for bit the plain hop's from the same frontier, with
+    cnt and exp; the hub source takes the global table."""
+    from grandtpu_torch.ppr import bucket_push
+    adj = _push_graph(12000, 9000, 5)
+    g = bucket_push.BucketPushGraph(adj.indptr, adj.indices, rmax,
+                                    device=device)
+    src = torch.tensor(sources, dtype=torch.int32, device=device)
+    before = bucket_push.bucket_hop.launches
+    frontiers, spilled = _p2_log(bucket_push, g, src, 4, kernel=True)
+    torch.cuda.synchronize()
+    assert bucket_push.bucket_hop.launches == before + len(spilled)
+    assert len(spilled) >= 3
+    assert (max(spilled) > 0) == spill
+    for fr, got in zip(frontiers, frontiers[1:]):
+        want = bucket_push.push_hop_plain(g, fr, src)
+        assert torch.equal(got.cnt, want.cnt)
+        assert torch.equal(got.exp, want.exp)
+        assert bool((got.cnt <= fr.exp).all())
+        ids, q = bucket_push.by_row_and_id(got.off, got.cnt, got.ids, got.q)
+        assert torch.equal(ids, want.ids) and torch.equal(q, want.q)
+    if sources.count(sources[0]) > 1:          # a source listed twice
+        last = frontiers[-1]
+        rows = [bucket_push.by_row_and_id(last.off[i:i + 1],
+                                          last.cnt[i:i + 1], last.ids,
+                                          last.q)
+                for i in (0, sources.index(sources[0], 1))]
+        assert all(torch.equal(a, b) for a, b in zip(*rows))
+
+
+@pytest.mark.parametrize("sources,rmax,spill", _P2_BLOCKS)
+def test_bucket_reserve_kernel_matches_plain(device, sources, rmax, spill):
+    """The reserve merge of a block's log in one launch: per source the
+    distinct reserves, ordered by id, bit for bit the plain table's (ids,
+    u64 sums and their f32 values), zeros after them; the hub source's
+    table is global."""
+    from grandtpu_torch.ppr import bucket_push
+    adj = _push_graph(12000, 9000, 5)
+    g = bucket_push.BucketPushGraph(adj.indptr, adj.indices, rmax,
+                                    device=device)
+    src = torch.tensor(sources, dtype=torch.int32, device=device)
+    coef = build_coef("ppr", 4, 0.2)
+    frontiers, _ = _p2_log(bucket_push, g, src, 4, kernel=False)
+    logs = [(fr, float(c)) for fr, c in zip(frontiers, coef)]
+    layout = bucket_push.reserve_layout(logs)
+    before = bucket_push.bucket_reserve.launches
+    ids, sums, vals, cnt = bucket_push.bucket_reserve(logs, layout,
+                                                      sums=True)
+    torch.cuda.synchronize()
+    assert bucket_push.bucket_reserve.launches == before + 1
+    assert (bucket_push.bucket_reserve.global_sources > 0) == spill
+    row_off, want_ids, want_sums = bucket_push.reserve_table_plain(g, logs)
+    assert torch.equal(cnt, row_off[1:] - row_off[:-1])
+    got = bucket_push.by_row_and_id(layout.out_off[:-1], cnt, ids, sums,
+                                    vals)
+    assert torch.equal(got[0], want_ids) and torch.equal(got[1], want_sums)
+    assert torch.equal(got[2], (want_sums.double() / bucket_push.ONE).float())
+    live = torch.zeros_like(vals, dtype=torch.bool)
+    pos, _ = bucket_push._entries(bucket_push.Frontier(
+        off=layout.out_off[:-1], cnt=cnt, ids=ids, q=sums, exp=cnt))
+    live[pos] = True
+    assert bool((vals[~live] == 0).all()) and bool((ids[~live] == -1).all())
+
+
+def test_bucket_push_occupancy(device):
+    """Two CTAs an SM for each P2 kernel; the kernels' shared table is the
+    size that ``table_layout`` plans with."""
+    from grandtpu_torch.ppr import bucket_push
+    occ = bucket_push.occupancy()
+    for name in ("bucket_hop", "bucket_reserve"):
+        assert occ[name]["ctas_per_sm"] >= 2, occ
+        assert occ[name]["table_slots"] == bucket_push.SMEM_SLOTS
+        assert occ[name]["smem_bytes"] >= bucket_push.SMEM_SLOTS * 12
+
+
+@pytest.mark.parametrize("fault", ["shared", "short_table", "short_out"])
+def test_bucket_kernels_refuse_a_short_layout(device, fault):
+    """A layout that gives the hub source (9001 slots at hop 1) too small a
+    table (shared, or a global region under its table) or too small an
+    output region makes each P2 kernel raise instead of dropping sums."""
+    from grandtpu_torch.ppr import bucket_push
+    adj = _push_graph(12000, 9000, 5)
+    g = bucket_push.BucketPushGraph(adj.indptr, adj.indices, 0.0,
+                                    device=device)
+    src = torch.tensor([1, 0, 5], dtype=torch.int32, device=device)
+    fr = bucket_push.initial_frontier(g, src)
+    fr = bucket_push.bucket_hop(g, fr, src, bucket_push.table_layout(fr.exp))
+    logs = [(bucket_push.initial_frontier(g, src), 0.2), (fr, 0.16)]
+
+    def short(good):
+        g_off, out_off = good.g_off.clone(), good.out_off.clone()
+        if fault == "shared":
+            g_off.zero_()
+        elif fault == "short_table":
+            g_off[2:] -= 2 * int(good.g_off[2] - good.g_off[1]) // 3
+        else:
+            out_off[2:] -= 1
+        return bucket_push.TableLayout(
+            out_off=out_off, g_off=g_off, slots=int(out_off[-1]),
+            spill=int(g_off[-1]), global_sources=good.global_sources)
+
+    good = bucket_push.table_layout(fr.exp)
+    assert int(good.g_off[2] - good.g_off[1]) > 0   # the hub source's
+    with pytest.raises(RuntimeError, match="bucket_hop: a source's table"):
+        bucket_push.bucket_hop(g, fr, src, short(good))
+    good = bucket_push.reserve_layout(logs)
+    assert int(good.g_off[2] - good.g_off[1]) > 0
+    with pytest.raises(RuntimeError, match="bucket_reserve: a source's"):
+        bucket_push.bucket_reserve(logs, short(good))
 
 
 # K2-seg, D1's halo kernels and the quantize split
