@@ -89,7 +89,13 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     carries and K2-q8 <= 1e-5, bf16 carries bit for bit (the plain
     versions add in the kernels' order); each whole 6-hop run against the
     f32 K2 result: <= 5e-3 (bf16, int8, int8cast, the fast-path gate) and
-    <= 2e-2 (bf16_carry); kernel / plain / library times and bounds;
+    <= 2e-2 (bf16_carry); K2-q8 and K2-q8mxu also with bf16 carries, 6
+    hops one at a time, bit for bit; kernel / plain / library times and
+    bounds, and for K2-q8 and K2-q8mxu the configuration their kernel
+    picked, the device time beside the CUDA events' and the floor their
+    gathers set (nnz rows of q, as bytes and as 32-byte sectors), and the
+    int8 hop's two streams alone: its carries (``torch.add``) and its
+    gathers of q's rows (``index_select``), each with its rate;
 7.  precision sweep, on the operators 3d built: ``order`` hops timed for
     f32, bf16, int8 (K2-q8mxu), int8cast (K2-q8) and bf16 carries, each
     with its error against f32 and its peak memory; then ``calibrate()``
@@ -155,7 +161,9 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     (<= 1e-5), each run's error against the f32 run printed beside the
     5e-3 gate (reported, not gated); the split hops' times beside the
     unsplit hops' (K2, K2-bf16, K2-q8, K2-q8mxu) and quantize's, the
-    plain, ``torch.sparse.mm`` (K2) and the bounds, the gathered bytes,
+    plain, ``torch.sparse.mm`` (K2) and the bounds, the gathered bytes
+    (for K2-q8 and K2-q8mxu also the configuration, device time and
+    sectors, as in 3d),
     the split rows and chunks, the host seconds of the graph, the
     operator and the plan.
 3k. (after 3j) P2 on 3j's skew graph with the Amazon2M preset's push (ppr
@@ -185,13 +193,15 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     int8 propagation's error against f32 (reported beside the 5e-3 gate),
     one split K2-q8mxu hop on the loaded graph's operator bit for bit its
     plain version and the unsplit hop, the split and unsplit K2-q8mxu hop
-    times on the loaded graph, and
+    times on the loaded graph (the split hop's configuration, device time,
+    bound and gathers' floor as in 3d), and
     ``data_s`` from the files beside the 11.25 s that generating the
     graph took in ``predict`` on an H100 80GB HBM3 at 700 W.
 
 Every K2 time is printed beside the bytes its gathers read (nnz rows of
 x) at the HBM rate, the floor of a gathering kernel when the L2 catches no
-reuse.
+reuse; every K2-q8 and K2-q8mxu time beside that floor for the rows of q,
+in bytes and in the 32-byte sectors they touch.
 
 Data-parallel training (D2) on meshes of the one card:
 
@@ -234,6 +244,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import io
 import itertools
 import json
@@ -273,16 +284,16 @@ from grandtpu_torch.nn.sparse_input import (PaddedFeatures, embed_prop,
                                             embed_prop_plain,
                                             embed_prop_window,
                                             embed_prop_window_backward)
-from grandtpu_torch.ops._build import build, build_dir
+from grandtpu_torch.ops._build import build, build_dir, load_kernels
 from grandtpu_torch.ppr import bucket_push, dense_push, gfpush
 from grandtpu_torch.ppr.coef import build_coef
 from grandtpu_torch.ppr.dense_push import (dense_push_mask,
                                            dense_push_mask_plain)
 from grandtpu_torch.ppr.native import gfpush_native
 from grandtpu_torch.ppr.push_topk import push_topk, push_topk_plain
-from grandtpu_torch.sparse.spmm import (CSROperator, SplitPlan,
-                                        column_absmax, column_absmax_plain,
-                                        quantize_columns,
+from grandtpu_torch.sparse.spmm import (CSROperator, Q8HopConfig,
+                                        SplitPlan, column_absmax,
+                                        column_absmax_plain, quantize_columns,
                                         quantize_columns_plain,
                                         quantize_with_amax,
                                         quantize_with_amax_plain,
@@ -346,12 +357,10 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int, kernel: str):
-    """Mean device time a call of the kernels whose name holds ``kernel``,
-    over ``iters`` calls of ``fn()`` under torch.profiler (device activity
-    only): the kernel's own time, without the host's dispatch that
-    :func:`_time_ms` sees when launches are short. None if the profiler
-    recorded no such kernel."""
+def _device_times(fn, iters: int, kernel: str) -> list:
+    """The device time (ms) of each launch of the kernels whose name holds
+    ``kernel`` that torch.profiler (device activity only) recorded over
+    ``iters`` calls of ``fn()``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -360,10 +369,18 @@ def _device_ms(fn, iters: int, kernel: str):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize(DEV)
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    return sum(times) / 1e3 / iters if times else None
+    return [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.name]
+
+
+def _device_ms(fn, iters: int, kernel: str):
+    """Mean device time a call of the kernels whose name holds ``kernel``,
+    over ``iters`` calls of ``fn()`` (:func:`_device_times`): the kernel's
+    own time, without the host's dispatch that :func:`_time_ms` sees when
+    launches are short. None if the profiler recorded no such kernel."""
+    times = _device_times(fn, iters, kernel)
+    return sum(times) / iters if times else None
 
 
 def _busy_ms(fn):
@@ -494,6 +511,82 @@ def _gathers(op, x) -> dict:
     nbytes = op.nnz * x.shape[1] * x.element_size()
     return {"gather_bytes": nbytes,
             "gather_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _int8_floor(op, q, nbytes: float) -> dict:
+    """The int8 hops' gathers if the L2 catches no reuse: nnz rows of q as
+    bytes (nnz * F) and as the 32-byte sectors those rows touch, and the
+    floor they set, the bound's ``nbytes`` with its one read of q replaced
+    by the sectors; each at the HBM rate."""
+    nfeat = q.shape[1]
+    start = (q.data_ptr() + nfeat * torch.arange(
+        op.num_cols, dtype=torch.int64, device=q.device)) % 32
+    per_row = (start + nfeat + 31) // 32
+    sectors = 32 * int(per_row[op.indices.long()].sum())
+    floor = nbytes - op.num_cols * nfeat + sectors
+    return {"gather_bytes": op.nnz * nfeat,
+            "gather_ms": op.nnz * nfeat / HBM_BYTES_PER_S * 1e3,
+            "gather_sector_bytes": sectors,
+            "gather_sector_ms": sectors / HBM_BYTES_PER_S * 1e3,
+            "floor_bytes": floor, "floor_ms": floor / HBM_BYTES_PER_S * 1e3}
+
+
+def _int8_times(fn, op, q, col_scale, y, acc, nbytes: float) -> dict:
+    """An int8 hop's launch configuration (the kernels' own choice for its
+    arrays, ``csr_spmm_q8_align`` then ``csr_spmm_q8_config``), its
+    kernel's device time, the mean over the launches the profiler recorded
+    of 30 calls of ``fn`` (one launch a call; beside the CUDA events' time
+    over back-to-back calls, which the caller takes), and its gathers'
+    floor."""
+    lib = load_kernels()
+    align = lib.csr_spmm_q8_align(q.data_ptr(), col_scale.data_ptr(),
+                                  y.data_ptr(), acc.data_ptr(),
+                                  int(y.dtype == torch.bfloat16))
+    cfg = (ctypes.c_int * 5)()
+    if lib.csr_spmm_q8_config(q.shape[1], align, cfg) != 0:
+        raise AssertionError(f"csr_spmm_q8_config refused F {q.shape[1]}")
+    times = _device_times(fn, 30, "q8_hop")
+    return {"config": Q8HopConfig(*cfg)._asdict(),
+            "device_ms": sum(times) / len(times) if times else None,
+            "device_launches_recorded": len(times),
+            **_int8_floor(op, q, nbytes)}
+
+
+def _int8_streams(op, q, acc, y) -> None:
+    """The int8 hop's two streams apart, each at its rate: its carries'
+    (``torch.add(acc, y, out=acc)``: two [n, F] f32 reads and a write, as
+    the hop reads acc and writes acc and y) and its gathers'
+    (``index_select`` of q's nnz rows as int32 words, less its writes at
+    the carries' rate). F must be a multiple of 4."""
+    nbytes = 3 * acc.numel() * acc.element_size()
+    ms = _time_ms(lambda: torch.add(acc, y, out=acc), 30)
+    rate = nbytes / ms / 1e9
+    print(f"[3d] the int8 hop's carries alone (torch.add(acc, y, out=acc), "
+          f"{nbytes / 1e9:.3f} GB): {ms} ms = {rate:.3f} TB/s", flush=True)
+    rows, idx = q.view(torch.int32), op.indices.long()
+    got = torch.empty((idx.numel(), rows.shape[1]), dtype=torch.int32,
+                      device=q.device)
+    ms = _time_ms(lambda: torch.index_select(rows, 0, idx, out=got), 30)
+    gathered = idx.numel() * q.shape[1]
+    alone = ms - got.numel() * got.element_size() / rate / 1e9
+    print(f"[3d] the int8 hop's gathers alone (index_select of q's "
+          f"{idx.numel()} rows, {gathered / 1e9:.3f} GB, as many written): "
+          f"{ms} ms; less the writes at the carries' rate {alone} ms = "
+          f"{gathered / alone / 1e9:.3f} TB/s gathered", flush=True)
+
+
+def _int8_line(t: dict) -> str:
+    dev = t["device_ms"]
+    return (f"config {t['config']}; device_ms {dev} (mean of "
+            f"{t['device_launches_recorded']} of 30 launches recorded; events "
+            f"ms {t['ms']}); "
+            f"gathered {t['gather_bytes'] / 1e9:.3f} GB = {t['gather_ms']} "
+            f"ms, as 32-byte sectors {t['gather_sector_bytes'] / 1e9:.3f} GB "
+            f"= {t['gather_sector_ms']} ms; floor with the gathers "
+            f"{t['floor_bytes'] / 1e9:.3f} GB = {t['floor_ms']} ms; events "
+            f"at {t['bound_ms'] / t['ms']:.3f} of the bound, "
+            f"{t['floor_ms'] / t['ms']:.3f} of the floor; half the bound "
+            f"{'reached' if t['ms'] <= 2 * t['bound_ms'] else 'missed'}")
 
 
 def _k2_times(op, x, scale: float) -> dict:
@@ -848,7 +941,6 @@ def _hub_int8_times(op, whole, x0, q, q_scale, row_val, scale) -> dict:
             lambda: spmm_prop_step_q8mxu_plain(op, q, q_scale, row_val, y,
                                                acc, scale, True),
             q8_bytes + 4 * n, nnz * nfeat + 4 * n * nfeat)}
-    gathers = nnz * nfeat          # int8 rows of q
     times = {}
     for name, (kernels, plain, nbytes, ops_) in table.items():
         t = {tag: _time_ms(fn, 30) for tag, fn in kernels.items()}
@@ -860,13 +952,11 @@ def _hub_int8_times(op, whole, x0, q, q_scale, row_val, scale) -> dict:
         line = f"ms {t['split']}"
         if "unsplit" in t:
             times[name].update(unsplit_ms=t["unsplit"],
-                               gather_bytes=gathers,
-                               gather_ms=gathers / HBM_BYTES_PER_S * 1e3)
+                               **_int8_times(kernels["split"], op, q,
+                                             q_scale, y, acc, nbytes))
             line = (f"split ms {t['split']} unsplit ms {t['unsplit']} "
-                    f"(split faster by {t['unsplit'] / t['split']:.3f}x; at "
-                    f"least 2x predicted for K2-q8mxu); gathered "
-                    f"{gathers / 1e9:.3f} GB = {times[name]['gather_ms']} ms "
-                    f"at the HBM rate;")
+                    f"(split faster by {t['unsplit'] / t['split']:.3f}x); "
+                    f"split {_int8_line(times[name])};")
         print(f"[3j] {name} at [{n},{nfeat}], nnz {nnz}: {line} plain_ms "
               f"{plain_ms} bound_ms {bound_ms} ({bound_by}, "
               f"{nbytes / 1e9:.3f} GB)", flush=True)
@@ -1149,6 +1239,10 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
                       op, q, s, row_val, co, ac, scale, True), x0, True,
                   1e-6),
     }
+    # the int8 hops with bf16 carries, bit for bit (after the four forms
+    # that the whole runs below pair with)
+    for form in ("q8", "q8mxu"):
+        forms[f"{form}_carry"] = (*forms[form][:2], x0_b, True, 0.0)
     errs, q_diff = {}, 0
     for form, (hop, plain_hop, start, quantize, limit) in forms.items():
         errs[form], differ, qd = _ppr_hop_by_hop(hop, plain_hop, start,
@@ -1269,9 +1363,14 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
             times[name].update(_gathers(op, x0_b if "carry" in name else x0))
             gathers = (f"; gathered {times[name]['gather_bytes'] / 1e9:.3f} "
                        f"GB = {times[name]['gather_ms']} ms at the HBM rate")
+        if name in ("csr_spmm_q8", "csr_spmm_q8mxu"):
+            times[name].update(_int8_times(kernel, op, q, q_scale, y, acc,
+                                           nbytes))
+            gathers = "; " + _int8_line(times[name])
         print(f"[3d] {name} at [{n},{nfeat}], nnz {nnz}: ms {ms} plain_ms "
               f"{plain_ms} library_ms {library_ms} bound_ms {bound_ms} "
               f"({bound_by}, {nbytes / 1e9:.3f} GB){gathers}", flush=True)
+    _int8_streams(op, q, acc, y)
     del y, acc, y_b, acc_b, q
     t = _k2_times(op, x0, scale)
     print(f"[3d] csr_spmm_prop at [{n},{nfeat}], nnz {nnz}: {_k2_line(t)}",
@@ -1304,6 +1403,10 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
                  "whole_run": whole.get(
                      {"csr_spmm_prop_bf16": "bf16", "csr_spmm_q8": "int8cast",
                       "csr_spmm_q8mxu": "int8"}.get(name, ""))}
+        if name in ("csr_spmm_q8", "csr_spmm_q8mxu"):
+            form = name.removeprefix("csr_spmm_") + "_carry"
+            entry["bf16_carry"] = {"max_abs_err": errs[form][0],
+                                   "max_rel_err": errs[form][1]}
         if name == "csr_spmm_prop_bf16":
             entry["bf16_carry"] = {**carry, "max_abs_err":
                                    errs["bf16_carry"][0], "max_rel_err":
@@ -2451,13 +2554,20 @@ def _files_propagation(adj, x, cfg) -> dict:
                              f"bit: {differ} elements differ")
     del hops, acc0
     y, acc = torch.empty_like(x0), torch.zeros_like(x0)
-    ms = {tag: _time_ms(lambda o=o: spmm_prop_step_q8mxu(
-              o, q, q_scale, row_val, y, acc, scale, True), 30)
-          for tag, o in (("split", op), ("unsplit", whole))}
+    hop = {tag: (lambda o=o: spmm_prop_step_q8mxu(
+               o, q, q_scale, row_val, y, acc, scale, True))
+           for tag, o in (("split", op), ("unsplit", whole))}
+    ms = {tag: _time_ms(fn, 30) for tag, fn in hop.items()}
+    n, nfeat = x0.shape
+    # q read, f32 y written, acc read and written, the structure, row_val
+    nbytes = n * nfeat * 13 + nfeat * 4 + 4 * (n + 1) + 4 * op.nnz + 4 * n
+    bound_ms, bound_by = _bound(nbytes, op.nnz * nfeat + 4 * n * nfeat)
+    split = {"ms": ms["split"], "bound_ms": bound_ms, "bound_by": bound_by,
+             **_int8_times(hop["split"], op, q, q_scale, y, acc, nbytes)}
     out = {"int8_rel_err_vs_f32": err, "nnz": op.nnz, "longest_row": max_deg,
            "cap": op.plan.cap, "split_rows": int(op.plan.rows.numel()),
            "chunks": op.plan.num_chunks, "q8mxu_split_ms": ms["split"],
-           "q8mxu_unsplit_ms": ms["unsplit"],
+           "q8mxu_unsplit_ms": ms["unsplit"], "q8mxu_split": split,
            "elements_differing": differ}
     print(f"[5f] the loaded graph's operator: nnz {op.nnz}, longest row "
           f"{max_deg}, cap {op.plan.cap}: {out['split_rows']} split rows, "
@@ -2465,7 +2575,8 @@ def _files_propagation(adj, x, cfg) -> dict:
           f"max_rel_err {err} (fast-path gate 5e-3, reported: "
           f"{'within' if err <= 5e-3 else 'over'}); K2-q8mxu hop split "
           f"{ms['split']} ms, unsplit {ms['unsplit']} ms (predicted "
-          f"1.8-2.1 ms split)", flush=True)
+          f"1.2-1.45 ms split); split bound_ms {bound_ms} ({bound_by}, "
+          f"{nbytes / 1e9:.3f} GB), {_int8_line(split)}", flush=True)
     return out
 
 
@@ -3217,6 +3328,8 @@ def main() -> int:
                 "int8cast" if k["name"] == "csr_spmm_q8" else "int8"]
             k["split"] = ("hub rows split by the operator's SplitPlan "
                           "(3j; 5f for K2-q8mxu)")
+        if k["name"] == "csr_spmm_q8mxu":
+            k["files"] = files["propagation"]["q8mxu_split"]
         k["launches_by_path"] = {
             "amazon": amazon_launches[k["name"]],
             "amazon_bucket": bucket_launches[k["name"]],

@@ -1,9 +1,10 @@
 // Shared pieces of the power-iteration hop kernels (csr_spmm.cu,
 // csr_spmm_q8.cu, halo.cu): the hub-row split's work items and finish
-// (csr_spmm.cu and csr_spmm_q8.cu), carry loads, one element or 2 or 4 neighbouring
-// ones a lane (kVec = 4 or 2, where F is a multiple of it and the arrays
-// aligned to it: one vector load or store instead of strided ones), and the
-// fused update
+// (csr_spmm.cu and csr_spmm_q8.cu), carry loads, one element or 2 or 4
+// neighbouring ones a lane (kVec = 4 or 2, where F is a multiple of it and
+// the arrays aligned to it: one vector load or store instead of strided
+// ones), the int8 hops' streamed carries (up to 16 neighbouring ones, with
+// the evict-first hint), and the fused update
 //
 //   y   = scale * h          h = the hop's f32 product for one element
 //   acc = acc + y            only if accumulate
@@ -236,6 +237,144 @@ __device__ __forceinline__ void store_hops(const float (&h)[4], float scale,
                                            T* y, T* acc, int64_t i,
                                            int accumulate) {
   store_hop4(h, scale, y, acc, i, accumulate);
+}
+
+// Streamed carries (csr_spmm_q8.cu's hops): kN neighbouring carries read
+// as floats, and the fused update written back, with the evict-first hint
+// (__ldcs / __stcs: ld.global.cs / st.global.cs). Each carry is read or
+// written once a hop, so the hint leaves the L2 to the rows the hop
+// gathers. kN is 1, 2, 4, 8 or 16, and p is aligned to kN elements or to
+// 16 bytes, whichever is less. acc is read before the hop's gathers and
+// its values passed to store_update, so that the two loads' latencies
+// overlap.
+template <int kN>
+__device__ __forceinline__ void load_carries(const float* p, float (&a)[kN]) {
+  if constexpr (kN >= 4) {
+#pragma unroll
+    for (int k = 0; k < kN / 4; ++k) {
+      const float4 t = __ldcs(reinterpret_cast<const float4*>(p) + k);
+      a[4 * k] = t.x;
+      a[4 * k + 1] = t.y;
+      a[4 * k + 2] = t.z;
+      a[4 * k + 3] = t.w;
+    }
+  } else if constexpr (kN == 2) {
+    const float2 t = __ldcs(reinterpret_cast<const float2*>(p));
+    a[0] = t.x;
+    a[1] = t.y;
+  } else {
+    a[0] = __ldcs(p);
+  }
+}
+
+template <int kN>
+__device__ __forceinline__ void load_carries(const __nv_bfloat16* p,
+                                             float (&a)[kN]) {
+  if constexpr (kN >= 8) {
+#pragma unroll
+    for (int k = 0; k < kN / 8; ++k) {
+      const uint4 t = __ldcs(reinterpret_cast<const uint4*>(p) + k);
+      const unsigned int w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        a[8 * k + 2 * j] = bf16_lo(w[j]);
+        a[8 * k + 2 * j + 1] = bf16_hi(w[j]);
+      }
+    }
+  } else if constexpr (kN == 4) {
+    const uint2 t = __ldcs(reinterpret_cast<const uint2*>(p));
+    a[0] = bf16_lo(t.x);
+    a[1] = bf16_hi(t.x);
+    a[2] = bf16_lo(t.y);
+    a[3] = bf16_hi(t.y);
+  } else if constexpr (kN == 2) {
+    const unsigned int t = __ldcs(reinterpret_cast<const unsigned int*>(p));
+    a[0] = bf16_lo(t);
+    a[1] = bf16_hi(t);
+  } else {
+    a[0] = __bfloat162float(__ushort_as_bfloat16(
+        __ldcs(reinterpret_cast<const unsigned short*>(p))));
+  }
+}
+
+template <int kN>
+__device__ __forceinline__ void store_carries(float* p,
+                                              const float (&v)[kN]) {
+  if constexpr (kN >= 4) {
+#pragma unroll
+    for (int k = 0; k < kN / 4; ++k) {
+      __stcs(reinterpret_cast<float4*>(p) + k,
+             make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]));
+    }
+  } else if constexpr (kN == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+    __stcs(p, v[0]);
+  }
+}
+
+// bf16 carries: each value rounded to bf16 as it is packed.
+template <int kN>
+__device__ __forceinline__ void store_carries(__nv_bfloat16* p,
+                                              const float (&v)[kN]) {
+  if constexpr (kN >= 8) {
+#pragma unroll
+    for (int k = 0; k < kN / 8; ++k) {
+      const float* w = v + 8 * k;
+      __stcs(reinterpret_cast<uint4*>(p) + k,
+             make_uint4(pack_bf16x2(w[0], w[1]), pack_bf16x2(w[2], w[3]),
+                        pack_bf16x2(w[4], w[5]), pack_bf16x2(w[6], w[7])));
+    }
+  } else if constexpr (kN == 4) {
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3])));
+  } else if constexpr (kN == 2) {
+    __stcs(reinterpret_cast<unsigned int*>(p), pack_bf16x2(v[0], v[1]));
+  } else {
+    __stcs(reinterpret_cast<unsigned short*>(p),
+           __bfloat16_as_ushort(__float2bfloat16_rn(v[0])));
+  }
+}
+
+// The fused update of kN neighbouring outputs at i, with a = acc's values
+// there (load_carries): f32 carries y = scale * h, acc = a + y; bf16
+// carries as store_hop's.
+template <int kN>
+__device__ __forceinline__ void store_update(const float (&h)[kN],
+                                             const float (&a)[kN],
+                                             float scale, float* y,
+                                             float* acc, int64_t i,
+                                             int accumulate) {
+  float out[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) out[j] = __fmul_rn(scale, h[j]);
+  store_carries(y + i, out);
+  if (accumulate) {
+    float sum[kN];
+#pragma unroll
+    for (int j = 0; j < kN; ++j) sum[j] = __fadd_rn(a[j], out[j]);
+    store_carries(acc + i, sum);
+  }
+}
+
+template <int kN>
+__device__ __forceinline__ void store_update(const float (&h)[kN],
+                                             const float (&a)[kN],
+                                             float scale, __nv_bfloat16* y,
+                                             __nv_bfloat16* acc, int64_t i,
+                                             int accumulate) {
+  float out[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    out[j] = round_bf16(__fmul_rn(scale, round_bf16(h[j])));
+  }
+  store_carries(y + i, out);
+  if (accumulate) {
+    float sum[kN];
+#pragma unroll
+    for (int j = 0; j < kN; ++j) sum[j] = __fadd_rn(a[j], out[j]);
+    store_carries(acc + i, sum);
+  }
 }
 
 inline bool aligned(const void* p, unsigned int bytes) {

@@ -34,21 +34,53 @@
 // A hop must read q (1 byte an element instead of 4), the CSR structure and
 // acc, and write y and acc: at the Amazon2M stand-in's [2M, 100], nnz 8.9M,
 // about 2.65 GB (q8mxu) and 2.69 GB (q8) with f32 carries, against 3.28 GB
-// for K2. The design is one warp per row with the update fused; where F is
-// a multiple of 4 (and the arrays aligned to it) each lane takes 4
-// neighbouring features: one 32-bit load of int8 per gathered row, one
-// vector load and store of acc and y, so one pass of a warp covers 128
-// features. The quantize passes read x 4 elements a load the same way.
+// for K2. Of that, the carries (acc read and written, y written) are 2.4 GB.
+// The gathers read nnz rows of q, not n: 0.89 GB at F 100, 1.14 GB counted
+// as the 32-byte sectors they touch. Measured on an H100 (chip_smoke.py's
+// phase 3d, PERF.md), the carries alone stream at about 3.1 TB/s and q's
+// rows gathered alone come at about 1.3 TB/s (100 random bytes a row), and
+// the hop takes about the sum of the two: the HBM's rate on random short
+// rows, not the kernel's latency or issue, is what holds it. Nothing
+// here is bound by operations (a term is a byte permute and an add, or for
+// K2-q8 a byte permute, a subtract, a multiply, a bf16 rounding and an
+// add). The quantize passes read x four elements a load where F and x's
+// alignment allow.
+//
+// The design (one template for both hops, csr_spmm_q8_hop_kernel):
+// - A group of G lanes (a power of two up to 32) takes one row, so a warp
+//   holds 32/G rows where F is narrow. Each lane owns NPER vectors of V
+//   neighbouring int8 features, lanes side by side, read with one 16-, 8-,
+//   4-, 2- or 1-byte load a vector: the widest V that F and the arrays'
+//   alignment allow (F 128: 16; F 100, whose q rows are only 4-byte
+//   aligned: 4; 602: 2; a misaligned view: 1). Where F needs more than
+//   G * NPER * V features the row's edges are walked once per tile.
+// - U edges at a time (8; 4 at V 16, the same 64 bytes a lane): their
+//   column ids (and, for K2-q8, values) are loaded, then all U * NPER
+//   gathers are issued before any term is added. An int8 vector costs a
+//   lane one to four registers, so a lane keeps U gathers in flight instead
+//   of a chain of dependent index and row loads; a row shorter than U (the
+//   stand-in's rows average 4.4 nonzeros) issues all its gathers at once,
+//   and only its own edges' terms are added. MINB blocks an SM caps the
+//   registers so that enough warps stay resident. pick_config chooses
+//   (G, V, NPER, U, MINB) from F and the alignment; csr_spmm_q8_config
+//   reports its choice.
+// - The terms are added in edge order, K2-q8's f32 sum as its plain
+//   version's (__fadd_rn of the rounded product: no FMA contraction), and
+//   K2-q8mxu's int32 sum exactly; both from biased bytes (below).
+// - acc is read at the start of a row, so its latency overlaps the
+//   gathers', and acc and y are read and written with the evict-first hint
+//   (csr_hop.cuh's load_carries/store_update: the streamed carries), which
+//   leaves the L2 to the gathered rows of q.
 //
 // Hub rows (grandtpu's spmm_block_offset_q8 / _q8mxu, the overflow level of
-// SplitCSR): one warp walking a row of 15,000 gathers would finish long
+// SplitCSR): one group walking a row of 15,000 gathers would finish long
 // after the rest of the hop, so a row with more than `cap` nonzeros is cut
 // by the operator's split plan (sparse/spmm.py::SplitPlan) into chunks of
 // at most cap edges, as K2's are (csr_spmm.cu). The grid's first items are
-// the chunks, then the rows; a split row's own item returns. A chunk's warp
+// the chunks, then the rows; a split row's own item returns. A chunk's group
 // sums its edges as a row's would and writes the sum before any scale to
 // the caller's [chunks, F] scratch: f32 for K2-q8, int32 for K2-q8mxu. The
-// warp that finishes a split row's last chunk (an integer counter a split
+// group that finishes a split row's last chunk (an integer counter a split
 // row, no float atomics) adds the row's partials in chunk order, then
 // applies the column scale (and the row value) and the update, in the same
 // launch. K2-q8mxu's partials are int32 so that the split hop equals the
@@ -56,12 +88,14 @@
 // (the sum of a row stays exact while it has fewer than 2^31 / 127 edges).
 // K2-q8's f32 partials make the split row's sum a different grouping of
 // the same terms, which its plain version repeats. Rows under the cap keep
-// the unsplit code and order. What bounds the split: the chunks' warps
+// the unsplit code and order. What bounds the split: the chunks' groups
 // gather at most cap rows each, so the hop's tail is one chunk, not one
 // hub row; the scratch adds chunks x F x 4 bytes written and read once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "csr_hop.cuh"
 
@@ -125,7 +159,6 @@ __global__ void column_scale_kernel(const unsigned int* __restrict__ amax_bits,
   col_scale[f] = scale_bf16 && amax > 0.0f ? round_bf16(scale) : scale;
 }
 
-using grandtpu::load_q;
 using grandtpu::quantize_one;
 
 __device__ __forceinline__ void store_q(int8_t* p, const int8_t (&v)[1]) {
@@ -164,149 +197,234 @@ __global__ void quantize_kernel(const T* __restrict__ x,
 
 using grandtpu::Split;
 
-// The work item of one warp (grandtpu::hop_item).
-__device__ __forceinline__ bool warp_item(const int32_t* __restrict__ indptr,
-                                          int num_rows, const Split& s,
-                                          int64_t& item, int64_t& row,
-                                          int& lo, int& hi) {
-  item = static_cast<int64_t>(blockIdx.x) * grandtpu::kWarpsPerBlock +
-         threadIdx.x / 32;
-  return grandtpu::hop_item(indptr, num_rows, s, item, row, lo, hi);
+// --- the two hops: one template ---------------------------------------
+
+constexpr int kThreads = 256;
+
+// The 32-bit words that hold one vector of V int8 features.
+__host__ __device__ constexpr int vec_words(int v) {
+  return v >= 4 ? v / 4 : 1;
 }
 
-template <int kVec, typename T>
-__global__ void csr_spmm_q8_kernel(const int32_t* __restrict__ indptr,
-                                   const int32_t* __restrict__ indices,
-                                   const float* __restrict__ values,
-                                   const int8_t* __restrict__ q,
-                                   const float* __restrict__ col_scale,
-                                   T* __restrict__ y, T* __restrict__ acc,
-                                   int num_rows, int num_features,
-                                   float scale, int accumulate, Split split) {
-  int64_t item, row;
-  int start, end;
-  if (!warp_item(indptr, num_rows, split, item, row, start, end)) return;
-  const bool is_chunk = item < split.num_chunks;
-  float* partial = static_cast<float*>(split.partial);
-  const int lane = threadIdx.x & 31;
-  const int64_t out_base = row * num_features;
-  for (int f0 = lane * kVec; f0 < num_features; f0 += 32 * kVec) {
-    float s[kVec];
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) s[j] = 0.0f;
-    for (int e = start; e < end; ++e) {
-      const int64_t col = __ldg(indices + e);
-      const float v = round_bf16(__ldg(values + e));
-      int qv[kVec];
-      load_q(q + col * num_features + f0, qv);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        s[j] = __fadd_rn(s[j], round_bf16(__fmul_rn(
-                                   static_cast<float>(qv[j]), v)));
-      }
-    }
-    if (is_chunk) {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        partial[item * num_features + f0 + j] = s[j];
-      }
-      continue;
-    }
-    float h[kVec];
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      h[j] = __fmul_rn(s[j], __ldg(col_scale + f0 + j));
-    }
-    grandtpu::store_hops(h, scale, y, acc, out_base + f0, accumulate);
-  }
-  if (!is_chunk || !grandtpu::last_chunk(split, item)) return;
-  // the row's chunk partials in chunk order, then the column scale
-  const int i = split.chunk_row[item];
-  for (int f0 = lane * kVec; f0 < num_features; f0 += 32 * kVec) {
-    float h[kVec];
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) h[j] = 0.0f;
-    for (int c = split.chunk_ptr[i]; c < split.chunk_ptr[i + 1]; ++c) {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        h[j] = __fadd_rn(h[j], __ldcg(partial + static_cast<int64_t>(c) *
-                                                    num_features + f0 + j));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      h[j] = __fmul_rn(h[j], __ldg(col_scale + f0 + j));
-    }
-    grandtpu::store_hops(h, scale, y, acc, out_base + f0, accumulate);
+// One vector of V neighbouring int8 features of a gathered row, as raw
+// words: one 16-, 8-, 4-, 2- or 1-byte load (p aligned to V bytes).
+template <int V>
+__device__ __forceinline__ void load_qvec(const int8_t* p,
+                                          unsigned int (&w)[vec_words(V)]) {
+  if constexpr (V == 16) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = t.x;
+    w[1] = t.y;
+    w[2] = t.z;
+    w[3] = t.w;
+  } else if constexpr (V == 8) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = t.x;
+    w[1] = t.y;
+  } else if constexpr (V == 4) {
+    w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else if constexpr (V == 2) {
+    w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  } else {
+    w[0] = __ldg(reinterpret_cast<const unsigned char*>(p));
   }
 }
 
-template <int kVec, typename T>
-__global__ void csr_spmm_q8mxu_kernel(const int32_t* __restrict__ indptr,
-                                      const int32_t* __restrict__ indices,
-                                      const float* __restrict__ row_val,
-                                      const int8_t* __restrict__ q,
-                                      const float* __restrict__ col_scale,
-                                      T* __restrict__ y, T* __restrict__ acc,
-                                      int num_rows, int num_features,
-                                      float scale, int accumulate,
-                                      Split split) {
-  int64_t item, row;
-  int start, end;
-  if (!warp_item(indptr, num_rows, split, item, row, start, end)) return;
-  const bool is_chunk = item < split.num_chunks;
-  int* partial = static_cast<int*>(split.partial);
-  const int lane = threadIdx.x & 31;
-  const int64_t out_base = row * num_features;
-  const float rv = __ldg(row_val + row);
-  for (int f0 = lane * kVec; f0 < num_features; f0 += 32 * kVec) {
-    int isum[kVec];
+// The int8 terms work on biased bytes: b = q ^ 0x80 = q + 128 in [1, 255]
+// (a word's four at once, one XOR), so that one byte permute makes a term
+// from byte j of a biased word: as an int (K2-q8mxu, whose sum then takes
+// 128 for each edge away), or as the float 1.5 * 2^23 + b, whose ulp is 1,
+// from which (1.5 * 2^23 + 128) is taken exactly (K2-q8), with no I2F (a
+// quarter-rate instruction).
+constexpr unsigned int kBias = 0x80808080u;
+
+__device__ __forceinline__ int biased_byte(unsigned int wb, int j) {
+  return static_cast<int>(__byte_perm(wb, 0u, 0x4440u | j));
+}
+
+__device__ __forceinline__ float byte_to_float(unsigned int wb, int j) {
+  return __fsub_rn(__uint_as_float(__byte_perm(wb, 0x4b400000u, 0x7640u | j)),
+                   12583040.0f);
+}
+
+// V column scales at col_scale + f (aligned to V floats or 16 bytes).
+template <int V>
+__device__ __forceinline__ void load_scales(const float* p, float (&cs)[V]) {
+  if constexpr (V >= 4) {
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) isum[j] = 0;
-#pragma unroll 4
-    for (int e = start; e < end; ++e) {
-      const int64_t col = __ldg(indices + e);
-      int qv[kVec];
-      load_q(q + col * num_features + f0, qv);
+    for (int k = 0; k < V / 4; ++k) {
+      float t[4];
+      grandtpu::load_x(p + 4 * k, t);
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) isum[j] += qv[j];
+      for (int j = 0; j < 4; ++j) cs[4 * k + j] = t[j];
     }
-    if (is_chunk) {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        partial[item * num_features + f0 + j] = isum[j];
-      }
-      continue;
-    }
-    float h[kVec];
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      h[j] = __fmul_rn(__fmul_rn(__int2float_rn(isum[j]), rv),
-                       __ldg(col_scale + f0 + j));
-    }
-    grandtpu::store_hops(h, scale, y, acc, out_base + f0, accumulate);
+  } else {
+    grandtpu::load_x(p, cs);
   }
-  if (!is_chunk || !grandtpu::last_chunk(split, item)) return;
-  // the row's int32 chunk partials (exact in any order), then the scales
-  const int i = split.chunk_row[item];
-  for (int f0 = lane * kVec; f0 < num_features; f0 += 32 * kVec) {
-    int isum[kVec];
+}
+
+// h of one output from its sum: K2-q8mxu (float(isum) * row_val) *
+// col_scale in JAX's order; K2-q8 sum * col_scale.
+template <bool kMxu, typename S>
+__device__ __forceinline__ float scaled(S sum, float rv, float cs) {
+  if constexpr (kMxu) {
+    return __fmul_rn(__fmul_rn(__int2float_rn(sum), rv), cs);
+  } else {
+    return __fmul_rn(sum, cs);
+  }
+}
+
+// One int8 hop. kMxu: K2-q8mxu (int32 sums; edge = row_val [n]); else
+// K2-q8 (f32 sums of bf16-rounded terms; edge = the edge values [nnz]).
+// A group of `lanes` lanes takes one work item (hop_item: the plan's
+// chunks, then the rows); lane g owns NPER vectors of V features of each
+// tile of lanes * NPER * V features, vector p at features
+// f_tile + (p * lanes + g) * V. The row's edges are walked U at a time:
+// U column ids (and values) loaded, then all U * NPER gathers issued, then
+// the terms added in edge order. A batch past the row's end loads nothing
+// and adds zero terms, which leave the sums as they are (an f32 sum that
+// starts at +0 is never -0, and s + +0 = s).
+template <bool kMxu, int V, int NPER, int U, int MINB, typename T>
+__global__ void __launch_bounds__(kThreads, MINB)
+csr_spmm_q8_hop_kernel(const int32_t* __restrict__ indptr,
+                       const int32_t* __restrict__ indices,
+                       const float* __restrict__ edge,
+                       const int8_t* __restrict__ q,
+                       const float* __restrict__ col_scale,
+                       T* __restrict__ y, T* __restrict__ acc, int num_rows,
+                       int num_features, float scale, int accumulate,
+                       int lanes, int log_lanes, Split split) {
+  using S = std::conditional_t<kMxu, int, float>;
+  constexpr int W = vec_words(V);
+  const int g = threadIdx.x & (lanes - 1);
+  const int64_t item =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >>
+      log_lanes;
+  int64_t row;
+  int lo, hi;
+  if (!grandtpu::hop_item(indptr, num_rows, split, item, row, lo, hi)) {
+    return;
+  }
+  const bool is_chunk = item < split.num_chunks;
+  const bool load_acc = !is_chunk && accumulate;
+  S* partial = static_cast<S*>(split.partial);
+  const int F = num_features;
+  const int64_t out = row * F;
+  const float rv = kMxu ? __ldg(edge + row) : 0.0f;
+  for (int f_tile = 0; f_tile < F; f_tile += lanes * NPER * V) {
+    // acc's values first: their loads are in flight with the gathers
+    float a[NPER][V];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) isum[j] = 0;
-    for (int c = split.chunk_ptr[i]; c < split.chunk_ptr[i + 1]; ++c) {
+    for (int p = 0; p < NPER; ++p) {
+      const int f = f_tile + (p * lanes + g) * V;
+      if (load_acc && f < F) {
+        grandtpu::load_carries(acc + out + f, a[p]);
+      } else {
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        isum[j] += __ldcg(partial + static_cast<int64_t>(c) * num_features +
-                          f0 + j);
+        for (int j = 0; j < V; ++j) a[p][j] = 0.0f;
       }
     }
-    float h[kVec];
+    S s[NPER][V];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      h[j] = __fmul_rn(__fmul_rn(__int2float_rn(isum[j]), rv),
-                       __ldg(col_scale + f0 + j));
+    for (int p = 0; p < NPER; ++p) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[p][j] = 0;
     }
-    grandtpu::store_hops(h, scale, y, acc, out_base + f0, accumulate);
+    for (int e = lo; e < hi; e += U) {
+      const int left = hi - e;
+      int c[U];
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        c[u] = u < left ? __ldg(indices + e + u) : 0;
+        if constexpr (!kMxu) {
+          v[u] = u < left ? round_bf16(__ldg(edge + e + u)) : 0.0f;
+        }
+      }
+      unsigned int w[U][NPER][W];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int p = 0; p < NPER; ++p) {
+          const int f = f_tile + (p * lanes + g) * V;
+          if (u < left && f < F) {
+            load_qvec<V>(q + static_cast<int64_t>(c[u]) * F + f, w[u][p]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < W; ++k) w[u][p][k] = 0u;
+          }
+        }
+      }
+      // the terms of the batch's edges in edge order; none past the row's
+      // end
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u >= left) break;
+#pragma unroll
+        for (int p = 0; p < NPER; ++p) {
+#pragma unroll
+          for (int k = 0; k < W; ++k) {
+            const unsigned int wb = w[u][p][k] ^ kBias;
+#pragma unroll
+            for (int j = 4 * k; j < 4 * k + 4 && j < V; ++j) {
+              if constexpr (kMxu) {
+                s[p][j] += biased_byte(wb, j - 4 * k);
+              } else {
+                // bf16(q * bf16(v)): the product of two bf16 values is
+                // exact in f32, so rounding it once is JAX's bf16 multiply
+                s[p][j] = __fadd_rn(s[p][j], round_bf16(__fmul_rn(
+                                        byte_to_float(wb, j - 4 * k), v[u])));
+              }
+            }
+          }
+        }
+      }
+    }
+    if constexpr (kMxu) {
+      // the bias of the row's (or chunk's) edges
+#pragma unroll
+      for (int p = 0; p < NPER; ++p) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) s[p][j] -= 128 * (hi - lo);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < NPER; ++p) {
+      const int f = f_tile + (p * lanes + g) * V;
+      if (f >= F) continue;
+      if (is_chunk) {
+        // the chunk's sums before any scale
+#pragma unroll
+        for (int j = 0; j < V; ++j) partial[item * F + f + j] = s[p][j];
+        continue;
+      }
+      float cs[V], h[V];
+      load_scales<V>(col_scale + f, cs);
+#pragma unroll
+      for (int j = 0; j < V; ++j) h[j] = scaled<kMxu>(s[p][j], rv, cs[j]);
+      grandtpu::store_update(h, a[p], scale, y, acc, out + f, accumulate);
+    }
+  }
+  if (!is_chunk || !grandtpu::last_chunk(split, item, lanes)) return;
+  // the group that finished the split row's last chunk adds the row's
+  // partials in chunk order (int32: exact in any order), then the scales
+  const int i = split.chunk_row[item];
+  const int c0 = split.chunk_ptr[i];
+  const int c1 = split.chunk_ptr[i + 1];
+  for (int f = g; f < F; f += lanes) {
+    S t = 0;
+    for (int c = c0; c < c1; ++c) {
+      const S part = __ldcg(partial + static_cast<int64_t>(c) * F + f);
+      if constexpr (kMxu) {
+        t += part;
+      } else {
+        t = __fadd_rn(t, part);
+      }
+    }
+    float h[1] = {scaled<kMxu>(t, rv, __ldg(col_scale + f))};
+    float a[1] = {0.0f};
+    if (accumulate) grandtpu::load_carries(acc + out + f, a);
+    grandtpu::store_update(h, a, scale, y, acc, out + f, accumulate);
   }
 }
 
@@ -338,37 +456,101 @@ int quantize(const void* x, const unsigned int* amax_bits, int8_t* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Whether a hop can take 4 neighbouring features a lane: F a multiple of 4
-// and q, col_scale, y and acc aligned to 4 elements (then so is every row).
-bool hop_vec4(int num_features, const int8_t* q, const float* col_scale,
-              const void* y, const void* acc, int carry_bf16) {
-  return grandtpu::carries_vec4(num_features, y, carry_bf16) &&
-         grandtpu::carries_vec4(num_features, acc, carry_bf16) &&
-         grandtpu::aligned(q, 4) && grandtpu::aligned(col_scale, 16);
+
+// A launch configuration: `lanes` lanes a row, V features a vector (16,
+// 8, 4, 2 or 1 bytes of q), NPER vectors a lane, U edges gathered before
+// their terms are added, MINB blocks of kThreads an SM (the register
+// budget: 65,536 / (MINB * 256) registers a thread).
+struct Config {
+  int lanes, v, nper, u, minb;
+};
+
+// The widest vector that F and the alignment allow (align_bytes: the
+// features every array can take as one aligned vector, hop_align), then
+// that width's (NPER, U, MINB), then the fewest lanes (a power of two up
+// to 32) whose NPER vectors cover F. V 4 and 16 were chosen by timing
+// configurations on an H100 at F 100 (the Amazon2M stand-in) and 128
+// (the skew graph), each against its plain version: 4 blocks an SM (64
+// registers) beat 5 to 8 (spills) and 2 to 3, and at V 16 four edges a
+// batch (64 bytes a lane in flight, as V 4's 2 x 8 words) beat eight at
+// fewer blocks and two. K2-q8 at V 16 spills about 50 bytes there, and
+// still beat the configurations without spills (3 blocks, or U 2). V 8, 2
+// and 1 take the same budget without spills (V 1 at 3 blocks: K2-q8
+// spills at 4). sparse/spmm.py::q8_hop_config mirrors it.
+Config pick_config(int num_features, int align_bytes) {
+  int v = 16;
+  while (v > 1 && (num_features % v != 0 || align_bytes % v != 0)) v /= 2;
+  Config c = v == 16  ? Config{0, 16, 1, 4, 4}
+             : v == 8 ? Config{0, 8, 1, 8, 4}
+             : v == 4 ? Config{0, 4, 2, 8, 4}
+             : v == 2 ? Config{0, 2, 2, 8, 4}
+                      : Config{0, 1, 4, 8, 3};
+  const int vecs = (num_features + v - 1) / v;
+  c.lanes = 1;
+  while (c.lanes < 32 && c.lanes * c.nper < vecs) c.lanes *= 2;
+  return c;
 }
 
-// Launches K2-q8mxu (kMxu; edge = row_val [n]) or K2-q8 (edge = the edge
-// values [nnz]) on carries of type T: one warp an item, the plan's chunks
-// then the rows.
-template <bool kMxu, typename T>
-int launch(const int32_t* indptr, const int32_t* indices, const float* edge,
-           const int8_t* q, const float* col_scale, void* y, void* acc,
-           int num_rows, int num_features, float scale, int accumulate,
-           int carry_bf16, const Split& split, cudaStream_t stream) {
-  const bool vec4 = hop_vec4(num_features, q, col_scale, y, acc, carry_bf16);
-  auto kernel = kMxu ? (vec4 ? csr_spmm_q8mxu_kernel<4, T>
-                             : csr_spmm_q8mxu_kernel<1, T>)
-                     : (vec4 ? csr_spmm_q8_kernel<4, T>
-                             : csr_spmm_q8_kernel<1, T>);
-  const int64_t items = static_cast<int64_t>(split.num_chunks) + num_rows;
-  const int64_t blocks = (items + grandtpu::kWarpsPerBlock - 1) /
-                         grandtpu::kWarpsPerBlock;
+#define Q8_CONFIGS(X) \
+  X(16, 1, 4, 4) X(8, 1, 8, 4) X(4, 2, 8, 4) X(2, 2, 8, 4) X(1, 4, 8, 3)
+
+// The features that q, col_scale, y and acc all take as one aligned vector
+// (16 at most): q aligned to that many bytes, the carries and the scales
+// to that many elements or 16 bytes.
+int hop_align(const int8_t* q, const float* col_scale, const void* y,
+              const void* acc, int carry_bytes) {
+  for (int v = 16; v > 1; v /= 2) {
+    const unsigned int cb = v * carry_bytes < 16 ? v * carry_bytes : 16;
+    const unsigned int sb = v * 4 < 16 ? v * 4 : 16;
+    if (grandtpu::aligned(q, v) && grandtpu::aligned(col_scale, sb) &&
+        grandtpu::aligned(y, cb) &&
+        (acc == nullptr || grandtpu::aligned(acc, cb))) {
+      return v;
+    }
+  }
+  return 1;
+}
+
+// The kernel's arguments, as the entry points take them.
+struct HopArgs {
+  const int32_t* indptr;
+  const int32_t* indices;
+  const float* edge;
+  const int8_t* q;
+  const float* col_scale;
+  void* y;
+  void* acc;
+  int num_rows, num_features;
+  float scale;
+  int accumulate;
+  Split split;
+};
+
+template <bool kMxu, int V, int NPER, int U, int MINB, typename T>
+int launch_kernel(const HopArgs& a, int lanes, cudaStream_t stream) {
+  int log_lanes = 0;
+  while ((1 << log_lanes) < lanes) ++log_lanes;
+  const int64_t threads =
+      (static_cast<int64_t>(a.split.num_chunks) + a.num_rows) * lanes;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned int>(blocks), grandtpu::kWarpsPerBlock * 32,
-           0, stream>>>(indptr, indices, edge, q, col_scale,
-                        static_cast<T*>(y), static_cast<T*>(acc), num_rows,
-                        num_features, scale, accumulate, split);
+  csr_spmm_q8_hop_kernel<kMxu, V, NPER, U, MINB, T>
+      <<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
+          a.indptr, a.indices, a.edge, a.q, a.col_scale,
+          static_cast<T*>(a.y), static_cast<T*>(a.acc), a.num_rows,
+          a.num_features, a.scale, a.accumulate, lanes, log_lanes, a.split);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMxu, typename T>
+int launch(const HopArgs& a, const Config& c, cudaStream_t stream) {
+#define Q8_PICK(V, N, U, M)                                              \
+  if (c.v == V && c.nper == N && c.u == U && c.minb == M) {              \
+    return launch_kernel<kMxu, V, N, U, M, T>(a, c.lanes, stream);      \
+  }
+  Q8_CONFIGS(Q8_PICK)
+#undef Q8_PICK
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The two hops' entry: the plan's arguments as csr_spmm_prop's
@@ -384,12 +566,17 @@ int hop(const int32_t* indptr, const int32_t* indices, const float* edge,
   if (num_chunks > 0 && cap < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Split split{split_rows, chunk_ptr, chunk_row, chunk_lo, num_chunks,
-                    num_chunks ? cap : 0x7fffffff, partial, counters};
-  auto fn = carry_bf16 ? launch<kMxu, __nv_bfloat16> : launch<kMxu, float>;
-  return fn(indptr, indices, edge, q, col_scale, y, acc, num_rows,
-            num_features, scale, accumulate, carry_bf16, split,
-            static_cast<cudaStream_t>(stream));
+  const HopArgs a{indptr, indices, edge, q, col_scale, y,
+                  accumulate ? acc : nullptr, num_rows, num_features, scale,
+                  accumulate,
+                  Split{split_rows, chunk_ptr, chunk_row, chunk_lo,
+                        num_chunks, num_chunks ? cap : 0x7fffffff, partial,
+                        counters}};
+  const Config c = pick_config(
+      num_features, hop_align(q, col_scale, y, a.acc, carry_bf16 ? 2 : 4));
+  auto s = static_cast<cudaStream_t>(stream);
+  return carry_bf16 ? launch<kMxu, __nv_bfloat16>(a, c, s)
+                    : launch<kMxu, float>(a, c, s);
 }
 
 }  // namespace
@@ -477,4 +664,32 @@ extern "C" int csr_spmm_q8mxu(const int32_t* indptr, const int32_t* indices,
                    num_features, scale, accumulate, carry_bf16, split_rows,
                    chunk_ptr, chunk_row, chunk_lo, num_chunks, cap, partial,
                    counters, stream);
+}
+
+// The features that the hops take as one aligned vector of these arrays
+// (hop_align; carry_bf16 as the hops'), the align_bytes of
+// csr_spmm_q8_config. The pointers are not read.
+extern "C" int csr_spmm_q8_align(const void* q, const void* col_scale,
+                                 const void* y, const void* acc,
+                                 int carry_bf16) {
+  return hop_align(static_cast<const int8_t*>(q),
+                   static_cast<const float*>(col_scale), y, acc,
+                   carry_bf16 ? 2 : 4);
+}
+
+// The launch configuration the hops pick for F features when the arrays
+// take `align_bytes` features as one aligned vector (hop_align: 16 for
+// fresh allocations): out[0..4] = lanes a row, V, NPER, U, MINB.
+extern "C" int csr_spmm_q8_config(int num_features, int align_bytes,
+                                  int* out) {
+  if (num_features < 1 || align_bytes < 1 || out == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Config c = pick_config(num_features, align_bytes);
+  out[0] = c.lanes;
+  out[1] = c.v;
+  out[2] = c.nper;
+  out[3] = c.u;
+  out[4] = c.minb;
+  return 0;
 }

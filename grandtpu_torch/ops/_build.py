@@ -62,6 +62,10 @@ _SIGNATURES = {
                    + [_I, _I, _P, _P, _P],
     "csr_spmm_q8mxu": [_P] * 7 + [_I, _I, ctypes.c_float, _I, _I]
                       + [_P] * 4 + [_I, _I, _P, _P, _P],
+    # num_features, align_bytes, out[5]
+    "csr_spmm_q8_config": [_I, _I, _P],
+    # q, col_scale, y, acc (may be null), carry_bf16
+    "csr_spmm_q8_align": [_P] * 4 + [_I],
     # table | grad, attr_cols, attr_vals, tk_cols, tk_vals, keep, drop,
     # out | dtable, rows, ktop, P, H, num_aug, keep_prob, vocab_lo,
     # vocab_hi, stream

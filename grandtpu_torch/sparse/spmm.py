@@ -53,6 +53,7 @@ rows that span several of its edge runs).
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -503,6 +504,62 @@ def quantize_columns(x: torch.Tensor):
     out = _quantize_launch(x, _absmax_launch(x))
     quantize_columns.launches += 1
     return out
+
+
+class Q8HopConfig(NamedTuple):
+    """A launch configuration of the int8 hops (``csr_spmm_q8.cu``): a
+    group of ``lanes`` lanes takes a row; each lane owns ``nper`` vectors
+    of ``v`` neighbouring int8 features of each tile of
+    ``lanes * nper * v`` features; ``u`` edges are gathered before their
+    terms are added; ``minb`` blocks of 256 threads an SM."""
+    lanes: int
+    v: int
+    nper: int
+    u: int
+    minb: int
+
+
+# csr_spmm_q8.cu's pick_config: (nper, u, minb) for each vector width
+_Q8_WIDTH_CONFIGS = {16: (1, 4, 4), 8: (1, 8, 4), 4: (2, 8, 4),
+                     2: (2, 8, 4), 1: (4, 8, 3)}
+
+
+def q8_hop_config(num_features: int, align_bytes: int) -> Q8HopConfig:
+    """The configuration the K2-q8 and K2-q8mxu kernels launch with for
+    ``num_features`` features when their arrays take ``align_bytes``
+    features as one aligned vector (:func:`q8_hop_align`): the widest
+    vector (16 bytes at most) that divides both, that width's
+    ``(nper, u, minb)``, and the fewest lanes (a power of two up to 32)
+    whose vectors cover a row. Mirrors ``csr_spmm_q8.cu::pick_config``
+    (``csr_spmm_q8_config`` reports the kernel's own)."""
+    if num_features < 1 or align_bytes < 1:
+        raise ValueError("q8_hop_config: num_features and align_bytes must "
+                         "be positive")
+    v = 16
+    while v > 1 and (num_features % v or align_bytes % v):
+        v //= 2
+    nper, u, minb = _Q8_WIDTH_CONFIGS[v]
+    vecs = -(-num_features // v)
+    lanes = 1
+    while lanes < 32 and lanes * nper < vecs:
+        lanes *= 2
+    return Q8HopConfig(lanes, v, nper, u, minb)
+
+
+def q8_hop_align(q: torch.Tensor, col_scale: torch.Tensor,
+                 cur_out: torch.Tensor, acc: torch.Tensor | None) -> int:
+    """The features (16 at most) that the int8 hop's arrays all take as
+    one aligned vector: ``q`` aligned to that many bytes, the carries and
+    the scales to that many elements or 16 bytes. Mirrors
+    ``csr_spmm_q8.cu::hop_align``."""
+    carry = cur_out.element_size()
+    for v in (16, 8, 4, 2):
+        cb, sb = min(v * carry, 16), min(v * 4, 16)
+        if (q.data_ptr() % v == 0 and col_scale.data_ptr() % sb == 0
+                and cur_out.data_ptr() % cb == 0
+                and (acc is None or acc.data_ptr() % cb == 0)):
+            return v
+    return 1
 
 
 def _q8_args(name, op, q, col_scale, cur_out, acc, accumulate, row_val):

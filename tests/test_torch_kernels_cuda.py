@@ -22,12 +22,19 @@ shapes at k 64 and 1024; for K2 and K2-bf16 split hub rows (20,000 and
 150,000 nonzeros beside empty rows) at F 1, 33, 64, 100 and 602, both
 carry types, with and without accumulate, against the plain version (which
 follows the same split plan) and the unsplit hop, and for K2-q8 and
-K2-q8mxu the same hub rows at F 1, 33, 100 and 128 bit for bit their plain
-versions (K2-q8mxu's split hop bit for bit its unsplit one); for K2-seg (coo_spmm), D1's halo_pack and halo_hop (each
+K2-q8mxu the same hub rows at F 1, 16, 33, 64, 100, 128 and 602 (every
+vector width of their lane groups, and several tiles) bit for bit their
+plain versions (K2-q8mxu's split hop bit for bit its unsplit one), the
+unsplit hops and misaligned views at those widths, rows shorter than the
+kernels' batch of edges and split rows whose last chunk is, and the
+Python mirrors of their configuration choice and alignment rule against
+the kernels' own; for
+K2-seg (coo_spmm), D1's halo_pack and halo_hop (each
 form) and the quantize split (column_absmax, quantize_with_amax) 4-wide and
 1-wide lanes, a 9000-nonzero hub row, empty rows and an empty shard.
 """
 
+import ctypes
 import functools
 
 import numpy as np
@@ -45,7 +52,10 @@ from grandtpu_torch.nn.sparse_input import (embed_prop, embed_prop_backward,
                                             embed_prop_plain,
                                             embed_prop_window,
                                             embed_prop_window_backward)
-from grandtpu_torch.sparse.spmm import (CSROperator, quantize_columns,
+from grandtpu_torch.ops._build import load_kernels
+from grandtpu_torch.sparse.spmm import (CSROperator, Q8HopConfig,
+                                        q8_hop_align, q8_hop_config,
+                                        quantize_columns,
                                         quantize_columns_plain,
                                         row_values_if_constant,
                                         spmm_prop_step, spmm_prop_step_bf16,
@@ -419,9 +429,15 @@ def _split_operator_rows_constant():
     return sp.csr_matrix((vals, adj.indices, adj.indptr), shape=adj.shape)
 
 
+# The int8 hops' widths: every vector width of csr_spmm_q8.cu's lane
+# groups (V 16 at 16, 64, 128; 4 at 100; 2 at 602; 1 at 1 and 33) and its
+# walk over several tiles (602)
+INT8_WIDTHS = [1, 16, 33, 64, 100, 128, 602]
+
+
 @pytest.mark.parametrize("kernel", ["q8", "q8mxu"])
 @pytest.mark.parametrize("carry", ["f32", "bf16"])
-@pytest.mark.parametrize("nfeat", [1, 33, 100, 128])
+@pytest.mark.parametrize("nfeat", INT8_WIDTHS)
 @pytest.mark.parametrize("accumulate", [True, False])
 def test_split_int8_hops_match_plain(device, kernel, carry, nfeat,
                                      accumulate):
@@ -471,13 +487,118 @@ def test_split_int8_hops_match_plain(device, kernel, carry, nfeat,
             assert torch.equal(g, w)
 
 
+def _short_rows_operator(rows_constant):
+    """3,000 rows of 0 to 9 nonzeros (U = 8 edges a batch: rows shorter
+    than one batch, one batch, one and a bit) and four rows above a cap of
+    64 whose last chunks hold 3, 7, 64 and 1 edges; the values varied, or
+    1 / the row's nonzeros."""
+    n = 3000
+    rs = np.random.RandomState(11)
+    deg = np.arange(n) % 10
+    deg[[5, 17, 29, 41]] = [64 * 3 + 3, 64 * 2 + 7, 64 * 2, 65]
+    rows = np.repeat(np.arange(n), deg)
+    cols = np.concatenate([rs.choice(n, d, replace=False) for d in deg])
+    vals = (np.repeat(1.0 / np.maximum(deg, 1), deg) if rows_constant
+            else rs.uniform(0.1, 1.0, rows.size))
+    return sp.csr_matrix((vals.astype(np.float32), (rows, cols)),
+                         shape=(n, n))
+
+
+@pytest.mark.parametrize("kernel", ["q8", "q8mxu"])
+@pytest.mark.parametrize("carry", ["f32", "bf16"])
+@pytest.mark.parametrize("nfeat", [16, 100, 128])
+def test_int8_hops_on_short_rows_and_chunks(device, kernel, carry, nfeat):
+    """Rows shorter than the kernels' batch of U edges and split rows whose
+    last chunk is shorter than U: bit for bit the plain version (which
+    follows the same plan), one launch a hop, and K2-q8mxu's split hop bit
+    for bit its unsplit one."""
+    adj = _short_rows_operator(kernel == "q8mxu")
+    op = CSROperator.from_scipy(adj, device, split_cap=64)
+    assert op.plan is not None and op.plan.rows.tolist() == [5, 17, 29, 41]
+    rs = np.random.RandomState(nfeat)
+    x = torch.tensor(rs.randn(adj.shape[0], nfeat).astype(np.float32),
+                     device=device)
+    acc0 = _carry(torch.tensor(rs.randn(adj.shape[0], nfeat)
+                               .astype(np.float32), device=device), carry)
+    q, scale = quantize_columns_plain(x)
+    rv = row_values_if_constant(adj)
+    row_val = None if kernel == "q8" else torch.tensor(rv, device=device)
+    wrapper, plain = ((spmm_prop_step_q8, spmm_prop_step_q8_plain)
+                      if kernel == "q8" else
+                      (spmm_prop_step_q8mxu, spmm_prop_step_q8mxu_plain))
+
+    def hop(fn, o):
+        out, acc = torch.empty_like(acc0), acc0.clone()
+        args = (q, scale) if row_val is None else (q, scale, row_val)
+        fn(o, *args, out, acc, 0.8, True)
+        return out, acc
+
+    before = wrapper.launches
+    got = hop(wrapper, op)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    for g, w in zip(got, hop(plain, op)):
+        assert torch.equal(g, w), int((g != w).sum())
+    assert float(got[0][0].float().abs().max()) == 0.0     # an empty row
+    if kernel == "q8mxu":
+        whole = CSROperator.from_scipy(adj, device, split_cap=adj.nnz)
+        for g, w in zip(got, hop(wrapper, whole)):
+            assert torch.equal(g, w)
+
+
+def test_q8_hop_config_matches_the_kernel(device):
+    """sparse/spmm.py's q8_hop_config against the kernels' own choice
+    (csr_spmm_q8_config) for every F in 1..1100 and alignment."""
+    lib = load_kernels()
+    out = (ctypes.c_int * 5)()
+    for nfeat in range(1, 1101):
+        for align in (1, 4, 8, 16):
+            assert lib.csr_spmm_q8_config(nfeat, align, out) == 0
+            assert Q8HopConfig(*out) == q8_hop_config(nfeat, align), (
+                nfeat, align)
+    assert lib.csr_spmm_q8_config(0, 16, out) != 0
+
+
+@pytest.mark.parametrize("carry", [torch.float32, torch.bfloat16])
+def test_q8_hop_align_matches_the_kernel(device, carry):
+    """sparse/spmm.py's q8_hop_align against the kernels' own alignment
+    rule (csr_spmm_q8_align) on views of q, the scales and the carries at
+    every offset that changes it, acc given or not."""
+    lib = load_kernels()
+
+    def at(numel, dtype, offset):
+        flat = torch.empty(numel + 64, dtype=dtype, device=device)
+        skip = (-flat.data_ptr() % 64) // flat.element_size() + offset
+        return flat[skip:skip + numel]
+
+    bf16 = int(carry == torch.bfloat16)
+    for q_off in range(17):
+        q = at(256, torch.int8, q_off)
+        for s_off in range(5):
+            scale = at(16, torch.float32, s_off)
+            for y_off in range(9):
+                y = at(256, carry, y_off)
+                for acc in (None, at(256, carry, 0), at(256, carry, 3)):
+                    got = lib.csr_spmm_q8_align(
+                        ctypes.c_void_p(q.data_ptr()),
+                        ctypes.c_void_p(scale.data_ptr()),
+                        ctypes.c_void_p(y.data_ptr()),
+                        None if acc is None else ctypes.c_void_p(
+                            acc.data_ptr()), bf16)
+                    assert got == q8_hop_align(q, scale, y, acc), (
+                        q_off, s_off, y_off)
+
+
 def _assert_hop_matches(got, want, kernel, carry):
     """A hop's carry against the plain version's. The plain versions add
     in the kernels' order, so a hop whose terms round as the plain's do
     (every kernel but K2's fused multiply-add) is bit for bit the same with
-    bf16 carries; K2 with bf16 carries stays within one bf16 ulp of
-    max |plain| (2^-8) with at most 1e-3 of the elements different. f32
-    carries: TOL (1e-6 for K2-q8mxu, whose int32 sums are exact)."""
+    bf16 carries, and the int8 hops with f32 carries too; K2 with bf16
+    carries stays within one bf16 ulp of max |plain| (2^-8) with at most
+    1e-3 of the elements different. f32 carries of K2 and K2-bf16: TOL."""
+    if kernel in ("q8", "q8mxu"):
+        assert torch.equal(got, want), int((got != want).sum())
+        return
     if carry == "f32":
         limit = 1e-6 if kernel == "q8mxu" else TOL
         assert _rel_err(got, want) <= limit, (_rel_err(got, want), limit)
@@ -510,7 +631,8 @@ def test_quantize_columns_kernel_matches_plain(device, n, nfeat, dtype):
 @pytest.mark.parametrize("kernel", ["f32", "bf16", "q8", "q8mxu"])
 @pytest.mark.parametrize("carry", ["f32", "bf16"])
 @pytest.mark.parametrize("n,nfeat", [(1, 5), (300, 33), (9500, 100),
-                                     (9500, 1)])
+                                     (9500, 1), (9500, 16), (9500, 64),
+                                     (9500, 128), (9500, 602)])
 @pytest.mark.parametrize("accumulate", [True, False])
 def test_fast_precision_hops_match_plain(device, kernel, carry, n, nfeat,
                                          accumulate):
@@ -553,6 +675,22 @@ def test_fast_precision_hops_match_plain(device, kernel, carry, n, nfeat,
         _assert_hop_matches(got, want, kernel, carry)
     if n > 5:
         assert float(out_k[5].float().abs().max()) == 0.0   # the empty row
+    if kernel in ("q8", "q8mxu"):
+        _assert_int8_hop_repeats(wrapper, op, q, scale, norm, accumulate,
+                                 out_k, acc_k, acc0)
+
+
+def _assert_int8_hop_repeats(wrapper, op, q, scale, norm, accumulate,
+                             out_k, acc_k, acc0):
+    """A second launch of an int8 hop on the same inputs gives the same
+    bits."""
+    out, acc = torch.empty_like(out_k), acc0.clone()
+    args = ((q, scale) if wrapper is spmm_prop_step_q8 else
+            (q, scale, torch.tensor(row_values_if_constant(norm),
+                                    device=q.device)))
+    wrapper(op, *args, out, acc, 0.8, accumulate)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_k) and torch.equal(acc, acc_k)
 
 
 def _misaligned(t):
@@ -567,14 +705,15 @@ def _misaligned(t):
 @pytest.mark.parametrize("kernel", ["f32", "bf16", "q8", "q8mxu",
                                     "quantize"])
 @pytest.mark.parametrize("carry", ["f32", "bf16"])
-def test_hops_on_misaligned_views_match_plain(device, kernel, carry):
+@pytest.mark.parametrize("nfeat", INT8_WIDTHS)
+def test_hops_on_misaligned_views_match_plain(device, kernel, carry, nfeat):
     rs = np.random.RandomState(6)
     norm, varied = _hop_operator(300)
     op = CSROperator.from_scipy(norm if kernel == "q8mxu" else varied,
                                 device)
-    x = _carry(torch.tensor(rs.randn(300, 100).astype(np.float32),
+    x = _carry(torch.tensor(rs.randn(300, nfeat).astype(np.float32),
                             device=device), carry)
-    acc0 = _carry(torch.tensor(rs.randn(300, 100).astype(np.float32),
+    acc0 = _carry(torch.tensor(rs.randn(300, nfeat).astype(np.float32),
                                device=device), carry)
     if kernel == "quantize":
         q, scale = quantize_columns(_misaligned(x))
@@ -589,17 +728,24 @@ def test_hops_on_misaligned_views_match_plain(device, kernel, carry):
         spmm_prop_step_plain(op, x, out_p, acc_p, 0.8, True, kernel)
     else:
         q, scale = quantize_columns_plain(x)
+        q_view = _misaligned(q)
+        wrapper = spmm_prop_step_q8 if kernel == "q8" else spmm_prop_step_q8mxu
+        before = wrapper.launches
         if kernel == "q8":
-            spmm_prop_step_q8(op, _misaligned(q), scale, out_k, acc_k, 0.8,
-                              True)
+            spmm_prop_step_q8(op, q_view, scale, out_k, acc_k, 0.8, True)
             spmm_prop_step_q8_plain(op, q, scale, out_p, acc_p, 0.8, True)
         else:
             row_val = torch.tensor(row_values_if_constant(norm),
                                    device=device)
-            spmm_prop_step_q8mxu(op, _misaligned(q), scale, row_val, out_k,
-                                 acc_k, 0.8, True)
+            spmm_prop_step_q8mxu(op, q_view, scale, row_val, out_k, acc_k,
+                                 0.8, True)
             spmm_prop_step_q8mxu_plain(op, q, scale, row_val, out_p, acc_p,
                                        0.8, True)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        _assert_int8_hop_repeats(wrapper, op, q_view, scale, norm, True,
+                                 out_k.clone(), acc_k.clone(),
+                                 _misaligned(acc0))
     torch.cuda.synchronize()
     for got, want in ((out_k, out_p), (acc_k, acc_p)):
         _assert_hop_matches(got, want, kernel, carry)
