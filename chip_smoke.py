@@ -95,7 +95,15 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     picked, the device time beside the CUDA events' and the floor their
     gathers set (nnz rows of q, as bytes and as 32-byte sectors), and the
     int8 hop's two streams alone: its carries (``torch.add``) and its
-    gathers of q's rows (``index_select``), each with its rate;
+    gathers of q's rows (``index_select``), each with its rate. The int8
+    hops also raise their column maxima (``amax_out``), each hop's held bit
+    for bit to ``column_absmax`` of the y it stored, and every hop's
+    quantize but the first runs as the one launch of
+    ``quantize_with_amax`` on those maxima, bit for bit the plain
+    quantize; quantize is timed in both forms (the first hop's full
+    ``quantize_columns``, the later hops' ``quantize_with_amax``), the
+    int8 hops with and without ``amax_out``, and the whole int8 and
+    int8cast 6-hop runs;
 7.  precision sweep, on the operators 3d built: ``order`` hops timed for
     f32, bf16, int8 (K2-q8mxu), int8cast (K2-q8) and bf16 carries, each
     with its error against f32 and its peak memory; then ``calibrate()``
@@ -110,8 +118,9 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
 5c. main path: ``train()`` with the Amazon2M preset, 2 epochs,
     ``predict_precision="auto"`` (which resolves to int8, so K2-q8mxu),
     counters set to 0 just before; losses finite, K1 launched for every
-    step and eval, quantize and K2-q8mxu exactly ``order`` times each, the
-    f32 K2 not at all;
+    step and eval, K2-q8mxu exactly ``order`` times, ``quantize_columns``
+    once (the first hop) and ``quantize_with_amax`` ``order - 1`` times,
+    the f32 K2 not at all;
 6c. profile of the Amazon2M main path;
 3f. (after 7) P2 as in 3e with the Amazon2M preset's push (rmax 1e-6, the
     deepest of the presets) from the 12,350 sources of its ``train()``,
@@ -120,20 +129,26 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
 5d. the Amazon2M ``train()`` of 5c with ``push_backend="bucket"`` and a
     checkpoint directory: the P2 kernels and the top-k launch, the 5c
     checks hold, preprocess_time printed beside 5c's (native);
-3g. (after 7, on 3d's graph) K2-seg: 6 ppr hops of ``spmm_segment``
-    against its plain version, one at a time on a shared input (<= 1e-5:
-    a row over several edge runs adds with atomics), the
+3g. (after 7, on 3d's graph) K2-seg: 6 fused ppr hops of
+    ``spmm_segment_prop_step`` (one launch a hop, the update in its
+    epilogue) against its plain version, one at a time on a shared input
+    (rows under the split cap bit for bit, all rows <= 1e-5), and the
+    bare product ``spmm_segment`` bit for bit; the
     ``Propagator(backend="segment")`` run as a path (K2-seg exactly
-    ``order`` launches) against the csr backend's f32 run (<= 1e-5), its
-    peak device memory against the csr run's, and kernel / plain / library
-    (``torch.sparse.mm`` on the coalesced COO) times with the bound;
+    ``order`` launches, nothing else) against the csr backend's f32 run
+    (<= 1e-5), its peak device memory against the csr run's; the fused
+    hop's, the bare product's and the whole run's times, the hop's plain
+    time, the library's (``torch.sparse.mm`` on the coalesced COO, A x
+    only) and the bounds (the fused hop: 12 e_pad + 16 n F bytes);
 8.  D1, row-partitioned propagation on a 4-shard mesh on the one card
     (``make_mesh(4, devices=[cuda:0] * 4)``): ``dist_exact_propagate``
     all_gather in f32, bf16 and int8 and halo (``halo_threshold=1.0``) in
-    f32 and int8, and ``sharded_propagate`` (K2-seg) in f32, each a path of
-    its own with exact launch counts (order x 4 of its hop kernel, and of
-    ``column_absmax``/``quantize_with_amax``/``halo_pack`` where the form
-    runs them), each against its own plain run on the card (<= 1e-5 f32
+    f32 and int8, and ``sharded_propagate`` (K2-seg, one fused launch a
+    shard and hop) in f32, each a path of its own with exact launch
+    counts (order x 4 of its hop kernel, and of ``quantize_with_amax``,
+    ``halo_pack`` and the halo's ``column_absmax`` where the form runs
+    them; the all_gather int8 run's ``column_absmax`` once a shard, at its
+    first hop), each against its own plain run on the card (<= 1e-5 f32
     and bf16 terms, 5e-3 int8) and against the one-card ``Propagator`` at
     the same precision (f32 <= 1e-5; the fast forms within the 5e-3 gate
     of f32); then the halo kernels', the quantize split's and the
@@ -157,13 +172,16 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     for bit its plain version on the same q, and K2-q8mxu's split hop bit
     for bit its unsplit one (int32 sums); whole 5-hop ppr runs at f32,
     bf16, int8 (K2-q8mxu) and int8cast (K2-q8) as one path (each hop
-    kernel exactly 5 launches, quantize 10) against their plain runs
+    kernel exactly 5 launches, quantize_columns 2 and quantize_with_amax
+    8) against their plain runs
     (<= 1e-5), each run's error against the f32 run printed beside the
     5e-3 gate (reported, not gated); the split hops' times beside the
     unsplit hops' (K2, K2-bf16, K2-q8, K2-q8mxu) and quantize's, the
     plain, ``torch.sparse.mm`` (K2) and the bounds, the gathered bytes
     (for K2-q8 and K2-q8mxu also the configuration, device time and
-    sectors, as in 3d),
+    sectors, as in 3d), one fused K2-seg hop on the skew graph's operator
+    as row-sorted COO, split by its own plan, against its plain version
+    (rows under the cap bit for bit, <= 1e-5) with its time,
     the split rows and chunks, the host seconds of the graph, the
     operator and the plan.
 3k. (after 3j) P2 on 3j's skew graph with the Amazon2M preset's push (ppr
@@ -183,7 +201,8 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     is removed at the end; with ``GRANDTPU_DATA_DIR`` pointing there,
     ``train()`` with the Amazon2M preset (full width, 1 epoch, ``auto``,
     a checkpoint directory) as a path: it loads the files, ``auto``
-    resolves to int8, quantize and K2-q8mxu launch ``order`` times each,
+    resolves to int8, K2-q8mxu launches ``order`` times and quantize as
+    in 5c,
     every K2-q8mxu hop on a split plan; then ``python -m
     grandtpu_torch.cli.main predict --preset Amazon2M --ckpt <its
     best.npz>`` at f32, int8 and auto, each in a child process with its
@@ -291,8 +310,9 @@ from grandtpu_torch.ppr.dense_push import (dense_push_mask,
                                            dense_push_mask_plain)
 from grandtpu_torch.ppr.native import gfpush_native
 from grandtpu_torch.ppr.push_topk import push_topk, push_topk_plain
-from grandtpu_torch.sparse.spmm import (CSROperator, Q8HopConfig,
-                                        SplitPlan, column_absmax,
+from grandtpu_torch.sparse.spmm import (CSROperator, PaddedCSR,
+                                        Q8HopConfig, SplitPlan,
+                                        column_absmax,
                                         column_absmax_plain, quantize_columns,
                                         quantize_columns_plain,
                                         quantize_with_amax,
@@ -303,7 +323,9 @@ from grandtpu_torch.sparse.spmm import (CSROperator, Q8HopConfig,
                                         spmm_prop_step_q8_plain,
                                         spmm_prop_step_q8mxu,
                                         spmm_prop_step_q8mxu_plain,
-                                        spmm_segment, spmm_segment_plain)
+                                        spmm_segment, spmm_segment_plain,
+                                        spmm_segment_prop_step,
+                                        spmm_segment_prop_step_plain)
 from grandtpu_torch.train import train
 from grandtpu_torch.train.step import (StepConfig, build_train_step,
                                        make_optimizer)
@@ -843,9 +865,11 @@ def check_hub_graph() -> dict:
             "int8": prop(x, precision="int8", **kw),
             "int8cast": prop(x, precision="int8cast", **kw)}
     launches = _read_counts()
+    # two int8 runs: one full quantize each, then HUB_ORDER - 1 on the
+    # maxima of the hop before
     want = {"csr_spmm_prop": HUB_ORDER, "csr_spmm_prop_bf16": HUB_ORDER,
-            "quantize_columns": 2 * HUB_ORDER, "csr_spmm_q8mxu": HUB_ORDER,
-            "csr_spmm_q8": HUB_ORDER}
+            "quantize_columns": 2, "quantize_with_amax": 2 * (HUB_ORDER - 1),
+            "csr_spmm_q8mxu": HUB_ORDER, "csr_spmm_q8": HUB_ORDER}
     bad = {k: v for k, v in launches.items() if v != want.get(k, 0)}
     if bad:
         raise AssertionError(f"[3j] ppr runs launched {bad}, want {want}")
@@ -910,7 +934,56 @@ def check_hub_graph() -> dict:
                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by, **gathers)
     out["int8"] = _hub_int8_times(op, whole, x0, q, q_scale, row_val, scale)
+    out["segment"] = _hub_segment(op, x0, scale)
     return out
+
+
+def _hub_segment(op, x0, scale: float) -> dict:
+    """3j's K2-seg form: the skew operator as row-sorted COO (its split
+    plan from the row counts, as the segment backend builds it), one fused
+    hop against its plain version (bit for bit on the rows under the cap,
+    <= TOL on the split ones), and its time beside its bound."""
+    n, nfeat = op.num_rows, x0.shape[1]
+    deg = op.indptr[1:] - op.indptr[:-1]
+    rows = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=DEV), deg.long())
+    padded = PaddedCSR(rows, op.indices, op.values, n, chunk=1,
+                       row_counts=deg.cpu().numpy())
+    plan = padded.plan
+    if plan is None:
+        raise AssertionError("[3j] K2-seg's operator split no row")
+    acc0 = x0.flip(0).contiguous()
+    got, want = (torch.empty_like(x0), acc0.clone()), (torch.empty_like(x0),
+                                                       acc0.clone())
+    spmm_segment_prop_step(padded, x0, *got, scale, True)
+    torch.cuda.synchronize(DEV)
+    spmm_segment_prop_step_plain(padded, x0, *want, scale, True)
+    under = torch.ones(n, dtype=torch.bool, device=DEV)
+    under[plan.rows.long()] = False
+    err = max(_errors(got[0], want[0]), _errors(got[1], want[1]),
+              key=lambda e: e[1])
+    differ = sum(int((g[under] != w[under]).sum()) for g, w in zip(got, want))
+    del got, want, acc0
+    y, acc = torch.empty_like(x0), x0.clone()
+    ms = _time_ms(lambda: spmm_segment_prop_step(padded, x0, y, acc, scale,
+                                                 True), 30)
+    plain_ms = _time_ms(lambda: spmm_segment_prop_step_plain(
+        padded, x0, y, acc, scale, True), 3, warmup=1)
+    nbytes = 12 * op.nnz + 16 * n * nfeat
+    bound_ms, bound_by = _bound(nbytes, 2 * op.nnz * nfeat + 2 * n * nfeat)
+    print(f"[3j] coo_spmm fused hop, split ({plan.rows.numel()} rows, "
+          f"{plan.num_chunks} chunks of at most {plan.cap} edges): against "
+          f"its plain version max_abs_err {err[0]} max_rel_err {err[1]} "
+          f"(limit {TOL}), elements of rows under the cap differing {differ} "
+          f"(limit 0); ms {ms} plain_ms {plain_ms} bound_ms {bound_ms} "
+          f"({bound_by}, {nbytes / 1e9:.3f} GB)", flush=True)
+    if not (err[1] <= TOL and differ == 0):
+        raise AssertionError(f"[3j] coo_spmm disagrees with its plain "
+                             f"version: {err[1]}, {differ} differ")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err[0],
+            "max_rel_err": err[1], "elements_differing_under_cap": differ,
+            "split_rows": int(plan.rows.numel()), "chunks": plan.num_chunks}
 
 
 def _hub_int8_times(op, whole, x0, q, q_scale, row_val, scale) -> dict:
@@ -1152,29 +1225,47 @@ def _ppr_hop_by_hop(hop, plain_hop, x0, order: int, quantize: bool):
     """``order`` ppr hops of ``hop`` against ``plain_hop`` on a shared
     input: at each hop both take the plain run's carries (and, for the int8
     hops, its quantized input), so one hop's rounding does not carry into
-    the next. Returns the max (abs, rel) error over the hops' outputs and
-    accumulators, the count of their elements that differ, and the count
-    of q elements that differ."""
+    the next. The int8 kernel hops also raise their column maxima
+    (``amax_out``, a pair of buffers as the Propagator's), each held bit for
+    bit to ``column_absmax`` of the y the hop stored, and the quantize of
+    each hop but the first runs in its one-launch form on that y and those
+    maxima (zeroing the other buffer), held bit for bit to the plain
+    quantize of that y. Returns the max (abs, rel) error over the hops'
+    outputs and accumulators, the count of their elements that differ, and
+    the count of q, scale and maxima elements that differ."""
     cur_in, acc = x0, x0.clone()
     worst, differ, q_diff = (0.0, 0.0), 0, 0
-    for _ in range(order):
-        args = (cur_in,)
+    pair = torch.zeros((2, x0.shape[1]), device=x0.device)
+    prev_y = None
+    for t in range(order):
+        args, extra = (cur_in,), ()
         if quantize:
-            q, scale = quantize_columns(cur_in)
-            q_p, scale_p = quantize_columns_plain(cur_in)
+            if prev_y is None:
+                y_in = cur_in
+                q, scale = quantize_columns(y_in)
+            else:
+                y_in = prev_y
+                q, scale = quantize_with_amax(y_in, pair[(t - 1) % 2],
+                                              pair[t % 2])
+            q_p, scale_p = quantize_columns_plain(y_in)
             torch.cuda.synchronize(DEV)
             q_diff += int((q != q_p).sum()) + int((scale != scale_p).sum())
-            args = (q_p, scale_p)
+            q_diff += int(pair[t % 2].count_nonzero())   # zeroed
+            args, extra = quantize_columns_plain(cur_in), (pair[t % 2],)
+            del q, q_p
         out_k, acc_k = torch.empty_like(cur_in), acc.clone()
         out_p, acc_p = torch.empty_like(cur_in), acc.clone()
-        hop(*args, out_k, acc_k)
+        hop(*args, out_k, acc_k, *extra)
         torch.cuda.synchronize(DEV)
         plain_hop(*args, out_p, acc_p)
         for got, want in ((out_k, out_p), (acc_k, acc_p)):
             e = _errors(got.float(), want.float())
             worst = (max(worst[0], e[0]), max(worst[1], e[1]))
             differ += int((got != want).sum())
-        del out_k, acc_k
+        if quantize:
+            q_diff += int((pair[t % 2] != column_absmax(out_k)).sum())
+            prev_y = out_k
+        del acc_k
         cur_in, acc = out_p, acc_p
     return worst, differ, q_diff
 
@@ -1229,12 +1320,12 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
     forms = {
         "bf16": (*k2_hop("bf16"), x0, False, TOL),
         "bf16_carry": (*k2_hop("bf16"), x0_b, False, 0.0),
-        "q8": (lambda q, s, co, ac: spmm_prop_step_q8(op, q, s, co, ac,
-                                                      scale, True),
+        "q8": (lambda q, s, co, ac, am=None: spmm_prop_step_q8(
+                   op, q, s, co, ac, scale, True, am),
                lambda q, s, co, ac: spmm_prop_step_q8_plain(
                    op, q, s, co, ac, scale, True), x0, True, TOL),
-        "q8mxu": (lambda q, s, co, ac: spmm_prop_step_q8mxu(
-                      op, q, s, row_val, co, ac, scale, True),
+        "q8mxu": (lambda q, s, co, ac, am=None: spmm_prop_step_q8mxu(
+                      op, q, s, row_val, co, ac, scale, True, am),
                   lambda q, s, co, ac: spmm_prop_step_q8mxu_plain(
                       op, q, s, row_val, co, ac, scale, True), x0, True,
                   1e-6),
@@ -1252,14 +1343,15 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
               f"one at a time on a shared input: max_abs_err "
               f"{errs[form][0]} max_rel_err {errs[form][1]} (limit {limit}), "
               f"elements differing {differ}"
-              + (f", quantize q/scale elements differing {qd}"
-                 if quantize else ""), flush=True)
+              + (f", quantize q/scale/maxima elements differing {qd} "
+                 "(the later hops' quantize on the maxima the hop before "
+                 "raised)" if quantize else ""), flush=True)
         if not errs[form][1] <= limit:
             raise AssertionError(f"{form} disagrees with its plain version: "
                                  f"{errs[form][1]} > {limit}")
     if q_diff:
-        raise AssertionError(f"quantize_columns differs from its plain "
-                             f"version in {q_diff} elements")
+        raise AssertionError(f"the quantize or the hops' maxima differ from "
+                             f"their plain versions in {q_diff} elements")
 
     # whole runs of `order` hops: each kernel run against the plain run of
     # the same precision (flips carry from hop to hop, so the fast-path
@@ -1303,6 +1395,9 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
     y, acc = torch.empty_like(x), torch.zeros_like(x)
     y_b, acc_b = torch.empty_like(x0_b), torch.zeros_like(x0_b)
     q, q_scale = quantize_columns(x0)
+    amax = column_absmax(x0)
+    # the maxima a hop raises, and the buffer the next quantize zeroes
+    pair = torch.zeros((2, nfeat), device=DEV)
     struct = 4 * (n + 1) + 4 * nnz
     k2_bytes = 4 * n * nfeat * 4 + 8 * nnz + 4 * (n + 1)
     carry_bytes = 4 * n * nfeat * 2 + 8 * nnz + 4 * (n + 1)
@@ -1337,6 +1432,13 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
         "quantize_columns": (
             lambda: quantize_columns(x0), lambda: quantize_columns_plain(x0),
             None, n * nfeat * 5 + nfeat * 4, 3 * n * nfeat),
+        # the later hops' quantize: one launch on the maxima the hop before
+        # raised (amax read, x read, q and the scales written, the next
+        # buffer zeroed)
+        "quantize_with_amax": (
+            lambda: quantize_with_amax(x0, amax, pair[1]),
+            lambda: quantize_with_amax_plain(x0, amax, pair[1]),
+            None, n * nfeat * 5 + nfeat * 12, 3 * n * nfeat),
         "csr_spmm_q8": (
             lambda: spmm_prop_step_q8(op, q, q_scale, y, acc, scale, True),
             lambda: spmm_prop_step_q8_plain(op, q, q_scale, y, acc, scale,
@@ -1367,11 +1469,32 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
             times[name].update(_int8_times(kernel, op, q, q_scale, y, acc,
                                            nbytes))
             gathers = "; " + _int8_line(times[name])
+            # the same hop raising its column maxima (the amax words only
+            # grow, so later launches mostly skip the atomics, as a hop of
+            # a run does after its first blocks)
+            args = (q, q_scale) + ((row_val,) if name == "csr_spmm_q8mxu"
+                                   else ())
+            fn = (spmm_prop_step_q8 if name == "csr_spmm_q8"
+                  else spmm_prop_step_q8mxu)
+            am_ms = _time_ms(lambda: fn(op, *args, y, acc, scale, True,
+                                        pair[0]), 30)
+            times[name]["amax_ms"] = am_ms
+            gathers += (f"; with amax_out ms {am_ms} "
+                        f"({am_ms / ms - 1:+.2%} against without)")
         print(f"[3d] {name} at [{n},{nfeat}], nnz {nnz}: ms {ms} plain_ms "
               f"{plain_ms} library_ms {library_ms} bound_ms {bound_ms} "
               f"({bound_by}, {nbytes / 1e9:.3f} GB){gathers}", flush=True)
     _int8_streams(op, q, acc, y)
     del y, acc, y_b, acc_b, q
+    # the whole int8 runs: one full quantize, then each later hop's
+    # quantize on the maxima the hop before raised
+    for p, name in (("int8", "csr_spmm_q8mxu"), ("int8cast", "csr_spmm_q8")):
+        run_ms = _time_ms(lambda: prop(x, precision=p, **kw), 10)
+        whole[p]["ms"] = run_ms
+        times[name]["run_ms"] = run_ms
+        print(f"[3d] whole {order}-hop {p} run ({name}): ms {run_ms} "
+              f"(with a full quantize every hop, on an H100 80GB HBM3 at "
+              f"700 W: 13.942 int8, 14.063 int8cast)", flush=True)
     t = _k2_times(op, x0, scale)
     print(f"[3d] csr_spmm_prop at [{n},{nfeat}], nnz {nnz}: {_k2_line(t)}",
           flush=True)
@@ -1387,6 +1510,9 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
                "quantize_columns": ("csr_spmm_q8.cu",
                                     "grandtpu/sparse/spmm.py:452",
                                     (0.0, 0.0)),
+               "quantize_with_amax": ("csr_spmm_q8.cu",
+                                      "grandtpu/sparse/spmm.py:452",
+                                      (0.0, 0.0)),
                "csr_spmm_q8": ("csr_spmm_q8.cu",
                                "grandtpu/sparse/spmm.py:507", errs["q8"]),
                "csr_spmm_q8mxu": ("csr_spmm_q8.cu",
@@ -1398,8 +1524,10 @@ def check_fast_kernels(ops: dict, k2: dict) -> list:
                  "source": f"grandtpu_torch/csrc/{src}", "replaces": line,
                  "max_abs_err": err[0], "max_rel_err": err[1],
                  **times[name],
-                 "shape": shape if name != "quantize_columns"
-                 else f"x [{n},{nfeat}] f32, one call (two launches)",
+                 "shape": {"quantize_columns": f"x [{n},{nfeat}] f32, one "
+                           "call (two launches: the first hop's)",
+                           "quantize_with_amax": f"x [{n},{nfeat}] f32, "
+                           "one launch (the later hops')"}.get(name, shape),
                  "whole_run": whole.get(
                      {"csr_spmm_prop_bf16": "bf16", "csr_spmm_q8": "int8cast",
                       "csr_spmm_q8mxu": "int8"}.get(name, ""))}
@@ -1922,23 +2050,32 @@ COUNTED = {"dropnode_mean": gather_and_prop, "csr_spmm_prop": spmm_prop_step,
            "bucket_hop": bucket_push.bucket_hop,
            "bucket_reserve": bucket_push.bucket_reserve,
            "push_topk": push_topk,
-           "coo_spmm": spmm_segment,
+           "coo_spmm": spmm_segment_prop_step,
            "column_absmax": column_absmax,
            "quantize_with_amax": quantize_with_amax,
            "halo_pack": halo_pack,
            "halo_hop": halo_hop}
 HOP_KERNELS = ("csr_spmm_prop", "csr_spmm_prop_bf16", "quantize_columns",
-               "csr_spmm_q8", "csr_spmm_q8mxu")
+               "quantize_with_amax", "csr_spmm_q8", "csr_spmm_q8mxu")
 # K2-seg, the quantize split and D1's kernels: none of the training paths
 # runs them
-SERVE_KERNELS = ("coo_spmm", "column_absmax", "quantize_with_amax",
-                 "halo_pack", "halo_hop")
+SERVE_KERNELS = ("coo_spmm", "column_absmax", "halo_pack", "halo_hop")
 # the hop kernels of each form a Propagator's hops run
 # (``Propagator.last_precision``; None on the dense backend)
 PRECISION_KERNELS = {
     None: set(), "f32": {"csr_spmm_prop"}, "bf16": {"csr_spmm_prop_bf16"},
-    "int8mxu": {"quantize_columns", "csr_spmm_q8mxu"},
-    "int8cast": {"quantize_columns", "csr_spmm_q8"}}
+    "int8mxu": {"csr_spmm_q8mxu"}, "int8cast": {"csr_spmm_q8"}}
+
+
+def hop_counts(precision, order: int) -> dict:
+    """The launches of a propagation of ``order`` hops in ``precision``'s
+    form: each hop kernel ``order`` times; an int8 form also one full
+    quantize (its first hop) and ``order - 1`` one-launch quantizes on the
+    maxima each hop raised for the next."""
+    want = {k: order for k in PRECISION_KERNELS[precision]}
+    if precision in ("int8mxu", "int8cast"):
+        want.update(quantize_columns=1, quantize_with_amax=order - 1)
+    return want
 
 
 def _reset_counts() -> None:
@@ -1951,15 +2088,16 @@ def _read_counts() -> dict:
 
 
 def _check_hops(launches: dict, precision, order: int) -> None:
-    """The hop kernels of ``precision``'s form launched ``order`` times
-    each, the other hop kernels and the serving ones not at all."""
-    selected = PRECISION_KERNELS[precision]
+    """The hop kernels of ``precision``'s form launched as
+    :func:`hop_counts` says, the other hop kernels and the serving ones
+    not at all."""
+    selected = hop_counts(precision, order)
     for name in HOP_KERNELS + SERVE_KERNELS:
-        want = order if name in selected else 0
+        want = selected.get(name, 0)
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times, "
                                  f"expected {want} (order={order}, "
-                                 f"selected {sorted(selected)})")
+                                 f"expected {selected})")
 
 
 def run_path(cfg, data, tag: str) -> tuple:
@@ -2130,8 +2268,9 @@ def _peak_gb(fn):
 
 def check_segment(ops: dict) -> dict:
     """Phase 3g: K2-seg at the Amazon2M shape, hop by hop against its plain
-    version; the segment Propagator as a path against the csr backend's f32
-    run, with both runs' peak memory; times and the bound."""
+    version (the fused hop and the bare product); the segment Propagator
+    as a path against the csr backend's f32 run, with both runs' peak
+    memory; times and the bounds of the hop, the product and the run."""
     cfg = preset("Amazon2M")
     adj, x, csr = ops["adj"], ops["x"], ops["f32"]
     kw = dict(mode="ppr", order=cfg.order, alpha=cfg.alpha)
@@ -2140,24 +2279,44 @@ def check_segment(ops: dict) -> dict:
                                                 device=DEV))
     build_s = time.time() - t0
     padded = seg.adj_op
+    plan = padded.plan
     n, nfeat = x.shape
     e_pad = padded.num_edges_padded
-    cur, worst = cfg.alpha * x, (0.0, 0.0)
+    scale = 1.0 - cfg.alpha
+    # rows under the split cap add in edge order as the plain version
+    # does: bit for bit; a split row's chunks too, but held at TOL
+    whole = torch.ones(n, dtype=torch.bool, device=DEV)
+    if plan is not None:
+        whole[plan.rows.long()] = False
+    cur, acc, worst, differ = cfg.alpha * x, cfg.alpha * x, (0.0, 0.0), 0
     for _ in range(cfg.order):
-        got = spmm_segment(padded, cur)
+        got_y, got_acc = torch.empty_like(cur), acc.clone()
+        spmm_segment_prop_step(padded, cur, got_y, got_acc, scale, True)
         torch.cuda.synchronize(DEV)
-        want = spmm_segment_plain(padded, cur)
-        e = _errors(got, want)
-        worst = (max(worst[0], e[0]), max(worst[1], e[1]))
-        cur = want * (1.0 - cfg.alpha)
-        del got, want
-    print(f"[3g] coo_spmm: {cfg.order} ppr hops at [{n},{nfeat}], "
-          f"{e_pad} padded edges, one at a time on a shared input: "
-          f"max_abs_err {worst[0]} max_rel_err {worst[1]} (limit {TOL})",
+        want_y, want_acc = torch.empty_like(cur), acc.clone()
+        spmm_segment_prop_step_plain(padded, cur, want_y, want_acc, scale,
+                                     True)
+        for got, want in ((got_y, want_y), (got_acc, want_acc)):
+            e = _errors(got, want)
+            worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+            differ += int((got[whole] != want[whole]).sum())
+        cur, acc = want_y, want_acc
+        del got_y, got_acc
+    bare = spmm_segment(padded, cur)
+    bare_differ = int((bare != spmm_segment_plain(padded, cur)).sum())
+    del cur, acc, bare
+    print(f"[3g] coo_spmm: {cfg.order} fused ppr hops "
+          f"(spmm_segment_prop_step) at [{n},{nfeat}], {e_pad} padded "
+          f"edges, {0 if plan is None else plan.num_chunks} chunks, one at "
+          f"a time on a shared input: max_abs_err {worst[0]} max_rel_err "
+          f"{worst[1]} (limit {TOL}), elements of rows under the split cap "
+          f"differing {differ} (limit 0: bit for bit); the bare product "
+          f"(spmm_segment) elements differing {bare_differ} (limit 0)",
           flush=True)
-    if not worst[1] <= TOL:
+    if not (worst[1] <= TOL and differ == 0 and bare_differ == 0):
         raise AssertionError(f"coo_spmm disagrees with its plain version: "
-                             f"{worst[1]} > {TOL}")
+                             f"{worst[1]} > {TOL} or {differ}, "
+                             f"{bare_differ} elements differ")
     ref, csr_gb = _peak_gb(lambda: csr(x, **kw))
     _reset_counts()
     out, seg_gb = _peak_gb(lambda: seg(x, **kw))
@@ -2178,36 +2337,59 @@ def check_segment(ops: dict) -> dict:
         raise AssertionError(f"segment path: launches {bad}, err {err}")
     del out, ref
     x0 = cfg.alpha * x
-    buf = torch.empty((n + 1, nfeat), device=DEV)
-    ms = _time_ms(lambda: spmm_segment(padded, x0, out=buf), 30)
-    plain_ms = _time_ms(lambda: spmm_segment_plain(padded, x0, out=buf), 3,
-                        warmup=1)
+    y, acc = torch.empty_like(x0), x0.clone()
+    ms = _time_ms(lambda: spmm_segment_prop_step(padded, x0, y, acc, scale,
+                                                 True), 30)
+    plain_ms = _time_ms(lambda: spmm_segment_prop_step_plain(
+        padded, x0, y, acc, scale, True), 3, warmup=1)
+    bare_ms = _time_ms(lambda: spmm_segment(padded, x0, out=y), 30)
+    run_ms = _time_ms(lambda: seg(x, **kw), 10)
     a = torch.sparse_coo_tensor(
         torch.stack([padded.rows.long(), padded.cols.long()]), padded.vals,
         (n + 1, n)).coalesce()
     library_ms = _time_ms(lambda: torch.sparse.mm(a, x0), 30)
-    del a
-    # each padded edge's 12 bytes, x read once, y [n + 1, F] written once
-    nbytes = 12 * e_pad + 4 * n * nfeat + 4 * (n + 1) * nfeat
-    bound_ms, bound_by = _bound(nbytes, 2 * csr.adj_op.nnz * nfeat)
-    print(f"[3g] coo_spmm per hop at [{n},{nfeat}]: ms {ms} plain_ms "
-          f"{plain_ms} library_ms {library_ms} (torch.sparse.mm, coalesced "
-          f"COO) bound_ms {bound_ms} ({bound_by}, {nbytes / 1e9:.3f} GB)",
-          flush=True)
+    del a, y, acc
+    flops = 2 * csr.adj_op.nnz * nfeat
+    # the fused hop: each padded edge's 12 bytes, x read, acc read, y and
+    # acc written; the bare product: x read, y written
+    nbytes = 12 * e_pad + 16 * n * nfeat
+    bound_ms, bound_by = _bound(nbytes, flops + 2 * n * nfeat)
+    bare_bytes = 12 * e_pad + 8 * n * nfeat
+    bare_bound = _bound(bare_bytes, flops)
+    print(f"[3g] coo_spmm fused hop at [{n},{nfeat}]: ms {ms} (the update "
+          f"apart, on an H100 80GB HBM3 at 700 W: 3.268 = fill 0.246 + "
+          f"kernel 1.708 + mul_ 0.532 + add_ 0.778) plain_ms {plain_ms} "
+          f"bound_ms {bound_ms} ({bound_by}, {nbytes / 1e9:.3f} GB, "
+          f"{bound_ms / ms:.1%} of it); the bare product ms {bare_ms} "
+          f"(1.958 with a zero-fill) bound_ms {bare_bound[0]} "
+          f"({bare_bytes / 1e9:.3f} GB, {bare_bound[0] / bare_ms:.1%}) "
+          f"library_ms {library_ms} (torch.sparse.mm, coalesced COO, A x "
+          f"only); the whole {cfg.order}-hop run ms {run_ms} (the update "
+          f"apart: 21.179), {cfg.order} x the hop's bound "
+          f"{cfg.order * bound_ms}", flush=True)
     return {"name": "coo_spmm", "route": "cuda",
             "source": "grandtpu_torch/csrc/coo_spmm.cu",
             "replaces": "grandtpu/sparse/spmm.py:74",
-            "max_abs_err": worst[0], "max_rel_err": worst[1], "ms": ms,
+            "max_abs_err": worst[0], "max_rel_err": worst[1],
+            "elements_differing_under_cap": differ, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "shape": f"x [{n},{nfeat}], {e_pad} padded edges, per hop",
+            "shape": f"x [{n},{nfeat}], {e_pad} padded edges, per fused "
+                     "hop (spmm_segment_prop_step)",
+            "bare": {"ms": bare_ms, "bound_ms": bare_bound[0],
+                     "bound_by": bare_bound[1],
+                     "elements_differing": bare_differ},
+            "run_ms": run_ms,
             "launches_by_path": {"segment": launches["coo_spmm"]},
             "peak_extra_GB": {"segment": seg_gb, "csr": csr_gb},
             "propagate_vs_csr_max_rel_err": err[1]}
 
 
 # phase 8's runs: (name, halo_threshold, precision, the kernels of its
-# hops, each launched order x SHARDS times)
+# hops, each launched order x SHARDS times, but those of D1_FIRST_HOP once
+# a shard: the all_gather int8 hops after the first quantize on the maxima
+# the hop before raised)
+D1_FIRST_HOP = {"all_gather_int8": {"column_absmax"}}
 D1_RUNS = (
     ("all_gather_f32", None, "f32", {"csr_spmm_prop"}),
     ("all_gather_bf16", None, "bf16", {"csr_spmm_prop_bf16"}),
@@ -2332,12 +2514,19 @@ def _d1_bound(prop, precision: str, nfeat: int, order: int) -> float:
             nbytes += pack + hop + quantize
         nbytes += 2 * S * S * c_max * nfeat * width      # the all_to_all
     else:                                                # all_gather
+        # int8: the column max reads the shards once, at the first hop;
+        # the later hops quantize on the maxima their hops raised
+        first = 0
+        if precision == "int8":
+            quantize = rows * nfeat * 5 + 12 * nfeat
+            first = S * rows * nfeat * 4
         for s, op in enumerate(prop.ops):
             graph = (4 * op.nnz + 8 * rows if precision == "int8"
                      and prop.row_val is not None else 8 * op.nnz)
             nbytes += (graph + 4 * (rows + 1) + n_pad * nfeat * width
                        + carries + quantize)
         nbytes += 2 * n_pad * nfeat * width              # the all_gather
+        return (order * nbytes + first) / HBM_BYTES_PER_S * 1e3
     return order * nbytes / HBM_BYTES_PER_S * 1e3
 
 def check_d1(ops: dict) -> dict:
@@ -2374,8 +2563,9 @@ def check_d1(ops: dict) -> dict:
         e_single = _errors(out, ref[precision])
         e_f32 = _errors(out, ref["f32"])
         limit = 5e-3 if precision == "int8" else TOL
-        want = {k: cfg.order * SHARDS if k in kernels else 0
-                for k in launches}
+        first = D1_FIRST_HOP.get(name, set())
+        want = {k: (SHARDS if k in first else cfg.order * SHARDS)
+                if k in kernels else 0 for k in launches}
         # the one-card run's own distance from f32, which the sharded run
         # of the same form must not exceed by more than 1e-3
         own = _errors(ref[precision], ref["f32"])[1]
@@ -2678,8 +2868,9 @@ def run_serving_files(data) -> dict:
 
 
 def serving_entries(seg: dict, d1: dict, serve: dict) -> list:
-    """The kernels line's entries of K2-seg, the quantize split and D1's
-    kernels, launches by path."""
+    """The kernels line's entries of K2-seg, the column maxima and D1's
+    kernels, launches by path (``quantize_with_amax``, now on every int8
+    path, is 3d's entry, with the shard shape's time as ``shard``)."""
     runs = d1["launches"]
     times = d1["times"]
     seg["launches_by_path"]["d1_scatter"] = runs["scatter_f32"]["coo_spmm"]
@@ -2687,8 +2878,6 @@ def serving_entries(seg: dict, d1: dict, serve: dict) -> list:
     entries = [seg]
     rows = (("column_absmax", "grandtpu/dist/spmm_shard.py:341",
              times["column_absmax"]),
-            ("quantize_with_amax", "grandtpu/dist/spmm_shard.py:342",
-             times["quantize_with_amax"]),
             ("halo_pack", "grandtpu/dist/halo.py:311",
              times["halo_pack_int8"] | {"f32_form": times["halo_pack_f32"]}),
             ("halo_hop", "grandtpu/dist/halo.py:325",
@@ -3330,6 +3519,9 @@ def main() -> int:
                           "(3j; 5f for K2-q8mxu)")
         if k["name"] == "csr_spmm_q8mxu":
             k["files"] = files["propagation"]["q8mxu_split"]
+        if k["name"] == "quantize_with_amax":
+            k["shard"] = {"shape": d1["shape"],
+                          **d1["times"]["quantize_with_amax"]}
         k["launches_by_path"] = {
             "amazon": amazon_launches[k["name"]],
             "amazon_bucket": bucket_launches[k["name"]],
@@ -3344,6 +3536,7 @@ def main() -> int:
         k["launches"] = sum(k["launches_by_path"].values())
     pushes = push_entries(push_reddit, push_amazon, push_hub,
                           bucket_launches, push_sharded)
+    seg["hub"] = hub["segment"]
     served = serving_entries(seg, d1, serve)
     print(json.dumps({"serving": serve, "serving_files": files, "d1": {
         k: d1[k] for k in ("err", "wall_s", "compression")},

@@ -1,10 +1,11 @@
 // Shared pieces of the power-iteration hop kernels (csr_spmm.cu,
-// csr_spmm_q8.cu, halo.cu): the hub-row split's work items and finish
-// (csr_spmm.cu and csr_spmm_q8.cu), carry loads, one element or 2 or 4
-// neighbouring ones a lane (kVec = 4 or 2, where F is a multiple of it and
-// the arrays aligned to it: one vector load or store instead of strided
-// ones), the int8 hops' streamed carries (up to 16 neighbouring ones, with
-// the evict-first hint), and the fused update
+// csr_spmm_q8.cu, coo_spmm.cu, halo.cu): the hub-row split's work items
+// and finish (csr_spmm.cu, csr_spmm_q8.cu; coo_spmm.cu its finish), carry
+// loads, one element or 2 or 4 neighbouring ones a lane (kVec = 4 or 2,
+// where F is a multiple of it and the arrays aligned to it: one vector
+// load or store instead of strided ones), the streamed carries of the
+// int8 hops and K2-seg (up to 16 neighbouring ones, with the evict-first
+// hint), and the fused update
 //
 //   y   = scale * h          h = the hop's f32 product for one element
 //   acc = acc + y            only if accumulate
@@ -239,9 +240,10 @@ __device__ __forceinline__ void store_hops(const float (&h)[4], float scale,
   store_hop4(h, scale, y, acc, i, accumulate);
 }
 
-// Streamed carries (csr_spmm_q8.cu's hops): kN neighbouring carries read
-// as floats, and the fused update written back, with the evict-first hint
-// (__ldcs / __stcs: ld.global.cs / st.global.cs). Each carry is read or
+// Streamed carries (csr_spmm_q8.cu's and coo_spmm.cu's hops): kN
+// neighbouring carries read as floats, and the fused update written back,
+// with the evict-first hint (__ldcs / __stcs: ld.global.cs /
+// st.global.cs). Each carry is read or
 // written once a hop, so the hint leaves the L2 to the rows the hop
 // gathers. kN is 1, 2, 4, 8 or 16, and p is aligned to kN elements or to
 // 16 bytes, whichever is less. acc is read before the hop's gathers and
@@ -338,14 +340,15 @@ __device__ __forceinline__ void store_carries(__nv_bfloat16* p,
 
 // The fused update of kN neighbouring outputs at i, with a = acc's values
 // there (load_carries): f32 carries y = scale * h, acc = a + y; bf16
-// carries as store_hop's.
+// carries as store_hop's. out gets the values of y as stored (bf16-rounded
+// for bf16 carries), for a caller that takes their column maxima.
 template <int kN>
 __device__ __forceinline__ void store_update(const float (&h)[kN],
                                              const float (&a)[kN],
                                              float scale, float* y,
                                              float* acc, int64_t i,
-                                             int accumulate) {
-  float out[kN];
+                                             int accumulate,
+                                             float (&out)[kN]) {
 #pragma unroll
   for (int j = 0; j < kN; ++j) out[j] = __fmul_rn(scale, h[j]);
   store_carries(y + i, out);
@@ -362,8 +365,8 @@ __device__ __forceinline__ void store_update(const float (&h)[kN],
                                              const float (&a)[kN],
                                              float scale, __nv_bfloat16* y,
                                              __nv_bfloat16* acc, int64_t i,
-                                             int accumulate) {
-  float out[kN];
+                                             int accumulate,
+                                             float (&out)[kN]) {
 #pragma unroll
   for (int j = 0; j < kN; ++j) {
     out[j] = round_bf16(__fmul_rn(scale, round_bf16(h[j])));

@@ -8,12 +8,16 @@
 //   scale[f] = amax / 127 (1 where amax is 0; rounded to bf16 for bf16 x,
 //   which grandtpu divides in x's dtype); q = clamp(rint(x / scale), +-127)
 //   with IEEE division and round-half-even, so q is bit for bit JAX's.
-//   Three launches behind two entry points: column_absmax, a column-max
+//   Two entry points, one launch each: column_absmax, a column-max
 //   reduction (per-block partial maxima, then atomicMax on the float bits,
-//   which orders non-negative floats); quantize_with_amax, the F column
-//   scales, then the elementwise quantize. The row-partitioned int8
-//   propagation (grandtpu/dist/spmm_shard.py:341-344) takes the max of the
-//   shards' maxima between the two.
+//   which orders non-negative floats); quantize_with_amax, whose blocks
+//   each compute the column scales into shared memory, then quantize. An
+//   int8 propagation runs column_absmax only for its first hop: each hop
+//   takes the column maxima of the y it stores (below), so the next hop's
+//   quantize is quantize_with_amax alone and y is read once, not twice (a
+//   max is exact in any order: q is the same bits). The row-partitioned
+//   int8 propagation (grandtpu/dist/spmm_shard.py:341-344) takes the max
+//   of the shards' maxima between the two.
 // - K2-q8 (spmm_block_q8 / spmm_block_offset_q8 / spmm_split_q8, :460-516,
 //   the overflow level at :486):
 //   h = (sum_e bf16(q[col_e, f] * bf16(v_e))) * scale[f], f32 sum. The
@@ -30,7 +34,8 @@
 // (y = scale_hop * h, acc += y) to f32 or bf16 carries.
 //
 // What bounds them on an H100: bytes. quantize must read x once and write
-// q (5 bytes an element for f32 x; the two passes really read x twice).
+// q (5 bytes an element for f32 x); quantize_with_amax alone does just
+// that, and column_absmax reads x a second time at the first hop.
 // A hop must read q (1 byte an element instead of 4), the CSR structure and
 // acc, and write y and acc: at the Amazon2M stand-in's [2M, 100], nnz 8.9M,
 // about 2.65 GB (q8mxu) and 2.69 GB (q8) with f32 carries, against 3.28 GB
@@ -71,6 +76,18 @@
 //   gathers', and acc and y are read and written with the evict-first hint
 //   (csr_hop.cuh's load_carries/store_update: the streamed carries), which
 //   leaves the L2 to the gathered rows of q.
+// - The column maxima (amax_bits given): after the gathers, each group
+//   writes |y| as stored into a table of the block's rows in shared
+//   memory; after a barrier, thread k takes feature k's max over the rows
+//   and issues an atomicMax only where it is above the word it read from
+//   the L2 earlier in the tile (the words only grow, so after the first
+//   blocks almost none issue one), in place of 125,000 blocks' atomics on
+//   each of F words. K2-q8mxu reads the words before its gathers, so the
+//   read's latency hides behind theirs; K2-q8, whose gather loop has no
+//   register to spare, reads them after. Timed on an H100, a
+//   shuffle-and-atomics reduce and a flush by the block's last warp alone
+//   ran slower. Without amax_bits the epilogue is compiled away (a kernel
+//   of its own).
 //
 // Hub rows (grandtpu's spmm_block_offset_q8 / _q8mxu, the overflow level of
 // SplitCSR): one group walking a row of 15,000 gathers would finish long
@@ -149,16 +166,6 @@ __global__ void column_absmax_kernel(const T* __restrict__ x,
   }
 }
 
-__global__ void column_scale_kernel(const unsigned int* __restrict__ amax_bits,
-                                    float* __restrict__ col_scale,
-                                    int num_features, int scale_bf16) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= num_features) return;
-  const float amax = __uint_as_float(amax_bits[f]);
-  const float scale = grandtpu::column_scale(amax);
-  col_scale[f] = scale_bf16 && amax > 0.0f ? round_bf16(scale) : scale;
-}
-
 using grandtpu::quantize_one;
 
 __device__ __forceinline__ void store_q(int8_t* p, const int8_t (&v)[1]) {
@@ -169,29 +176,63 @@ __device__ __forceinline__ void store_q(int8_t* p, const int8_t (&v)[4]) {
   *reinterpret_cast<char4*>(p) = make_char4(v[0], v[1], v[2], v[3]);
 }
 
-// q = clamp(rint(x / scale)): each thread takes groups of kVec neighbouring
-// elements, grid-stride; its column advances by the stride modulo the
-// groups in a row, so no 64-bit division per element.
+// Features a quantize block's shared scales cover: a column window.
+constexpr int kScaleWindow = 4096;
+
+// quantize_with_amax in one launch: q = clamp(rint(x / scale)). A block
+// takes the column window blockIdx.y (kScaleWindow features) and first
+// computes the window's scales from amax into shared memory (the blocks of
+// grid column 0 also write them to col_scale and zero the caller's next
+// amax buffer, if any); then each thread takes groups of kVec neighbouring
+// elements of the window, grid-stride over its rows, its column advancing
+// by the stride modulo the window's groups (no 64-bit division per
+// element).
 template <typename T, int kVec>
 __global__ void quantize_kernel(const T* __restrict__ x,
-                                const float* __restrict__ col_scale,
-                                int8_t* __restrict__ q, int64_t groups,
-                                int groups_per_row) {
+                                const unsigned int* __restrict__ amax_bits,
+                                int8_t* __restrict__ q,
+                                float* __restrict__ col_scale,
+                                unsigned int* __restrict__ zero_bits,
+                                int num_rows, int num_features,
+                                int scale_bf16) {
+  __shared__ float scales[kScaleWindow];
+  const int f0 = blockIdx.y * kScaleWindow;
+  const int width = num_features - f0 < kScaleWindow ? num_features - f0
+                                                     : kScaleWindow;
+  for (int k = threadIdx.x; k < width; k += blockDim.x) {
+    const float amax = __uint_as_float(amax_bits[f0 + k]);
+    const float scale = grandtpu::column_scale(amax);
+    scales[k] = scale_bf16 && amax > 0.0f ? round_bf16(scale) : scale;
+    if (blockIdx.x == 0) {
+      col_scale[f0 + k] = scales[k];
+      if (zero_bits != nullptr) zero_bits[f0 + k] = 0u;
+    }
+  }
+  __syncthreads();
+  const int groups = width / kVec;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  int col = static_cast<int>(g % groups_per_row);
-  const int col_step = static_cast<int>(stride % groups_per_row);
-  for (; g < groups; g += stride) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  int64_t r = g / groups;
+  int col = static_cast<int>(g % groups);
+  const int64_t row_step = stride / groups;
+  const int col_step = static_cast<int>(stride % groups);
+  while (r < num_rows) {
+    const int64_t i = r * num_features + f0 + col * kVec;
     float v[kVec];
-    grandtpu::load_x(x + g * kVec, v);
+    grandtpu::load_x(x + i, v);
     int8_t out[kVec];
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-      out[j] = quantize_one(v[j], __ldg(col_scale + col * kVec + j));
+      out[j] = quantize_one(v[j], scales[col * kVec + j]);
     }
-    store_q(q + g * kVec, out);
+    store_q(q + i, out);
+    r += row_step;
     col += col_step;
-    if (col >= groups_per_row) col -= groups_per_row;
+    if (col >= groups) {
+      col -= groups;
+      ++r;
+    }
   }
 }
 
@@ -274,6 +315,41 @@ __device__ __forceinline__ float scaled(S sum, float rv, float cs) {
   }
 }
 
+// The widest tile of features a group walks: lanes * NPER * V of every
+// configuration of pick_config (32 lanes of one 16-byte vector); a thread
+// of the block flushes at most kMaxTile / kThreads of a tile's maxima.
+constexpr int kMaxTile = 512;
+constexpr int kFlush = kMaxTile / kThreads;
+
+// The maxima amax[f_tile + k] that thread k (and k + kThreads) flushes
+// for the tile, as they stand now (ld.global.cg: the L2's value).
+__device__ __forceinline__ void read_maxima(const unsigned int* amax,
+                                            int f_tile, int tile, int F,
+                                            unsigned int (&seen)[kFlush]) {
+#pragma unroll
+  for (int i = 0; i < kFlush; ++i) {
+    const int k = threadIdx.x + i * kThreads;
+    seen[i] = k < tile && f_tile + k < F ? __ldcg(amax + f_tile + k) : 0u;
+  }
+}
+
+// |y| of one vector of V features into the block's table of stored
+// values (16-byte stores where V allows).
+template <int V>
+__device__ __forceinline__ void put_abs(float* p, const float (&v)[V]) {
+  if constexpr (V >= 4) {
+#pragma unroll
+    for (int k = 0; k < V; k += 4) {
+      *reinterpret_cast<float4*>(p + k) =
+          make_float4(fabsf(v[k]), fabsf(v[k + 1]), fabsf(v[k + 2]),
+                      fabsf(v[k + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) p[j] = fabsf(v[j]);
+  }
+}
+
 // One int8 hop. kMxu: K2-q8mxu (int32 sums; edge = row_val [n]); else
 // K2-q8 (f32 sums of bf16-rounded terms; edge = the edge values [nnz]).
 // A group of `lanes` lanes takes one work item (hop_item: the plan's
@@ -284,34 +360,62 @@ __device__ __forceinline__ float scaled(S sum, float rv, float cs) {
 // the terms added in edge order. A batch past the row's end loads nothing
 // and adds zero terms, which leave the sums as they are (an f32 sum that
 // starts at +0 is never -0, and s + +0 = s).
-template <bool kMxu, int V, int NPER, int U, int MINB, typename T>
+//
+// kAmax: the hop also raises amax[f] to max |y[:, f]| of the y it stores
+// (the next hop's quantize reads it in place of a pass over y). Each
+// group writes |y| of its tile into the block's table in shared memory
+// (one row a group; zeros where it stored nothing), and after a barrier
+// thread k takes the max of feature k over the block's rows and raises
+// amax[f] with an atomic only where that max is above the value it read
+// (ld.global.cg) at the tile's start, before the gathers: the words only
+// grow, so the read's latency hides behind the gathers' and most blocks
+// issue no atomic. A split row's finishing group raises amax directly.
+// Every thread of the block stays to the end for the barriers, so a
+// thread without an item runs the tiles with no edges and stores
+// nothing.
+template <bool kMxu, bool kAmax, int V, int NPER, int U, int MINB,
+          typename T>
 __global__ void __launch_bounds__(kThreads, MINB)
 csr_spmm_q8_hop_kernel(const int32_t* __restrict__ indptr,
                        const int32_t* __restrict__ indices,
                        const float* __restrict__ edge,
                        const int8_t* __restrict__ q,
                        const float* __restrict__ col_scale,
-                       T* __restrict__ y, T* __restrict__ acc, int num_rows,
+                       T* __restrict__ y, T* __restrict__ acc,
+                       unsigned int* __restrict__ amax, int num_rows,
                        int num_features, float scale, int accumulate,
                        int lanes, int log_lanes, Split split) {
   using S = std::conditional_t<kMxu, int, float>;
   constexpr int W = vec_words(V);
+  // kAmax: |y| of the tile, a row of `tile` floats for each group
+  __shared__ __align__(16) float block_y[kAmax ? kThreads * NPER * V : 1];
   const int g = threadIdx.x & (lanes - 1);
   const int64_t item =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >>
       log_lanes;
-  int64_t row;
-  int lo, hi;
-  if (!grandtpu::hop_item(indptr, num_rows, split, item, row, lo, hi)) {
-    return;
+  int64_t row = 0;
+  int lo = 0, hi = 0;
+  const bool have =
+      grandtpu::hop_item(indptr, num_rows, split, item, row, lo, hi);
+  if constexpr (kAmax) {
+    if (!have) row = lo = hi = 0;
+  } else {
+    if (!have) return;
   }
   const bool is_chunk = item < split.num_chunks;
-  const bool load_acc = !is_chunk && accumulate;
+  const bool stores = have && !is_chunk;
+  const bool load_acc = stores && accumulate;
   S* partial = static_cast<S*>(split.partial);
   const int F = num_features;
   const int64_t out = row * F;
-  const float rv = kMxu ? __ldg(edge + row) : 0.0f;
-  for (int f_tile = 0; f_tile < F; f_tile += lanes * NPER * V) {
+  const float rv = kMxu && have ? __ldg(edge + row) : 0.0f;
+  const int tile = lanes * NPER * V;
+  for (int f_tile = 0; f_tile < F; f_tile += tile) {
+    // the maxima this thread flushes, as they stand now: read before the
+    // gathers by K2-q8mxu, after them by K2-q8, which has no register to
+    // spare across its gather loop
+    unsigned int seen[kAmax ? kFlush : 1];
+    if constexpr (kAmax && kMxu) read_maxima(amax, f_tile, tile, F, seen);
     // acc's values first: their loads are in flight with the gathers
     float a[NPER][V];
 #pragma unroll
@@ -388,24 +492,74 @@ csr_spmm_q8_hop_kernel(const int32_t* __restrict__ indptr,
         for (int j = 0; j < V; ++j) s[p][j] -= 128 * (hi - lo);
       }
     }
+    if constexpr (kAmax && !kMxu) read_maxima(amax, f_tile, tile, F, seen);
+    if constexpr (!kAmax) {
+      // (the loop of the hop without the maxima, kept in this form: the
+      // one below costs K2-q8 a spill and 3 % at F 100)
 #pragma unroll
-    for (int p = 0; p < NPER; ++p) {
-      const int f = f_tile + (p * lanes + g) * V;
-      if (f >= F) continue;
-      if (is_chunk) {
-        // the chunk's sums before any scale
+      for (int p = 0; p < NPER; ++p) {
+        const int f = f_tile + (p * lanes + g) * V;
+        if (f >= F) continue;
+        if (is_chunk) {
+          // the chunk's sums before any scale
 #pragma unroll
-        for (int j = 0; j < V; ++j) partial[item * F + f + j] = s[p][j];
-        continue;
+          for (int j = 0; j < V; ++j) partial[item * F + f + j] = s[p][j];
+          continue;
+        }
+        float cs[V], h[V], stored[V];
+        load_scales<V>(col_scale + f, cs);
+#pragma unroll
+        for (int j = 0; j < V; ++j) h[j] = scaled<kMxu>(s[p][j], rv, cs[j]);
+        grandtpu::store_update(h, a[p], scale, y, acc, out + f, accumulate,
+                               stored);
       }
-      float cs[V], h[V];
-      load_scales<V>(col_scale + f, cs);
+    } else {
 #pragma unroll
-      for (int j = 0; j < V; ++j) h[j] = scaled<kMxu>(s[p][j], rv, cs[j]);
-      grandtpu::store_update(h, a[p], scale, y, acc, out + f, accumulate);
+      for (int p = 0; p < NPER; ++p) {
+        const int f = f_tile + (p * lanes + g) * V;
+        float stored[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) stored[j] = 0.0f;
+        if (have && f < F) {
+          if (is_chunk) {
+#pragma unroll
+            for (int j = 0; j < V; ++j) partial[item * F + f + j] = s[p][j];
+          } else {
+            float cs[V], h[V];
+            load_scales<V>(col_scale + f, cs);
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+              h[j] = scaled<kMxu>(s[p][j], rv, cs[j]);
+            }
+            grandtpu::store_update(h, a[p], scale, y, acc, out + f,
+                                   accumulate, stored);
+          }
+        }
+        put_abs<V>(block_y + (threadIdx.x >> log_lanes) * tile +
+                       (p * lanes + g) * V,
+                   stored);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kFlush; ++i) {
+        const int k = threadIdx.x + i * kThreads;
+        if (k < tile && f_tile + k < F) {
+          float m = 0.0f;
+          for (int r = 0; r < kThreads >> log_lanes; ++r) {
+            m = fmaxf(m, block_y[r * tile + k]);
+          }
+          if (__float_as_uint(m) > seen[i]) {
+            atomicMax(amax + f_tile + k, __float_as_uint(m));
+          }
+        }
+      }
+      // the next tile writes the table again
+      if (f_tile + tile < F) __syncthreads();
     }
   }
-  if (!is_chunk || !grandtpu::last_chunk(split, item, lanes)) return;
+  if (!have || !is_chunk || !grandtpu::last_chunk(split, item, lanes)) {
+    return;
+  }
   // the group that finished the split row's last chunk adds the row's
   // partials in chunk order (int32: exact in any order), then the scales
   const int i = split.chunk_row[item];
@@ -423,8 +577,14 @@ csr_spmm_q8_hop_kernel(const int32_t* __restrict__ indptr,
     }
     float h[1] = {scaled<kMxu>(t, rv, __ldg(col_scale + f))};
     float a[1] = {0.0f};
+    float stored[1];
     if (accumulate) grandtpu::load_carries(acc + out + f, a);
-    grandtpu::store_update(h, a, scale, y, acc, out + f, accumulate);
+    grandtpu::store_update(h, a, scale, y, acc, out + f, accumulate, stored);
+    if constexpr (kAmax) {
+      // (the words only grow: an atomic only where it would raise one)
+      const unsigned int m = __float_as_uint(fabsf(stored[0]));
+      if (m > __ldcg(amax + f)) atomicMax(amax + f, m);
+    }
   }
 }
 
@@ -443,16 +603,18 @@ int absmax(const void* x, unsigned int* amax_bits, int num_rows,
 
 template <typename T, int kVec>
 int quantize(const void* x, const unsigned int* amax_bits, int8_t* q,
-             float* col_scale, int num_rows, int num_features, int scale_bf16,
-             cudaStream_t stream) {
-  column_scale_kernel<<<(num_features + 255) / 256, 256, 0, stream>>>(
-      amax_bits, col_scale, num_features, scale_bf16);
-  const int groups_per_row = num_features / kVec;
-  const int64_t groups = static_cast<int64_t>(num_rows) * groups_per_row;
+             float* col_scale, unsigned int* zero_bits, int num_rows,
+             int num_features, int scale_bf16, cudaStream_t stream) {
+  const int windows = (num_features + kScaleWindow - 1) / kScaleWindow;
+  const int per_row = num_features < kScaleWindow ? num_features
+                                                  : kScaleWindow;
+  const int64_t groups = static_cast<int64_t>(num_rows) * (per_row / kVec);
   const int64_t want = (groups + 255) / 256;
   const int64_t blocks = want < 132 * 16 ? want : 132 * 16;
-  quantize_kernel<T, kVec><<<static_cast<int>(blocks), 256, 0, stream>>>(
-      static_cast<const T*>(x), col_scale, q, groups, groups_per_row);
+  quantize_kernel<T, kVec>
+      <<<dim3(static_cast<unsigned int>(blocks), windows), 256, 0, stream>>>(
+          static_cast<const T*>(x), amax_bits, q, col_scale, zero_bits,
+          num_rows, num_features, scale_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -520,6 +682,7 @@ struct HopArgs {
   const float* col_scale;
   void* y;
   void* acc;
+  unsigned int* amax;   // null: the hop takes no column maxima
   int num_rows, num_features;
   float scale;
   int accumulate;
@@ -534,11 +697,13 @@ int launch_kernel(const HopArgs& a, int lanes, cudaStream_t stream) {
       (static_cast<int64_t>(a.split.num_chunks) + a.num_rows) * lanes;
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  csr_spmm_q8_hop_kernel<kMxu, V, NPER, U, MINB, T>
-      <<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
-          a.indptr, a.indices, a.edge, a.q, a.col_scale,
-          static_cast<T*>(a.y), static_cast<T*>(a.acc), a.num_rows,
-          a.num_features, a.scale, a.accumulate, lanes, log_lanes, a.split);
+  const auto kernel = a.amax != nullptr
+      ? csr_spmm_q8_hop_kernel<kMxu, true, V, NPER, U, MINB, T>
+      : csr_spmm_q8_hop_kernel<kMxu, false, V, NPER, U, MINB, T>;
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
+      a.indptr, a.indices, a.edge, a.q, a.col_scale, static_cast<T*>(a.y),
+      static_cast<T*>(a.acc), a.amax, a.num_rows, a.num_features, a.scale,
+      a.accumulate, lanes, log_lanes, a.split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -558,17 +723,18 @@ int launch(const HopArgs& a, const Config& c, cudaStream_t stream) {
 template <bool kMxu>
 int hop(const int32_t* indptr, const int32_t* indices, const float* edge,
         const int8_t* q, const float* col_scale, void* y, void* acc,
-        int num_rows, int num_features, float scale, int accumulate,
-        int carry_bf16, const int32_t* split_rows, const int32_t* chunk_ptr,
-        const int32_t* chunk_row, const int32_t* chunk_lo, int num_chunks,
-        int cap, void* partial, int* counters, void* stream) {
+        unsigned int* amax, int num_rows, int num_features, float scale,
+        int accumulate, int carry_bf16, const int32_t* split_rows,
+        const int32_t* chunk_ptr, const int32_t* chunk_row,
+        const int32_t* chunk_lo, int num_chunks, int cap, void* partial,
+        int* counters, void* stream) {
   if (num_rows == 0 || num_features == 0) return 0;
   if (num_chunks > 0 && cap < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const HopArgs a{indptr, indices, edge, q, col_scale, y,
-                  accumulate ? acc : nullptr, num_rows, num_features, scale,
-                  accumulate,
+                  accumulate ? acc : nullptr, amax, num_rows, num_features,
+                  scale, accumulate,
                   Split{split_rows, chunk_ptr, chunk_row, chunk_lo,
                         num_chunks, num_chunks ? cap : 0x7fffffff, partial,
                         counters}};
@@ -605,10 +771,13 @@ extern "C" int column_absmax(const void* x, unsigned int* amax_bits,
               : absmax<float, 1>(x, amax_bits, num_rows, num_features, s);
 }
 
-// quantize_with_amax: the F column scales from amax_bits (rounded to bf16
-// for bf16 x), then q [n, F] int8; writes q and col_scale [F] f32.
+// quantize_with_amax, one launch: the F column scales from amax_bits
+// (rounded to bf16 for bf16 x), then q [n, F] int8; writes q and
+// col_scale [F] f32, and zeroes zero_bits [F] (null: none), the amax
+// buffer that the next hop raises, which must not be amax_bits.
 extern "C" int quantize_with_amax(const void* x, const unsigned int* amax_bits,
-                                  int8_t* q, float* col_scale, int num_rows,
+                                  int8_t* q, float* col_scale,
+                                  unsigned int* zero_bits, int num_rows,
                                   int num_features, int x_bf16, void* stream) {
   if (num_rows == 0 || num_features == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
@@ -616,18 +785,22 @@ extern "C" int quantize_with_amax(const void* x, const unsigned int* amax_bits,
                     grandtpu::aligned(q, 4);
   if (x_bf16) {
     return vec4 ? quantize<__nv_bfloat16, 4>(x, amax_bits, q, col_scale,
-                                             num_rows, num_features, 1, s)
+                                             zero_bits, num_rows,
+                                             num_features, 1, s)
                 : quantize<__nv_bfloat16, 1>(x, amax_bits, q, col_scale,
-                                             num_rows, num_features, 1, s);
+                                             zero_bits, num_rows,
+                                             num_features, 1, s);
   }
-  return vec4 ? quantize<float, 4>(x, amax_bits, q, col_scale, num_rows,
-                                   num_features, 0, s)
-              : quantize<float, 1>(x, amax_bits, q, col_scale, num_rows,
-                                   num_features, 0, s);
+  return vec4 ? quantize<float, 4>(x, amax_bits, q, col_scale, zero_bits,
+                                   num_rows, num_features, 0, s)
+              : quantize<float, 1>(x, amax_bits, q, col_scale, zero_bits,
+                                   num_rows, num_features, 0, s);
 }
 
 // y, acc [n, F] f32 (carry_bf16 = 0) or bf16, acc may be null when
 // accumulate is 0; with bf16 carries scale must already be a bf16 value.
+// amax_bits [F] (null: none) is raised to max |y[:, f]| of the y stored,
+// as float bits (zero it before the launch to get the hop's own maxima).
 // The split plan (num_chunks = 0: none): the split rows (ascending), each
 // one's chunks chunk_ptr[i] : chunk_ptr[i + 1], each chunk's split-row
 // index and first edge, the cap; partial is f32 [num_chunks, num_features]
@@ -635,16 +808,16 @@ extern "C" int quantize_with_amax(const void* x, const unsigned int* amax_bits,
 extern "C" int csr_spmm_q8(const int32_t* indptr, const int32_t* indices,
                            const float* values, const int8_t* q,
                            const float* col_scale, void* y, void* acc,
-                           int num_rows, int num_features, float scale,
-                           int accumulate, int carry_bf16,
-                           const int32_t* split_rows,
+                           unsigned int* amax_bits, int num_rows,
+                           int num_features, float scale, int accumulate,
+                           int carry_bf16, const int32_t* split_rows,
                            const int32_t* chunk_ptr, const int32_t* chunk_row,
                            const int32_t* chunk_lo, int num_chunks, int cap,
                            float* partial, int* counters, void* stream) {
-  return hop<false>(indptr, indices, values, q, col_scale, y, acc, num_rows,
-                    num_features, scale, accumulate, carry_bf16, split_rows,
-                    chunk_ptr, chunk_row, chunk_lo, num_chunks, cap, partial,
-                    counters, stream);
+  return hop<false>(indptr, indices, values, q, col_scale, y, acc, amax_bits,
+                    num_rows, num_features, scale, accumulate, carry_bf16,
+                    split_rows, chunk_ptr, chunk_row, chunk_lo, num_chunks,
+                    cap, partial, counters, stream);
 }
 
 // As csr_spmm_q8, with row_val [n] f32 in place of the edge values and
@@ -652,18 +825,18 @@ extern "C" int csr_spmm_q8(const int32_t* indptr, const int32_t* indices,
 extern "C" int csr_spmm_q8mxu(const int32_t* indptr, const int32_t* indices,
                               const float* row_val, const int8_t* q,
                               const float* col_scale, void* y, void* acc,
-                              int num_rows, int num_features, float scale,
-                              int accumulate, int carry_bf16,
-                              const int32_t* split_rows,
+                              unsigned int* amax_bits, int num_rows,
+                              int num_features, float scale, int accumulate,
+                              int carry_bf16, const int32_t* split_rows,
                               const int32_t* chunk_ptr,
                               const int32_t* chunk_row,
                               const int32_t* chunk_lo, int num_chunks,
                               int cap, int* partial, int* counters,
                               void* stream) {
-  return hop<true>(indptr, indices, row_val, q, col_scale, y, acc, num_rows,
-                   num_features, scale, accumulate, carry_bf16, split_rows,
-                   chunk_ptr, chunk_row, chunk_lo, num_chunks, cap, partial,
-                   counters, stream);
+  return hop<true>(indptr, indices, row_val, q, col_scale, y, acc, amax_bits,
+                   num_rows, num_features, scale, accumulate, carry_bf16,
+                   split_rows, chunk_ptr, chunk_row, chunk_lo, num_chunks,
+                   cap, partial, counters, stream);
 }
 
 // The features that the hops take as one aligned vector of these arrays

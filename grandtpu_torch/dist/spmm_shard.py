@@ -6,14 +6,17 @@ mesh's devices. Every hop all-gathers the shards' carries, then each
 shard computes its rows:
 
 - :class:`ShardedPropagator` (grandtpu's scatter variant): K2-seg over the
-  shard's padded COO rows (raw adjacency values, global columns) into a
-  discard-row accumulator, then ``D^-1``, then the update;
+  shard's padded COO rows (raw adjacency values, global columns), with
+  ``D^-1`` and the update fused into its one launch a shard;
 - :class:`BlockShardedPropagator` (the default variant): the K2 family on
   a rectangular CSR of the shard's rows over the gathered rows, ``D^-1``
   folded in: f32 → K2, bf16 → K2-bf16, int8 → the global per-column
   quantize (each shard's column max, the max over the mesh, each shard's
   quantize) before the all_gather, then K2-q8mxu where the rows are
-  constant (they are for D^-1 A), else K2-q8; int8cast → K2-q8.
+  constant (they are for D^-1 A), else K2-q8; int8cast → K2-q8. The
+  first hop's maxima come from each shard's ``column_absmax``; each later
+  hop's from the maxima that every shard's hop raised while storing its
+  rows (``amax_out``), then the max over the mesh.
 
 grandtpu's TPU layout of the blocks (one-hot blocks, odd ``E_b``) is not
 carried over; its row partition is (``rows_per`` rounded up to a multiple
@@ -48,20 +51,21 @@ from grandtpu_torch.sparse.spmm import (CSROperator, PaddedCSR,
                                         spmm_prop_step_q8_plain,
                                         spmm_prop_step_q8mxu,
                                         spmm_prop_step_q8mxu_plain,
-                                        spmm_segment, spmm_segment_plain)
+                                        spmm_segment_prop_step,
+                                        spmm_segment_prop_step_plain)
 
 # the kernels a hop runs, or (plain=True) their plain versions on the same
 # tensors, which chip_smoke.py holds the kernels' runs against on the card
 _KERNELS = types.SimpleNamespace(
     k2=spmm_prop_step, k2_bf16=spmm_prop_step_bf16, q8=spmm_prop_step_q8,
     q8mxu=spmm_prop_step_q8mxu, absmax=column_absmax,
-    quantize=quantize_with_amax, segment=spmm_segment)
+    quantize=quantize_with_amax, segment=spmm_segment_prop_step)
 _PLAIN = types.SimpleNamespace(
     k2=spmm_prop_step_plain,
     k2_bf16=functools.partial(spmm_prop_step_plain, term="bf16"),
     q8=spmm_prop_step_q8_plain, q8mxu=spmm_prop_step_q8mxu_plain,
     absmax=column_absmax_plain, quantize=quantize_with_amax_plain,
-    segment=spmm_segment_plain)
+    segment=spmm_segment_prop_step_plain)
 
 
 def _check_axis(mesh: Mesh, axis: str, num_shards: int) -> None:
@@ -164,31 +168,29 @@ class ShardedPropagator:
         _check_axis(mesh, axis, g.num_shards)
         self.mesh, self.g = mesh, g
         n_pad = g.rows_per_shard * g.num_shards
+        rows = g.rows_per_shard
         self.coo = [PaddedCSR(*(torch.as_tensor(a[s], device=d)
                                 for a in (g.rows_local, g.cols, g.vals)),
-                              num_nodes=g.rows_per_shard, chunk=128,
-                              num_cols=n_pad)
+                              num_nodes=rows, chunk=128, num_cols=n_pad,
+                              row_counts=np.bincount(g.rows_local[s],
+                                                     minlength=rows + 1))
                     for s, d in enumerate(mesh.devices)]
-        self.dinv = [torch.as_tensor(g.dinv[s], device=d)[:, None]
+        self.dinv = [torch.as_tensor(g.dinv[s], device=d)
                      for s, d in enumerate(mesh.devices)]
 
     def __call__(self, x, *, mode: str = "ppr", order: int = 10,
                  alpha: float = 0.2, plain: bool = False) -> torch.Tensor:
         ops = _PLAIN if plain else _KERNELS
         xs = place(self.mesh, self.g.num_nodes, self.g.rows_per_shard, x)
-        bufs = [torch.empty((self.g.rows_per_shard + 1, x.shape[1]),
-                            device=d) for d in self.mesh.devices]
 
         def hop(cur_in, cur_out, acc, scale, accumulate):
             full = self.mesh.all_gather(cur_in)
+            accs = acc if accumulate else [None] * self.mesh.size
             for s, coo in enumerate(self.coo):
-                # dinv * (A_s x), then the update, in grandtpu's order
-                h = ops.segment(coo, full[s], out=bufs[s])
-                torch.mul(h, self.dinv[s], out=cur_out[s])
-                if scale != 1.0:
-                    cur_out[s].mul_(scale)
-                if accumulate:
-                    acc[s].add_(cur_out[s])
+                # (dinv * (A_s x)) * scale, then the update, in grandtpu's
+                # order: one launch
+                ops.segment(coo, full[s], cur_out[s], accs[s], scale,
+                            accumulate, row_scale=self.dinv[s])
 
         outs = _iterate(xs, hop, mode, order, alpha)
         return self.mesh.gather_rows(outs)[: self.g.num_nodes]
@@ -315,19 +317,36 @@ class BlockShardedPropagator:
         k, mesh = (_PLAIN if plain else _KERNELS), self.mesh
         use_mxu = precision == "int8" and self.row_val is not None
 
+        # the int8 hops' column maxima: per shard a pair of [F] buffers,
+        # each hop's raised by every shard's hop and zeroed by the quantize
+        # of the hop before it
+        pairs = None
+        if precision in ("int8", "int8cast"):
+            pairs = [torch.zeros((2, x.shape[1]), device=d)
+                     for d in mesh.devices]
+        hops = iter(range(order))
+
         def hop(cur_in, cur_out, acc, scale, accumulate):
             accs = acc if accumulate else [None] * mesh.size
-            if precision in ("int8", "int8cast"):
-                amax = mesh.pmax([k.absmax(c) for c in cur_in])
-                qs = [k.quantize(c, a) for c, a in zip(cur_in, amax)]
+            if pairs is not None:
+                t = next(hops)
+                if t == 0:
+                    amax = mesh.pmax([k.absmax(c) for c in cur_in])
+                else:
+                    amax = mesh.pmax([p[(t - 1) % 2] for p in pairs])
+                raise_ = ([p[t % 2] for p in pairs] if t + 1 < order
+                          else [None] * mesh.size)
+                qs = [k.quantize(c, a, r)
+                      for c, a, r in zip(cur_in, amax, raise_)]
                 full = mesh.all_gather([q for q, _ in qs])
                 for s, op in enumerate(self.ops):
                     if use_mxu:
                         k.q8mxu(op, full[s], qs[s][1], self.row_val[s],
-                                cur_out[s], accs[s], scale, accumulate)
+                                cur_out[s], accs[s], scale, accumulate,
+                                raise_[s])
                     else:
                         k.q8(op, full[s], qs[s][1], cur_out[s], accs[s],
-                             scale, accumulate)
+                             scale, accumulate, raise_[s])
                 return
             step = k.k2 if precision == "f32" else k.k2_bf16
             full = mesh.all_gather(cur_in)

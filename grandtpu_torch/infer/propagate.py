@@ -23,6 +23,12 @@ the [n, F] memory). The dense backend ignores the precision; so does the
 'segment' one as grandtpu's does ('auto', 'bf16' and 'int8' run its f32
 hop, 'int8mxu' and 'int8cast' raise). 'segment' with bf16 carries raises
 (ROADMAP Queue A 15).
+
+An int8 run quantizes its first hop's input in full (column maxima, then
+the quantize); each later hop quantizes with the maxima that the hop
+before it raised while storing its output (``amax_out``), so the input
+is read once a hop, not twice. A max is exact in any order: q is the
+same bits either way.
 """
 
 from __future__ import annotations
@@ -36,10 +42,12 @@ import torch
 from grandtpu_torch.device import resolve_device
 from grandtpu_torch.sparse.spmm import (BF16, CSROperator, PaddedCSR,
                                         bf16_round, quantize_columns,
+                                        quantize_with_amax,
                                         row_values_if_constant,
                                         spmm_prop_step, spmm_prop_step_bf16,
                                         spmm_prop_step_q8,
-                                        spmm_prop_step_q8mxu, spmm_segment)
+                                        spmm_prop_step_q8mxu,
+                                        spmm_segment_prop_step)
 
 DENSE_MAX_NODES = 20000   # grandtpu's dense_threshold: dense at n <= this
 
@@ -203,15 +211,13 @@ class Propagator:
         return precision
 
     def _hop(self, precision: str | None, cur_in, cur_out, acc,
-             scale: float, accumulate: bool) -> None:
+             scale: float, accumulate: bool, amax=(None, None)) -> None:
+        """One hop. For the int8 forms ``amax`` is (the maxima of
+        ``cur_in`` that the previous hop raised, None on the first hop; the
+        buffer this hop raises, None on the last)."""
         if self.backend == "segment":
-            # the carries are [n + 1, F], the last row K2-seg's discard
-            # row; the update stays outside, as in grandtpu
-            h = spmm_segment(self.adj_op, cur_in[:-1], out=cur_out)
-            if scale != 1.0:
-                h.mul_(scale)
-            if accumulate:
-                acc.add_(h)
+            spmm_segment_prop_step(self.adj_op, cur_in, cur_out, acc, scale,
+                                   accumulate)
         elif precision is None:          # the dense backend
             h = torch.matmul(self.adj_op, cur_in)
             if cur_out.dtype == BF16:
@@ -226,13 +232,17 @@ class Propagator:
             spmm_prop_step_bf16(self.adj_op, cur_in, cur_out, acc, scale,
                                 accumulate)
         else:
-            q, col_scale = quantize_columns(cur_in)
+            have, raise_ = amax
+            if have is None:
+                q, col_scale = quantize_columns(cur_in)
+            else:
+                q, col_scale = quantize_with_amax(cur_in, have, raise_)
             if precision == "int8mxu":
                 spmm_prop_step_q8mxu(self.adj_op, q, col_scale, self.row_val,
-                                     cur_out, acc, scale, accumulate)
+                                     cur_out, acc, scale, accumulate, raise_)
             else:
                 spmm_prop_step_q8(self.adj_op, q, col_scale, cur_out, acc,
-                                  scale, accumulate)
+                                  scale, accumulate, raise_)
 
     def __call__(self, features, *, mode: str = "ppr", order: int = 10,
                  alpha: float = 0.2, fast: bool = False,
@@ -262,12 +272,19 @@ class Propagator:
             cur_in, acc, scale, accumulate = x.clone(), None, 1.0, False
         else:
             raise ValueError(f"unknown propagation mode {mode!r}")
-        if self.backend == "segment":
-            # both carries get a last row, K2-seg's discard row
-            cur_in = torch.cat([cur_in, cur_in[:1]])
         cur_out = torch.empty_like(cur_in)
-        for _ in range(order):
-            self._hop(precision, cur_in, cur_out, acc, scale, accumulate)
+        # the int8 hops' column maxima: a pair of [F] buffers, one raised by
+        # a hop while the next hop's quantize reads the other and zeroes
+        # the first
+        pair = (torch.zeros((2, x.shape[1]), device=self.device)
+                if precision in ("int8mxu", "int8cast") else None)
+        for t in range(order):
+            amax = (None, None)
+            if pair is not None:
+                amax = (pair[(t - 1) % 2] if t else None,
+                        pair[t % 2] if t + 1 < order else None)
+            self._hop(precision, cur_in, cur_out, acc, scale, accumulate,
+                      amax)
             # the one in-place update of the port's propagation: two [n, F]
             # carries, swapped every hop (the hop reads one, writes the other)
             cur_in, cur_out = cur_out, cur_in
@@ -275,7 +292,7 @@ class Propagator:
             return acc
         if mode == "avg":
             return acc.div_(rnd(order + 1))
-        return cur_in[:-1] if self.backend == "segment" else cur_in
+        return cur_in
 
 
 def exact_propagate(adj: sp.spmatrix, features, *, mode: str = "ppr",

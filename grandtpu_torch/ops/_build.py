@@ -45,22 +45,27 @@ _SIGNATURES = {
                      + [_P] * 4 + [_I, _I, _P, _P, _P],
     # x, amax_bits, num_rows, num_features, x_bf16, stream
     "column_absmax": [_P, _P, _I, _I, _I, _P],
-    # x, amax_bits, q, col_scale, num_rows, num_features, x_bf16, stream
-    "quantize_with_amax": [_P] * 4 + [_I, _I, _I, _P],
-    # rows, cols, vals, x, y, num_edges, num_rows, num_features, stream
-    "coo_spmm": [_P] * 5 + [ctypes.c_int64, _I, _I, _P],
+    # x, amax_bits, q, col_scale, zero_bits, num_rows, num_features,
+    # x_bf16, stream
+    "quantize_with_amax": [_P] * 5 + [_I, _I, _I, _P],
+    # rows, cols, vals, x, y, acc, row_scale, num_edges, num_rows,
+    # num_features, scale, accumulate, split_rows, chunk_ptr, chunk_row,
+    # chunk_lo, num_chunks, cap, partial, counters, stream
+    "coo_spmm": [_P] * 7 + [ctypes.c_int64, _I, _I, ctypes.c_float, _I]
+                + [_P] * 4 + [_I, _I, _P, _P, _P],
     # x, idx, amax, col_scale, out, num_out, num_features, quantize, stream
     "halo_pack": [_P] * 5 + [_I, _I, _I, _P],
     # d_ptr, d_idx, d_val, x, h_ptr, h_idx, h_val, recv, col_scale,
     # row_val, y, acc, num_rows, num_features, scale, accumulate, form,
     # stream
     "halo_hop": [_P] * 12 + [_I, _I, ctypes.c_float, _I, _I, _P],
-    # indptr, indices, values | row_val, q, col_scale, y, acc, num_rows,
-    # num_features, scale, accumulate, carry_bf16, split_rows, chunk_ptr,
-    # chunk_row, chunk_lo, num_chunks, cap, partial, counters, stream
-    "csr_spmm_q8": [_P] * 7 + [_I, _I, ctypes.c_float, _I, _I] + [_P] * 4
+    # indptr, indices, values | row_val, q, col_scale, y, acc, amax_bits,
+    # num_rows, num_features, scale, accumulate, carry_bf16, split_rows,
+    # chunk_ptr, chunk_row, chunk_lo, num_chunks, cap, partial, counters,
+    # stream
+    "csr_spmm_q8": [_P] * 8 + [_I, _I, ctypes.c_float, _I, _I] + [_P] * 4
                    + [_I, _I, _P, _P, _P],
-    "csr_spmm_q8mxu": [_P] * 7 + [_I, _I, ctypes.c_float, _I, _I]
+    "csr_spmm_q8mxu": [_P] * 8 + [_I, _I, ctypes.c_float, _I, _I]
                       + [_P] * 4 + [_I, _I, _P, _P, _P],
     # num_features, align_bytes, out[5]
     "csr_spmm_q8_config": [_I, _I, _P],

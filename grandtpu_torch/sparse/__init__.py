@@ -9,5 +9,6 @@ from grandtpu_torch.sparse.spmm import (CSROperator,  # noqa: F401
                                         row_values_if_constant,
                                         spmm_prop_step, spmm_prop_step_bf16,
                                         spmm_prop_step_q8,
-                                        spmm_prop_step_q8mxu, spmm_segment)
+                                        spmm_prop_step_q8mxu, spmm_segment,
+                                        spmm_segment_prop_step)
 from grandtpu_torch.sparse.topk import TopKProp  # noqa: F401

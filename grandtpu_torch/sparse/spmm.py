@@ -22,17 +22,21 @@ where ``h`` is the hop's f32 product, by precision:
   of :func:`quantize_columns` (or of :func:`column_absmax` then
   :func:`quantize_with_amax`, its two launches, which a row-partitioned
   caller runs apart to share one scale across shards): terms
-  ``bf16(q[c]·bf16(v))``, f32 sum, times the column scale;
+  ``bf16(q[c]·bf16(v))``, f32 sum, times the column scale. The int8 hops
+  can also raise the column maxima of the output they store
+  (``amax_out``), so that the next hop quantizes with
+  :func:`quantize_with_amax` alone;
 - :func:`spmm_prop_step_q8mxu` (K2-q8mxu, ``spmm_split_q8mxu``): the exact
   int32 sum of the gathered ``q`` rows, times the row value (the operator's
   rows must be constant, :func:`row_values_if_constant`) and the column
   scale. Edge values are not read.
 
 An operator may be rectangular (``num_cols`` input rows): a shard's rows
-over the gathered rows of the whole graph. :func:`spmm_segment` (K2-seg,
-``spmm_segment``) is the plain product ``y = A @ x`` of a :class:`PaddedCSR`
-(row-sorted COO, the low-memory backend), without the update, as in
-grandtpu.
+over the gathered rows of the whole graph. :func:`spmm_segment_prop_step`
+(K2-seg, ``spmm_segment`` and the update after it) is the same hop on a
+:class:`PaddedCSR` (row-sorted COO, the low-memory backend, with its own
+split plan), with an optional per-row scale for the row-partitioned
+scatter variant; :func:`spmm_segment` is its bare product ``y = A @ x``.
 
 The carries (``cur_in``/``cur_out``/``acc``) are f32, or bf16 for
 grandtpu's ``bf16_carry``. With bf16 carries ``h`` is rounded to bf16, the
@@ -46,13 +50,13 @@ the ``*_plain`` versions, which repeat the kernels' arithmetic and
 roundings and add each row's terms in the kernels' order (edge order; for
 a split row, each chunk in edge order, then the chunks in order), so
 that wherever the terms are rounded the same way (every form but K2's
-fused multiply-add) a hop is bit for bit the kernel's (K2-seg: but for the
-rows that span several of its edge runs).
+fused multiply-add) a hop is bit for bit the kernel's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -279,8 +283,11 @@ def column_absmax_plain(x: torch.Tensor) -> torch.Tensor:
     return x.abs().amax(0).float()
 
 
-def quantize_with_amax_plain(x: torch.Tensor, amax: torch.Tensor):
+def quantize_with_amax_plain(x: torch.Tensor, amax: torch.Tensor,
+                             zero_amax: torch.Tensor | None = None):
     """Plain PyTorch version of :func:`quantize_with_amax`."""
+    if zero_amax is not None:
+        zero_amax.zero_()
     amax = amax.to(x.dtype)
     # in x's dtype, as grandtpu's ``amax / 127.0``, then f32; divided by a
     # tensor, since CUDA divides by a Python scalar as a reciprocal multiply
@@ -295,10 +302,19 @@ def quantize_columns_plain(x: torch.Tensor):
     return quantize_with_amax_plain(x, column_absmax_plain(x))
 
 
+def _raise_amax_plain(amax_out: torch.Tensor | None,
+                      y: torch.Tensor) -> None:
+    """The int8 hops' column maxima: ``amax_out = max(amax_out, max |y|)``
+    over the columns of the stored ``y``."""
+    if amax_out is not None:
+        torch.maximum(amax_out, column_absmax_plain(y), out=amax_out)
+
+
 def spmm_prop_step_q8_plain(op: CSROperator, q: torch.Tensor,
                             col_scale: torch.Tensor, cur_out: torch.Tensor,
                             acc: torch.Tensor | None, scale: float,
-                            accumulate: bool) -> None:
+                            accumulate: bool,
+                            amax_out: torch.Tensor | None = None) -> None:
     """Plain PyTorch version of K2-q8 (f32 sums, grouped as the kernel's)."""
     vals = op.values.to(BF16).float()
 
@@ -309,19 +325,22 @@ def spmm_prop_step_q8_plain(op: CSROperator, q: torch.Tensor,
     h = _hop_sums(op, prod, torch.zeros(cur_out.shape,
                                         device=cur_out.device))
     _epilogue_plain(h * col_scale, cur_out, acc, scale, accumulate)
+    _raise_amax_plain(amax_out, cur_out)
 
 
 def spmm_prop_step_q8mxu_plain(op: CSROperator, q: torch.Tensor,
                                col_scale: torch.Tensor,
                                row_val: torch.Tensor, cur_out: torch.Tensor,
                                acc: torch.Tensor | None, scale: float,
-                               accumulate: bool) -> None:
+                               accumulate: bool,
+                               amax_out: torch.Tensor | None = None) -> None:
     """Plain PyTorch version of K2-q8mxu (int32 sums)."""
     isum = _hop_sums(op, lambda e: q[op.indices[e].long()].int(),
                      torch.zeros(cur_out.shape, dtype=torch.int32,
                                  device=cur_out.device))
     h = isum.float() * row_val[:, None] * col_scale
     _epilogue_plain(h, cur_out, acc, scale, accumulate)
+    _raise_amax_plain(amax_out, cur_out)
 
 
 def _check_launch(name: str, op: CSROperator, x: torch.Tensor,
@@ -441,11 +460,21 @@ def _absmax_launch(x: torch.Tensor) -> torch.Tensor:
     return amax
 
 
-def _quantize_launch(x: torch.Tensor, amax: torch.Tensor):
+def _check_amax(name: str, amax: torch.Tensor, x: torch.Tensor,
+                what: str) -> None:
+    if (amax.device != x.device or amax.dtype != torch.float32
+            or amax.shape != (x.shape[1],) or not amax.is_contiguous()):
+        raise ValueError(f"{name}: {what} must be a contiguous f32 [F] "
+                         f"tensor on {x.device}")
+
+
+def _quantize_launch(x: torch.Tensor, amax: torch.Tensor,
+                     zero_amax: torch.Tensor | None = None):
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty(x.shape[1], dtype=torch.float32, device=x.device)
     check(load_kernels().quantize_with_amax(
         x.data_ptr(), amax.data_ptr(), q.data_ptr(), scale.data_ptr(),
+        None if zero_amax is None else zero_amax.data_ptr(),
         x.shape[0], x.shape[1], int(x.dtype == BF16),
         torch.cuda.current_stream(x.device).cuda_stream),
         "quantize_with_amax")
@@ -465,24 +494,29 @@ def column_absmax(x: torch.Tensor) -> torch.Tensor:
     return amax
 
 
-def quantize_with_amax(x: torch.Tensor, amax: torch.Tensor):
-    """The second launch of :func:`quantize_columns`, from given column
-    maxima ``amax`` [F] f32 (of x, or the max of every shard's, so values
-    of x's dtype): the scales
-    ``amax / 127`` in x's dtype (1 for a zero column) and
-    ``q = clamp(round_half_even(x / scale), -127, 127)``. Returns (q int8
-    [n, F], scale f32 [F])."""
+def quantize_with_amax(x: torch.Tensor, amax: torch.Tensor,
+                       zero_amax: torch.Tensor | None = None):
+    """The quantize from given column maxima ``amax`` [F] f32 (of x, the
+    max of every shard's, or what the previous int8 hop raised in its
+    ``amax_out``: values of x's dtype), one launch: the scales ``amax /
+    127`` in x's dtype (1 for a zero column) and ``q =
+    clamp(round_half_even(x / scale), -127, 127)``. The same launch zeroes
+    ``zero_amax`` [F] f32 if given (another buffer than ``amax``: the one
+    the next hop raises), so the propagation's loop needs no fill a hop.
+    Returns (q int8 [n, F], scale f32 [F])."""
     if x.device.type == "cpu":
-        return quantize_with_amax_plain(x, amax)
+        return quantize_with_amax_plain(x, amax, zero_amax)
     _check_quantize("quantize_with_amax", x)
-    if (amax.device != x.device or amax.dtype != torch.float32
-            or amax.shape != (x.shape[1],) or not amax.is_contiguous()):
-        raise ValueError("quantize_with_amax: amax must be a contiguous f32 "
-                         f"[F] tensor on {x.device}")
+    _check_amax("quantize_with_amax", amax, x, "amax")
+    if zero_amax is not None:
+        _check_amax("quantize_with_amax", zero_amax, x, "zero_amax")
+        if zero_amax.data_ptr() == amax.data_ptr() and x.shape[1]:
+            raise ValueError("quantize_with_amax: zero_amax must not be "
+                             "amax")
     if x.shape[1] == 0:
         return (torch.empty(x.shape, dtype=torch.int8, device=x.device),
                 torch.empty(0, device=x.device))
-    out = _quantize_launch(x, amax)
+    out = _quantize_launch(x, amax, zero_amax)
     quantize_with_amax.launches += 1
     return out
 
@@ -494,7 +528,9 @@ def quantize_columns(x: torch.Tensor):
     ``q = clamp(round_half_even(x / scale), -127, 127)``. Returns
     (q int8 [n, F], scale f32 [F]). On CUDA, the launches of
     :func:`column_absmax` and :func:`quantize_with_amax`, counted as one
-    call of this function."""
+    call of this function: the first hop's quantize of an int8
+    propagation, whose later hops take their maxima from the hop before
+    (``amax_out``)."""
     if x.device.type == "cpu":
         return quantize_columns_plain(x)
     _check_quantize("quantize_columns", x)
@@ -562,7 +598,10 @@ def q8_hop_align(q: torch.Tensor, col_scale: torch.Tensor,
     return 1
 
 
-def _q8_args(name, op, q, col_scale, cur_out, acc, accumulate, row_val):
+def _q8_args(name, op, q, col_scale, cur_out, acc, accumulate, row_val,
+             amax_out):
+    if amax_out is not None:
+        _check_amax(name, amax_out, q, "amax_out")
     carries = [cur_out] + ([acc] if accumulate else [])
     vec = [col_scale] + ([] if row_val is None else [row_val])
     if q.dtype != torch.int8 or any(t.dtype != torch.float32 for t in vec):
@@ -576,27 +615,36 @@ def _q8_args(name, op, q, col_scale, cur_out, acc, accumulate, row_val):
     return _check_launch(name, op, q, carries, extra)
 
 
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 def spmm_prop_step_q8(op: CSROperator, q: torch.Tensor,
                       col_scale: torch.Tensor, cur_out: torch.Tensor,
                       acc: torch.Tensor | None, scale: float,
-                      accumulate: bool) -> None:
+                      accumulate: bool,
+                      amax_out: torch.Tensor | None = None) -> None:
     """One K2-q8 hop on the quantized input (``q``, ``col_scale`` of
     :func:`quantize_columns`): ``h = (sum_e bf16(q[c]·bf16(v))) ·
     col_scale``, then the fused update into the carries. A hub row of the
-    operator's plan is summed by chunks, then the chunks in order."""
+    operator's plan is summed by chunks, then the chunks in order. With
+    ``amax_out`` (f32 [F], zeroed by the caller) the hop also raises it to
+    ``max |cur_out[:, f]|`` of the values it stores, the maxima the next
+    hop's :func:`quantize_with_amax` takes."""
     if q.device.type == "cpu":
         spmm_prop_step_q8_plain(op, q, col_scale, cur_out, acc, scale,
-                                accumulate)
+                                accumulate, amax_out)
         return
     if not _q8_args("spmm_prop_step_q8", op, q, col_scale, cur_out, acc,
-                    accumulate, None):
+                    accumulate, None, amax_out):
         return
     bf16 = cur_out.dtype == BF16
     split, _scratch = _plan_args("spmm_prop_step_q8", op, q, torch.float32)
     rc = load_kernels().csr_spmm_q8(
         op.indptr.data_ptr(), op.indices.data_ptr(), op.values.data_ptr(),
         q.data_ptr(), col_scale.data_ptr(), cur_out.data_ptr(),
-        acc.data_ptr() if accumulate else None, op.num_rows, q.shape[1],
+        acc.data_ptr() if accumulate else None, _ptr(amax_out), op.num_rows,
+        q.shape[1],
         bf16_round(scale) if bf16 else float(scale), int(accumulate),
         int(bf16), *split, torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, "csr_spmm_q8")
@@ -606,25 +654,28 @@ def spmm_prop_step_q8(op: CSROperator, q: torch.Tensor,
 def spmm_prop_step_q8mxu(op: CSROperator, q: torch.Tensor,
                          col_scale: torch.Tensor, row_val: torch.Tensor,
                          cur_out: torch.Tensor, acc: torch.Tensor | None,
-                         scale: float, accumulate: bool) -> None:
+                         scale: float, accumulate: bool,
+                         amax_out: torch.Tensor | None = None) -> None:
     """One K2-q8mxu hop: ``h = (float(sum_e q[c]) · row_val[r]) ·
     col_scale`` with the sum exact in int32, then the fused update. The
     operator's values are not read: ``row_val`` [n] f32 stands for them.
     A hub row of the operator's plan is summed by chunks in int32, so the
-    split hop equals the unsplit one bit for bit."""
+    split hop equals the unsplit one bit for bit. ``amax_out`` as
+    :func:`spmm_prop_step_q8`'s."""
     if q.device.type == "cpu":
         spmm_prop_step_q8mxu_plain(op, q, col_scale, row_val, cur_out, acc,
-                                   scale, accumulate)
+                                   scale, accumulate, amax_out)
         return
     if not _q8_args("spmm_prop_step_q8mxu", op, q, col_scale, cur_out, acc,
-                    accumulate, row_val):
+                    accumulate, row_val, amax_out):
         return
     bf16 = cur_out.dtype == BF16
     split, _scratch = _plan_args("spmm_prop_step_q8mxu", op, q, torch.int32)
     rc = load_kernels().csr_spmm_q8mxu(
         op.indptr.data_ptr(), op.indices.data_ptr(), row_val.data_ptr(),
         q.data_ptr(), col_scale.data_ptr(), cur_out.data_ptr(),
-        acc.data_ptr() if accumulate else None, op.num_rows, q.shape[1],
+        acc.data_ptr() if accumulate else None, _ptr(amax_out), op.num_rows,
+        q.shape[1],
         bf16_round(scale) if bf16 else float(scale), int(accumulate),
         int(bf16), *split, torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, "csr_spmm_q8mxu")
@@ -635,17 +686,22 @@ def spmm_prop_step_q8mxu(op: CSROperator, q: torch.Tensor,
 class PaddedCSR:
     """COO edges sorted by row, padded to a multiple of ``chunk`` (the
     layout of ``grandtpu.sparse.spmm.PaddedCSR``): padding edges point at
-    row ``num_nodes`` (one past the last) with value 0, so they land in a
-    discard row. Building one checks the layout, since K2-seg's sums are
-    wrong on rows that are not sorted."""
+    row ``num_nodes`` (one past the last) with value 0. Building one checks
+    the layout, since K2-seg's sums are wrong on rows that are not sorted,
+    and builds its hub-row split plan (:class:`SplitPlan` at
+    :func:`default_split_cap`, None when no row is above it) from
+    ``row_counts`` (each row's real edges, a host array; counted from
+    ``rows`` when not given)."""
     rows: torch.Tensor   # int32 [E_pad], sorted, in [0, num_nodes]
     cols: torch.Tensor   # int32 [E_pad], in [0, num_cols)
     vals: torch.Tensor   # f32 [E_pad]
     num_nodes: int       # rows of the product
     chunk: int
     num_cols: int | None = None
+    row_counts: dataclasses.InitVar[np.ndarray | None] = None
+    plan: SplitPlan | None = dataclasses.field(init=False, repr=False)
 
-    def __post_init__(self):
+    def __post_init__(self, row_counts):
         if self.num_cols is None:
             self.num_cols = self.num_nodes
         r, c, v = self.rows, self.cols, self.vals
@@ -665,6 +721,13 @@ class PaddedCSR:
         if c.numel() and (int(c.min()) < 0 or int(c.max()) >= self.num_cols):
             raise ValueError(f"PaddedCSR: cols must be in [0, "
                              f"{self.num_cols})")
+        if row_counts is None:
+            row_counts = torch.bincount(
+                r.long(), minlength=self.num_nodes + 1).cpu().numpy()
+        counts = np.asarray(row_counts, np.int64)[: self.num_nodes]
+        self.plan = SplitPlan.build(
+            np.concatenate([[0], np.cumsum(counts)]),
+            default_split_cap(self.num_nodes, int(counts.sum())), r.device)
 
     @property
     def num_edges_padded(self) -> int:
@@ -683,69 +746,125 @@ class PaddedCSR:
         chunk = min(chunk, max(256, 1 << (max(e - 1, 1)).bit_length()))
         e_pad = -(-max(e, 1) // chunk) * chunk
         pad = e_pad - e
+        counts = np.bincount(rows, minlength=n)
         rows = np.concatenate([rows, np.full(pad, n, dtype=np.int32)])
         cols = np.concatenate([cols, np.zeros(pad, dtype=np.int32)])
         vals = np.concatenate([vals, np.zeros(pad, dtype=np.float32)])
         return PaddedCSR(*(torch.as_tensor(a, device=device)
                            for a in (rows, cols, vals)), n, chunk,
-                         num_cols=adj.shape[1])
+                         num_cols=adj.shape[1], row_counts=counts)
+
+
+def spmm_segment_prop_step_plain(padded: PaddedCSR, cur_in: torch.Tensor,
+                                 cur_out: torch.Tensor,
+                                 acc: torch.Tensor | None, scale: float,
+                                 accumulate: bool,
+                                 row_scale: torch.Tensor | None = None
+                                 ) -> None:
+    """Plain PyTorch version of :func:`spmm_segment_prop_step`: each row's
+    terms ``x[c]·v`` added in edge order (a split row's by chunks, then
+    the chunks in order, as the kernel groups them), the padding skipped,
+    then the update."""
+    n = padded.num_nodes
+    bounds = torch.arange(n + 1, dtype=torch.int32, device=cur_in.device)
+    op = types.SimpleNamespace(
+        indptr=torch.searchsorted(padded.rows, bounds), plan=padded.plan)
+    h = _hop_sums(op, lambda e: cur_in[padded.cols[e].long()]
+                  * padded.vals[e, None],
+                  torch.zeros(cur_out.shape, device=cur_out.device))
+    if row_scale is not None:
+        h = h * row_scale[:, None]
+    _epilogue_plain(h, cur_out, acc, scale, accumulate)
+
+
+def _segment_launch(name: str, padded: PaddedCSR, x: torch.Tensor,
+                    y: torch.Tensor, acc: torch.Tensor | None, scale: float,
+                    accumulate: bool, row_scale: torch.Tensor | None) -> bool:
+    """Checks and launches K2-seg; False when there was nothing to
+    launch."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    n, nfeat = padded.num_nodes, x.shape[1] if x.dim() == 2 else -1
+    carries = [y] + ([acc] if accumulate else [])
+    tensors = [x, padded.rows, padded.cols, padded.vals] + carries + (
+        [] if row_scale is None else [row_scale])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on {x.device}")
+    if any(t.dtype != torch.float32 for t in [x] + carries) or (
+            row_scale is not None and row_scale.dtype != torch.float32):
+        raise TypeError(f"{name} wants f32 x, carries and row scale")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    if (tuple(x.shape) != (padded.num_cols, nfeat)
+            or any(tuple(t.shape) != (n, nfeat) for t in carries)
+            or (row_scale is not None and row_scale.shape != (n,))):
+        raise ValueError(f"{name}: x must be [{padded.num_cols}, F], the "
+                         f"carries [{n}, F] and the row scale [{n}]")
+    if x.numel() and any(t.data_ptr() == x.data_ptr() for t in carries):
+        raise ValueError(f"{name}: x must alias neither output")
+    if not y.numel():
+        return False
+    plan = padded.plan
+    split, _scratch = _plan_args(name, types.SimpleNamespace(plan=plan), x,
+                                 torch.float32)
+    check(load_kernels().coo_spmm(
+        padded.rows.data_ptr(), padded.cols.data_ptr(),
+        padded.vals.data_ptr(), x.data_ptr(), y.data_ptr(),
+        acc.data_ptr() if accumulate else None, _ptr(row_scale),
+        padded.num_edges_padded, n, nfeat, float(scale), int(accumulate),
+        *split, torch.cuda.current_stream(x.device).cuda_stream), "coo_spmm")
+    return True
+
+
+def spmm_segment_prop_step(padded: PaddedCSR, cur_in: torch.Tensor,
+                           cur_out: torch.Tensor, acc: torch.Tensor | None,
+                           scale: float, accumulate: bool,
+                           row_scale: torch.Tensor | None = None) -> None:
+    """One K2-seg hop with the update fused, in one launch: ``h = A @
+    cur_in`` for ``A`` as :class:`PaddedCSR` (each row's terms in edge
+    order), ``cur_out = scale * h`` (with ``row_scale`` [num_nodes] f32:
+    ``(h · row_scale[r]) · scale``, two roundings, D1's scatter variant),
+    then ``acc += cur_out`` if ``accumulate``. f32 carries [num_nodes, F]
+    (every row written), ``cur_in`` [num_cols, F] aliasing neither."""
+    if cur_in.device.type == "cpu":
+        spmm_segment_prop_step_plain(padded, cur_in, cur_out, acc, scale,
+                                     accumulate, row_scale)
+        return
+    if _segment_launch("spmm_segment_prop_step", padded, cur_in, cur_out,
+                       acc, scale, accumulate, row_scale):
+        spmm_segment_prop_step.launches += 1
 
 
 def spmm_segment_plain(padded: PaddedCSR, x: torch.Tensor,
                        out: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`spmm_segment`: each row's terms
-    ``x[c]·v`` added in edge order. The padding is skipped, as the kernel
-    skips it, so the discard row stays zero."""
-    n = padded.num_nodes
+    """Plain PyTorch version of :func:`spmm_segment`."""
     if out is None:
-        out = torch.zeros((n + 1, x.shape[1]), device=x.device)
-    else:
-        out.zero_()
-    bounds = torch.arange(n + 1, dtype=torch.int32, device=x.device)
-    indptr = torch.searchsorted(padded.rows, bounds)
-    _row_sums(indptr, lambda e: x[padded.cols[e].long()]
-              * padded.vals[e, None], out)
-    return out[:n]
+        out = torch.empty((padded.num_nodes, x.shape[1]), device=x.device)
+    spmm_segment_prop_step_plain(padded, x, out, None, 1.0, False)
+    return out
 
 
 def spmm_segment(padded: PaddedCSR, x: torch.Tensor,
                  out: torch.Tensor | None = None) -> torch.Tensor:
-    """K2-seg: ``y = A @ x`` for ``A`` as :class:`PaddedCSR`, ``x``
-    [num_cols, F] f32. Adds into ``out`` [num_nodes + 1, F] f32 (zeroed
-    here; a new one if None), whose last row is the discard row, and
-    returns its first ``num_nodes`` rows."""
+    """K2-seg's bare product ``y = A @ x`` for ``A`` as :class:`PaddedCSR`,
+    ``x`` [num_cols, F] f32: the hop's kernel with scale 1 and no update.
+    Writes every row of ``out`` [num_nodes, F] f32 (a new one if None) and
+    returns it."""
+    if out is not None and tuple(out.shape) != (padded.num_nodes,
+                                                x.shape[-1]):
+        raise ValueError(f"spmm_segment: out must be [{padded.num_nodes}, "
+                         "F]")
     if x.device.type == "cpu":
         return spmm_segment_plain(padded, x, out)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    n = padded.num_nodes
-    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
-        raise TypeError("spmm_segment wants a contiguous 2-D f32 x")
-    if x.shape[0] != padded.num_cols:
-        raise ValueError(f"spmm_segment: x must be [{padded.num_cols}, F]")
     if out is None:
-        out = torch.zeros((n + 1, x.shape[1]), device=x.device)
-    elif (out.shape != (n + 1, x.shape[1]) or out.dtype != torch.float32
-          or not out.is_contiguous()):
-        raise ValueError(f"spmm_segment: out must be a contiguous f32 "
-                         f"[{n + 1}, {x.shape[1]}] tensor")
-    else:
-        out.zero_()
-    if any(t.device != x.device for t in (padded.rows, out)):
-        raise ValueError(f"spmm_segment: all tensors must be on {x.device}")
-    if out.data_ptr() == x.data_ptr() and x.numel():
-        raise ValueError("spmm_segment: x and out must differ")
-    if out.numel() and padded.num_edges_padded:
-        check(load_kernels().coo_spmm(
-            padded.rows.data_ptr(), padded.cols.data_ptr(),
-            padded.vals.data_ptr(), x.data_ptr(), out.data_ptr(),
-            padded.num_edges_padded, n, x.shape[1],
-            torch.cuda.current_stream(x.device).cuda_stream), "coo_spmm")
+        out = torch.empty((padded.num_nodes, x.shape[-1]), device=x.device)
+    if _segment_launch("spmm_segment", padded, x, out, None, 1.0, False,
+                       None):
         spmm_segment.launches += 1
-    return out[:n]
+    return out
 
 
 for _fn in (spmm_prop_step, spmm_prop_step_bf16, quantize_columns,
             column_absmax, quantize_with_amax, spmm_prop_step_q8,
-            spmm_prop_step_q8mxu, spmm_segment):
+            spmm_prop_step_q8mxu, spmm_segment, spmm_segment_prop_step):
     _fn.launches = 0

@@ -1120,44 +1120,124 @@ def _seg_graph(n, hub, seed=5):
     return adj
 
 
+def _split_mask(padded, n, device):
+    """The rows under the plan's cap (each adds in edge order, bit for bit
+    the plain version)."""
+    under = torch.ones(n, dtype=torch.bool, device=device)
+    if padded.plan is not None:
+        under[padded.plan.rows.long()] = False
+    return under
+
+
 @pytest.mark.parametrize("n,nfeat,hub", [(50, 1, False), (300, 33, False),
                                          (9500, 100, True), (9500, 64, True),
                                          (2, 4, False)])
 def test_coo_spmm_kernel_matches_plain(device, n, nfeat, hub):
-    """K2-seg against its plain version: rows inside one edge run add in
-    edge order, as the plain version does; a row over several runs adds
-    their partial sums with atomics (in any order where there are more
-    than two: the hub row), so the limit is TOL, not bit for bit."""
+    """K2-seg's bare product against its plain version: every row of the
+    output written (no zero-fill), rows under the split cap bit for bit
+    (edge order from 0), the split hub row (9000 nonzeros, its chunks
+    added in order) within TOL; one launch; the same bits on a second run
+    (no atomics); and the library's product."""
     from grandtpu_torch.sparse.spmm import (PaddedCSR, spmm_segment,
                                             spmm_segment_plain)
     adj = _seg_graph(n, hub)
     padded = PaddedCSR.from_scipy(adj, device=device)
+    assert (padded.plan is not None) == hub
     x = torch.randn(n, nfeat, device=device,
                     generator=torch.Generator(device).manual_seed(0))
     before = spmm_segment.launches
-    out = torch.full((n + 1, nfeat), 3.0, device=device)
+    out = torch.full((n, nfeat), 3.0, device=device)
     got = spmm_segment(padded, x, out=out)
     torch.cuda.synchronize()
     assert spmm_segment.launches == before + 1
+    assert got.data_ptr() == out.data_ptr()
     want = spmm_segment_plain(padded, x)
     assert _rel_err(got, want) <= TOL
-    assert float(out[-1].abs().max()) == 0.0          # the discard row
+    under = _split_mask(padded, n, device)
+    assert torch.equal(got[under], want[under])
     assert float(got[0].abs().max()) == 0.0           # an empty row
-    # rows of at most 32 edges span at most two runs: deterministic sums;
-    # and the library's product
-    again = spmm_segment(padded, x)
-    inside = torch.ones(n, dtype=torch.bool, device=device)
-    if hub:
-        inside[3] = False
-    assert torch.equal(again[inside], got[inside])
+    assert torch.equal(spmm_segment(padded, x), got)  # deterministic
     a = torch.sparse_coo_tensor(
         torch.stack([padded.rows.long(), padded.cols.long()]), padded.vals,
         (n + 1, n)).coalesce()
     assert _rel_err(got, torch.sparse.mm(a, x)[:n]) <= TOL
 
 
+def _seg_case(n, hub, trailing, seed=5):
+    """_seg_graph with its last ``trailing`` rows emptied (the rows after
+    the last real edge: a D1 shard's padded rows)."""
+    adj = _seg_graph(n, hub, seed).tolil()
+    if trailing:
+        adj[n - trailing:, :] = 0
+    return adj.tocsr()
+
+
+@pytest.mark.parametrize("n,nfeat,hub,trailing", [
+    (2, 4, False, 1), (300, 1, False, 0), (300, 33, False, 7),
+    (9500, 100, True, 0), (9500, 64, True, 3), (9500, 602, True, 2),
+    (3000, 128, False, 5)])
+@pytest.mark.parametrize("row_scale", [False, True])
+@pytest.mark.parametrize("accumulate", [True, False])
+def test_segment_prop_step_matches_plain(device, n, nfeat, hub, trailing,
+                                         row_scale, accumulate):
+    """The fused K2-seg hop (y = scale * (h * row_scale), acc += y) against
+    its plain version: rows under the cap bit for bit (y and acc), the
+    split row within TOL, empty and trailing empty rows written (y 0, acc
+    + 0), one launch, the same bits on a second launch."""
+    from grandtpu_torch.sparse.spmm import (PaddedCSR,
+                                            spmm_segment_prop_step,
+                                            spmm_segment_prop_step_plain)
+    adj = _seg_case(n, hub, trailing)
+    padded = PaddedCSR.from_scipy(adj, device=device)
+    gen = torch.Generator(device).manual_seed(4)
+    x = torch.randn(n, nfeat, device=device, generator=gen)
+    acc0 = torch.randn(n, nfeat, device=device, generator=gen)
+    rs = (torch.rand(n, device=device, generator=gen) + 0.5
+          if row_scale else None)
+
+    def hop(fn):
+        y = torch.full((n, nfeat), 3.0, device=device)
+        acc = acc0.clone() if accumulate else None
+        fn(padded, x, y, acc, 0.8, accumulate, rs)
+        return y, acc
+
+    before = spmm_segment_prop_step.launches
+    got = hop(spmm_segment_prop_step)
+    torch.cuda.synchronize()
+    assert spmm_segment_prop_step.launches == before + 1
+    want = hop(spmm_segment_prop_step_plain)
+    again = hop(spmm_segment_prop_step)
+    under = _split_mask(padded, n, device)
+    for g, w, a in zip(got, want, again):
+        if w is None:
+            continue
+        assert _rel_err(g, w) <= TOL
+        assert torch.equal(g[under], w[under]), int((g[under] != w[under])
+                                                   .sum())
+        assert torch.equal(g, a)                       # deterministic
+    empty = torch.as_tensor(np.diff(adj.indptr) == 0, device=device)
+    assert float(got[0][empty].abs().max()) == 0.0
+    if trailing:
+        assert bool(empty[n - trailing:].all())
+
+
+def test_segment_prop_step_with_no_real_edge(device):
+    """An operator with no edge at all (a shard of padding only): every
+    row written, y zero and acc unchanged in value."""
+    from grandtpu_torch.sparse.spmm import PaddedCSR, spmm_segment_prop_step
+    adj = sp.csr_matrix((40, 40), dtype=np.float32)
+    padded = PaddedCSR.from_scipy(adj, device=device)
+    acc0 = torch.randn(40, 8, device=device)
+    y, acc = torch.full((40, 8), 3.0, device=device), acc0.clone()
+    spmm_segment_prop_step(padded, torch.randn(40, 8, device=device), y, acc,
+                           0.5, True)
+    torch.cuda.synchronize()
+    assert float(y.abs().max()) == 0.0 and torch.equal(acc, acc0)
+
+
 def test_coo_spmm_wrapper_checks(device):
-    from grandtpu_torch.sparse.spmm import PaddedCSR, spmm_segment
+    from grandtpu_torch.sparse.spmm import (PaddedCSR, spmm_segment,
+                                            spmm_segment_prop_step)
     adj = _seg_graph(40, False)
     padded = PaddedCSR.from_scipy(adj, device=device)
     with pytest.raises(TypeError):
@@ -1167,12 +1247,136 @@ def test_coo_spmm_wrapper_checks(device):
         spmm_segment(padded, torch.zeros(41, 4, device=device))
     with pytest.raises(ValueError):
         spmm_segment(padded, torch.zeros(40, 4, device=device),
-                     out=torch.zeros(40, 4, device=device))
+                     out=torch.zeros(41, 4, device=device))
+    x = torch.zeros(40, 4, device=device)
+    with pytest.raises(ValueError):                   # x aliases acc
+        spmm_segment_prop_step(padded, x, torch.zeros_like(x), x, 1.0, True)
+    with pytest.raises(ValueError):                   # a row scale [n + 1]
+        spmm_segment_prop_step(padded, x, torch.zeros_like(x), None, 1.0,
+                               False, torch.ones(41, device=device))
     rows = padded.rows.clone()
     i = int(torch.nonzero(rows[1:] > rows[:-1])[0, 0])
     rows[[i, i + 1]] = rows[[i + 1, i]]
     with pytest.raises(ValueError, match="sorted"):
         PaddedCSR(rows, padded.cols, padded.vals, 40, padded.chunk)
+
+
+@pytest.mark.parametrize("kernel", ["q8", "q8mxu"])
+@pytest.mark.parametrize("carry", ["f32", "bf16"])
+@pytest.mark.parametrize("nfeat", INT8_WIDTHS)
+@pytest.mark.parametrize("split", [False, True])
+def test_int8_hop_amax_matches_column_absmax(device, kernel, carry, nfeat,
+                                             split):
+    """The maxima an int8 hop raises (amax_out) are column_absmax of the y
+    it stored, bit for bit, split or not, every width; the hop's carries
+    are those of the hop without them; one launch; a buffer above the
+    maxima keeps its values."""
+    from grandtpu_torch.sparse.spmm import column_absmax
+    adj = (_split_operator_rows_constant() if kernel == "q8mxu"
+           else _split_operator())
+    op = CSROperator.from_scipy(adj, device,
+                                split_cap=None if split else adj.nnz)
+    assert (op.plan is not None) == split
+    n = adj.shape[0]
+    rs = np.random.RandomState(nfeat + 1)
+    x = torch.tensor(rs.randn(n, nfeat).astype(np.float32), device=device)
+    acc0 = _carry(torch.tensor(rs.randn(n, nfeat).astype(np.float32),
+                               device=device), carry)
+    q, scale = quantize_columns_plain(x)
+    rv = row_values_if_constant(adj)
+    wrapper = spmm_prop_step_q8 if kernel == "q8" else spmm_prop_step_q8mxu
+    args = (q, scale) if kernel == "q8" else (
+        q, scale, torch.tensor(rv, device=device))
+
+    def hop(amax_out):
+        y, acc = torch.empty_like(acc0), acc0.clone()
+        wrapper(op, *args, y, acc, 0.8, True, amax_out)
+        return y, acc
+
+    amax = torch.zeros(nfeat, device=device)
+    before = wrapper.launches
+    got = hop(amax)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    for g, w in zip(got, hop(None)):
+        assert torch.equal(g, w)
+    assert torch.equal(amax.view(torch.int32),
+                       column_absmax(got[0]).view(torch.int32))
+    high = torch.full((nfeat,), 1e30, device=device)
+    hop(high)
+    torch.cuda.synchronize()
+    assert torch.equal(high, torch.full_like(high, 1e30))
+
+
+@pytest.mark.parametrize("n,nfeat", [(1, 3), (300, 33), (9500, 100),
+                                     (300, 1), (2000, 602), (40, 5000)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_with_amax_one_launch_matches_plain(device, n, nfeat,
+                                                     dtype):
+    """The one-launch quantize (the scales computed in each block's shared
+    memory, by windows of 4096 features) bit for bit the plain version,
+    from the column maxima and from larger ones; it zeroes the other
+    buffer it is given; one launch a call."""
+    from grandtpu_torch.sparse.spmm import (column_absmax,
+                                            quantize_with_amax,
+                                            quantize_with_amax_plain)
+    x = _carry(torch.randn(n, nfeat, device=device,
+                           generator=torch.Generator(device).manual_seed(2)),
+               dtype)
+    x[:, nfeat // 2] = 0.0                 # an all-zero column
+    pair = torch.rand((2, nfeat), device=device)
+    pair[0] = column_absmax(x)
+    before = quantize_with_amax.launches
+    q, scale = quantize_with_amax(x, pair[0], pair[1])
+    torch.cuda.synchronize()
+    assert quantize_with_amax.launches == before + 1
+    assert not pair[1].any()
+    q_p, scale_p = quantize_columns_plain(x)
+    assert torch.equal(q, q_p) and torch.equal(scale, scale_p)
+    wider = (pair[0] * 1.7 + 0.3).to(x.dtype).float()
+    q, scale = quantize_with_amax(x, wider)
+    q_p, scale_p = quantize_with_amax_plain(x, wider)
+    assert torch.equal(q, q_p) and torch.equal(scale, scale_p)
+    with pytest.raises(ValueError):
+        quantize_with_amax(x, pair[0], pair[0])
+
+
+@pytest.mark.parametrize("precision", ["int8", "int8cast"])
+@pytest.mark.parametrize("carry", [torch.float32, torch.bfloat16])
+def test_int8_run_reuses_the_hops_maxima(device, precision, carry):
+    """A whole int8 Propagator run on the card (one full quantize, then
+    each later hop's on the maxima the hop before raised) equals the run
+    that quantizes every hop in full, bit for bit, with the launches
+    1 + (order - 1) + order."""
+    from grandtpu_torch.infer import Propagator
+    from grandtpu_torch.sparse.spmm import quantize_with_amax
+    base = _split_operator()
+    # unit weights and self-loops: D^-1 A's rows are constant (int8 runs
+    # K2-q8mxu), its hub rows split
+    adj = ((base + sp.eye(base.shape[0], format="csr")) != 0).astype(
+        np.float32)
+    prop = Propagator(adj, backend="csr", device=device, dtype=carry)
+    assert prop.adj_op.plan is not None
+    x = torch.randn(adj.shape[0], 100, device=device,
+                    generator=torch.Generator(device).manual_seed(7))
+    order = 5
+    counts = [f.launches for f in (quantize_columns, quantize_with_amax)]
+    got = prop(x, mode="ppr", order=order, alpha=0.2, precision=precision)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (quantize_columns, quantize_with_amax)] == [
+        counts[0] + 1, counts[1] + order - 1]
+    hop = (spmm_prop_step_q8mxu if prop.last_precision == "int8mxu"
+           else spmm_prop_step_q8)
+    cur = (x.to(carry) * (float(torch.tensor(0.2).to(carry)))).contiguous()
+    acc = cur.clone()
+    out = torch.empty_like(cur)
+    for _ in range(order):
+        q, s = quantize_columns(cur)
+        args = (q, s) if hop is spmm_prop_step_q8 else (q, s, prop.row_val)
+        hop(prop.adj_op, *args, out, acc, 0.8, True)
+        cur, out = out, cur
+    torch.cuda.synchronize()
+    assert torch.equal(got, acc)
 
 
 @pytest.mark.parametrize("n,nfeat", [(1, 3), (300, 33), (9500, 100)])

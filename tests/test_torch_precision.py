@@ -226,6 +226,99 @@ def test_q8_hops_on_a_general_operator_match_grandtpu_math():
         y.numpy(), isum * rv.numpy()[:, None] * scale.numpy(), rtol=1e-6)
 
 
+def _amax_operator(rows_constant):
+    """400 rows of 0 to 6 nonzeros and row 9 with 300 (above a cap of
+    64): the values varied, or 1 / the row's nonzeros (K2-q8mxu's form)."""
+    rs = np.random.RandomState(8)
+    n = 400
+    deg = np.arange(n) % 7
+    deg[9] = 300
+    rows = np.repeat(np.arange(n), deg)
+    cols = np.concatenate([rs.choice(n, d, replace=False) for d in deg])
+    vals = (np.repeat(1.0 / np.maximum(deg, 1), deg) if rows_constant
+            else rs.uniform(0.1, 1.0, rows.size))
+    return sp.csr_matrix((vals.astype(np.float32), (rows, cols)),
+                         shape=(n, n))
+
+
+@pytest.mark.parametrize("kernel", ["q8", "q8mxu"])
+@pytest.mark.parametrize("carry", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split", [False, True])
+def test_hop_amax_out_equals_column_absmax(kernel, carry, split):
+    """The maxima an int8 hop raises are ``column_absmax`` of the y it
+    stored, bit for bit, split or not, and the hop's carries are those of
+    the hop without them; a buffer above them keeps its values."""
+    from grandtpu_torch.sparse.spmm import column_absmax_plain
+    adj = _amax_operator(kernel == "q8mxu")
+    op = CSROperator.from_scipy(adj, "cpu",
+                                split_cap=64 if split else adj.nnz)
+    assert (op.plan is not None) == split
+    rs = np.random.RandomState(12)
+    x = torch.tensor(rs.randn(400, 21).astype(np.float32))
+    q, scale = quantize_columns(x)
+    acc0 = torch.tensor(rs.randn(400, 21).astype(np.float32)).to(carry)
+    row_val = torch.tensor(row_values_if_constant(adj)) if (
+        kernel == "q8mxu") else None
+
+    def hop(amax_out):
+        y, acc = torch.empty_like(acc0), acc0.clone()
+        if row_val is None:
+            spmm_prop_step_q8(op, q, scale, y, acc, 0.8, True, amax_out)
+        else:
+            spmm_prop_step_q8mxu(op, q, scale, row_val, y, acc, 0.8, True,
+                                 amax_out)
+        return y, acc
+
+    amax = torch.zeros(21)
+    got, plain = hop(amax), hop(None)
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    assert torch.equal(amax, column_absmax_plain(got[0]))
+    assert amax.view(torch.int32).equal(
+        column_absmax_plain(got[0]).view(torch.int32))
+    high = torch.full((21,), 1e30)
+    hop(high)
+    assert torch.equal(high, torch.full((21,), 1e30))
+
+
+@pytest.mark.parametrize("precision", ["int8mxu", "int8cast"])
+@pytest.mark.parametrize("carry", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["ppr", "single"])
+def test_int8_run_reusing_maxima_equals_requantizing(small_graph, precision,
+                                                     carry, mode):
+    """A whole int8 run, whose later hops quantize on the maxima the hop
+    before raised, equals the same run quantizing every hop in full bit
+    for bit, and grandtpu's int8 run within the whole-run limit 1e-3."""
+    adj, feats, _ = small_graph
+    feats = np.asarray(feats, np.float32)
+    alpha, order = 0.15, 5
+    port = Propagator(adj, backend="csr", device="cpu", dtype=carry)
+    got = port(feats, mode=mode, order=order, alpha=alpha,
+               precision=precision)
+    x = torch.as_tensor(feats).to(carry)
+    rnd = tprop.bf16_round if carry == torch.bfloat16 else float
+    if mode == "ppr":
+        cur = x * rnd(alpha)
+        acc, scale = cur.clone(), 1.0 - alpha
+    else:
+        cur, acc, scale = x.clone(), None, 1.0
+    out = torch.empty_like(cur)
+    for _ in range(order):
+        q, s = quantize_columns(cur)
+        if precision == "int8mxu":
+            spmm_prop_step_q8mxu(port.adj_op, q, s, port.row_val, out, acc,
+                                 scale, mode == "ppr")
+        else:
+            spmm_prop_step_q8(port.adj_op, q, s, out, acc, scale,
+                              mode == "ppr")
+        cur, out = out, cur
+    assert torch.equal(got, acc if mode == "ppr" else cur)
+    if carry == torch.float32:
+        want = np.asarray(jax_exact_propagate(
+            adj, feats, backend="block", mode=mode, order=order,
+            alpha=alpha, precision=precision))
+        assert rel(got, want) <= 1e-3
+
+
 @pytest.mark.parametrize("rows,nfeat,max_degree", [
     (300_000, 128, None), (5_000_000, 128, None),
     (JAX_WS // 512, 128, None), (JAX_WS // 512 + 1, 128, None),

@@ -23,7 +23,8 @@ from grandtpu_torch.data import load_data
 from grandtpu_torch.data.preprocess import add_self_loops_adj
 from grandtpu_torch.infer import Propagator, exact_propagate
 from grandtpu_torch.sparse import CSROperator, PaddedCSR, spmm_prop_step
-from grandtpu_torch.sparse.spmm import spmm_segment, spmm_segment_plain
+from grandtpu_torch.sparse.spmm import (spmm_segment, spmm_segment_plain,
+                                        spmm_segment_prop_step)
 
 TOL = 1e-5
 
@@ -76,11 +77,16 @@ def test_spmm_segment_matches_grandtpu(seed, nfeat):
     got = spmm_segment(padded, torch.as_tensor(x))
     assert got.shape == want.shape
     assert rel(got, want) <= TOL
-    # the given output buffer is zeroed first and its last row discarded
-    out = torch.full((a.shape[0] + 1, nfeat), 7.0)
+    # every row of a given output buffer is written (no zero-fill, no
+    # discard row: the empty rows get zeros); a buffer of another shape
+    # is refused
+    out = torch.full((a.shape[0], nfeat), 7.0)
     again = spmm_segment(padded, torch.as_tensor(x), out=out)
     assert torch.equal(again, got) and again.data_ptr() == out.data_ptr()
-    assert float(out[-1].abs().max()) == 0.0
+    assert float(out[0].abs().max()) == 0.0
+    with pytest.raises(ValueError, match="out"):
+        spmm_segment(padded, torch.as_tensor(x),
+                     out=torch.zeros(a.shape[0] + 1, nfeat))
 
 
 def test_segment_rectangular_matches_scipy():
@@ -125,9 +131,93 @@ def test_segment_plain_adds_in_edge_order():
     assert np.array_equal(got[r], s)
 
 
+def hub_case(n=900, hub_degree=700, seed=6):
+    """Row 11 above the default split cap (512), empty rows among the
+    others, and the last three rows empty (trailing rows after the last
+    real edge, as a shard's padded rows are)."""
+    rs = np.random.RandomState(seed)
+    a = sp.random(n, n, density=0.006, random_state=rs, format="lil")
+    a[11, rs.choice(n, hub_degree, replace=False)] = rs.rand(hub_degree)
+    for r in (0, 5, 400, n - 3, n - 2, n - 1):
+        a[r, :] = 0
+    a = a.tocsr()
+    a.data = (np.abs(a.data) + 0.1).astype(np.float32)
+    return a
+
+
+@pytest.mark.parametrize("row_scale", [False, True])
+@pytest.mark.parametrize("accumulate", [True, False])
+@pytest.mark.parametrize("nfeat", [1, 16, 37])
+def test_segment_prop_step_matches_grandtpu(row_scale, accumulate, nfeat):
+    """The fused K2-seg hop (its plain version on the CPU) against
+    grandtpu's ``spmm_segment`` followed by grandtpu's update: ``y = scale
+    * h`` (with the D1 row scale: ``(h * dinv) * scale``), ``acc += y``;
+    with empty rows, trailing empty rows and a row above the split cap."""
+    a = hub_case()
+    n = a.shape[0]
+    rs = np.random.RandomState(nfeat)
+    x = rs.randn(n, nfeat).astype(np.float32)
+    acc0 = rs.randn(n, nfeat).astype(np.float32)
+    dinv = rs.uniform(0.1, 2.0, n).astype(np.float32)
+    h = jax_spmm_segment(JaxPaddedCSR.from_scipy(a), jnp.asarray(x))
+    if row_scale:
+        h = h * jnp.asarray(dinv)[:, None]
+    want_y = h * 0.8
+    want_acc = jnp.asarray(acc0) + want_y
+    padded = PaddedCSR.from_scipy(a, device="cpu")
+    assert padded.plan is not None and padded.plan.rows.tolist() == [11]
+    y = torch.full((n, nfeat), 7.0)
+    acc = torch.as_tensor(acc0.copy())
+    spmm_segment_prop_step(padded, torch.as_tensor(x), y,
+                           acc if accumulate else None, 0.8, accumulate,
+                           torch.as_tensor(dinv) if row_scale else None)
+    assert rel(y, want_y) <= TOL
+    assert float(y[[0, 5, 400, n - 3, n - 2, n - 1]].abs().max()) == 0.0
+    if accumulate:
+        assert rel(acc, want_acc) <= TOL
+    else:
+        assert torch.equal(acc, torch.as_tensor(acc0))
+
+
+def test_segment_split_row_groups_as_the_chunks():
+    """The plain hop sums a split row by chunks in edge order, then the
+    chunks in order (the kernel's grouping); every other row in edge
+    order from 0."""
+    a = hub_case()
+    padded = PaddedCSR.from_scipy(a, device="cpu")
+    plan = padded.plan
+    x = np.random.RandomState(2).randn(a.shape[0], 3).astype(np.float32)
+    got = spmm_segment(padded, torch.as_tensor(x)).numpy()
+
+    def edge_order(lo, hi):
+        s = np.zeros(3, np.float32)
+        for e in range(lo, hi):
+            s = s + x[a.indices[e]] * np.float32(a.data[e])
+        return s
+
+    r = 11
+    lo, hi = a.indptr[r], a.indptr[r + 1]
+    assert plan.cap < hi - lo
+    chunks = [edge_order(c, min(c + plan.cap, hi))
+              for c in range(lo, hi, plan.cap)]
+    s = np.zeros(3, np.float32)
+    for c in chunks:
+        s = s + c
+    assert np.array_equal(got[r], s)
+    assert np.array_equal(got[12], edge_order(a.indptr[12], a.indptr[13]))
+
+
+@pytest.mark.parametrize("hub", [False, True])
 @pytest.mark.parametrize("mode", ["ppr", "avg", "single"])
-def test_segment_propagate_matches_grandtpu(graph, mode):
+def test_segment_propagate_matches_grandtpu(graph, mode, hub):
+    """Every mode, on the 400-node graph and (``hub``) on one whose hub row
+    the segment operator splits, with empty and trailing empty rows."""
     adj, feats = graph
+    if hub:
+        adj = (hub_case() + sp.eye(900, format="csr")).tolil()
+        adj[[0, 5], :] = 0                       # empty rows, no self-loop
+        adj = adj.tocsr()
+        feats = np.random.RandomState(1).randn(900, 12).astype(np.float32)
     kw = dict(mode=mode, order=4, alpha=0.3)
     want = np.asarray(jax_exact_propagate(adj, feats, backend="segment",
                                           **kw))
