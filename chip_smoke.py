@@ -62,7 +62,10 @@ Then the same for the MAG (sparse-feature) engine, on
     10,000-node chunk; max relative error <= 1e-5 (the backward's
     atomics sum in another order); each forward form's kernel also timed
     on the device alone (torch.profiler over 100 calls) beside its wrapper
-    time; K2 timed at H = 64 on the MAG operator;
+    time, and the backward's kernel and its zero-fill on the device apart
+    beside autograd's wall (host dispatch included); the node form over
+    all nodes as the predict runs it (CUDA events and the kernels' device
+    time); K2 timed at H = 64 on the MAG operator;
 4b. reference on a small input: ``train()`` with the mag_scholar_c
     preset, every drop rate 0, on ``synth:2000:8:500:sparse`` on the card
     and on the CPU: |d val_loss| <= 1e-4 at every eval, test accuracy
@@ -152,7 +155,9 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     and bf16 terms, 5e-3 int8) and against the one-card ``Propagator`` at
     the same precision (f32 <= 1e-5; the fast forms within the 5e-3 gate
     of f32); then the halo kernels', the quantize split's and the
-    collectives' times at the shard shapes, and the halo compression;
+    collectives' times at the shard shapes (halo_pack through the
+    propagator's send plan, also on the device alone), and the halo
+    compression;
 5e. the slice's main path, serving: ``python -m grandtpu_torch.cli.main
     predict --preset Amazon2M --dataset synth:2000000:47:100 --ckpt
     <5d's best.npz>`` (run in this process through ``cli()``, its counts
@@ -242,7 +247,8 @@ Data-parallel training (D2) on meshes of the one card:
     versions (<= 1e-5), the windows' forwards summed against the full K3 and
     their gradients joined against the full backward (<= 1e-5), the padding
     rows' gradient zero; kernel / plain / library (``F.embedding_bag`` over
-    the window) times and bounds;
+    the window) times and bounds, the forward's and the backward's kernels
+    also on the device alone (the backward's zero-fill apart);
 9b. (after 6b) the slice's main path, the MAG engine on
     ``make_mesh(4, devices=[cuda:0] * 4)``: one step against the one-card
     step as in 9 (hidden dropout on), then ``train(cfg, mesh=...)`` for 5
@@ -396,13 +402,15 @@ def _device_times(fn, iters: int, kernel: str) -> list:
             and kernel in e.name]
 
 
-def _device_ms(fn, iters: int, kernel: str):
+def _device_ms(fn, iters: int, kernel: str, per_call: int = 1):
     """Mean device time a call of the kernels whose name holds ``kernel``,
-    over ``iters`` calls of ``fn()`` (:func:`_device_times`): the kernel's
-    own time, without the host's dispatch that :func:`_time_ms` sees when
-    launches are short. None if the profiler recorded no such kernel."""
+    over ``iters`` calls of ``fn()`` (:func:`_device_times`), each call
+    ``per_call`` launches: the kernel's own time, without the host's
+    dispatch that :func:`_time_ms` sees when launches are short. The mean
+    is over the launches the profiler recorded (it can drop some records).
+    None if it recorded no such kernel."""
     times = _device_times(fn, iters, kernel)
-    return sum(times) / iters if times else None
+    return sum(times) / len(times) * per_call if times else None
 
 
 def _busy_ms(fn):
@@ -1144,8 +1152,16 @@ def check_k3(padded) -> list:
                                                   droprate=q), 100,
                                "embed_prop_fwd_kernel")
         it_o, it_p = itertools.cycle(outs), itertools.cycle(plains)
-        ms_b = _time_ms(lambda: torch.autograd.grad(
-            next(it_o), table, gout, retain_graph=True), 50)
+
+        def grad_next():
+            return torch.autograd.grad(next(it_o), table, gout,
+                                       retain_graph=True)
+
+        # autograd's wall (host dispatch included) and, on the device, the
+        # backward kernel and the gradient's zero-fill apart
+        ms_b = _time_ms(grad_next, 50)
+        dev_b = _device_ms(grad_next, 20, "embed_prop_bwd_kernel")
+        fill_b = _device_ms(grad_next, 20, "FillFunctor")
         plain_b = _time_ms(lambda: torch.autograd.grad(
             next(it_p), table, gout, retain_graph=True), 20)
         lib_f = lib_b = None
@@ -1177,21 +1193,28 @@ def check_k3(padded) -> list:
                               "plain_ms": plain_f,
                               "library_ms": lib_f, "bound_ms": bound_f,
                               "bound_by": by_f, "max_rel_err": e_f[1]}
-        times["bwd"][form] = {"shape": shape, "ms": ms_b, "plain_ms": plain_b,
+        times["bwd"][form] = {"shape": shape, "ms": ms_b, "device_ms": dev_b,
+                              "fill_device_ms": fill_b, "plain_ms": plain_b,
                               "library_ms": lib_b, "bound_ms": bound_b,
                               "bound_by": by_b, "max_rel_err": e_b[1]}
         print(f"[K3] {form} {shape}: fwd ms {ms_f} (on the device, "
               f"profiled: {dev_f}) plain_ms {plain_f} "
               f"library_ms {lib_f} bound_ms {bound_f} ({by_f}, "
-              f"{b_f / 1e6:.2f} MB) err {e_f}; bwd ms {ms_b} plain_ms "
-              f"{plain_b} library_ms {lib_b} bound_ms {bound_b} ({by_b}, "
-              f"{b_b / 1e6:.1f} MB) err {e_b}", flush=True)
+              f"{b_f / 1e6:.2f} MB) err {e_f}; bwd ms through autograd "
+              f"{ms_b} (on the device, profiled: kernel {dev_b}, zero-fill "
+              f"{fill_b}) plain_ms {plain_b} library_ms {lib_b} bound_ms "
+              f"{bound_b} ({by_b}, {b_b / 1e6:.1f} MB) err {e_b}",
+              flush=True)
         del outs, plains, sets
 
     # the node form over all 1M nodes, as the predict runs it
     with torch.no_grad():
         all_ms = _time_ms(lambda: embed_all_nodes(table, attr_cols,
                                                   attr_vals), 3, warmup=1)
+        all_dev = _device_ms(lambda: embed_all_nodes(table, attr_cols,
+                                                     attr_vals), 2,
+                             "embed_prop_fwd_kernel",
+                             -(-attr_cols.shape[0] // K3_SHAPE[4]))
     live = attr_vals != 0
     uniq = torch.unique(attr_cols[live]).numel()
     n, p = attr_cols.shape
@@ -1199,12 +1222,13 @@ def check_k3(padded) -> list:
     gathers = int(live.sum())
     all_bound, _ = _bound(nbytes, 2 * gathers * H_MAG)
     print(f"[K3] node form over all {n} nodes ({-(-n // K3_SHAPE[4])} "
-          f"launches): ms {all_ms} bound_ms {all_bound} ({nbytes / 1e9:.3f} "
+          f"launches): ms {all_ms} (the K3 kernels on the device, "
+          f"profiled: {all_dev}) bound_ms {all_bound} ({nbytes / 1e9:.3f} "
           f"GB, each distinct row once; {uniq} distinct rows); row gathers "
           f"{gathers} = {gathers * H_MAG * 4 / 1e9:.2f} GB at "
           f"{gathers * H_MAG * 4 / 3.35e12 * 1e3:.3f} ms", flush=True)
-    times["fwd"]["node_all"] = {"ms": all_ms, "bound_ms": all_bound,
-                                "row_gathers": gathers}
+    times["fwd"]["node_all"] = {"ms": all_ms, "device_ms": all_dev,
+                                "bound_ms": all_bound, "row_gathers": gathers}
     entries = []
     for key, line in (("fwd", 80), ("bwd", 87)):
         main = times[key]["train"]
@@ -1216,8 +1240,7 @@ def check_k3(padded) -> list:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
-            **({"device_ms": main["device_ms"]} if key == "fwd" else {}),
-            "forms": times[key]})
+            "device_ms": main["device_ms"], "forms": times[key]})
     return entries
 
 
@@ -2407,7 +2430,7 @@ def _d1_times(prop, xs, tag: str) -> dict:
     mesh, g = prop.mesh, prop.g
     S, c_max, nfeat = g.num_shards, g.halo_per_pair, xs[0].shape[1]
     rows = g.rows_per_shard
-    x0, idx0 = xs[0], prop.send_idx[0]
+    x0, idx0, plan0 = xs[0], prop.send_idx[0], prop.plans[0]
     m = idx0.numel()
     uniq = torch.unique(idx0).numel()
     amax = mesh.pmax([column_absmax(x) for x in xs])
@@ -2418,7 +2441,9 @@ def _d1_times(prop, xs, tag: str) -> dict:
         width = 4 if a is None else 1
         nbytes = uniq * nfeat * 4 + 4 * m + m * nfeat * width + (
             0 if a is None else 8 * nfeat)
-        ms = _time_ms(lambda: halo_pack(x0, idx0, a), 30)
+        ms = _time_ms(lambda: halo_pack(x0, idx0, a, plan0), 30)
+        dev = _device_ms(lambda: halo_pack(x0, idx0, a, plan0), 30,
+                         "halo_pack_kernel")
         plain_ms = _time_ms(lambda: halo_pack_plain(x0, idx0, a), 3)
         if a is None:
             lib = _time_ms(lambda: torch.index_select(x0, 0, idx0), 30)
@@ -2426,13 +2451,14 @@ def _d1_times(prop, xs, tag: str) -> dict:
             lib = _time_ms(lambda: quantize_with_amax_plain(
                 torch.index_select(x0, 0, idx0), a), 10)
         b = _bound(nbytes, m * nfeat * (0 if a is None else 3))
-        out[f"halo_pack_{form}"] = {"ms": ms, "plain_ms": plain_ms,
+        out[f"halo_pack_{form}"] = {"ms": ms, "device_ms": dev,
+                                    "plain_ms": plain_ms,
                                     "library_ms": lib, "bound_ms": b[0],
                                     "bound_by": b[1]}
     # halo_hop, f32 and the exact int8 form, on a real exchange
     for form, a in (("f32", None), ("exact", amax)):
-        packs = [halo_pack(x, i, aa) for x, i, aa in
-                 zip(xs, prop.send_idx, a or [None] * S)]
+        packs = [halo_pack(x, i, aa, pl) for x, i, aa, pl in
+                 zip(xs, prop.send_idx, a or [None] * S, prop.plans)]
         recv = mesh.all_to_all([p.view(S, c_max, -1) for p, _ in packs])
         r0 = recv[0].view(S * c_max, -1)
         sc = packs[0][1]
@@ -2471,8 +2497,8 @@ def _d1_times(prop, xs, tag: str) -> dict:
                                  "library_ms": None, "bound_ms": b[0],
                                  "bound_by": b[1]}
     # the collectives: copies on the one card
-    sends = [halo_pack(x, i)[0].view(S, c_max, -1)
-             for x, i in zip(xs, prop.send_idx)]
+    sends = [halo_pack(x, i, None, pl)[0].view(S, c_max, -1)
+             for x, i, pl in zip(xs, prop.send_idx, prop.plans)]
     out["all_gather_ms"] = _time_ms(lambda: mesh.all_gather(xs), 10)
     out["all_to_all_ms"] = _time_ms(lambda: mesh.all_to_all(sends), 10)
     out["pmax_ms"] = _time_ms(lambda: mesh.pmax(amax), 10)
@@ -3220,10 +3246,18 @@ def check_k3_window(padded) -> list:
 
     with torch.no_grad():
         ms_f = _time_ms(lambda: fwd_next(embed_prop_window), 200)
+        dev_f = _device_ms(lambda: fwd_next(embed_prop_window), 100,
+                           "embed_prop_fwd_kernel")
         plain_f = _time_ms(lambda: fwd_next(embed_prop_plain), 16)
     outs = [embed_prop_window(t, lo, hi, **st) for t, lo, hi, st in cases]
     it_o = itertools.cycle(zip(outs, cases))
+    # autograd's wall (host dispatch included); on the device the backward
+    # kernel and the window gradient's zero-fill apart
     ms_b = _time_ms(lambda: _window_grad(next(it_o), gout), 64)
+    dev_b = _device_ms(lambda: _window_grad(next(it_o), gout), 32,
+                       "embed_prop_bwd_kernel")
+    fill_b = _device_ms(lambda: _window_grad(next(it_o), gout), 32,
+                        "FillFunctor")
     plains = [embed_prop_plain(t, **st, vocab_lo=lo, vocab_hi=hi)
               for t, lo, hi, st in cases[:8]]
     it_p = itertools.cycle(zip(plains, cases))
@@ -3273,17 +3307,19 @@ def check_k3_window(padded) -> list:
     b_f, o_f, b_b, o_b = (float(np.mean([x[i] for x in nb]))
                           for i in range(4))
     (bound_f, by_f), (bound_b, by_b) = _bound(b_f, o_f), _bound(b_b, o_b)
-    print(f"[3h] per window call: fwd ms {ms_f} plain_ms {plain_f} "
-          f"library_ms {lib_f} (embedding_bag, {lib_err} from the kernel) "
-          f"bound_ms {bound_f} ({by_f}, {b_f / 1e6:.3f} MB); bwd ms {ms_b} "
-          f"plain_ms {plain_b} library_ms {lib_b} bound_ms {bound_b} "
-          f"({by_b}, {b_b / 1e6:.1f} MB)", flush=True)
+    print(f"[3h] per window call: fwd ms {ms_f} (on the device, profiled: "
+          f"{dev_f}) plain_ms {plain_f} library_ms {lib_f} (embedding_bag, "
+          f"{lib_err} from the kernel) bound_ms {bound_f} ({by_f}, "
+          f"{b_f / 1e6:.3f} MB); bwd ms through autograd {ms_b} (on the "
+          f"device, profiled: kernel {dev_b}, zero-fill {fill_b}) plain_ms "
+          f"{plain_b} library_ms {lib_b} bound_ms {bound_b} ({by_b}, "
+          f"{b_b / 1e6:.1f} MB)", flush=True)
     shape = (f"[{num_aug},{s0['tk_cols'].shape[0]},{h}] over a window of "
              f"{per} of {v} rows")
     entries = []
-    for key, line, err, ms, plain_ms, lib, bound, by in (
-            ("fwd", 80, e_f, ms_f, plain_f, lib_f, bound_f, by_f),
-            ("bwd", 87, e_b, ms_b, plain_b, lib_b, bound_b, by_b)):
+    for key, line, err, ms, dev, plain_ms, lib, bound, by in (
+            ("fwd", 80, e_f, ms_f, dev_f, plain_f, lib_f, bound_f, by_f),
+            ("bwd", 87, e_b, ms_b, dev_b, plain_b, lib_b, bound_b, by_b)):
         entries.append({
             "name": f"embed_prop_window_{key}", "route": "cuda",
             "source": "grandtpu_torch/csrc/embed_prop.cu",
@@ -3291,9 +3327,11 @@ def check_k3_window(padded) -> list:
             "sharded_by": "grandtpu/dist/data_parallel.py:96",
             "max_abs_err": err[0], "max_rel_err": err[1],
             "windows_vs_full": e_sum[1] if key == "fwd" else e_cat[1],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": lib, "shape": shape})
+            "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
+            "shape": shape})
     entries[1]["direct"] = direct
+    entries[1]["fill_device_ms"] = fill_b
     return entries
 
 

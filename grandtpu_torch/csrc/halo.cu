@@ -19,18 +19,38 @@
 // onehot_spmm casts int8 sources only), so that form is the f32 one here
 // too, kept so on purpose.
 //
-// What bounds them on an H100: bytes. halo_pack must read the S * C_max
-// gathered rows and the index and write the send buffer (4 or 1 bytes an
+// What bounds them on an H100: bytes. halo_pack must read each distinct
+// send row once and the plan, and write the send buffer (4 or 1 bytes an
 // element); halo_hop must read both CSR structures, x_local and the
-// receive buffer once, and read and write the carries. The design is K2's
-// (csr_spmm.cu): one warp a row (a send row, a local row), lanes over
+// receive buffer once, and read and write the carries.
+//
+// halo_pack (redesigned for the H100) walks a send plan
+// (dist/halo.py::SendPlan, built once from send_idx): the distinct source
+// rows in ascending order, each with the list of slots of the [S * C_max]
+// buffer it goes to, a row with more than 32 slots (row 0, which every
+// padding slot copies) cut into items of 32. A warp takes 4 items at once,
+// loads their rows (16 bytes a lane where F is a multiple of 4 and the
+// arrays aligned to it) before it stores any, quantizes each row once,
+// and stores it to each of its slots: each distinct row is read once and
+// each element quantized once, where the earlier kernel (one warp a slot)
+// read a row once for every receiver that needs it (with the own-shard
+// group's padding, 2.5x the distinct rows at the Amazon2M stand-in's shard)
+// and recomputed its column's scale with a second IEEE division for every
+// element. A block computes the column scales of a window of 4,096
+// features from the global maxima into shared memory once (block 0 also
+// writes col_scale), and keeps quantize_one's IEEE division, so q stays bit
+// for bit grandtpu's jnp.take of its quantized block and the f32 form bit
+// for bit x[send_idx]. At the Amazon2M stand-in's shard ([500224, 100],
+// 1,157,048 slots, 462,409 distinct rows; NVIDIA H100 80GB HBM3, 700 W;
+// tools/propagation_times.py halo) the int8 form takes 0.137 ms on the
+// device against a 0.091 ms bound, the f32 form 0.243 against 0.195. Tried
+// and not kept (int8 / f32 ms): 1 item a warp at once 0.161 / 0.262, 8
+// items 0.187 / 0.239, items of 8 slots 0.142 / 0.243.
+//
+// halo_hop's design is K2's (csr_spmm.cu): one warp a local row, lanes over
 // features, 4 neighbouring features a lane where F is a multiple of 4 and
-// the arrays aligned to it. halo_pack quantizes in the same pass as the
-// gather (clamp(rint(x / scale)) with IEEE division: the int8 rows are bit
-// for bit grandtpu's jnp.take of its quantized block), from the global
-// column maxima the caller reduced over the shards. halo_hop adds each
-// partial sum in edge order with rounded products (no fused multiply-add),
-// as its plain version does.
+// the arrays aligned to it. It adds each partial sum in edge order with
+// rounded products (no fused multiply-add), as its plain version does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,34 +77,81 @@ __device__ __forceinline__ void store_row(int8_t* p, const int8_t (&v)[4]) {
   *reinterpret_cast<char4*>(p) = make_char4(v[0], v[1], v[2], v[3]);
 }
 
-// out[i, :] = x[idx[i], :], as f32 or quantized with the scales of amax;
-// with kQuant the warp of row 0 also writes the F column scales.
+constexpr int kPackWarps = 8;       // halo_pack: warps a block
+constexpr int kPackItems = 4;       // plan items a warp loads before storing
+constexpr int kScaleWindow = 4096;  // features a block's shared scales cover
+constexpr int kPackMaxBlocks = 8192;
+
+// out[dst[e], :] = x[item_src[i], :] for each plan item i and each e in
+// item_ptr[i]:item_ptr[i + 1], as f32 or quantized with the scales of amax
+// (kQuant: block 0 also writes the F column scales).
 template <int kVec, bool kQuant>
-__global__ void halo_pack_kernel(const float* __restrict__ x,
-                                 const int32_t* __restrict__ idx,
-                                 const float* __restrict__ amax,
-                                 float* __restrict__ col_scale,
-                                 void* __restrict__ out, int num_out,
-                                 int num_features) {
-  const int64_t row = grandtpu::warp_row(num_out);
-  if (row < 0) return;
+__global__ void __launch_bounds__(kPackWarps * 32) halo_pack_kernel(
+    const float* __restrict__ x, const int32_t* __restrict__ item_src,
+    const int32_t* __restrict__ item_ptr, const int32_t* __restrict__ dst,
+    int num_items, const float* __restrict__ amax,
+    float* __restrict__ col_scale, void* __restrict__ out,
+    int num_features) {
+  __shared__ float scales[kQuant ? kScaleWindow : 1];
   const int lane = threadIdx.x & 31;
-  const int64_t src = __ldg(idx + row);
-  for (int f0 = lane * kVec; f0 < num_features; f0 += 32 * kVec) {
-    float v[kVec];
-    grandtpu::load_x(x + src * num_features + f0, v);
-    const int64_t o = row * num_features + f0;
-    if (kQuant) {
-      int8_t q[kVec];
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        const float scale = grandtpu::column_scale(__ldg(amax + f0 + j));
-        q[j] = grandtpu::quantize_one(v[j], scale);
-        if (row == 0) col_scale[f0 + j] = scale;
+  const int64_t warp0 =
+      static_cast<int64_t>(blockIdx.x) * kPackWarps + threadIdx.x / 32;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kPackWarps;
+  const int window = kQuant ? kScaleWindow : num_features;
+  for (int w0 = 0; w0 < num_features; w0 += window) {
+    const int w1 = min(num_features, w0 + window);
+    if constexpr (kQuant) {
+      __syncthreads();                  // the last window's reads are done
+      for (int f = w0 + threadIdx.x; f < w1; f += blockDim.x) {
+        const float sc = grandtpu::column_scale(__ldg(amax + f));
+        scales[f - w0] = sc;
+        if (blockIdx.x == 0) col_scale[f] = sc;
       }
-      store_row(static_cast<int8_t*>(out) + o, q);
-    } else {
-      store_row(static_cast<float*>(out) + o, v);
+      __syncthreads();
+    }
+    for (int64_t base = warp0 * kPackItems; base < num_items;
+         base += warps * kPackItems) {
+      int64_t src[kPackItems];
+      int lo[kPackItems], hi[kPackItems];
+#pragma unroll
+      for (int u = 0; u < kPackItems; ++u) {
+        const int64_t item = base + u;
+        const bool in = item < num_items;
+        src[u] = in ? __ldg(item_src + item) : 0;
+        lo[u] = in ? __ldg(item_ptr + item) : 0;
+        hi[u] = in ? __ldg(item_ptr + item + 1) : 0;
+      }
+      for (int f0 = w0 + lane * kVec; f0 < w1; f0 += 32 * kVec) {
+        float v[kPackItems][kVec];
+#pragma unroll
+        for (int u = 0; u < kPackItems; ++u) {
+          if (lo[u] < hi[u]) {
+            grandtpu::load_x(x + src[u] * num_features + f0, v[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kPackItems; ++u) {
+          if (lo[u] >= hi[u]) continue;
+          if constexpr (kQuant) {
+            int8_t q[kVec];
+#pragma unroll
+            for (int j = 0; j < kVec; ++j) {
+              q[j] = grandtpu::quantize_one(v[u][j], scales[f0 - w0 + j]);
+            }
+            for (int e = lo[u]; e < hi[u]; ++e) {
+              const int64_t o =
+                  static_cast<int64_t>(__ldg(dst + e)) * num_features + f0;
+              store_row(static_cast<int8_t*>(out) + o, q);
+            }
+          } else {
+            for (int e = lo[u]; e < hi[u]; ++e) {
+              const int64_t o =
+                  static_cast<int64_t>(__ldg(dst + e)) * num_features + f0;
+              store_row(static_cast<float*>(out) + o, v[u]);
+            }
+          }
+        }
+      }
     }
   }
 }
@@ -199,23 +266,29 @@ int launch_hop(const int32_t* d_ptr, const int32_t* d_idx, const float* d_val,
 
 // Each returns the cudaError_t of its launch (0 on success).
 
-// x [rows, F] f32, idx [num_out] int32 row ids; out [num_out, F] f32, or
-// int8 when quantize is 1: then amax [F] f32 (the global column maxima) is
-// read and col_scale [F] f32 written.
-extern "C" int halo_pack(const float* x, const int32_t* idx, const float* amax,
-                         float* col_scale, void* out, int num_out,
-                         int num_features, int quantize, void* stream) {
-  if (num_out == 0 || num_features == 0) return 0;
+// x [rows, F] f32; the send plan of num_items items (item_src, item_ptr
+// [num_items + 1] into dst, dst [num_out]: every slot of out once); out
+// [num_out, F] f32, or int8 when quantize is 1: then amax [F] f32 (the
+// global column maxima) is read and col_scale [F] f32 written.
+extern "C" int halo_pack(const float* x, const int32_t* item_src,
+                         const int32_t* item_ptr, const int32_t* dst,
+                         int num_items, const float* amax, float* col_scale,
+                         void* out, int num_out, int num_features,
+                         int quantize, void* stream) {
+  if (num_out == 0 || num_features == 0 || num_items == 0) return 0;
   const bool vec4 = grandtpu::carries_vec4(num_features, x, 0) &&
-                    grandtpu::aligned(out, quantize ? 4 : 16) &&
-                    (!quantize || grandtpu::aligned(amax, 16));
+                    grandtpu::aligned(out, quantize ? 4 : 16);
   auto kernel = quantize ? (vec4 ? halo_pack_kernel<4, true>
                                  : halo_pack_kernel<1, true>)
                          : (vec4 ? halo_pack_kernel<4, false>
                                  : halo_pack_kernel<1, false>);
-  kernel<<<grandtpu::hop_blocks(num_out), grandtpu::kWarpsPerBlock * 32, 0,
-           static_cast<cudaStream_t>(stream)>>>(x, idx, amax, col_scale, out,
-                                                num_out, num_features);
+  const int64_t per_block = kPackWarps * kPackItems;
+  const int64_t blocks = (num_items + per_block - 1) / per_block;
+  kernel<<<static_cast<unsigned>(blocks < kPackMaxBlocks ? blocks
+                                                         : kPackMaxBlocks),
+           kPackWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, item_src, item_ptr, dst, num_items, amax, col_scale, out,
+      num_features);
   return static_cast<int>(cudaGetLastError());
 }
 

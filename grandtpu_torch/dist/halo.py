@@ -10,7 +10,9 @@ the halo edges' columns are remapped into the receive buffer
 
 1. :func:`halo_pack` (``csrc/halo.cu``): gather the send rows, quantized
    with the global per-column scale for the int8 forms (each shard's
-   :func:`~grandtpu_torch.sparse.spmm.column_absmax`, then the mesh's max);
+   :func:`~grandtpu_torch.sparse.spmm.column_absmax`, then the mesh's max),
+   through each owner's :class:`SendPlan` (each distinct row read and
+   quantized once), which the propagator builds once from ``send_idx``;
 2. ``Mesh.all_to_all``: each shard receives its rows from every owner;
 3. :func:`halo_hop` (``csrc/halo.cu``): ``h = h_d + h_h``, the exact f32
    diagonal sum plus the halo sum (f32; int8 with bf16 terms; or int8
@@ -49,9 +51,41 @@ def _form(recv: torch.Tensor, row_val) -> str:
     return "cast" if row_val is None else "exact"
 
 
+SLOTS_PER_ITEM = 32   # a send plan item's slots at most
+
+
+@dataclasses.dataclass(frozen=True)
+class SendPlan:
+    """:func:`halo_pack`'s plan of one owner's ``send_idx`` [m]: the
+    distinct source rows in ascending order, each with the slots of the
+    send buffer it goes to (``dst``, grouped by source row, ascending
+    within one). A row with more than :data:`SLOTS_PER_ITEM` slots (row 0,
+    which every padding slot copies) is cut into items of at most that
+    many, so one item stays one warp's work. ``item_src`` int32 [I],
+    ``item_ptr`` int32 [I + 1] into ``dst`` int32 [m]."""
+    item_src: torch.Tensor
+    item_ptr: torch.Tensor
+    dst: torch.Tensor
+
+    @staticmethod
+    def build(send_idx: torch.Tensor) -> "SendPlan":
+        """The plan of ``send_idx`` [m], on its device."""
+        src, dst = torch.sort(send_idx.long(), stable=True)
+        m, dev = src.numel(), src.device
+        first = torch.ones(m, dtype=torch.bool, device=dev)
+        first[1:] = src[1:] != src[:-1]
+        run_start = torch.nonzero(first).flatten()
+        pos = (torch.arange(m, device=dev)
+               - run_start[torch.cumsum(first, 0) - 1])
+        starts = torch.nonzero(pos % SLOTS_PER_ITEM == 0).flatten()
+        item_ptr = torch.cat([starts, starts.new_tensor([m])])
+        return SendPlan(src[starts].int(), item_ptr.int(), dst.int())
+
+
 def halo_pack_plain(x_local: torch.Tensor, send_idx: torch.Tensor,
-                    amax: torch.Tensor | None = None):
-    """Plain PyTorch version of :func:`halo_pack`."""
+                    amax: torch.Tensor | None = None, plan=None):
+    """Plain PyTorch version of :func:`halo_pack` (from ``send_idx``; the
+    plan is not read)."""
     rows = x_local[send_idx.long()]
     if amax is None:
         return rows, None
@@ -59,27 +93,38 @@ def halo_pack_plain(x_local: torch.Tensor, send_idx: torch.Tensor,
 
 
 def halo_pack(x_local: torch.Tensor, send_idx: torch.Tensor,
-              amax: torch.Tensor | None = None):
+              amax: torch.Tensor | None = None,
+              plan: SendPlan | None = None):
     """The send rows ``x_local[send_idx]`` [len(send_idx), F] f32; with the
     global column maxima ``amax`` [F], quantized instead: int8
     ``clamp(round_half_even(x / scale), -127, 127)`` with ``scale = amax /
-    127`` (1 for a zero column), in the gather's pass. Returns (send,
-    scale f32 [F] or None)."""
+    127`` (1 for a zero column), in the gather's pass. The kernel walks
+    ``plan`` (``SendPlan.build(send_idx)``, built here if not given): each
+    distinct row read and quantized once. Returns (send, scale f32 [F] or
+    None)."""
     if x_local.device.type == "cpu":
         return halo_pack_plain(x_local, send_idx, amax)
     if x_local.device.type != "cuda":
         raise ValueError(f"unsupported device {x_local.device}")
-    tensors = [x_local, send_idx] + ([] if amax is None else [amax])
+    if plan is None:
+        plan = SendPlan.build(send_idx)
+    tensors = [x_local, send_idx, plan.item_src, plan.item_ptr, plan.dst] + (
+        [] if amax is None else [amax])
     if any(t.device != x_local.device or not t.is_contiguous()
            for t in tensors):
         raise ValueError(f"halo_pack: tensors must be contiguous, on "
                          f"{x_local.device}")
     if (x_local.dtype != torch.float32 or x_local.dim() != 2
             or send_idx.dtype != torch.int32 or send_idx.dim() != 1
+            or any(t.dtype != torch.int32 for t in (
+                plan.item_src, plan.item_ptr, plan.dst))
             or (amax is not None and (amax.dtype != torch.float32 or
                                       amax.shape != (x_local.shape[1],)))):
         raise TypeError("halo_pack wants f32 x [rows, F], int32 send_idx "
-                        "[m] and f32 amax [F]")
+                        "[m] and plan, and f32 amax [F]")
+    if (plan.dst.shape != send_idx.shape
+            or plan.item_ptr.shape != (plan.item_src.numel() + 1,)):
+        raise ValueError("halo_pack: the plan is not one of send_idx")
     nfeat = x_local.shape[1]
     quant = amax is not None
     out = torch.empty((send_idx.shape[0], nfeat), device=x_local.device,
@@ -87,8 +132,9 @@ def halo_pack(x_local: torch.Tensor, send_idx: torch.Tensor,
     scale = torch.empty(nfeat, device=x_local.device) if quant else None
     if out.numel():
         check(load_kernels().halo_pack(
-            x_local.data_ptr(), send_idx.data_ptr(),
-            amax.data_ptr() if quant else None,
+            x_local.data_ptr(), plan.item_src.data_ptr(),
+            plan.item_ptr.data_ptr(), plan.dst.data_ptr(),
+            plan.item_src.numel(), amax.data_ptr() if quant else None,
             scale.data_ptr() if quant else None, out.data_ptr(),
             send_idx.shape[0], nfeat, int(quant),
             torch.cuda.current_stream(x_local.device).cuda_stream),
@@ -304,6 +350,7 @@ class HaloPropagator:
         self.halo = _to_ops(g.halo, mesh.devices, rows_per, S * c_max)
         self.send_idx = [torch.as_tensor(g.send_idx[s].reshape(-1), device=d)
                          for s, d in enumerate(mesh.devices)]
+        self.plans = [SendPlan.build(idx) for idx in self.send_idx]
         self.row_val = (None if g.row_val is None else
                         [torch.as_tensor(g.row_val[s], device=d)
                          for s, d in enumerate(mesh.devices)])
@@ -324,8 +371,8 @@ class HaloPropagator:
                 amax = mesh.pmax([k.absmax(c) for c in cur_in])
             else:
                 amax = [None] * S
-            packs = [pack(c, idx, a)
-                     for c, idx, a in zip(cur_in, self.send_idx, amax)]
+            packs = [pack(c, idx, a, plan) for c, idx, a, plan in
+                     zip(cur_in, self.send_idx, amax, self.plans)]
             recv = mesh.all_to_all([p.view(S, c_max, -1) for p, _ in packs])
             for s in range(S):
                 hop_fn(self.diag[s], self.halo[s], cur_in[s],

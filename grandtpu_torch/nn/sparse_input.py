@@ -40,6 +40,7 @@ import torch
 from grandtpu_torch.ops._build import check, load_kernels
 
 MAX_AUG = 8   # K values the kernels are instantiated for
+MAX_SMEM = 232448   # shared memory an H100 block may take (227 KB)
 
 
 @dataclasses.dataclass
@@ -194,11 +195,22 @@ def _check_args(table, attr_cols, attr_vals, tk_cols, tk_vals, keep, drop,
             raise ValueError(f"embed_prop: droprate {droprate} not in [0, 1)")
     if not 1 <= num_aug <= MAX_AUG:
         raise ValueError(f"embed_prop: K={num_aug} outside 1..{MAX_AUG}")
-    # the forward's shared memory: w and D per row, 8 warps' partial sums
-    if (num_aug * ktop + num_aug + 8 * num_aug * 64) * 4 > 48 * 1024:
+    if fwd_smem_bytes(ktop, num_aug) > MAX_SMEM:
         raise ValueError(f"embed_prop: Ktop={ktop} too large for the "
-                         "kernel's shared memory")
+                         "forward kernel's shared memory")
     return rows, ktop, p, h, num_aug
+
+
+def fwd_smem_bytes(ktop: int, num_aug: int) -> int:
+    """The most dynamic shared memory the K3 forward kernel takes at
+    ``ktop`` and K (``csrc/embed_prop.cu``, ``fwd_config``): a warp a slot
+    up to 32 warps a row, rows a block for 4 warps; each warp's partial sums
+    of a 64-feature chunk, the rows' weights, and each warp's 384-byte id
+    list."""
+    wpr = min(ktop, 32)
+    rpb = 1 if wpr >= 4 else -(-4 // wpr)
+    warps = rpb * wpr
+    return 4 * (warps * num_aug * 64 + rpb * num_aug * ktop) + warps * 384
 
 
 def _ptr(t):

@@ -53,8 +53,9 @@ _SIGNATURES = {
     # chunk_lo, num_chunks, cap, partial, counters, stream
     "coo_spmm": [_P] * 7 + [ctypes.c_int64, _I, _I, ctypes.c_float, _I]
                 + [_P] * 4 + [_I, _I, _P, _P, _P],
-    # x, idx, amax, col_scale, out, num_out, num_features, quantize, stream
-    "halo_pack": [_P] * 5 + [_I, _I, _I, _P],
+    # x, item_src, item_ptr, dst, num_items, amax, col_scale, out, num_out,
+    # num_features, quantize, stream
+    "halo_pack": [_P] * 4 + [_I] + [_P] * 3 + [_I, _I, _I, _P],
     # d_ptr, d_idx, d_val, x, h_ptr, h_idx, h_val, recv, col_scale,
     # row_val, y, acc, num_rows, num_features, scale, accumulate, form,
     # stream

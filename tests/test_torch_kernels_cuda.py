@@ -9,29 +9,31 @@ machine with a card and without JAX, run them with
 cases the full-width checks in ``chip_smoke.py`` do not: K = 1..8, odd
 widths, empty and fully masked rows, hub rows, and for K3 attribute-free
 nodes, input dropout, colliding ids (the backward's atomics) and the node
-form, and its vocab-window form (an empty window, the whole vocabulary,
-ids on the window's edges, the windows summing to the full op); for the
-fast-precision hops (K2-bf16, quantize, K2-q8, K2-q8mxu) f32
-and bf16 carries, widths that are not a multiple of 4 or 32, an all-zero
-column, a 9000-nonzero hub row and a one-row operator; for the GFPush
-kernels (top-k, P1's push mask, P2's hop and reserve merge) ties, rows
-with fewer than k positives, a dangling node, a 9000-nonzero hub source and
-determinism, and for the top-k rows past its shared-memory candidate buffer
-(233,000 and 20,000 positives, one row all equal) and P1's and P2's full
-shapes at k 64 and 1024; for K2 and K2-bf16 split hub rows (20,000 and
-150,000 nonzeros beside empty rows) at F 1, 33, 64, 100 and 602, both
-carry types, with and without accumulate, against the plain version (which
-follows the same split plan) and the unsplit hop, and for K2-q8 and
+form, a grid of Ktop, P, H and K for the forward's warps, lane groups and id
+lists, the forward's bits on repeated calls, and its vocab-window form (an
+empty window, the whole vocabulary, ids on the window's edges, the windows
+summing to the full op); for the fast-precision hops (K2-bf16, quantize,
+K2-q8, K2-q8mxu) f32 and bf16 carries, widths that are not a multiple of 4
+or 32, an all-zero column, a 9000-nonzero hub row and a one-row operator;
+for the GFPush kernels (top-k, P1's push mask, P2's hop and reserve merge)
+ties, rows with fewer than k positives, a dangling node, a 9000-nonzero hub
+source and determinism, and for the top-k rows past its shared-memory
+candidate buffer (233,000 and 20,000 positives, one row all equal) and P1's
+and P2's full shapes at k 64 and 1024; for K2 and K2-bf16 split hub rows
+(20,000 and 150,000 nonzeros beside empty rows) at F 1, 33, 64, 100 and 602,
+both carry types, with and without accumulate, against the plain version
+(which follows the same split plan) and the unsplit hop, and for K2-q8 and
 K2-q8mxu the same hub rows at F 1, 16, 33, 64, 100, 128 and 602 (every
 vector width of their lane groups, and several tiles) bit for bit their
 plain versions (K2-q8mxu's split hop bit for bit its unsplit one), the
 unsplit hops and misaligned views at those widths, rows shorter than the
-kernels' batch of edges and split rows whose last chunk is, and the
-Python mirrors of their configuration choice and alignment rule against
-the kernels' own; for
-K2-seg (coo_spmm), D1's halo_pack and halo_hop (each
-form) and the quantize split (column_absmax, quantize_with_amax) 4-wide and
-1-wide lanes, a 9000-nonzero hub row, empty rows and an empty shard.
+kernels' batch of edges and split rows whose last chunk is, and the Python
+mirrors of their configuration choice and alignment rule against the
+kernels' own; for K2-seg (coo_spmm), D1's halo_pack (its send plan: a row
+every receiver needs, empty and all-padding groups, a row longer than a plan
+item, two windows of shared scales) and halo_hop (each form) and the
+quantize split (column_absmax, quantize_with_amax) 4-wide and 1-wide lanes,
+a 9000-nonzero hub row, empty rows and an empty shard.
 """
 
 import ctypes
@@ -224,6 +226,59 @@ def test_embed_prop_kernels_with_colliding_ids(device, q):
 def test_embed_prop_node_form_matches_plain(device, num_aug, q, h):
     out = _k3_check(device, num_aug, 40, 1, 24, h, q, node_form=True)
     assert float(out.detach()[:, 3].abs().max()) == 0.0
+
+
+_K3_GRID = [(ktop, p, h) for ktop in (1, 7, 32, 64) for p in (1, 24, 33)
+            for h in (1, 16, 64, 100)]
+
+
+@pytest.mark.parametrize("i,ktop,p,h", [(i, *c) for i, c in
+                                        enumerate(_K3_GRID)])
+def test_embed_prop_forward_grid_matches_plain(device, i, ktop, p, h):
+    """The forward (and backward) across Ktop 1, 7, 32, 64 (a warp a slot,
+    rows sharing a block, two slots a warp), P 1, 24, 33 (one and two id
+    lists), H 1, 16, 64, 100 (one float a lane; float4 lane groups of 4 and
+    16 lanes; two feature chunks), each (K, input dropout) of K 1, 2, 8
+    with and without dropout on eight grid points."""
+    num_aug = (1, 2, 8)[i % 3]
+    q = 0.5 if (i // 3) % 2 else 0.0
+    _k3_check(device, num_aug, 9, ktop, p, h, q)
+
+
+@pytest.mark.parametrize("window", ["all", "some", "none"])
+@pytest.mark.parametrize("ktop,p,h,num_aug,q", [
+    (7, 24, 16, 2, 0.5), (32, 33, 100, 8, 0.0), (64, 1, 1, 1, 0.5),
+    (1, 24, 64, 2, 0.0)])
+def test_embed_prop_window_forward_grid_matches_plain(device, window, ktop,
+                                                      p, h, num_aug, q):
+    """The window forward over windows holding all, some or none of the
+    ids (the ids outside take no gather), against its plain version."""
+    table, args, _ = _k3_inputs(device, num_aug, 9, ktop, p, h, q, False,
+                                False)
+    lo, hi = {"all": (0, 300), "some": (120, 210),
+              "none": (300, 310)}[window]
+    shard = (torch.randn(hi - lo, h, device=device) if window == "none"
+             else table[lo:hi].contiguous())
+    with torch.no_grad():
+        got = embed_prop_window(shard, lo, hi, **args, droprate=q)
+    want = embed_prop_plain(shard, **args, droprate=q, vocab_lo=lo,
+                            vocab_hi=hi)
+    assert got.shape == (num_aug, 9, h)
+    if window == "none":
+        assert not got.any()
+    else:
+        assert _rel_err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("q,node_form", [(0.0, False), (0.5, False),
+                                         (0.0, True)])
+def test_embed_prop_forward_repeats_bit_for_bit(device, q, node_form):
+    """No float atomics in the forward: the same bits on every call."""
+    table, args, _ = _k3_inputs(device, 2, 40, 1 if node_form else 32, 24,
+                                64, q, False, node_form)
+    with torch.no_grad():
+        outs = [embed_prop(table, **args, droprate=q) for _ in range(3)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
 
 
 def test_embed_prop_wrapper_rejects_bad_input(device):
@@ -1425,7 +1480,7 @@ def _halo_case(device, nfeat, hub, empty_shard):
     return prop, xs
 
 
-@pytest.mark.parametrize("nfeat", [1, 33, 100])
+@pytest.mark.parametrize("nfeat", [1, 3, 33, 100])
 @pytest.mark.parametrize("quant", [False, True])
 def test_halo_pack_kernel_matches_plain(device, nfeat, quant):
     """The fused gather (and quantize) is bit for bit the plain version's."""
@@ -1443,6 +1498,51 @@ def test_halo_pack_kernel_matches_plain(device, nfeat, quant):
         assert (scale is None) == (not quant)
         if quant:
             assert torch.equal(scale, want_scale)
+
+
+def _hand_send_idx(case):
+    """send_idx [S=3, S, C_max] by hand: a row that every receiver needs,
+    an empty group, groups of padding only (row 0), a row with more slots
+    than a plan item holds."""
+    from grandtpu_torch.dist.halo import SLOTS_PER_ITEM
+    send = np.zeros((3, 3, 6), np.int32)
+    if case == "every_receiver":
+        send[0, :, 0] = 4
+        send[0, 1, 1:3] = [1, 6]
+    elif case == "empty_group":
+        send[1, 0, :4] = [0, 2, 3, 9]
+        send[1, 2, :] = 0
+    elif case == "long_row":
+        send = np.zeros((3, 3, 2 * SLOTS_PER_ITEM + 3), np.int32)
+        send[2, 1, :5] = [7, 8, 9, 10, 11]
+    return send
+
+
+@pytest.mark.parametrize("case", ["every_receiver", "empty_group",
+                                  "all_padding", "long_row"])
+@pytest.mark.parametrize("nfeat", [1, 3, 100, 4100])
+@pytest.mark.parametrize("quant", [False, True])
+def test_halo_pack_plan_cases_match_plain(device, case, nfeat, quant):
+    """halo_pack bit for bit its plain version (and col_scale) on
+    hand-made send lists, with the plan built by the wrapper and by
+    SendPlan.build; F 4100 takes two windows of the shared scales, and a
+    zero column the scale 1."""
+    from grandtpu_torch.dist.halo import SendPlan, halo_pack, halo_pack_plain
+    gen = torch.Generator(device).manual_seed(4)
+    x = torch.randn(12, nfeat, device=device, generator=gen)
+    x[:, 0] = 0.0
+    amax = x.abs().amax(0) * 1.25 if quant else None
+    send = _hand_send_idx(case)
+    for s in range(3):
+        idx = torch.as_tensor(send[s].reshape(-1), device=device)
+        want, want_scale = halo_pack_plain(x, idx, amax)
+        for plan in (None, SendPlan.build(idx)):
+            got, scale = halo_pack(x, idx, amax, plan)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want)
+            assert (scale is None) == (not quant)
+            if quant:
+                assert torch.equal(scale, want_scale)
 
 
 @pytest.mark.parametrize("form", ["f32", "cast", "exact"])

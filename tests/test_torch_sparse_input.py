@@ -25,9 +25,10 @@ from grandtpu_torch.convert import mag_from_jax, mag_to_jax
 from grandtpu_torch.data import load_data, synthetic_graph
 from grandtpu_torch.nn.mag_mlp import MagMLP, init_mag_mlp
 from grandtpu_torch.nn.mlp import MLPConfig
-from grandtpu_torch.nn.sparse_input import (PaddedFeatures, embed_nodes,
+from grandtpu_torch.nn.sparse_input import (MAX_SMEM, PaddedFeatures,
+                                            _check_args, embed_nodes,
                                             embed_nodes_plain, embed_prop,
-                                            embed_prop_plain)
+                                            embed_prop_plain, fwd_smem_bytes)
 
 TOL = 1e-5
 
@@ -243,3 +244,25 @@ def test_init_mag_mlp_is_seeded_and_shaped_like_grandtpu():
     assert abs(float(table.mean())) < 0.1
     assert abs(float(table.std()) - 1.0) < 0.1
     assert isinstance(a, MagMLP)
+
+
+@pytest.mark.parametrize("num_aug", [1, 2, 8])
+def test_check_args_states_the_forward_kernels_ktop_limit(num_aug):
+    """_check_args accepts Ktop 64 (and 1, 32) and raises for the first
+    Ktop whose forward kernel would need more than a block's shared
+    memory."""
+    def args(ktop):
+        cols = torch.zeros(3, 2, dtype=torch.int32)
+        return (torch.zeros(10, 64), cols, torch.ones(3, 2),
+                torch.zeros(1, ktop, dtype=torch.int32),
+                torch.ones(1, ktop),
+                torch.ones(num_aug, 1, ktop, dtype=torch.bool), None, 0.0)
+
+    for ktop in (1, 32, 64):
+        assert _check_args(*args(ktop)) == (1, ktop, 2, 64, num_aug)
+    limit = next(k for k in range(64, 10 ** 6) if fwd_smem_bytes(k, num_aug)
+                 > MAX_SMEM)
+    assert fwd_smem_bytes(limit - 1, num_aug) <= MAX_SMEM
+    _check_args(*args(limit - 1))
+    with pytest.raises(ValueError, match="shared memory"):
+        _check_args(*args(limit))

@@ -1,11 +1,11 @@
-"""Times of the port's int8 and segment propagations on one CUDA card, for
-comparing two checkouts of the repo in one call (parent, change, change,
-parent).
+"""Times of the port's propagations, of K3 and of D1's halo exchange on one
+CUDA card, for comparing two checkouts of the repo in one call (parent,
+change, change, parent).
 
 Usage, from the root of a checkout, with another checkout (for example a
 ``git archive`` of the parent commit) unpacked under a git-ignored path:
 
-    python tools/propagation_times.py ROOT TAG [all|int8|seg]
+    python tools/propagation_times.py ROOT TAG [all|int8|seg|k3|halo]
 
 imports ``grandtpu_torch`` from ROOT (its kernels build under
 ROOT/build), and on the Amazon2M stand-in ``synth:2000000:47:100`` (ppr,
@@ -23,7 +23,18 @@ order 6, alpha 0.2) times with CUDA events:
   without the fused hop, the zero-fill, the kernel, ``mul_`` and ``add_``
   of one hop apart;
 - all: both, then D1 on 4 shards of the one card (the all_gather int8 and
-  the scatter runs, synchronized host wall).
+  the scatter runs, synchronized host wall);
+- k3: on the MAG stand-in ``synth:1000000:8:2780000:sparse`` at the
+  mag_scholar_c preset's shapes (H 64, Ktop 32, P 24), K3's device time
+  (torch.profiler, the kernel alone) in each form: the forward in the
+  train [2,40,64], train with input dropout 0.5, eval [1,240,64] and node
+  [1,10000,64] forms and over each of the 4 vocab windows; the node form
+  over all nodes as the predict runs it (CUDA events, and the kernels'
+  summed device time); the backward, full and over a window, with its
+  zero-fill's device time apart; with a digest of every output;
+- halo: on the Amazon2M stand-in, halo_pack's int8 and f32 forms at shard
+  0 of a 4-shard HaloPropagator (device time and CUDA events, digests),
+  and the halo int8 and f32 6-hop runs (synchronized host wall, digests).
 
 Prints one JSON line, with the card's name and power limit in ``smi``.
 """
@@ -41,6 +52,7 @@ mode = sys.argv[3] if len(sys.argv) > 3 else "all"
 sys.path.insert(0, os.path.abspath(root))
 
 import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from grandtpu_torch.data import load_data  # noqa: E402
 from grandtpu_torch.data.preprocess import add_self_loops_adj  # noqa: E402
@@ -77,6 +89,22 @@ def wall(fn, iters):
         fn()
     torch.cuda.synchronize(DEV)
     return (time.time() - t) / iters * 1e3
+
+
+def dev_ms(fn, iters, kernel, per_call=1):
+    """Mean device ms a call of the kernels whose name holds ``kernel``
+    (``per_call`` launches a call), over ``iters`` calls of ``fn()``: the
+    mean over the launches the profiler recorded (it can drop some)."""
+    fn()
+    torch.cuda.synchronize(DEV)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize(DEV)
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    return sum(times) / len(times) * per_call if times else None
 
 
 def digest(t):
@@ -159,6 +187,123 @@ def d1_times(adj, x, kw, r):
     r["d1_scatter_ms"] = wall(lambda: sc(x, **kw), 5)
 
 
+def k3_sets(attr_cols, attr_vals, form, g):
+    """Eight input sets of one K3 form at the MAG step's shapes (distinct
+    rows in turn, so the timed gathers miss the L2 as fresh batches do)."""
+    n, p = attr_cols.shape
+    sets = []
+    for i in range(8):
+        if form == "node":
+            sl = slice(i * 10000, (i + 1) * 10000)
+            sets.append({"attr_cols": attr_cols[sl],
+                         "attr_vals": attr_vals[sl]})
+            continue
+        r, k = (240, 1) if form == "eval" else (40, 2)
+        s = {"attr_cols": attr_cols, "attr_vals": attr_vals,
+             "tk_cols": torch.randint(0, n, (r, 32), generator=g,
+                                      device=DEV, dtype=torch.int32),
+             "tk_vals": torch.rand(r, 32, generator=g, device=DEV)}
+        if form != "eval":
+            s["keep"] = torch.rand(k, r, 32, generator=g, device=DEV) < 0.5
+        if form == "train_q0.5":
+            s["drop"] = torch.rand(k, r, 32, p, 64, generator=g,
+                                   device=DEV) < 0.5
+        sets.append(s)
+    return sets
+
+
+def k3_times(r):
+    import itertools
+
+    from grandtpu_torch.infer.classify import embed_all_nodes
+    from grandtpu_torch.nn import sparse_input as K3
+
+    mag = load_data("synth:1000000:8:2780000:sparse")
+    padded = K3.PaddedFeatures.from_csr(mag.features)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    v = padded.num_features
+    table = torch.randn(v, 64, generator=g, device=DEV)
+    ac = torch.as_tensor(padded.attr_cols, device=DEV)
+    av = torch.as_tensor(padded.attr_vals, device=DEV)
+    r["k3_shape"] = {"nodes": ac.shape[0], "P": ac.shape[1], "vocab": v}
+    with torch.no_grad():
+        for form in ("train", "train_q0.5", "eval", "node"):
+            q = 0.5 if form == "train_q0.5" else 0.0
+            sets = k3_sets(ac, av, form, g)
+            it = itertools.cycle(sets)
+            r[f"k3_fwd_{form}_digest"] = digest(K3.embed_prop(
+                table, **sets[0], droprate=q))
+            r[f"k3_fwd_{form}_device_ms"] = dev_ms(
+                lambda: K3.embed_prop(table, **next(it), droprate=q), 100,
+                "embed_prop_fwd_kernel")
+            r[f"k3_fwd_{form}_ms"] = tms(
+                lambda: K3.embed_prop(table, **next(it), droprate=q), 200)
+        sets = k3_sets(ac, av, "train", g)
+        per = -(-v // 4)
+        padded_t = torch.cat([table, table.new_zeros(per * 4 - v, 64)])
+        wins = [(s * per, (s + 1) * per) for s in range(4)]
+        shards = [padded_t[lo:hi].contiguous() for lo, hi in wins]
+        for w, ((lo, hi), t) in enumerate(zip(wins, shards)):
+            it = itertools.cycle(sets)
+            r[f"k3_window{w}_fwd_digest"] = digest(K3.embed_prop_window(
+                t, lo, hi, **sets[0]))
+            r[f"k3_window{w}_fwd_device_ms"] = dev_ms(
+                lambda: K3.embed_prop_window(t, lo, hi, **next(it)), 100,
+                "embed_prop_fwd_kernel")
+        r["k3_node_all_digest"] = digest(embed_all_nodes(table, ac, av))
+        r["k3_node_all_ms"] = tms(lambda: embed_all_nodes(table, ac, av), 3,
+                                  warmup=1)
+        r["k3_node_all_device_ms"] = dev_ms(
+            lambda: embed_all_nodes(table, ac, av), 2,
+            "embed_prop_fwd_kernel", -(-ac.shape[0] // 10000))
+    # the backward called directly, its kernel and its zero-fill apart
+    s = sets[0]
+    dims = (40, 32, ac.shape[1], 64, 2)
+    saved = (ac, av, s["tk_cols"], s["tk_vals"], s["keep"], None, 0.0, dims)
+    gout = torch.randn(2, 40, 64, generator=g, device=DEV)
+    r["k3_bwd_digest"] = digest(K3.embed_prop_backward(gout, v, *saved))
+    for name, fn in (
+            ("full", lambda: K3.embed_prop_backward(gout, v, *saved)),
+            ("window", lambda: K3.embed_prop_window_backward(
+                gout, 0, per, *saved))):
+        r[f"k3_bwd_{name}_ms"] = tms(fn, 32)
+        r[f"k3_bwd_{name}_device_ms"] = dev_ms(fn, 32,
+                                               "embed_prop_bwd_kernel")
+        r[f"k3_bwd_{name}_fill_device_ms"] = dev_ms(fn, 32, "FillFunctor")
+
+
+def halo_times(adj, x, kw, r):
+    from grandtpu_torch.dist import halo as H
+    from grandtpu_torch.sparse.spmm import column_absmax
+
+    mesh = make_mesh(4, devices=[DEV] * 4)
+    for precision in ("f32", "int8"):
+        prop, p = dist_exact_propagator(mesh, adj, x.shape[1],
+                                        halo_threshold=1.0,
+                                        precision=precision)
+        r[f"halo_{precision}_run_digest"] = digest(prop(x, precision=p, **kw))
+        r[f"halo_{precision}_run_ms"] = wall(
+            lambda: prop(x, precision=p, **kw), 5)
+    g = prop.g
+    rows = g.rows_per_shard
+    xs = [b.contiguous() for b in torch.cat(
+        [x, x.new_zeros(rows * 4 - x.shape[0], x.shape[1])]).split(rows)]
+    amax = mesh.pmax([column_absmax(b) for b in xs])[0]
+    idx = prop.send_idx[0]
+    extra = {"plan": prop.plans[0]} if hasattr(prop, "plans") else {}
+    r["halo_pack_shape"] = {"rows": rows, "F": x.shape[1],
+                            "slots": idx.numel(),
+                            "distinct": torch.unique(idx).numel()}
+    for form, a in (("f32", None), ("int8", amax)):
+        send, scale = H.halo_pack(xs[0], idx, a, **extra)
+        r[f"halo_pack_{form}_digest"] = digest(send) + (
+            "" if scale is None else digest(scale))
+        r[f"halo_pack_{form}_ms"] = tms(
+            lambda: H.halo_pack(xs[0], idx, a, **extra), 30)
+        r[f"halo_pack_{form}_device_ms"] = dev_ms(
+            lambda: H.halo_pack(xs[0], idx, a, **extra), 30, "halo_pack")
+
+
 def main():
     if not S.__file__.startswith(os.path.abspath(root)):
         raise SystemExit(f"imported {S.__file__}, not from {root}")
@@ -169,6 +314,10 @@ def main():
     t0 = time.time()
     load_kernels()
     r["build_s"] = time.time() - t0
+    if mode == "k3":
+        k3_times(r)
+        print(json.dumps(r), flush=True)
+        return
     data = load_data("synth:2000000:47:100")
     adj = add_self_loops_adj(data.adj)
     x = torch.as_tensor(data.features, device=DEV)
@@ -180,6 +329,8 @@ def main():
         seg_times(adj, x, x0, kw, r)
     if mode == "all":
         d1_times(adj, x, kw, r)
+    if mode == "halo":
+        halo_times(adj, x, kw, r)
     print(json.dumps(r), flush=True)
 
 
