@@ -11,7 +11,10 @@ Phases, in order; any failure exits non-zero without the result line:
 2. build: nvcc builds every kernel of ``grandtpu_torch/csrc`` for sm_90a;
 3. kernels vs their plain PyTorch versions on the card, at reddit width
    (K1 DropNode gather-mean: features [233000, 602], cols/vals [250, 64],
-   K = 2 with a fixed mask, and the eval form [1230, 64]; K2 CSR SpMM: 6
+   K = 2 with masks at 0.5, the eval form [1230, 64] and the 2-shard mesh's
+   shard form [125, 64], each the same bits on a second call, with its
+   device time beside CUDA events', ``F.embedding_bag``'s and its bound
+   (the distinct rows of the slots some mask keeps); K2 CSR SpMM: 6
    ppr hops on the operator of ``synth:233000:41:602``), with max relative
    error <= 1e-5 (f32 sums in another order) and kernel / plain / library
    times and each kernel's bound;
@@ -83,8 +86,8 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
 
 3d. K1 against its plain version at the Amazon2M path's shapes (its
     features [2000000, 100], cols/vals [250, 64], K = 2, and the eval form
-    [1410, 64]), <= 1e-5; K2 (f32) for 6 ppr hops against its plain
-    version, <= 1e-5; K2-bf16 (f32 and bf16 carries), quantize, K2-q8 and
+    [1410, 64]), <= 1e-5, timed as in 3; K2 (f32) for 6 ppr hops against
+    its plain version, <= 1e-5; K2-bf16 (f32 and bf16 carries), quantize, K2-q8 and
     K2-q8mxu against their plain versions at the Amazon2M shape
     [2000000, 100], 6 ppr hops each, one hop at a time on a shared input
     (both take the plain hop's output): quantize's q equal element for
@@ -462,76 +465,112 @@ def phase_build() -> None:
                 print(f"[build] {line.rstrip()}")
 
 
-def check_k1(shape, features=None, tag: str = "K1") -> dict:
+def _k1_bound(nfeat: int, sets) -> tuple:
+    """K1's bound over input sets (cols, vals, keep): the distinct rows of
+    the slots with a nonzero weight in some mask read once (the kernel
+    skips the others), 8 B a slot for cols and vals, K B a slot of mask,
+    the output written once; 2 K flops a live slot's feature and a divide
+    an output. Returns ((ms, by), MB), each the sets' mean."""
+    nbytes = flops = 0.0
+    for cols, vals, keep in sets:
+        num_aug = 1 if keep is None else keep.shape[0]
+        live = vals != 0 if keep is None else (vals != 0) & keep.any(0)
+        batch, ktop = cols.shape
+        nbytes += (torch.unique(cols[live]).numel() * nfeat * 4
+                   + batch * ktop * (8 + (0 if keep is None else num_aug))
+                   + num_aug * batch * nfeat * 4)
+        flops += num_aug * nfeat * (2 * int(live.sum()) + batch)
+    return _bound(nbytes / len(sets), flops / len(sets)), \
+        nbytes / len(sets) / 1e6
+
+
+def check_k1(shape, features=None, tag: str = "K1",
+             shards: int = 0) -> dict:
     """K1 against its plain version at ``shape`` (N, F, B, Ktop, K, eval
-    rows), gathering from ``features`` [N, F] (random if None)."""
+    rows), gathering from ``features`` [N, F] (random if None), in the
+    train and eval forms and, with ``shards``, a mesh shard's form (B /
+    shards rows): within TOL, the same bits on a second call; the device
+    time (the kernel alone), CUDA events over back-to-back calls (the
+    host's dispatch too), the plain version, ``F.embedding_bag`` and the
+    bound of each form."""
     n, nfeat, batch, ktop, num_aug, n_eval = shape
     g = torch.Generator(device=DEV).manual_seed(0)
     if features is None:
         features = torch.randn(n, nfeat, generator=g, device=DEV)
-    # distinct batches in turn, so the timed gathers miss the 50 MB L2 as
-    # a train step's fresh batch does (8 x 38.5 MB)
-    col_sets = [torch.randint(0, n, (batch, ktop), generator=g, device=DEV,
-                              dtype=torch.int32) for _ in range(8)]
-    vals = torch.rand(batch, ktop, generator=g, device=DEV)
-    keep = torch.rand(num_aug, batch, ktop, generator=g, device=DEV) < 0.5
-    cols_e = torch.randint(0, n, (n_eval, ktop), generator=g, device=DEV,
-                           dtype=torch.int32)
-    vals_e = torch.rand(n_eval, ktop, generator=g, device=DEV)
 
-    got = gather_and_prop(features, col_sets[0], vals, keep)
-    got_e = gather_and_prop(features, cols_e, vals_e)
-    torch.cuda.synchronize(DEV)
-    abs_err, rel_err = _errors(
-        got, gather_and_prop_plain(features, col_sets[0], vals, keep))
-    abs_e, rel_e = _errors(got_e,
-                           gather_and_prop_plain(features, cols_e, vals_e))
-    print(f"[{tag}] train [{num_aug},{batch},{nfeat}] max_abs_err {abs_err} "
-          f"max_rel_err {rel_err}; eval [1,{n_eval},{nfeat}] max_abs_err "
-          f"{abs_e} max_rel_err {rel_e}", flush=True)
-    if not (rel_err <= TOL and rel_e <= TOL):
-        raise AssertionError(f"{tag} disagrees with its plain version: "
-                             f"{rel_err}, {rel_e} > {TOL}")
+    def sets(rows, k):
+        # distinct batches in turn, so the timed gathers miss the 50 MB L2
+        # as a train step's fresh batch does
+        out = []
+        for _ in range(8):
+            cols = torch.randint(0, n, (rows, ktop), generator=g, device=DEV,
+                                 dtype=torch.int32)
+            vals = torch.rand(rows, ktop, generator=g, device=DEV)
+            keep = None if k == 1 else torch.rand(
+                k, rows, ktop, generator=g, device=DEV) < 0.5
+            out.append((cols, vals, keep))
+        return out
 
-    w = torch.where(keep, vals[None], 0.0).reshape(num_aug * batch, ktop)
-    den = w.sum(-1, keepdim=True) + 1e-12
-    idx_sets = [c.long().repeat(num_aug, 1) for c in col_sets]
+    forms = {"train": sets(batch, num_aug), "eval": sets(n_eval, 1)}
+    if shards:
+        forms["shard"] = sets(batch // shards, num_aug)
+    res = {"name": "dropnode_mean", "route": "cuda",
+           "source": "grandtpu_torch/csrc/dropnode_mean.cu",
+           "replaces": "grandtpu/nn/dropnode.py:21",
+           "shape": f"features [{n},{nfeat}], cols [{batch},{ktop}], "
+                    f"K={num_aug}; eval [1,{n_eval},{nfeat}]"
+                    + (f"; shard [{num_aug},{batch // shards},{nfeat}]"
+                       if shards else "")}
+    for form, ss in forms.items():
+        pre = "" if form == "train" else f"{form}_"
+        got = gather_and_prop(features, *ss[0])
+        again = gather_and_prop(features, *ss[0])
+        torch.cuda.synchronize(DEV)
+        abs_err, rel_err = _errors(got,
+                                   gather_and_prop_plain(features, *ss[0]))
+        same = bool(torch.equal(got, again))
+        if not (rel_err <= TOL and same):
+            raise AssertionError(f"{tag} {form}: max_rel_err {rel_err} "
+                                 f"(limit {TOL}), same bits {same}")
+        cols0, vals0, keep0 = ss[0]
+        rows, k = cols0.shape[0], 1 if keep0 is None else keep0.shape[0]
+        idx = [c.long().repeat(k, 1) for c, _, _ in ss]
+        w = [(v[None] if kp is None else torch.where(kp, v[None], 0.0)
+              ).reshape(k * rows, ktop) for _, v, kp in ss]
+        den = [x.sum(-1, keepdim=True) + 1e-12 for x in w]
+        lib = itertools.cycle(list(zip(idx, w, den)))
 
-    def library(idx):
-        return F.embedding_bag(idx, features, per_sample_weights=w,
-                               mode="sum") / den
+        def library():
+            i, wi, di = next(lib)
+            return F.embedding_bag(i, features, per_sample_weights=wi,
+                                   mode="sum") / di
 
-    it = itertools.cycle(col_sets)
-    ms = _time_ms(lambda: gather_and_prop(features, next(it), vals, keep),
-                  400)
-    plain_ms = _time_ms(
-        lambda: gather_and_prop_plain(features, next(it), vals, keep), 50)
-    it_idx = itertools.cycle(idx_sets)
-    library_ms = _time_ms(lambda: library(next(it_idx)), 200)
-    eval_ms = _time_ms(lambda: gather_and_prop(features, cols_e, vals_e), 200)
-
-    def bound(rows, k, uniq):
-        # each distinct gathered row read once; cols, vals, mask, output
-        nbytes = (uniq * nfeat * 4 + rows * ktop * 8 + k * rows * ktop
-                  + k * rows * nfeat * 4)
-        return _bound(nbytes, 2 * k * rows * ktop * nfeat
-                      + k * rows * nfeat), nbytes
-
-    (bound_ms, bound_by), nbytes = bound(
-        batch, num_aug, np.mean([torch.unique(c).numel() for c in col_sets]))
-    (eval_bound_ms, _), _ = bound(n_eval, 1, torch.unique(cols_e).numel())
-    print(f"[{tag}] ms {ms} plain_ms {plain_ms} library_ms {library_ms} "
-          f"bound_ms {bound_ms} ({bound_by}, {nbytes / 1e6:.1f} MB); "
-          f"eval form ms {eval_ms} bound_ms {eval_bound_ms}", flush=True)
-    return {"name": "dropnode_mean", "route": "cuda",
-            "source": "grandtpu_torch/csrc/dropnode_mean.cu",
-            "replaces": "grandtpu/nn/dropnode.py:21",
-            "max_abs_err": abs_err, "max_rel_err": rel_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "shape": f"features [{n},{nfeat}], cols [{batch},{ktop}], "
-                     f"K={num_aug}", "eval_ms": eval_ms,
-            "eval_bound_ms": eval_bound_ms, "eval_max_abs_err": abs_e}
+        it = itertools.cycle(ss)
+        (bound_ms, bound_by), mb = _k1_bound(nfeat, ss)
+        res.update({
+            f"{pre}max_abs_err": abs_err, f"{pre}max_rel_err": rel_err,
+            f"{pre}same_bits": same,
+            f"{pre}device_ms": _device_ms(
+                lambda: gather_and_prop(features, *next(it)), 200,
+                "dropnode_mean"),
+            f"{pre}ms": _time_ms(lambda: gather_and_prop(features, *next(it)),
+                                 400),
+            f"{pre}plain_ms": _time_ms(
+                lambda: gather_and_prop_plain(features, *next(it)), 20),
+            f"{pre}library_ms": _time_ms(library, 200),
+            f"{pre}bound_ms": bound_ms, f"{pre}bound_by": bound_by,
+            f"{pre}bound_mb": mb})
+        print(f"[{tag}] {form} [{k},{rows},{nfeat}] max_abs_err {abs_err} "
+              f"max_rel_err {rel_err} same bits {same}; device_ms "
+              f"{res[pre + 'device_ms']} events ms {res[pre + 'ms']} "
+              f"plain_ms {res[pre + 'plain_ms']} library_ms "
+              f"{res[pre + 'library_ms']} (F.embedding_bag) bound_ms "
+              f"{bound_ms} ({bound_by}, {mb:.1f} MB)", flush=True)
+    # the entry's errors: the largest over the forms
+    for key in ("max_abs_err", "max_rel_err"):
+        res[key] = max(res[f"{p}{key}"] for p in ("", *(
+            f"{f}_" for f in forms if f != "train")))
+    return res
 
 
 def _gathers(op, x) -> dict:
@@ -3390,7 +3429,7 @@ def main() -> int:
     data = load_data(DATASET, split_seed=preset("reddit").seed1)
     print(f"[data] {DATASET} generated in {time.time() - t0:.3f} s",
           flush=True)
-    k1, k2 = check_k1(K1_SHAPE), check_k2(data)
+    k1, k2 = check_k1(K1_SHAPE, shards=DENSE_SHARDS), check_k2(data)
     mark("3 (K1, K2)")
     push_reddit = check_push(data, preset("reddit").replace(dataset=DATASET),
                              "3e", ("jax", "bucket"))
@@ -3512,7 +3551,8 @@ def main() -> int:
         "reddit": launches["dropnode_mean"],
         "reddit_mesh": mesh_launches["dropnode_mean"],
         "amazon": amazon_launches["dropnode_mean"],
-        "amazon_bucket": bucket_launches["dropnode_mean"]}
+        "amazon_bucket": bucket_launches["dropnode_mean"],
+        "files_train": files["train"]["launches"]["dropnode_mean"]}
     p1 = push_reddit["launches"]["jax"]
     k2["launches_by_path"] = {
         "reddit": launches["csr_spmm_prop"],

@@ -38,6 +38,8 @@ _SIGNATURES = {
     # features, cols, vals, keep, out, batch, ktop, num_features, num_aug,
     # stream
     "dropnode_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # ktop, num_features, num_aug, align, out[7]
+    "dropnode_mean_config": [_I, _I, _I, _I, _P],
     # indptr, indices, values, x, y, acc, num_rows, num_features, scale,
     # accumulate, term_bf16, carry_bf16, split_rows, chunk_ptr, chunk_row,
     # chunk_lo, num_chunks, cap, partial, counters, stream

@@ -7,7 +7,10 @@ machine with a card and without JAX, run them with
 
 (``--noconftest``: the suite's conftest imports JAX). Shapes cover the edge
 cases the full-width checks in ``chip_smoke.py`` do not: K = 1..8, odd
-widths, empty and fully masked rows, hub rows, and for K3 attribute-free
+widths, empty and fully masked rows, hub rows, for K1 a grid of F, Ktop, K
+and batch (every vector width, lane groups, rows a block, tiles), views
+that start off a vector's alignment, the same bits on repeated calls and
+the Python mirror of its launch configuration, and for K3 attribute-free
 nodes, input dropout, colliding ids (the backward's atomics) and the node
 form, a grid of Ktop, P, H and K for the forward's warps, lane groups and id
 lists, the forward's bits on repeated calls, and its vocab-window form (an
@@ -44,7 +47,9 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from grandtpu_torch.nn.dropnode import gather_and_prop, gather_and_prop_plain
+from grandtpu_torch.nn.dropnode import (K1Config, gather_and_prop,
+                                        gather_and_prop_plain, k1_align,
+                                        k1_config)
 from grandtpu_torch.ppr.coef import build_coef
 from grandtpu_torch.ppr.dense_push import (dense_push_mask,
                                            dense_push_mask_plain)
@@ -114,6 +119,106 @@ def test_dropnode_mean_kernel_matches_plain(device, num_aug, batch, ktop,
                                                     vals)) <= TOL
     assert float(got[:, 0].abs().max()) == 0.0
     assert float(got[:, 1].abs().max()) == 0.0
+
+
+def _k1_case(device, n, nfeat, batch, ktop, num_aug, seed):
+    """K1 inputs with padding slots, slots that every mask drops and, where
+    the batch has room, a row of padding only (row 0) and a row that every
+    mask drops (row 1)."""
+    rs = np.random.RandomState(seed)
+    features = torch.tensor(rs.randn(n, nfeat).astype(np.float32),
+                            device=device)
+    cols = torch.tensor(rs.randint(0, n, (batch, ktop)).astype(np.int32),
+                        device=device)
+    vals_np = rs.rand(batch, ktop).astype(np.float32)
+    vals_np[:, ktop - ktop // 4:] = 0.0    # padding slots
+    keep_np = rs.rand(num_aug, batch, ktop) < 0.5
+    keep_np[:, :, ::3] = False             # slots every mask drops
+    if batch >= 3:
+        vals_np[0] = 0.0
+        keep_np[:, 1] = False
+    return (features, cols, torch.tensor(vals_np, device=device),
+            torch.tensor(keep_np, device=device))
+
+
+@pytest.mark.parametrize("batch", [1, 1410])
+@pytest.mark.parametrize("num_aug", [1, 2, 8])
+@pytest.mark.parametrize("ktop", [1, 7, 32, 64, 128])
+@pytest.mark.parametrize("nfeat", [1, 3, 100, 101, 602, 1000])
+def test_dropnode_mean_grid_matches_plain(device, nfeat, ktop, num_aug,
+                                          batch):
+    """Every vector width (float4 at F 100 and 1000, float2 at 602, one
+    float at 1, 3 and 101), lane groups (F 1, 3), rows a block (Ktop 1, 7),
+    several tiles and warps a row, the train and eval forms, the same bits
+    on a second call."""
+    features, cols, vals, keep = _k1_case(device, 3000, nfeat, batch, ktop,
+                                          num_aug, nfeat * 7 + ktop)
+    before = gather_and_prop.launches
+    got = gather_and_prop(features, cols, vals, keep)
+    got_eval = gather_and_prop(features, cols, vals)
+    again = gather_and_prop(features, cols, vals, keep)
+    torch.cuda.synchronize()
+    assert gather_and_prop.launches == before + 3
+    assert got.shape == (num_aug, batch, nfeat)
+    assert _rel_err(got, gather_and_prop_plain(features, cols, vals,
+                                               keep)) <= TOL
+    assert _rel_err(got_eval, gather_and_prop_plain(features, cols,
+                                                    vals)) <= TOL
+    assert torch.equal(got, again)
+    if batch >= 3:
+        assert float(got[:, 0].abs().max()) == 0.0
+        assert float(got[:, 1].abs().max()) == 0.0
+        assert float(got_eval[:, 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("offset,vec", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("nfeat", [100, 602])
+def test_dropnode_mean_on_a_misaligned_view(device, nfeat, offset, vec):
+    """A contiguous view of features that starts 4 or 8 bytes past a
+    16-byte boundary: the kernel takes the narrower vector there (one
+    float, or float2 where F is even), and reads nothing out of line."""
+    n = 2000
+    _, cols, vals, keep = _k1_case(device, n, nfeat, 250, 64, 2, offset)
+    rs = np.random.RandomState(nfeat)
+    base = torch.tensor(rs.randn(n * nfeat + 8).astype(np.float32),
+                        device=device)
+    assert base.data_ptr() % 16 == 0
+    features = base.view(-1)[offset:offset + n * nfeat].view(n, nfeat)
+    assert k1_align(features) == offset
+    assert k1_config(64, nfeat, 2, k1_align(features)).vec == vec
+    got = gather_and_prop(features, cols, vals, keep)
+    torch.cuda.synchronize()
+    assert _rel_err(got, gather_and_prop_plain(features, cols, vals,
+                                               keep)) <= TOL
+
+
+def test_dropnode_mean_gives_the_same_bits(device):
+    """Repeated calls at the reddit train form give the same bits: the sums
+    meet in a fixed order, with no float atomics."""
+    features, cols, vals, keep = _k1_case(device, 20000, 602, 250, 64, 2, 3)
+    first = gather_and_prop(features, cols, vals, keep)
+    first_eval = gather_and_prop(features, cols, vals)
+    for _ in range(5):
+        assert torch.equal(gather_and_prop(features, cols, vals, keep), first)
+        assert torch.equal(gather_and_prop(features, cols, vals), first_eval)
+
+
+def test_k1_config_matches_the_kernel(device):
+    """nn/dropnode.py's k1_config against the kernel's own choice
+    (dropnode_mean_config) for every F in 1..1100, each alignment and
+    several Ktop and K."""
+    lib = load_kernels()
+    out = (ctypes.c_int * 7)()
+    for nfeat in range(1, 1101):
+        for align in (1, 2, 4):
+            for ktop, num_aug in ((64, 2), (64, 1), (7, 1), (1000, 8),
+                                  (0, 3)):
+                assert lib.dropnode_mean_config(ktop, nfeat, num_aug, align,
+                                                out) == 0
+                assert K1Config(*out) == k1_config(ktop, nfeat, num_aug,
+                                                   align), (nfeat, align,
+                                                            ktop, num_aug)
+    assert lib.dropnode_mean_config(64, 0, 2, 4, out) != 0
 
 
 def test_dropnode_mean_wrapper_rejects_bad_input(device):

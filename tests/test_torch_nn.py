@@ -142,6 +142,31 @@ def test_k1_plain_matches_random_prop(rate):
     assert rel(got, want) <= TOL
 
 
+@pytest.mark.parametrize("num_aug", [1, 2, 8])
+@pytest.mark.parametrize("nfeat", [9, 100])
+def test_k1_plain_matches_random_prop_numpy_masks(num_aug, nfeat):
+    """K = 1, 2 and 8 masks drawn with numpy, at F 9 and 100, against
+    grandtpu's random_prop on the masked weights (a slot every mask drops,
+    a row of padding, a row that mask 0 drops whole)."""
+    features, cols, vals = _k1_inputs(seed=8, f=nfeat)
+    rs = np.random.RandomState(9)
+    keep = rs.rand(num_aug, *vals.shape) < 0.5
+    keep[:, 1, 3] = False                   # dropped in every mask
+    vals[4] = 0.0                           # padding only
+    keep[0, 5] = False                      # mask 0 drops row 5
+    feats = jnp.take(jnp.asarray(features), jnp.asarray(cols), axis=0)
+    want = np.stack([np.asarray(jdrop.random_prop(
+        feats, jnp.where(jnp.asarray(keep[k]), jnp.asarray(vals), 0.0)))
+        for k in range(num_aug)])
+    got = dropnode.gather_and_prop(torch.tensor(features),
+                                   torch.tensor(cols), torch.tensor(vals),
+                                   torch.tensor(keep))
+    assert got.shape == (num_aug, 6, nfeat)
+    assert rel(got, want) <= TOL
+    assert float(got[:, 4].abs().max()) == 0.0
+    assert float(got[0, 5].abs().max()) == 0.0
+
+
 def test_k1_eval_form_and_cpu_dispatch():
     features, cols, vals = _k1_inputs(seed=6)
     want = jdrop.gather_and_prop(jnp.asarray(features), jnp.asarray(cols),

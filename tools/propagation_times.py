@@ -1,11 +1,11 @@
-"""Times of the port's propagations, of K3 and of D1's halo exchange on one
-CUDA card, for comparing two checkouts of the repo in one call (parent,
+"""Times of the port's propagations, of K1, of K3 and of D1's halo exchange
+on one CUDA card, for comparing two checkouts of the repo in one call (parent,
 change, change, parent).
 
 Usage, from the root of a checkout, with another checkout (for example a
 ``git archive`` of the parent commit) unpacked under a git-ignored path:
 
-    python tools/propagation_times.py ROOT TAG [all|int8|seg|k3|halo]
+    python tools/propagation_times.py ROOT TAG [all|int8|seg|k1|k3|halo]
 
 imports ``grandtpu_torch`` from ROOT (its kernels build under
 ROOT/build), and on the Amazon2M stand-in ``synth:2000000:47:100`` (ppr,
@@ -24,6 +24,18 @@ order 6, alpha 0.2) times with CUDA events:
   of one hop apart;
 - all: both, then D1 on 4 shards of the one card (the all_gather int8 and
   the scatter runs, synchronized host wall);
+- k1: K1 (``gather_and_prop``) on random features at the five forms
+  the paths give it: reddit train [2,250,602], eval [1,1230,602] and a
+  2-shard mesh's shard [2,125,602] on [233000, 602]; Amazon2M train
+  [2,250,100] and eval [1,1410,100] on [2000000, 100]; Ktop 64, keep
+  masks at 0.5. Each form cycles 8 input sets (fresh batches miss the L2
+  as a train step's do) and gives its device time (torch.profiler, the
+  kernel alone), its CUDA-events time over back-to-back calls, its bound
+  (the distinct rows of the slots that some mask keeps with a nonzero
+  weight, read once; cols, vals and masks; the output; at 3.35 TB/s), a
+  digest of its output on the first set and its error against the plain
+  version there, and CUDA events' time of ``index_select`` gathering the
+  same slots' rows (a plain gather: each row read and written once);
 - k3: on the MAG stand-in ``synth:1000000:8:2780000:sparse`` at the
   mag_scholar_c preset's shapes (H 64, Ktop 32, P 24), K3's device time
   (torch.profiler, the kernel alone) in each form: the forward in the
@@ -272,6 +284,69 @@ def k3_times(r):
         r[f"k3_bwd_{name}_fill_device_ms"] = dev_ms(fn, 32, "FillFunctor")
 
 
+K1_FORMS = {   # N, F, B, Ktop, K
+    "reddit_train": (233000, 602, 250, 64, 2),
+    "reddit_eval": (233000, 602, 1230, 64, 1),
+    "reddit_shard": (233000, 602, 125, 64, 2),
+    "amazon_train": (2000000, 100, 250, 64, 2),
+    "amazon_eval": (2000000, 100, 1410, 64, 1),
+}
+
+
+def k1_bound_ms(nfeat, cols, vals, keep):
+    """Bytes of K1's output and of what it needs to read: the distinct
+    rows of slots with a nonzero weight in some mask, 8 B a slot, K B a
+    slot of mask, the [K, B, F] output; over the HBM's 3.35 TB/s."""
+    num_aug = 1 if keep is None else keep.shape[0]
+    live = vals != 0 if keep is None else (vals != 0) & keep.any(0)
+    nbytes = (torch.unique(cols[live]).numel() * nfeat * 4
+              + cols.numel() * (8 + (0 if keep is None else num_aug))
+              + num_aug * cols.shape[0] * nfeat * 4)
+    return nbytes / 3.35e12 * 1e3
+
+
+def k1_times(r):
+    import itertools
+
+    from grandtpu_torch.nn.dropnode import (gather_and_prop,
+                                            gather_and_prop_plain)
+
+    g = torch.Generator(device=DEV).manual_seed(3)
+    tables = {}
+    with torch.no_grad():
+        for form, (n, nfeat, batch, ktop, num_aug) in K1_FORMS.items():
+            if (n, nfeat) not in tables:
+                tables.clear()
+                tables[n, nfeat] = torch.randn(n, nfeat, generator=g,
+                                               device=DEV)
+            x = tables[n, nfeat]
+            sets = []
+            for _ in range(8):
+                cols = torch.randint(0, n, (batch, ktop), generator=g,
+                                     device=DEV, dtype=torch.int32)
+                vals = torch.rand(batch, ktop, generator=g, device=DEV)
+                keep = None if num_aug == 1 else torch.rand(
+                    num_aug, batch, ktop, generator=g, device=DEV) < 0.5
+                sets.append((cols, vals, keep))
+            it = itertools.cycle(sets)
+            got = gather_and_prop(x, *sets[0])
+            want = gather_and_prop_plain(x, *sets[0])
+            r[f"k1_{form}_digest"] = digest(got)
+            r[f"k1_{form}_rel_err"] = float((got - want).abs().max()
+                                            / want.abs().max())
+            r[f"k1_{form}_device_ms"] = dev_ms(
+                lambda: gather_and_prop(x, *next(it)), 200, "dropnode_mean")
+            r[f"k1_{form}_ms"] = tms(lambda: gather_and_prop(x, *next(it)),
+                                     400)
+            r[f"k1_{form}_bound_ms"] = sum(
+                k1_bound_ms(nfeat, *s) for s in sets) / len(sets)
+            # the same slots' rows gathered by index_select (read and
+            # written once each): what a plain gather reaches
+            idx = itertools.cycle([c.view(-1).long() for c, _, _ in sets])
+            r[f"k1_{form}_index_select_ms"] = tms(
+                lambda: x.index_select(0, next(idx)), 100)
+
+
 def halo_times(adj, x, kw, r):
     from grandtpu_torch.dist import halo as H
     from grandtpu_torch.sparse.spmm import column_absmax
@@ -314,8 +389,8 @@ def main():
     t0 = time.time()
     load_kernels()
     r["build_s"] = time.time() - t0
-    if mode == "k3":
-        k3_times(r)
+    if mode in ("k1", "k3"):
+        (k1_times if mode == "k1" else k3_times)(r)
         print(json.dumps(r), flush=True)
         return
     data = load_data("synth:2000000:47:100")
