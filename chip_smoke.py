@@ -260,6 +260,36 @@ Data-parallel training (D2) on meshes of the one card:
     nothing else; the gathered table's padding rows zero; peak device
     memory beside 5b's.
 
+Meshes over processes (``torch.distributed``), on the one card:
+
+9p. (after 9b) 2 ranks, each a process of its own (this script with
+    ``--rank``) with the gloo backend on cuda:0 and a free TCP port; the
+    parent waits on both with a timeout, and a rank that fails or times
+    out fails the run. Each rank first tries each collective of gloo on a
+    card tensor once and reports which this torch takes (the mesh stages
+    card tensors through pinned host memory for all of them). Then, at
+    full width: reddit on ``synth:233000:41:602`` with ``num_devices`` 2
+    (one shard a rank): one step against the one-process 2-shard mesh's
+    (phase 9's) on the same inputs and seeds (loss and parameters within
+    1e-5), its synchronized time and the transport's seconds in it;
+    ``train()`` for 2 epochs with a checkpoint directory as a path (each
+    rank's launches its own shard's share: K1 once a step and eval, D1's
+    hops ``order`` times), every rank's parameters bit for bit the same
+    (a digest), the same validation history, test_acc within one node of
+    phase 9's, ``best.npz`` written by rank 0 alone; D1 over the ranks on
+    the reddit operator (all_gather and halo, f32 within 1e-5 of the
+    one-card ``exact_propagate``, int8 within 1e-3 of the one-process
+    mesh's int8 run, exact launches, the default threshold 0.5);
+    ``multihost_native_gfpush`` of the reddit sources, cols and vals equal
+    to the native push of one process; MAG on
+    ``synth:1000000:8:2780000:sparse`` with ``num_devices`` 4 (2 ranks x
+    2 shards, the table vocab-sharded): the same checks against 9b; last
+    the nccl backend with both ranks on the card, which ``make_mesh``
+    refuses, naming gloo. The parent then runs the ``predict`` CLI on one
+    card from the ranks' ``best.npz``: test_acc within one node of the
+    ranks'. It prints each rank's step time beside phases 9's and 9b's,
+    the transport's share, and the phase's wall time.
+
 Every path (5, 5b, 5c, 5d, 7) must launch exactly the hop kernels of the
 form its predict's hops ran (``TrainResult.predict_precision``), and the
 push kernels of its push backend only (none with native); the training
@@ -273,6 +303,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import hashlib
 import io
 import itertools
 import json
@@ -287,6 +318,7 @@ import warnings
 import numpy as np
 import scipy.sparse as sp
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 
 from grandtpu_torch.cli.main import cli
@@ -296,9 +328,13 @@ from grandtpu_torch.data.preprocess import (add_self_loops_adj,
                                             eliminate_self_loops_adj)
 from grandtpu_torch.data.synthetic import synthetic_graph
 from grandtpu_torch.dist import (ShardedGraph, ShardedPropagator,
-                                 dist_exact_propagator, make_mesh,
-                                 shard_batch, shard_sparse_train_inputs,
+                                 default_halo_threshold,
+                                 dist_exact_propagator,
+                                 estimate_halo_compression, make_mesh,
+                                 multihost_native_gfpush, shard_batch,
+                                 shard_sparse_train_inputs,
                                  shard_train_inputs, sharded_gfpush)
+from grandtpu_torch.dist.mesh import TRANSPORT, Mesh, reset_transport
 from grandtpu_torch.dist.halo import (halo_hop, halo_hop_plain, halo_pack,
                                       halo_pack_plain)
 from grandtpu_torch.infer import Propagator, exact_propagate, test_accuracy
@@ -335,6 +371,7 @@ from grandtpu_torch.sparse.spmm import (CSROperator, PaddedCSR,
                                         spmm_segment, spmm_segment_plain,
                                         spmm_segment_prop_step,
                                         spmm_segment_prop_step_plain)
+from grandtpu_torch.train import loop as loop_mod
 from grandtpu_torch.train import train
 from grandtpu_torch.train.step import (StepConfig, build_train_step,
                                        make_optimizer)
@@ -440,7 +477,7 @@ def _bound(nbytes: float, flops: float):
 
 
 def _errors(got: torch.Tensor, want: torch.Tensor):
-    abs_err = float((got - want).abs().max())
+    abs_err = float((got - want).detach().abs().max())
     return abs_err, abs_err / max(float(want.abs().max()), 1e-30)
 
 
@@ -3073,11 +3110,11 @@ def _collective_bytes(cfg, shards: int, width_in: int, params: int,
     return out
 
 
-def check_mesh_step(engine: str, data, padded=None) -> dict:
-    """Phases 9 and 9b, first part: one step on a mesh of the card against
-    one one-card step from the same state and generator seed: metrics,
-    parameters, gradients, BN buffers and Adam moments within 1e-5; then
-    both steps' times and the collectives' bytes."""
+def _step_inputs(engine: str, data, padded=None) -> tuple:
+    """(cfg, shards, width, operands, model config, batch) of the mesh step
+    of phases 9, 9b and 9p: every drop rate of the run on, random top-k
+    tables and a batch drawn from a generator seeded with 3 on the card
+    (the same in every process)."""
     n_class = data.num_classes
     if engine == "dense":
         # every drop rate on
@@ -3092,7 +3129,6 @@ def check_mesh_step(engine: str, data, padded=None) -> dict:
         nfeat = padded.num_features
         operands = [torch.as_tensor(a, device=DEV)
                     for a in (padded.attr_cols, padded.attr_vals)]
-    mesh = _mesh(shards)
     g = torch.Generator(device=DEV).manual_seed(3)
     n_src = len(train_sources(cfg, data))
     operands += [torch.randint(0, data.num_nodes, (n_src, cfg.top_k),
@@ -3103,36 +3139,61 @@ def check_mesh_step(engine: str, data, padded=None) -> dict:
                      use_bn=cfg.use_bn, node_norm=cfg.node_norm,
                      input_droprate=cfg.input_droprate,
                      hidden_droprate=cfg.hidden_droprate)
+    batch = _mesh_batch(cfg, n_src, n_class, g)
+    return cfg, shards, nfeat, operands, mcfg, batch
+
+
+def _step_on(engine: str, cfg, mcfg, model, mesh, operands, batch,
+             n_class: int):
+    """(optimizer, a closure running one step of ``model`` on ``mesh``, or on
+    the one card without one) from a generator seeded with the run's
+    seed2."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    one = (init_mlp if engine == "dense" else init_mag_mlp)(mcfg, cfg.seed2,
-                                                            DEV)
-    sharded = copy.deepcopy(one)
+    placed, parts = operands, batch
+    if mesh is not None:
+        parts = shard_batch(mesh, batch)
+        if engine == "dense":
+            placed = shard_train_inputs(
+                mesh, model=model, features=operands[0],
+                tk_cols=operands[1], tk_vals=operands[2])
+        else:
+            placed = shard_sparse_train_inputs(
+                mesh, model=model, attr_cols=operands[0],
+                attr_vals=operands[1], tk_cols=operands[2],
+                tk_vals=operands[3])
+    opt = make_optimizer(model, cfg.lr, cfg.weight_decay)
     if engine == "dense":
-        placed = shard_train_inputs(mesh, model=sharded, features=operands[0],
-                                    tk_cols=operands[1], tk_vals=operands[2])
         scfg = StepConfig(
             mlp=mcfg, k_aug=cfg.sample, dropnode_rate=cfg.dropnode_rate,
             n_train=cfg.batch_size, lam=cfg.lam, warmup=cfg.warmup,
             tem=cfg.tem, conf=cfg.resolve_conf(n_class), loss_kind=cfg.loss,
             clip_norm=cfg.clip_norm)
-        opt1 = make_optimizer(one, cfg.lr, cfg.weight_decay)
-        opt2 = make_optimizer(sharded, cfg.lr, cfg.weight_decay)
-        step1 = build_train_step(scfg, one, opt1)
-        step2 = build_train_step(scfg, sharded, opt2, mesh=mesh)
+        step = build_train_step(scfg, model, opt, mesh=mesh)
     else:
-        placed = shard_sparse_train_inputs(
-            mesh, model=sharded, attr_cols=operands[0],
-            attr_vals=operands[1], tk_cols=operands[2], tk_vals=operands[3])
-        opt1 = make_optimizer(one, cfg.lr, cfg.weight_decay)
-        opt2 = make_optimizer(sharded, cfg.lr, cfg.weight_decay)
-        step1 = build_sparse_steps(cfg, one, opt1, n_class)[0]
-        step2 = build_sparse_steps(cfg, sharded, opt2, n_class, mesh=mesh)[0]
-    batch = _mesh_batch(cfg, n_src, n_class, g)
-    parts = shard_batch(mesh, batch)
-    g1 = torch.Generator(device=DEV).manual_seed(cfg.seed2)
-    g2 = torch.Generator(device=DEV).manual_seed(cfg.seed2)
-    m1 = step1(*operands, batch, g1, 100)
-    m2 = step2(*placed, parts, g2, 100)
+        step = build_sparse_steps(cfg, model, opt, n_class, mesh=mesh)[0]
+    gen = torch.Generator(device=DEV).manual_seed(cfg.seed2)
+    return opt, lambda: step(*placed, parts, gen, 100)
+
+
+def check_mesh_step(engine: str, data, padded=None) -> dict:
+    """Phases 9 and 9b, first part: one step on a mesh of the card against
+    one one-card step from the same state and generator seed: metrics,
+    parameters, gradients, BN buffers and Adam moments within 1e-5; then
+    both steps' times and the collectives' bytes."""
+    n_class = data.num_classes
+    cfg, shards, nfeat, operands, mcfg, batch = _step_inputs(engine, data,
+                                                             padded)
+    mesh = _mesh(shards)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = (init_mlp if engine == "dense" else init_mag_mlp)(mcfg, cfg.seed2,
+                                                            DEV)
+    sharded = copy.deepcopy(one)
+    opt1, step1 = _step_on(engine, cfg, mcfg, one, None, operands, batch,
+                           n_class)
+    opt2, step2 = _step_on(engine, cfg, mcfg, sharded, mesh, operands, batch,
+                           n_class)
+    m1 = step1()
+    m2 = step2()
     torch.cuda.synchronize(DEV)
     errs = {k: _errors(m2[k], m1[k])[1] for k in m1}
     errs.update(_state_errors(one, opt1, sharded, opt2, nfeat))
@@ -3140,8 +3201,8 @@ def check_mesh_step(engine: str, data, padded=None) -> dict:
     # the parameters every shard reads (a vocab-sharded table is not)
     n_params = sum(p.numel() for name, p in one.named_parameters()
                    if name != "table")
-    one_ms = _synced_ms(lambda: step1(*operands, batch, g1, 100), 10)
-    mesh_ms = _synced_ms(lambda: step2(*placed, parts, g2, 100), 10)
+    one_ms = _synced_ms(step1, 10)
+    mesh_ms = _synced_ms(step2, 10)
     nbytes = _collective_bytes(cfg, shards, nfeat, n_params,
                                engine == "mag")
     tag = "9" if engine == "dense" else "9b"
@@ -3415,6 +3476,463 @@ def check_sharded_push(data, cfg, push_reddit: dict) -> dict:
     return {"launches": launches, "sources_per_s": sps, "same": same}
 
 
+# ------------------------------------------------- 9p: a mesh over processes
+
+
+PROC_RANKS = 2                      # 9p's ranks, processes on the one card
+PROC_TIMEOUT = 420                  # seconds the ranks may take in all
+PROC_DIR = os.path.join("build", "chip_smoke_9p")
+RANK_COMMAND = [sys.executable, os.path.abspath(__file__)]   # a 9p rank
+# 9p's D1 runs on one shard a rank: (name, halo_threshold, precision)
+PROC_D1 = (("all_gather_f32", 0.0, "f32"), ("all_gather_int8", 0.0, "int8"),
+           ("halo_f32", float("inf"), "f32"),
+           ("halo_int8", float("inf"), "int8"))
+
+
+def _emit(part: str, **kw) -> None:
+    """One JSON line of a 9p rank, which the parent reads."""
+    print("[9p] " + json.dumps({"part": part, **kw}, default=float),
+          flush=True)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _replicas(model) -> list:
+    """What every rank must hold bit for bit: the model's parameters and
+    buffers, a vocab-sharded table gathered (a collective)."""
+    out = [t for n, t in [*model.named_parameters(), *model.named_buffers()]
+           if not n.startswith("table_shards.")]
+    if getattr(model, "vocab_mesh", None) is not None:
+        out.append(model.gathered_table())
+    return out
+
+
+def _gloo_cuda_coverage() -> dict:
+    """Which collectives this torch's gloo takes card tensors for, each
+    tried once on a small card tensor (the mesh stages card tensors
+    through host memory for every collective all the same)."""
+    world = tdist.get_world_size()
+
+    def z(n=2):
+        return torch.ones(n, device=DEV)
+
+    tries = {
+        "all_reduce": lambda: tdist.all_reduce(z()),
+        "broadcast": lambda: tdist.broadcast(z(), 0),
+        "all_gather": lambda: tdist.all_gather([z() for _ in range(world)],
+                                               z()),
+        "all_gather_into_tensor": lambda: tdist.all_gather_into_tensor(
+            z(2 * world), z()),
+        "reduce_scatter": lambda: tdist.reduce_scatter(
+            z(), [z() for _ in range(world)]),
+        "reduce_scatter_tensor": lambda: tdist.reduce_scatter_tensor(
+            z(), z(2 * world)),
+        "all_to_all": lambda: tdist.all_to_all([z() for _ in range(world)],
+                                               [z() for _ in range(world)]),
+        "all_to_all_single": lambda: tdist.all_to_all_single(
+            z(2 * world), z(2 * world)),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize(DEV)
+            out[name] = "covered"
+        except Exception as e:   # a report of the build, not a fall-back
+            out[name] = (f"{type(e).__name__}: "
+                         f"{(str(e).splitlines() or [''])[0][:160]}")
+    return out
+
+
+def _proc_step(engine: str, data, padded=None) -> dict:
+    """9p: one step of the mesh over the ranks against the one-process mesh
+    of the card (phase 9's for reddit, 9b's for MAG) from the same state,
+    inputs and seeds: the loss and every parameter within 1e-5 (values
+    relative to the model's largest), the gathered table too; then the
+    step's synchronized time, and the transport's seconds within it."""
+    n_class = data.num_classes
+    cfg, shards, _, operands, mcfg, batch = _step_inputs(engine, data,
+                                                         padded)
+    proc = (init_mlp if engine == "dense" else init_mag_mlp)(mcfg, cfg.seed2,
+                                                             DEV)
+    one = copy.deepcopy(proc)
+    _, step1 = _step_on(engine, cfg, mcfg, one, Mesh((DEV,) * shards),
+                        operands, batch, n_class)
+    mesh = make_mesh(shards)
+    _, step2 = _step_on(engine, cfg, mcfg, proc, mesh, operands, batch,
+                        n_class)
+    m1, m2 = step1(), step2()
+    torch.cuda.synchronize(DEV)
+    errs = {k: _errors(m2[k], m1[k])[1] for k in m1}
+    scale = max(float(p.detach().abs().max()) for p in _replicas(one))
+    want = dict(one.named_parameters())
+    for name, p in proc.named_parameters():
+        if not name.startswith("table_shards."):
+            errs[name] = _errors(p, want[name])[0] / scale
+    if engine == "mag":
+        errs["table"] = _errors(proc.gathered_table(),
+                                one.gathered_table())[0] / scale
+    worst = max(errs, key=errs.get)
+    del one, step1, want
+    torch.cuda.empty_cache()
+    step2()
+    torch.cuda.synchronize(DEV)
+    reset_transport()
+    t0 = time.time()
+    for _ in range(10):
+        step2()
+    torch.cuda.synchronize(DEV)
+    step_ms = (time.time() - t0) / 10 * 1e3
+    transport = {k: v / 10 for k, v in TRANSPORT.items()}
+    if errs[worst] > TOL:
+        raise AssertionError(f"[9p] the {engine} step over the ranks differs "
+                             f"from the one-process mesh's: {errs}")
+    return {"shards": list(mesh.shards), "worst": worst,
+            "max_rel_err": errs[worst], "loss": float(m2["loss"]),
+            "step_ms": step_ms, "transport_a_step": transport,
+            "transport_share": (transport["stage_s"] + transport["comm_s"])
+            * 1e3 / step_ms}
+
+
+def _proc_want(cfg, data, r, local: int) -> dict:
+    """The launches a rank's ``train()`` must make: its shards' share."""
+    want = dict.fromkeys(COUNTED, 0)
+    halo = estimate_halo_compression(add_self_loops_adj(data.adj),
+                                     cfg.num_devices) < 0.5
+    for name in (("halo_pack", "halo_hop") if halo else ("csr_spmm_prop",)):
+        want[name] = cfg.order * local
+    steps, evals = r.num_batches, len(r.history)
+    if data.has_sparse_features:
+        want["embed_prop_window_fwd"] = local * steps
+        want["embed_prop_window_bwd"] = local * steps
+        want["embed_prop_fwd"] = (local * evals
+                                  + -(-data.num_nodes // K3_SHAPE[4]))
+    else:
+        want["dropnode_mean"] = local * (steps + evals)
+    return want
+
+
+def _proc_train(cfg, data) -> dict:
+    """9p: ``train()`` over the ranks (``num_devices`` the global shard
+    count, the mesh ``make_mesh``'s), a path of its own: counts set to 0
+    just before and read just after; each rank's launches its own shards'
+    share; the checkpoint writes counted (rank 0 alone writes)."""
+    writes = []
+    real = loop_mod.save_checkpoint
+    loop_mod.save_checkpoint = lambda *a, **k: writes.append(real(*a, **k))
+    try:
+        _reset_counts()
+        reset_transport()
+        t0 = time.time()
+        r = train(cfg, data=data, device=DEV)
+        wall = time.time() - t0
+        launches = _read_counts()
+        transport = dict(TRANSPORT)
+    finally:
+        loop_mod.save_checkpoint = real
+    local = cfg.num_devices // PROC_RANKS
+    want = _proc_want(cfg, data, r, local)
+    losses = [v for h in r.history for v in (h["loss"], h["val_loss"])]
+    if not (r.history and np.all(np.isfinite(losses))):
+        raise AssertionError(f"[9p] history {r.history}")
+    if launches != want:
+        raise AssertionError(f"[9p] {cfg.dataset}: launches {launches}, want "
+                             f"{want}")
+    rank = tdist.get_rank()
+    if cfg.ckpt_dir and not (writes and all(w == (rank == 0)
+                                            for w in writes)):
+        raise AssertionError(f"[9p] rank {rank} checkpoint writes {writes}")
+    return {"launches": {k: v for k, v in launches.items() if v},
+            "steps": r.num_batches, "history": r.history,
+            "test_acc": r.test_acc, "n_test": len(data.idx_test),
+            "best_val_acc": r.best_val_acc,
+            "batch_time_median_s": r.batch_time_median,
+            "propagate_s": r.propagate_time, "total_s": r.total_time,
+            "train_call_s": wall, "digest": _digest(_replicas(r.model)),
+            "writes": writes, "transport": transport}
+
+
+def _proc_d1(data, cfg) -> dict:
+    """9p: ``dist_exact_propagate`` over the ranks (one shard each) on the
+    reddit operator, all_gather and halo at f32 and int8, each a path of
+    its own with its launches: f32 within 1e-5 of the one-card
+    ``exact_propagate``, int8 within 1e-3 of the one-process mesh's int8
+    run of the same variant; the default threshold 0.5."""
+    adj = add_self_loops_adj(data.adj)
+    x = torch.as_tensor(np.asarray(data.features, np.float32), device=DEV)
+    kw = dict(mode=cfg.prop_mode, order=cfg.order, alpha=cfg.alpha)
+    mesh, one = make_mesh(PROC_RANKS), Mesh((DEV,) * PROC_RANKS)
+    threshold = default_halo_threshold(mesh)
+    auto = type(dist_exact_propagator(mesh, adj, x.shape[1])[0]).__name__
+    if threshold != 0.5:
+        raise AssertionError(f"[9p] default halo threshold {threshold}")
+    ref = exact_propagate(adj, x, device=DEV, **kw)
+    out = {"default_threshold": threshold, "default_propagator": auto,
+           "compression": estimate_halo_compression(adj, PROC_RANKS),
+           "runs": {}}
+    for name, thr, precision in PROC_D1:
+        prop, p = dist_exact_propagator(mesh, adj, x.shape[1],
+                                        halo_threshold=thr,
+                                        precision=precision)
+        _reset_counts()
+        reset_transport()
+        t0 = time.time()
+        got = prop(x, precision=p, **kw)
+        torch.cuda.synchronize(DEV)
+        hops_s = time.time() - t0
+        launches = _read_counts()
+        transport = dict(TRANSPORT)
+        if precision == "f32":
+            err, limit = _errors(got, ref)[1], TOL
+        else:
+            oprop, op = dist_exact_propagator(one, adj, x.shape[1],
+                                              halo_threshold=thr,
+                                              precision=precision)
+            err, limit = _errors(got, oprop(x, precision=op, **kw))[1], 1e-3
+            del oprop
+        kernels = {"all_gather_f32": {"csr_spmm_prop"},
+                   "halo_f32": {"halo_pack", "halo_hop"},
+                   "halo_int8": {"column_absmax", "halo_pack", "halo_hop"},
+                   "all_gather_int8": {
+                       "column_absmax", "quantize_with_amax",
+                       "csr_spmm_q8mxu" if getattr(prop, "row_val", None)
+                       is not None else "csr_spmm_q8"}}[name]
+        want = {k: (1 if (name, k) == ("all_gather_int8", "column_absmax")
+                    else cfg.order) if k in kernels else 0 for k in launches}
+        if launches != want or err > limit or got.shape != x.shape:
+            raise AssertionError(f"[9p] D1 {name}: launches {launches} (want "
+                                 f"{want}), error {err} (limit {limit}), "
+                                 f"shape {tuple(got.shape)}")
+        out["runs"][name] = {
+            "propagator": type(prop).__name__,
+            "launches": {k: v for k, v in launches.items() if v},
+            "max_rel_err": err, "limit": limit, "hops_s": hops_s,
+            "transport": transport, "digest": _digest([got])}
+        del prop, got
+    return out
+
+
+def _proc_push(cfg, data) -> dict:
+    """9p: ``multihost_native_gfpush`` of the reddit sources over the ranks
+    against the native push of one process: cols and vals equal."""
+    adj = add_self_loops_adj(data.adj)
+    sources = train_sources(cfg, data)
+    kw = dict(prop_mode=cfg.prop_mode, order=cfg.order, alpha=cfg.alpha,
+              rmax=cfg.rmax, k=cfg.top_k, backend="native")
+    t0 = time.time()
+    got = multihost_native_gfpush(adj, sources, **kw)
+    multi_s = time.time() - t0
+    t0 = time.time()
+    want = gfpush(adj, sources, **kw)
+    one_s = time.time() - t0
+    same = _same((got.cols, got.vals), (want.cols, want.vals))
+    if not same:
+        raise AssertionError("[9p] the push over the ranks differs from the "
+                             "one-process native push")
+    return {"sources": len(sources), "equal": same, "multihost_s": multi_s,
+            "one_process_s": one_s}
+
+
+def _proc_nccl_refusal(rank: int, port: int) -> str:
+    """9p: the nccl backend with both ranks on the card: make_mesh refuses
+    it, naming gloo."""
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                             world_size=PROC_RANKS, rank=rank)
+    try:
+        make_mesh(PROC_RANKS)
+    except RuntimeError as e:
+        message = str(e)
+    else:
+        raise AssertionError("[9p] NCCL took two ranks on one card")
+    finally:
+        tdist.destroy_process_group()
+    if "two ranks on one card" not in message or "gloo" not in message:
+        raise AssertionError(f"[9p] the refusal does not name its cause: "
+                             f"{message}")
+    return message
+
+
+def rank_main(argv) -> int:
+    """One rank of 9p: ``chip_smoke.py --rank RANK PORT,PORT DIR``."""
+    rank, ports, workdir = int(argv[0]), argv[1].split(","), argv[2]
+    torch.cuda.set_device(DEV)
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                             f"{ports[0]}", world_size=PROC_RANKS, rank=rank)
+    t0 = time.time()
+    _emit("gloo_cuda", coverage=_gloo_cuda_coverage())
+    data = load_data(DATASET, split_seed=preset("reddit").seed1)
+    _emit("reddit_step", **_proc_step("dense", data))
+    cfg = preset("reddit").replace(
+        dataset=DATASET, epochs=2, num_devices=PROC_RANKS,
+        ckpt_dir=os.path.join(workdir, "ckpt"))
+    _emit("reddit_train", **_proc_train(cfg, data))
+    _emit("d1", **_proc_d1(data, cfg))
+    _emit("push", **_proc_push(cfg, data))
+    del data
+    torch.cuda.empty_cache()
+    mag = load_data(MAG_DATASET, split_seed=preset("mag_scholar_c").seed1)
+    padded = PaddedFeatures.from_csr(mag.features)
+    _emit("mag_step", **_proc_step("mag", mag, padded))
+    del padded
+    torch.cuda.empty_cache()
+    _emit("mag_train", **_proc_train(preset("mag_scholar_c").replace(
+        dataset=MAG_DATASET, epochs=5, num_devices=MAG_SHARDS), mag))
+    del mag
+    tdist.destroy_process_group()
+    _emit("nccl_refusal", message=_proc_nccl_refusal(rank, int(ports[1])),
+          wall_s=time.time() - t0)
+    print(f"RANK{rank} OK", flush=True)
+    return 0
+
+
+def _rank_parts(log: str) -> dict:
+    parts = {}
+    with open(log) as f:
+        for line in f:
+            if line.startswith("[9p] {"):
+                rec = json.loads(line[5:])
+                parts[rec.pop("part")] = rec
+    return parts
+
+
+def _predict_ckpt(ckpt: str) -> float:
+    """The predict CLI on the one card from the ranks' best.npz: its
+    test accuracy."""
+    argv = ["predict", "--preset", "reddit", "--dataset", DATASET, "--ckpt",
+            ckpt, "--precision", "f32", "--output",
+            os.path.join(os.path.dirname(ckpt), "predictions.npz")]
+    stdout, stderr = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(stdout), \
+            contextlib.redirect_stderr(stderr):
+        rc = cli(argv)
+    if rc != 0:
+        raise AssertionError(f"[9p] predict exited {rc}: "
+                             f"{stderr.getvalue()[-2000:]}")
+    return json.loads(stdout.getvalue().strip().splitlines()[-1])["test_acc"]
+
+
+def run_process_mesh(mesh_steps: dict, reddit_acc: float,
+                     mag_acc: float) -> dict:
+    """Phase 9p: 2 ranks on the one card, each a process of its own with
+    the gloo backend, run the reddit and MAG steps and trainers, D1 and the
+    push over a mesh over processes; the parent checks what they print
+    against phases 9 and 9b and each other, then predicts from their
+    checkpoint on one card. Returns the launches by path, summed over the
+    ranks."""
+    shutil.rmtree(PROC_DIR, ignore_errors=True)
+    os.makedirs(PROC_DIR)
+    ports = f"{_free_port()},{_free_port()}"
+    logs = [os.path.join(PROC_DIR, f"rank{r}.log") for r in range(PROC_RANKS)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [*RANK_COMMAND, "--rank", str(r), ports,
+                 os.path.abspath(PROC_DIR)], cwd=here, stdout=f,
+                stderr=subprocess.STDOUT))
+    timed_out = False
+    try:
+        for p in procs:
+            p.wait(timeout=max(t0 + PROC_TIMEOUT - time.time(), 1.0))
+    except subprocess.TimeoutExpired:
+        timed_out = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t0
+    for r, log in enumerate(logs):
+        with open(log) as f:
+            text = f.read()
+        ok = procs[r].returncode == 0 and f"RANK{r} OK" in text
+        shown = [ln for ln in text.splitlines() if ln.startswith("[9p]")]
+        print("\n".join(f"[9p] rank {r}: {ln[5:]}" for ln in shown),
+              flush=True)
+        if timed_out or not ok:
+            raise AssertionError(
+                f"[9p] rank {r} exited {procs[r].returncode} (timed out "
+                f"{timed_out}) after {wall} s:\n{text[-6000:]}")
+    ranks = [_rank_parts(log) for log in logs]
+    a, b = ranks
+    for part in ("reddit_train", "mag_train"):
+        if a[part]["digest"] != b[part]["digest"]:
+            raise AssertionError(f"[9p] {part}: the ranks' parameters differ")
+        if a[part]["history"] != b[part]["history"]:
+            raise AssertionError(f"[9p] {part}: the ranks' histories differ")
+    for run in a["d1"]["runs"]:
+        if a["d1"]["runs"][run]["digest"] != b["d1"]["runs"][run]["digest"]:
+            raise AssertionError(f"[9p] D1 {run}: the ranks' results differ")
+    for part, ref in (("reddit_train", reddit_acc), ("mag_train", mag_acc)):
+        got, n_test = a[part]["test_acc"], a[part]["n_test"]
+        if abs(got - ref) > 1.0 / n_test + 1e-12:
+            raise AssertionError(f"[9p] {part}: test_acc {got} against "
+                                 f"{ref} on one process")
+    if any(b["reddit_train"]["writes"]) or not all(a["reddit_train"]
+                                                   ["writes"]):
+        raise AssertionError("[9p] a rank other than 0 wrote best.npz")
+    served = _predict_ckpt(os.path.join(PROC_DIR, "ckpt", "best.npz"))
+    rank_acc = a["reddit_train"]["test_acc"]
+    if abs(served - rank_acc) > 1.0 / a["reddit_train"]["n_test"] + 1e-12:
+        raise AssertionError(f"[9p] predict from the ranks' best.npz: "
+                             f"test_acc {served}, the ranks' {rank_acc}")
+    for engine, part, tag in (("dense", "reddit_step", "9"),
+                              ("mag", "mag_step", "9b")):
+        one = mesh_steps[engine]
+        print(f"[9p] {engine} step over {PROC_RANKS} ranks (synchronized "
+              f"wall, ms): rank 0 {a[part]['step_ms']}, rank 1 "
+              f"{b[part]['step_ms']}; the transport's share (gloo staging "
+              f"+ collectives) {a[part]['transport_share']}, "
+              f"{b[part]['transport_share']}; phase {tag}: one-process mesh "
+              f"{one['mesh_step_ms']}, one card {one['one_card_step_ms']}; "
+              f"first step against the one-process mesh: worst "
+              f"{a[part]['worst']} {a[part]['max_rel_err']}, "
+              f"{b[part]['max_rel_err']}", flush=True)
+    for part, ref, tag in (("reddit_train", reddit_acc, "9"),
+                           ("mag_train", mag_acc, "9b")):
+        print(f"[9p] {part}: test_acc {a[part]['test_acc']} (phase {tag}: "
+              f"{ref}); launches rank 0 {a[part]['launches']}, rank 1 "
+              f"{b[part]['launches']}; steps {a[part]['steps']}, "
+              f"batch_time_median_s {a[part]['batch_time_median_s']}, "
+              f"{b[part]['batch_time_median_s']}; train_call_s "
+              f"{a[part]['train_call_s']}, {b[part]['train_call_s']}; "
+              f"best.npz written by rank 0 {sum(a[part]['writes'])} times, "
+              f"by rank 1 {sum(b[part]['writes'])}", flush=True)
+    print(f"[9p] predict on one card from the ranks' best.npz: test_acc "
+          f"{served}, the ranks' {rank_acc} (equal: {served == rank_acc}); "
+          f"D1 default threshold {a['d1']['default_threshold']} -> "
+          f"{a['d1']['default_propagator']} (compression "
+          f"{a['d1']['compression']}); push {a['push']}; the nccl refusal: "
+          f"{a['nccl_refusal']['message']!r}; gloo on card tensors: "
+          f"{a['gloo_cuda']['coverage']}; phase wall {wall} s", flush=True)
+    launches = {}
+    for part in ("reddit_train", "mag_train"):
+        launches[part] = {k: a[part]["launches"].get(k, 0)
+                          + b[part]["launches"].get(k, 0)
+                          for k in COUNTED}
+    for run in a["d1"]["runs"]:
+        launches[f"d1_{run}"] = {
+            k: a["d1"]["runs"][run]["launches"].get(k, 0)
+            + b["d1"]["runs"][run]["launches"].get(k, 0) for k in COUNTED}
+    return {"launches": launches, "wall_s": wall, "ranks": ranks,
+            "predict_test_acc": served}
+
+
 def main() -> int:
     t_start = time.time()
 
@@ -3495,9 +4013,13 @@ def main() -> int:
           f"memory {PEAK_GB['9b']} GB on {MAG_SHARDS} shards of the card "
           f"against {PEAK_GB['mag']} GB on one (5b); test_acc "
           f"{r_mag_mesh.test_acc}", flush=True)
+    mag_mesh_acc = r_mag_mesh.test_acc
     del table, r_mag_mesh
     mark("9b")
     del mag
+    torch.cuda.empty_cache()
+    proc = run_process_mesh(mesh_steps, r_mesh.test_acc, mag_mesh_acc)
+    mark("9p")
 
     amazon_cfg = preset("Amazon2M").replace(dataset=AMAZON, epochs=2,
                                             predict_precision="auto")
@@ -3616,9 +4138,17 @@ def main() -> int:
                           bucket_launches, push_sharded)
     seg["hub"] = hub["segment"]
     served = serving_entries(seg, d1, serve)
+    # 9p's launches, summed over its ranks
+    for k in (k1, k2, *fast, *k3, *k3_window, *pushes, *served):
+        for path, counts in proc["launches"].items():
+            if counts.get(k["name"], 0):
+                k["launches_by_path"][f"process_mesh_{path}"] = counts[
+                    k["name"]]
+        k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"serving": serve, "serving_files": files, "d1": {
         k: d1[k] for k in ("err", "wall_s", "compression")},
-        "mesh_steps": mesh_steps, "peak_gb": PEAK_GB}))
+        "mesh_steps": mesh_steps, "peak_gb": PEAK_GB, "process_mesh": {
+            k: proc[k] for k in ("wall_s", "predict_test_acc")}}))
     print(json.dumps({"kernels": [k1, k2, *fast, *k3, *k3_window, *pushes,
                                   *served]}))
     print(json.dumps({"ok": True, "device": {
@@ -3628,4 +4158,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -346,14 +346,17 @@ class HaloPropagator:
         _check_axis(mesh, axis, g.num_shards)
         self.mesh, self.g = mesh, g
         S, rows_per, c_max = g.num_shards, g.rows_per_shard, g.halo_per_pair
-        self.diag = _to_ops(g.diag, mesh.devices, rows_per, rows_per)
-        self.halo = _to_ops(g.halo, mesh.devices, rows_per, S * c_max)
+        local = list(zip(mesh.shards, mesh.devices))
+        self.diag = _to_ops([g.diag[s] for s in mesh.shards], mesh.devices,
+                            rows_per, rows_per)
+        self.halo = _to_ops([g.halo[s] for s in mesh.shards], mesh.devices,
+                            rows_per, S * c_max)
         self.send_idx = [torch.as_tensor(g.send_idx[s].reshape(-1), device=d)
-                         for s, d in enumerate(mesh.devices)]
+                         for s, d in local]
         self.plans = [SendPlan.build(idx) for idx in self.send_idx]
         self.row_val = (None if g.row_val is None else
                         [torch.as_tensor(g.row_val[s], device=d)
-                         for s, d in enumerate(mesh.devices)])
+                         for s, d in local])
 
     def __call__(self, x, *, mode: str = "ppr", order: int = 10,
                  alpha: float = 0.2, precision: str = "f32",
@@ -370,11 +373,11 @@ class HaloPropagator:
             if quant:
                 amax = mesh.pmax([k.absmax(c) for c in cur_in])
             else:
-                amax = [None] * S
+                amax = [None] * len(cur_in)
             packs = [pack(c, idx, a, plan) for c, idx, a, plan in
                      zip(cur_in, self.send_idx, amax, self.plans)]
             recv = mesh.all_to_all([p.view(S, c_max, -1) for p, _ in packs])
-            for s in range(S):
+            for s in range(len(cur_in)):
                 hop_fn(self.diag[s], self.halo[s], cur_in[s],
                        recv[s].view(S * c_max, -1), cur_out[s],
                        acc[s] if accumulate else None, scale, accumulate,

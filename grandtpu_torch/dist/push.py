@@ -1,4 +1,4 @@
-"""GFPush with the sources sharded over a mesh (port of
+"""GFPush with the sources sharded over a mesh or over processes (port of
 ``grandtpu/dist/push.py``, D2).
 
 The precompute is embarrassingly parallel over source nodes:
@@ -7,21 +7,26 @@ The precompute is embarrassingly parallel over source nodes:
   ``ppr/dense_push.py``) over the port's mesh: the graph replicated (one
   copy per distinct device), the sources padded with node 0 and split
   over the shards, no communication until the tables are gathered in
-  source order;
+  source order (on a mesh over processes, on every rank);
 - :func:`push_source_shard`: the pure per-rank unit, a rank's contiguous
-  share of the sources through :func:`grandtpu_torch.ppr.gfpush`.
-
-grandtpu's ``multihost_native_gfpush`` needs a mesh over processes
-(ROADMAP Queue A 8).
+  share of the sources through :func:`grandtpu_torch.ppr.gfpush`;
+- :func:`multihost_native_gfpush`: every ``torch.distributed`` rank
+  pushes its share with ``push_source_shard``, then one all-gather of the
+  padded [per, k] tables gives every rank the whole table: n_src k 8
+  bytes in all, whatever the graph's size. The tables are host arrays:
+  under gloo they move on the host, under NCCL (which takes card tensors
+  only) through each rank's card.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
-from grandtpu_torch.dist.mesh import Mesh
+from grandtpu_torch.dist.mesh import Mesh, all_gather_tensor
 from grandtpu_torch.ppr.dense_push import DensePushGraph, push_block
+from grandtpu_torch.sparse.topk import TopKProp
 
 
 def sharded_gfpush(mesh: Mesh, indptr: np.ndarray, indices: np.ndarray,
@@ -47,7 +52,7 @@ def sharded_gfpush(mesh: Mesh, indptr: np.ndarray, indices: np.ndarray,
     src_pad = np.zeros(per * mesh.size, np.int32)
     src_pad[:n_src] = sources
     cols, vals = [], []
-    for s, g in enumerate(graphs):
+    for s, g in zip(mesh.shards, graphs):
         src = torch.as_tensor(src_pad[s * per:(s + 1) * per], device=g.device)
         outs = [push_block(g, src[i:i + block], coef, k)
                 for i in range(0, per, block)]
@@ -78,3 +83,33 @@ def push_source_shard(adj, sources: np.ndarray, rank: int, world: int, *,
                 alpha=alpha, rmax=rmax, k=k, backend=backend,
                 num_threads=num_threads, device=device)
     return lo, hi, tk.cols, tk.vals
+
+
+def multihost_native_gfpush(adj, sources: np.ndarray, *,
+                            prop_mode: str = "ppr", order: int = 10,
+                            alpha: float = 0.2, rmax: float = 1e-7,
+                            k: int = 32, num_threads: int = 0,
+                            backend: str = "native",
+                            device="cuda") -> TopKProp:
+    """GFPush with ``sources`` sharded over the ``torch.distributed`` ranks
+    (the plain :func:`~grandtpu_torch.ppr.gfpush` without a process group
+    of more than one rank). ``backend``: each rank's push ('native', the
+    host C++ kernel, by default; a device backend pushes on ``device``).
+    Every rank returns the whole table, equal to one process's push."""
+    sources = np.asarray(sources)
+    world, rank = 1, 0
+    if tdist.is_available() and tdist.is_initialized():
+        world, rank = tdist.get_world_size(), tdist.get_rank()
+    lo, hi, cols, vals = push_source_shard(
+        adj, sources, rank, world, prop_mode=prop_mode, order=order,
+        alpha=alpha, rmax=rmax, k=k, backend=backend,
+        num_threads=num_threads, device=device)
+    if world == 1:
+        return TopKProp(sources, cols, vals, adj.shape[0])
+    per = -(-sources.shape[0] // world)
+    cols_p = np.zeros((per, k), np.int32)
+    vals_p = np.zeros((per, k), np.float32)
+    cols_p[: hi - lo], vals_p[: hi - lo] = cols, vals
+    full = [torch.cat(all_gather_tensor(torch.from_numpy(a))).numpy()
+            [: sources.shape[0]] for a in (cols_p, vals_p)]
+    return TopKProp(sources, *full, adj.shape[0])

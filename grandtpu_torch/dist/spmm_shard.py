@@ -21,9 +21,11 @@ shard computes its rows:
 grandtpu's TPU layout of the blocks (one-hot blocks, odd ``E_b``) is not
 carried over; its row partition is (``rows_per`` rounded up to a multiple
 of ``rows_per_block``), since it decides which rows each shard owns.
-:func:`dist_exact_propagate` picks the variant as grandtpu does; on the
-port's single-process mesh its default is the all_gather variant.
-Results are tensors on the mesh's first device.
+:func:`dist_exact_propagate` picks the variant as grandtpu does: by
+default the all_gather variant on a one-process mesh, and the halo
+exchange where it moves less than half the rows on a mesh over
+processes. Every process holds its own shards' operators and receives the
+whole [n, F] result, on its first device.
 """
 
 from __future__ import annotations
@@ -79,12 +81,14 @@ def _check_axis(mesh: Mesh, axis: str, num_shards: int) -> None:
 
 def place(mesh: Mesh, num_nodes: int, rows_per: int, x) -> list:
     """[n, F] features (array or tensor) as f32 row blocks [rows_per, F],
-    zero-padded to S * rows_per rows, one on each shard's device."""
+    zero-padded to S * rows_per rows, one on each of this process's
+    shards' devices."""
     x = torch.as_tensor(x, dtype=torch.float32)
     pad = torch.zeros((rows_per * mesh.size - num_nodes, x.shape[1]),
                       dtype=torch.float32, device=x.device)
     blocks = torch.cat([x, pad]).split(rows_per)
-    return [b.to(d).contiguous() for b, d in zip(blocks, mesh.devices)]
+    return [blocks[s].to(d).contiguous()
+            for s, d in zip(mesh.shards, mesh.devices)]
 
 
 def _iterate(xs: list, hop, mode: str, order: int, alpha: float) -> list:
@@ -174,9 +178,9 @@ class ShardedPropagator:
                               num_nodes=rows, chunk=128, num_cols=n_pad,
                               row_counts=np.bincount(g.rows_local[s],
                                                      minlength=rows + 1))
-                    for s, d in enumerate(mesh.devices)]
+                    for s, d in zip(mesh.shards, mesh.devices)]
         self.dinv = [torch.as_tensor(g.dinv[s], device=d)
-                     for s, d in enumerate(mesh.devices)]
+                     for s, d in zip(mesh.shards, mesh.devices)]
 
     def __call__(self, x, *, mode: str = "ppr", order: int = 10,
                  alpha: float = 0.2, plain: bool = False) -> torch.Tensor:
@@ -185,7 +189,7 @@ class ShardedPropagator:
 
         def hop(cur_in, cur_out, acc, scale, accumulate):
             full = self.mesh.all_gather(cur_in)
-            accs = acc if accumulate else [None] * self.mesh.size
+            accs = acc if accumulate else [None] * len(cur_in)
             for s, coo in enumerate(self.coo):
                 # (dinv * (A_s x)) * scale, then the update, in grandtpu's
                 # order: one launch
@@ -304,11 +308,11 @@ class BlockShardedPropagator:
                  axis: str = "data"):
         _check_axis(mesh, axis, g.num_shards)
         self.mesh, self.g = mesh, g
-        self.ops = _to_ops(g.csrs, mesh.devices, g.rows_per_shard,
-                           g.rows_per_shard * g.num_shards)
+        self.ops = _to_ops([g.csrs[s] for s in mesh.shards], mesh.devices,
+                           g.rows_per_shard, g.rows_per_shard * g.num_shards)
         self.row_val = (None if g.row_val is None else
                         [torch.as_tensor(g.row_val[s], device=d)
-                         for s, d in enumerate(mesh.devices)])
+                         for s, d in zip(mesh.shards, mesh.devices)])
 
     def __call__(self, x, *, mode: str = "ppr", order: int = 10,
                  alpha: float = 0.2, precision: str = "f32",
@@ -327,7 +331,7 @@ class BlockShardedPropagator:
         hops = iter(range(order))
 
         def hop(cur_in, cur_out, acc, scale, accumulate):
-            accs = acc if accumulate else [None] * mesh.size
+            accs = acc if accumulate else [None] * len(cur_in)
             if pairs is not None:
                 t = next(hops)
                 if t == 0:
@@ -335,7 +339,7 @@ class BlockShardedPropagator:
                 else:
                     amax = mesh.pmax([p[(t - 1) % 2] for p in pairs])
                 raise_ = ([p[t % 2] for p in pairs] if t + 1 < order
-                          else [None] * mesh.size)
+                          else [None] * len(pairs))
                 qs = [k.quantize(c, a, r)
                       for c, a, r in zip(cur_in, amax, raise_)]
                 full = mesh.all_gather([q for q, _ in qs])
@@ -358,6 +362,14 @@ class BlockShardedPropagator:
         return mesh.gather_rows(outs)[: self.g.num_nodes]
 
 
+def default_halo_threshold(mesh: Mesh) -> float:
+    """grandtpu's default ``halo_threshold`` (``spmm_shard.py:450``): 0.5 on
+    a mesh over processes (the halo exchange where it moves less than half
+    the rows), 0.0 on one process (the all_gather variant, measured faster
+    on shared-memory fabrics)."""
+    return 0.5 if mesh.multiprocess else 0.0
+
+
 def dist_exact_propagator(mesh: Mesh, adj_sl: sp.spmatrix, num_features: int,
                           *, axis: str = "data",
                           halo_threshold: float | None = None,
@@ -374,9 +386,7 @@ def dist_exact_propagator(mesh: Mesh, adj_sl: sp.spmatrix, num_features: int,
     if precision != "auto":
         precision = _check_dist_precision(precision)
     if halo_threshold is None:
-        # grandtpu's default on a single-process mesh, which the port's
-        # always is: all_gather, measured faster on shared-memory fabrics
-        halo_threshold = 0.0
+        halo_threshold = default_halo_threshold(mesh)
     if precision == "auto":
         # sized on the global [n, F] carry, as grandtpu does
         precision = choose_fast_precision(adj_sl.shape[0], num_features,
@@ -401,9 +411,10 @@ def dist_exact_propagate(mesh: Mesh, adj_sl: sp.spmatrix, features, *,
     grandtpu: 'bf16_carry' runs as 'bf16'; 'auto' resolves on the global
     [n, F]; one shard goes to :func:`exact_propagate`'s propagator; the
     halo exchange when ``estimate_halo_compression < halo_threshold``
-    (default 0.0 on the port's single-process mesh, so never unless a
-    threshold is passed), else the all_gather variant. Returns [n, F] on
-    the mesh's first device."""
+    (default :func:`default_halo_threshold`: 0.5 on a mesh over
+    processes, 0.0 on one process, so never there unless a threshold is
+    passed), else the all_gather variant. Returns [n, F] on the first
+    device of this process's shards, on every process."""
     prop, precision = dist_exact_propagator(
         mesh, adj_sl, int(np.shape(features)[1]), axis=axis,
         halo_threshold=halo_threshold, precision=precision)

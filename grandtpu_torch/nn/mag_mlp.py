@@ -13,7 +13,8 @@ says and are applied only when it is set.
 
 For data-parallel training (D2) :meth:`MagMLP.shard_vocab` splits the
 table over a mesh's shards by vocabulary rows (``table_shards``, one
-``nn.Parameter`` a shard on its device, the vocabulary row-padded with
+``nn.Parameter`` a shard on its device, on a mesh over processes for
+this process's shards only, the vocabulary row-padded with
 zero rows to a multiple of S, as grandtpu's ``emb_mode="vocab"``);
 :meth:`MagMLP.forward_sharded` is the head over the shards' row blocks,
 as ``MLP.forward_sharded``.
@@ -47,17 +48,19 @@ class MagMLP(nn.Module):
 
     def shard_vocab(self, mesh) -> "MagMLP":
         """Split ``table`` [V, H] over ``mesh``'s shards by rows, in place:
-        the table becomes ``table_shards``, shard s holding the rows
-        :meth:`vocab_window` (s) of the vocabulary padded with zero rows to
-        a multiple of S, on ``mesh.devices[s]``."""
+        the table becomes ``table_shards``, one for each of this process's
+        shards, shard s holding the rows :meth:`vocab_window` (s) of the
+        vocabulary padded with zero rows to a multiple of S, on its
+        device."""
         table = self.table.detach()
         v, h = table.shape
         per = -(-v // mesh.size)
         padded = torch.cat([table, table.new_zeros(per * mesh.size - v, h)])
+        blocks = padded.split(per)
         del self.table
         self.table_shards = nn.ParameterList(
-            nn.Parameter(block.to(d, copy=True))
-            for block, d in zip(padded.split(per), mesh.devices))
+            nn.Parameter(blocks[s].to(d, copy=True))
+            for s, d in zip(mesh.shards, mesh.devices))
         self.vocab_mesh = mesh
         return self
 
@@ -68,7 +71,8 @@ class MagMLP(nn.Module):
 
     def gathered_table(self) -> torch.Tensor:
         """The whole table (with a sharded one's zero padding rows) on the
-        first device, detached."""
+        first device, detached. On a mesh over processes a collective:
+        every rank calls it and receives the whole table."""
         if self.vocab_mesh is None:
             return self.table.detach()
         return self.vocab_mesh.gather_rows(
@@ -113,8 +117,8 @@ class MagMLP(nn.Module):
                 xs = [_node_normalize(x) for x in xs]
             if cfg.use_bn:
                 xs = bn.forward_sharded(mesh, xs, batch_masks)
-            xs = _dropout_sharded(xs, cfg.hidden_droprate, self.training,
-                                  generator, split)
+            xs = _dropout_sharded(mesh, xs, cfg.hidden_droprate,
+                                  self.training, generator, split)
             xs = _linear_sharded(mesh, fc, xs)
         return xs
 

@@ -137,14 +137,15 @@ def _dropout(x, rate: float, training: bool, generator):
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-def _dropout_sharded(xs: list, rate: float, training: bool, generator,
+def _dropout_sharded(mesh, xs: list, rate: float, training: bool, generator,
                      split) -> list:
-    """:func:`_dropout` of the batch the row blocks ``xs`` make up: one
-    mask of the batch's shape drawn on the generator's device, handed out
-    by ``split`` (batch rows -> the shards' blocks)."""
+    """:func:`_dropout` of the batch the mesh's equal row blocks ``xs``
+    (this process's) make up: one mask of the batch's shape drawn on the
+    generator's device, handed out by ``split`` (batch rows -> the shards'
+    blocks)."""
     if not training or rate <= 0.0:
         return xs
-    shape = (sum(x.shape[0] for x in xs), xs[0].shape[1])
+    shape = (xs[0].shape[0] * mesh.size, xs[0].shape[1])
     keeps = split(torch.rand(shape, generator=generator,
                              device=generator.device) < 1.0 - rate)
     return [torch.where(k, x / (1.0 - rate), 0.0) for k, x in zip(keeps, xs)]
@@ -195,8 +196,9 @@ class MLP(nn.Module):
     def forward_sharded(self, mesh, xs: list, batch_masks: list | None = None,
                         generator: torch.Generator | None = None,
                         split=None) -> list:
-        """Logits of each shard's rows: ``xs[s]`` [b_s, F] are shard s's
-        rows of one batch, on ``mesh.devices[s]``; ``batch_masks[s]`` their
+        """Logits of each shard's rows: ``xs[i]`` [b_s, F] are the rows of
+        one batch of this process's shard i, on ``mesh.devices[i]``;
+        ``batch_masks[i]`` their
         BN row weights. ``split`` hands a batch-shaped tensor's rows out to
         the shards (default: ``mesh.scatter_rows``, the batch in shard
         order); dropout draws from ``generator`` as :meth:`forward` does."""
@@ -206,7 +208,7 @@ class MLP(nn.Module):
             xs = [_node_normalize(x).detach() for x in xs]
         if cfg.use_bn:
             xs = self.bns[0].forward_sharded(mesh, xs, batch_masks)
-        xs = _dropout_sharded(xs, cfg.input_droprate, self.training,
+        xs = _dropout_sharded(mesh, xs, cfg.input_droprate, self.training,
                               generator, split)
         xs = _linear_sharded(mesh, self.fcs[0], xs)
         for i in range(1, cfg.nlayers):
@@ -215,8 +217,8 @@ class MLP(nn.Module):
                 xs = [_node_normalize(x) for x in xs]
             if cfg.use_bn:
                 xs = self.bns[i].forward_sharded(mesh, xs, batch_masks)
-            xs = _dropout_sharded(xs, cfg.hidden_droprate, self.training,
-                                  generator, split)
+            xs = _dropout_sharded(mesh, xs, cfg.hidden_droprate,
+                                  self.training, generator, split)
             xs = _linear_sharded(mesh, self.fcs[i], xs)
         return xs
 

@@ -22,6 +22,7 @@ import json
 import os
 
 import numpy as np
+import torch.distributed as tdist
 
 _ORBAX = "ROADMAP Queue A 5: the orbax checkpoint backend"
 
@@ -105,14 +106,21 @@ def save_checkpoint(path: str, *, params, state, opt_state=None,
                     best_val_loss: float = float("inf"),
                     extra: dict | None = None,
                     row_padded: dict[str, int] | None = None,
-                    backend: str = "npz") -> None:
+                    backend: str = "npz") -> bool:
     """Write the ``params``/``state``/``opt_state`` trees (numpy leaves, in
-    grandtpu's layout) and the meta to ``path`` (an npz)."""
+    grandtpu's layout) and the meta to ``path`` (an npz). Returns whether
+    this process wrote it: with ``torch.distributed`` initialized over
+    several ranks only rank 0 writes, as grandtpu's ``save_checkpoint``
+    does (``checkpoint.py:78-92``); every rank gathers the trees before
+    (a vocab-sharded table's gather is a collective)."""
     if backend == "orbax":
         raise NotImplementedError(f"ckpt_backend 'orbax' is not ported yet "
                                   f"({_ORBAX})")
     if backend != "npz":
         raise ValueError(f"unknown checkpoint backend {backend!r}")
+    if (tdist.is_available() and tdist.is_initialized()
+            and tdist.get_rank() != 0):
+        return False
     arrays = {}
     for name, tree in (("params", params), ("state", state),
                        ("opt", opt_state)):
@@ -126,6 +134,7 @@ def save_checkpoint(path: str, *, params, state, opt_state=None,
                                        dtype=np.uint8)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **arrays)
+    return True
 
 
 def _orbax_dir(path: str) -> str:

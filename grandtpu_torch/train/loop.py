@@ -7,7 +7,10 @@ patience with the acc/both rules, and keep the best state. It makes the
 same ``RandomState`` calls in the same order as ``grandtpu``, so both
 packages see identical batch schedules. With ``ckpt_dir`` it writes
 ``{ckpt_dir}/best.npz`` at every eval that improves, as grandtpu does
-(``grandtpu/train/loop.py:273-281``). Resume, periodic full-state saves, metrics streams,
+(``grandtpu/train/loop.py:273-281``). On a mesh over processes every rank
+runs this loop: the eval metrics are replicated, so every rank takes the
+same improvement and stop decisions, gathers the checkpoint's trees, and
+rank 0 alone writes the file. Resume, periodic full-state saves, metrics streams,
 scan-rolled steps and preemption are not ported
 (``trainer.check_supported`` rejects their config fields).
 """

@@ -20,7 +20,8 @@ runs K1 and the MLP on its rows of the batch, every random mask is drawn
 at the batch's shape in the one-device order and handed out by rows, the
 BN moments and the loss normalizers are the batch's, and autograd sums
 the shards' gradients onto the one copy of the parameters, where the
-grad norm, the clip and Adam run.
+grad norm, the clip and Adam run. On a mesh over processes each rank
+holds such a copy and runs the same update on the same summed gradients.
 """
 
 from __future__ import annotations
@@ -88,11 +89,21 @@ def _accuracy_sharded(mesh, logps, labels, masks):
     return hits / mesh.reduce_sum([m.sum() for m in masks]).clamp(min=1.0)
 
 
-def _global_norm(grads) -> torch.Tensor:
-    """The norm of all ``grads``, on the first one's device."""
+def _global_norm(grads, mesh=None, sharded=()) -> torch.Tensor:
+    """The norm of all ``grads``, on the first one's device. On a mesh over
+    processes, ``sharded`` are the parameters each rank holds its own
+    shards of (a vocab-sharded table, the last of the model's), whose
+    gradients are among ``grads``: every shard's norm is gathered, in
+    global order, so that each rank takes the same norm and counts each
+    replicated gradient once."""
     dev = grads[0].device
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g).to(dev) for g in grads]))
+    norms = [torch.linalg.vector_norm(g).to(dev) for g in grads]
+    if mesh is not None and mesh.multiprocess and sharded:
+        ids = {id(p.grad) for p in sharded}
+        local = [n for g, n in zip(grads, norms) if id(g) in ids]
+        norms = ([n for g, n in zip(grads, norms) if id(g) not in ids]
+                 + list(mesh.gather_rows([n.reshape(1) for n in local])))
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def _clip_(grads, gnorm: torch.Tensor, clip_norm: float) -> None:
@@ -193,7 +204,7 @@ def _sharded_batch(mesh, batches, n_train: int):
     nts = n_train // mesh.size
     ums = [_unlabel_mask(b, nts) for b in batches]
     bmasks = [torch.cat([b["label_mask"], um]) for b, um in zip(batches, ums)]
-    n_unlabeled = sum(um.shape[0] for um in ums)
+    n_unlabeled = ums[0].shape[0] * mesh.size
     return nts, ums, bmasks, BatchSplit(mesh, n_train, n_unlabeled)
 
 
@@ -222,7 +233,7 @@ def _build_sharded_train_step(cfg: StepConfig, model: MLP,
         nts, ums, bmasks, split = _sharded_batch(mesh, batches, cfg.n_train)
         cols = [tc[b["rows"]] for tc, b in zip(tk_cols, batches)]
         vals = [tv[b["rows"]] for tv, b in zip(tk_vals, batches)]
-        shape = (cfg.k_aug, sum(c.shape[0] for c in cols), cols[0].shape[1])
+        shape = (cfg.k_aug, split.rows, cols[0].shape[1])
         keeps = split(torch.rand(shape, generator=generator,
                                  device=generator.device)
                       < 1.0 - cfg.dropnode_rate, dim=1)
@@ -233,7 +244,7 @@ def _build_sharded_train_step(cfg: StepConfig, model: MLP,
             batch_masks=bmasks if cfg.mlp.use_bn else None,
             generator=generator, split=split) for k in range(cfg.k_aug)]
         logps = [torch.stack([torch.log_softmax(o[s], dim=-1) for o in outs])
-                 for s in range(mesh.size)]
+                 for s in range(len(xs))]
         ramp = min(cfg.lam, cfg.lam * float(num_batch) / cfg.warmup)
         loss, sup, unsup, acc = _sharded_losses(
             mesh, logps, batches, nts, ums, ramp, cfg.tem, cfg.conf,

@@ -9,7 +9,11 @@ the dense-feature engine here runs
 
 With ``num_devices > 1`` both engines train data-parallel on a mesh (D2,
 ``dist/data_parallel.py``) and predict through the row-partitioned
-``dist_exact_propagate`` (D1), as grandtpu's trainers do.
+``dist_exact_propagate`` (D1), as grandtpu's trainers do. Once
+``torch.distributed`` is initialized over several ranks, ``train(cfg)`` on
+every rank, with ``num_devices`` the global shard count, trains on the mesh
+over the processes (``dist.make_mesh``); every rank receives the whole
+prediction and the same result.
 """
 
 from __future__ import annotations

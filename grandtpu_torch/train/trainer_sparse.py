@@ -150,8 +150,9 @@ def _build_sharded_sparse_steps(cfg: GrandConfig, model: MagMLP,
     def embed(attr_cols, attr_vals, cols, vals, keep, drop, split):
         """The K augmentations' inputs [K, b_s, H] of each shard's rows;
         ``keep``/``drop`` in the batch's row order on the first device."""
+        local = len(mesh.devices)
         if not vocab:
-            keeps, drops = split(keep, 1), ([None] * mesh.size if drop is None
+            keeps, drops = split(keep, 1), ([None] * local if drop is None
                                             else split(drop, 1))
             return [embed_prop(t, ac, av, c, v, k, d, q) for t, ac, av, c, v,
                     k, d in zip(mesh.broadcast(model.table), attr_cols,
@@ -160,14 +161,14 @@ def _build_sharded_sparse_steps(cfg: GrandConfig, model: MagMLP,
         # window; the partial sums meet in a reduce-scatter by rows, whose
         # backward all-gathers the gradient for the window backwards
         keeps = mesh.broadcast(split.to_mesh_order(keep, 1))
-        drops = ([None] * mesh.size if drop is None
+        drops = ([None] * local if drop is None
                  else mesh.broadcast(split.to_mesh_order(drop, 1)))
         cols_all, vals_all = mesh.all_gather(cols), mesh.all_gather(vals)
         partials = [embed_prop_window(t, *model.vocab_window(s), ac, av, c, v,
                                       k, d, q)
-                    for s, (t, ac, av, c, v, k, d) in enumerate(zip(
-                        model.table_shards, attr_cols, attr_vals, cols_all,
-                        vals_all, keeps, drops))]
+                    for s, t, ac, av, c, v, k, d in zip(
+                        mesh.shards, model.table_shards, attr_cols,
+                        attr_vals, cols_all, vals_all, keeps, drops)]
         return mesh.reduce_scatter_rows(partials, dim=1)
 
     def train_step(attr_cols, attr_vals, tk_cols, tk_vals, batches, generator,
@@ -178,7 +179,7 @@ def _build_sharded_sparse_steps(cfg: GrandConfig, model: MagMLP,
         cols = [tc[b["rows"]] for tc, b in zip(tk_cols, batches)]
         vals = [tv[b["rows"]] for tv, b in zip(tk_vals, batches)]
         k_aug, dev = cfg.sample, generator.device
-        shape = (k_aug, sum(c.shape[0] for c in cols), cols[0].shape[1])
+        shape = (k_aug, split.rows, cols[0].shape[1])
         # the one-device step's draws, at the batch's shapes, in its order
         keep = torch.rand(shape, generator=generator,
                           device=dev) < 1.0 - cfg.dropnode_rate
@@ -193,7 +194,7 @@ def _build_sharded_sparse_steps(cfg: GrandConfig, model: MagMLP,
             else None, generator=generator, split=split)
             for k in range(k_aug)]
         logps = [torch.stack([torch.log_softmax(o[s], dim=-1) for o in outs])
-                 for s in range(mesh.size)]
+                 for s in range(len(xs))]
         ramp = min(1.0, float(num_batch) / cfg.warmup) * cfg.lam
         loss = _sharded_losses(mesh, logps, batches, nts, ums, ramp, cfg.tem,
                                conf, cfg.loss)[0]
@@ -201,7 +202,8 @@ def _build_sharded_sparse_steps(cfg: GrandConfig, model: MagMLP,
         loss.backward()
         if cfg.clip_norm > 0:
             grads = [p.grad for p in params if p.grad is not None]
-            _clip_(grads, _global_norm(grads), cfg.clip_norm)
+            sharded = list(model.table_shards) if vocab else ()
+            _clip_(grads, _global_norm(grads, mesh, sharded), cfg.clip_norm)
         optimizer.step()
         return {"loss": loss.detach()}
 

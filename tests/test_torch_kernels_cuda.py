@@ -1717,3 +1717,22 @@ def test_sharded_propagators_match_plain_runs(device, variant, precision):
     torch.cuda.synchronize()
     limit = TOL if precision in ("f32", "bf16") else 5e-3
     assert _rel_err(got, want) <= limit
+
+
+def test_process_mesh_on_one_card(device, tmp_path):
+    """2 ranks on cuda:0 with the gloo backend (one shard each, a process
+    apiece, tests/test_torch_dist_process.py's ``card`` part): one dense
+    step, every drop rate on, within 1e-5 of the one-process 2-shard mesh's
+    step on the card, the replicas bit-identical; then the nccl backend
+    with both ranks on the card is refused, naming gloo."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "dist_process", os.path.join(os.path.dirname(__file__),
+                                     "test_torch_dist_process.py"))
+    workers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(workers)
+    outs = workers.spawn("card", tmp_path, ports=2, timeout=300)
+    for out in outs:
+        assert "refused: NCCL cannot run two ranks on one card" in out, out
