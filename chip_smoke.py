@@ -244,6 +244,16 @@ Data-parallel training (D2) on meshes of the one card:
     bytes the collectives would move between cards; then ``train(cfg,
     mesh=...)`` for 2 epochs as a path: K1 once a shard per step and eval,
     D1's K2 ``order`` x 2 times, nothing else; test accuracy beside 5's;
+9t. (after 9) tensor parallelism: the reddit step with the MLP's hidden
+    width split over 'model' on ``make_mesh(2, n_model=2, devices=[cuda:0]
+    * 4)`` (fcs[0] column-parallel [256, 602] blocks, fcs[1] row-parallel),
+    a path of its own: 3 steps (every drop rate on), then the eval of 1,230
+    rows, against the one-card steps and eval from the same state and
+    generator seed (metrics, parameters, gradients, BN buffers and Adam
+    moments within 1e-5, the blocks joined), K1 exactly once a data row a
+    step and eval (the model shards of a row share it); then 20
+    synchronized steps each of the split mesh, phase 9's 2-shard mesh and
+    the one card;
 3h. (after 3c) K3's vocab-window forms (``embed_prop_window`` forward and
     backward) on the 4 windows of the 2.78M-word table at the MAG step's
     shapes (every row of the batch over each window), against their plain
@@ -259,6 +269,13 @@ Data-parallel training (D2) on meshes of the one card:
     times an eval and once per predict chunk, D1's K2 ``order`` x 4 times,
     nothing else; the gathered table's padding rows zero; peak device
     memory beside 5b's.
+9tb. (after 9b) the same for the MAG step with the table's columns split
+    over 'model' (each model shard a [2780000, 32] block, K3's train form
+    over it; the head's first fc row-parallel; input dropout on, each
+    shard its columns of the mask): K3's forward exactly once a shard a
+    step and eval, its backward once a shard a step; times against 9b's
+    4-shard vocab-sharded mesh and the one card; the model state and a
+    step's peak device memory against the vocab-sharded step's.
 
 Meshes over processes (``torch.distributed``), on the one card:
 
@@ -287,8 +304,15 @@ Meshes over processes (``torch.distributed``), on the one card:
     the nccl backend with both ranks on the card, which ``make_mesh``
     refuses, naming gloo. The parent then runs the ``predict`` CLI on one
     card from the ranks' ``best.npz``: test_acc within one node of the
-    ranks'. It prints each rank's step time beside phases 9's and 9b's,
-    the transport's share, and the phase's wall time.
+    ranks'. Tensor parallelism over the ranks (after each engine's step):
+    the reddit and MAG steps split over 'model' on a (1 x 2) mesh whose
+    model shards are the ranks, against the one-process (1 x 2) mesh
+    (within 1e-5) and 9t's and 9tb's first loss, the ranks' joined
+    parameters bit for bit the same, exact launches (K1, or K3's forward
+    and backward, once a step a rank), the transport's calls, bytes and
+    seconds a step. It prints each rank's step time beside phases 9's,
+    9b's, 9t's and 9tb's, the transport's share, and the phase's wall
+    time.
 
 Every path (5, 5b, 5c, 5d, 7) must launch exactly the hop kernels of the
 form its predict's hops ran (``TrainResult.predict_precision``), and the
@@ -331,9 +355,10 @@ from grandtpu_torch.dist import (ShardedGraph, ShardedPropagator,
                                  default_halo_threshold,
                                  dist_exact_propagator,
                                  estimate_halo_compression, make_mesh,
-                                 multihost_native_gfpush, shard_batch,
-                                 shard_sparse_train_inputs,
+                                 joined_state, multihost_native_gfpush,
+                                 shard_batch, shard_sparse_train_inputs,
                                  shard_train_inputs, sharded_gfpush)
+from grandtpu_torch.dist.data_parallel import split_rows
 from grandtpu_torch.dist.mesh import TRANSPORT, Mesh, reset_transport
 from grandtpu_torch.dist.halo import (halo_hop, halo_hop_plain, halo_pack,
                                       halo_pack_plain)
@@ -373,8 +398,9 @@ from grandtpu_torch.sparse.spmm import (CSROperator, PaddedCSR,
                                         spmm_segment_prop_step_plain)
 from grandtpu_torch.train import loop as loop_mod
 from grandtpu_torch.train import train
-from grandtpu_torch.train.step import (StepConfig, build_train_step,
-                                       make_optimizer)
+from grandtpu_torch.train.checkpoint import _flatten_with_paths, model_trees
+from grandtpu_torch.train.step import (StepConfig, build_eval_step,
+                                       build_train_step, make_optimizer)
 from grandtpu_torch.train.trainer_sparse import build_sparse_steps
 
 DATASET = "synth:233000:41:602"     # RESULTS.md's reddit scale stand-in
@@ -401,6 +427,8 @@ FILE_HUBS = (200, 4096)
 SHARDS = 4                          # phase 8's mesh, on the one card
 DENSE_SHARDS = 2                    # phase 9's mesh (reddit's 50 + 200)
 MAG_SHARDS = 4                      # 3h's windows, 9b's mesh (20 + 20)
+TP_SHAPE = (2, 2)                   # 9t's and 9tb's (data, model) mesh
+TP_STEPS, TP_TIMED = 3, 20          # 9t/9tb: steps held to one card, timed
 PEAK_GB: dict = {}                  # peak device memory of each train() path
 CKPT_DIR = os.path.join("build", "chip_smoke_ckpt")   # 5d's best.npz
 TOL = 1e-5                          # max |kernel - plain| / max |plain|
@@ -1187,10 +1215,68 @@ def _k3_bytes(table, s, num_aug):
             table.numel() * 4 + common + out, flops)
 
 
+def _k3_column_blocks(table, sets, q: float, g) -> dict:
+    """K3's forward and backward on each column block [V, H/m] of ``table``
+    as phase 9tb's step runs them on a (d x m) = ``TP_SHAPE`` mesh: each
+    model shard's block over its data row's rows (the first 1/d of each
+    set's), the input-dropout mask's matching columns, against the plain
+    version on the same inputs; the device times of both kernels there."""
+    n_data, m = TP_SHAPE
+    w = table.shape[1] // m
+
+    def shard_set(s, c):
+        r = s["tk_cols"].shape[0] // n_data
+        out = {**s, "tk_cols": s["tk_cols"][:r], "tk_vals": s["tk_vals"][:r]}
+        if "keep" in s:
+            out["keep"] = s["keep"][:, :r].contiguous()
+        if "drop" in s:
+            out["drop"] = s["drop"][:, :r, ..., c * w:(c + 1) * w].contiguous()
+        return out
+
+    errs = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    first = None
+    for c in range(m):
+        t = table.detach()[:, c * w:(c + 1) * w].contiguous()
+        t.requires_grad_(True)
+        bsets = [shard_set(s, c) for s in sets]
+        out = embed_prop(t, **bsets[0], droprate=q)
+        gout = torch.randn(out.shape, generator=g, device=DEV)
+        d_k, = torch.autograd.grad(out, t, gout)
+        plain = embed_prop_plain(t, **bsets[0], droprate=q)
+        d_p, = torch.autograd.grad(plain, t, gout)
+        for key, e in (("fwd", _errors(out.detach(), plain.detach())),
+                       ("bwd", _errors(d_k, d_p))):
+            errs[key] = [max(a, b) for a, b in zip(errs[key], e)]
+        del out, plain, d_k, d_p
+        if first is None:
+            first = (t, bsets)
+    if not (errs["fwd"][1] <= TOL and errs["bwd"][1] <= TOL):
+        raise AssertionError(f"K3 on a column block of {w} disagrees with "
+                             f"its plain version: {errs}")
+    t, bsets = first
+    it = itertools.cycle(bsets)
+    with torch.no_grad():
+        dev_f = _device_ms(lambda: embed_prop(t, **next(it), droprate=q), 100,
+                           "embed_prop_fwd_kernel")
+    outs = [embed_prop(t, **s, droprate=q) for s in bsets]
+    it_o = itertools.cycle(outs)
+    gout = torch.randn(outs[0].shape, generator=g, device=DEV)
+    dev_b = _device_ms(lambda: torch.autograd.grad(
+        next(it_o), t, gout, retain_graph=True), 20, "embed_prop_bwd_kernel")
+    shape = f"[{outs[0].shape[0]},{outs[0].shape[1]},{w}] of {m} blocks"
+    print(f"[K3] {shape}: fwd vs plain {errs['fwd']}, bwd vs plain "
+          f"{errs['bwd']}; on the device, profiled: fwd {dev_f}, bwd kernel "
+          f"{dev_b}", flush=True)
+    return {key: {"shape": shape, "device_ms": dev,
+                  "max_abs_err": errs[key][0], "max_rel_err": errs[key][1]}
+            for key, dev in (("fwd", dev_f), ("bwd", dev_b))}
+
+
 def check_k3(padded) -> list:
     """K3 forward and backward against the plain version and autograd, in
     the train (with and without input dropout), eval and node forms, on
-    the MAG stand-in's ``padded`` features."""
+    the MAG stand-in's ``padded`` features; the train and eval forms also
+    on the table's column blocks, as the split step runs them."""
     g = torch.Generator(device=DEV).manual_seed(1)
     table = torch.randn(padded.num_features, H_MAG, generator=g, device=DEV)
     table.requires_grad_(True)
@@ -1217,6 +1303,12 @@ def check_k3(padded) -> list:
         if not (e_f[1] <= TOL and e_b[1] <= TOL):
             raise AssertionError(f"K3 {form} disagrees with its plain "
                                  f"version: fwd {e_f}, bwd {e_b}")
+        if form != "node":
+            blocks = _k3_column_blocks(table, sets, q, g)
+            for key in ("fwd", "bwd"):
+                times[key][f"{form}_columns"] = blocks[key]
+                errs[key] = [max(errs[key][0], blocks[key]["max_abs_err"]),
+                             max(errs[key][1], blocks[key]["max_rel_err"])]
 
         it = itertools.cycle(sets)
         with torch.no_grad():
@@ -3006,25 +3098,6 @@ def _mesh(shards: int):
     return make_mesh(shards, devices=[DEV] * shards)
 
 
-def _named_state(model, optimizer) -> dict:
-    """{name: (value, grad, exp_avg, exp_avg_sq)} and {buffer: (value,)},
-    a vocab-sharded table joined as ``table``."""
-    out = {}
-    for name, p in model.named_parameters():
-        st = optimizer.state[p]
-        out[name] = (p.detach(), p.grad, st.get("exp_avg"),
-                     st.get("exp_avg_sq"))
-    shards = [k for k in out if k.startswith("table_shards.")]
-    if shards:
-        parts = [out.pop(k) for k in sorted(shards,
-                                            key=lambda k: int(k[13:]))]
-        out["table"] = tuple(torch.cat([p[i] for p in parts])
-                             for i in range(4))
-    for name, buf in model.named_buffers():
-        out[name] = (buf,)
-    return out
-
-
 def _state_errors(one, opt1, sharded, opt2, vocab: int) -> dict:
     """max relative error of every parameter, its gradient and Adam moments,
     and every buffer, of the sharded model against the one-device one; a
@@ -3034,7 +3107,7 @@ def _state_errors(one, opt1, sharded, opt2, vocab: int) -> dict:
     lr g / (|g| + 1e-8) magnifies an f32 difference of a gradient element
     near 0 up to 1e8 times, and a zero-initialised tensor (a BN bias) is
     after one step nothing but that update."""
-    want, got = _named_state(one, opt1), _named_state(sharded, opt2)
+    want, got = joined_state(one, opt1), joined_state(sharded, opt2)
     if want.keys() != got.keys():
         raise AssertionError(f"state names differ: {sorted(want)} vs "
                              f"{sorted(got)}")
@@ -3144,10 +3217,12 @@ def _step_inputs(engine: str, data, padded=None) -> tuple:
 
 
 def _step_on(engine: str, cfg, mcfg, model, mesh, operands, batch,
-             n_class: int):
+             n_class: int, tp: bool = False):
     """(optimizer, a closure running one step of ``model`` on ``mesh``, or on
-    the one card without one) from a generator seeded with the run's
-    seed2."""
+    the one card without one, from a generator seeded with the run's
+    seed2, and its eval of (rows, labels, mask) given on the card). With
+    ``tp`` the model is split over the mesh's 'model' axis (the dense
+    MLP's hidden width, the MAG table's columns)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     placed, parts = operands, batch
     if mesh is not None:
@@ -3155,12 +3230,13 @@ def _step_on(engine: str, cfg, mcfg, model, mesh, operands, batch,
         if engine == "dense":
             placed = shard_train_inputs(
                 mesh, model=model, features=operands[0],
-                tk_cols=operands[1], tk_vals=operands[2])
+                tk_cols=operands[1], tk_vals=operands[2],
+                tensor_parallel=tp)
         else:
             placed = shard_sparse_train_inputs(
                 mesh, model=model, attr_cols=operands[0],
                 attr_vals=operands[1], tk_cols=operands[2],
-                tk_vals=operands[3])
+                tk_vals=operands[3], emb_mode="tp" if tp else "vocab")
     opt = make_optimizer(model, cfg.lr, cfg.weight_decay)
     if engine == "dense":
         scfg = StepConfig(
@@ -3169,10 +3245,18 @@ def _step_on(engine: str, cfg, mcfg, model, mesh, operands, batch,
             tem=cfg.tem, conf=cfg.resolve_conf(n_class), loss_kind=cfg.loss,
             clip_norm=cfg.clip_norm)
         step = build_train_step(scfg, model, opt, mesh=mesh)
+        ev = build_eval_step(scfg, model, mesh=mesh)
     else:
-        step = build_sparse_steps(cfg, model, opt, n_class, mesh=mesh)[0]
+        step, ev = build_sparse_steps(cfg, model, opt, n_class, mesh=mesh)
     gen = torch.Generator(device=DEV).manual_seed(cfg.seed2)
-    return opt, lambda: step(*placed, parts, gen, 100)
+
+    def evaluate(rows, labels, mask):
+        args = (rows, labels, mask)
+        if mesh is not None:
+            args = tuple(split_rows(mesh, t) for t in args)
+        return ev(*placed, *args)
+
+    return opt, lambda: step(*placed, parts, gen, 100), evaluate
 
 
 def check_mesh_step(engine: str, data, padded=None) -> dict:
@@ -3188,10 +3272,10 @@ def check_mesh_step(engine: str, data, padded=None) -> dict:
     one = (init_mlp if engine == "dense" else init_mag_mlp)(mcfg, cfg.seed2,
                                                             DEV)
     sharded = copy.deepcopy(one)
-    opt1, step1 = _step_on(engine, cfg, mcfg, one, None, operands, batch,
-                           n_class)
-    opt2, step2 = _step_on(engine, cfg, mcfg, sharded, mesh, operands, batch,
-                           n_class)
+    opt1, step1, _ = _step_on(engine, cfg, mcfg, one, None, operands, batch,
+                              n_class)
+    opt2, step2, _ = _step_on(engine, cfg, mcfg, sharded, mesh, operands,
+                              batch, n_class)
     m1 = step1()
     m2 = step2()
     torch.cuda.synchronize(DEV)
@@ -3219,6 +3303,123 @@ def check_mesh_step(engine: str, data, padded=None) -> dict:
                              f"one-card step: {errs}")
     return {"max_rel_err": errs[worst], "one_card_step_ms": one_ms,
             "mesh_step_ms": mesh_ms, "collective_bytes": nbytes}
+
+
+def _tp_inputs(engine: str, data, padded=None) -> tuple:
+    """:func:`_step_inputs` with every drop rate on (the MAG preset's input
+    dropout too: the split step hands each model shard its columns of the
+    mask)."""
+    cfg, *rest = _step_inputs(engine, data, padded)
+    if engine == "mag":
+        cfg = cfg.replace(input_droprate=0.5)
+    return (cfg, *rest)
+
+
+def _tp_mesh():
+    n_data, n_model = TP_SHAPE
+    return make_mesh(n_data, n_model=n_model,
+                     devices=[DEV] * (n_data * n_model))
+
+
+def _tp_eval_rows(cfg, n_src: int, n_class: int) -> tuple:
+    """(rows, labels, mask) of an eval of the val set's size (reddit's
+    1,230 rows, MAG's 240), drawn from a generator seeded with 4."""
+    g = torch.Generator(device=DEV).manual_seed(4)
+    n = 1230 if cfg.hidden == 512 else 240
+    return (torch.randperm(n_src, generator=g, device=DEV)[:n],
+            torch.randint(0, n_class, (n,), generator=g, device=DEV),
+            torch.ones(n, device=DEV))
+
+
+def _step_memory_gb(step, model) -> dict:
+    """The model's state on the card (parameters, gradients, Adam's two
+    moments) and the peak device memory one synchronized call of ``step``
+    adds to what was allocated before it, in GB."""
+    state = sum(p.numel() * p.element_size() * 4 for p in model.parameters())
+    torch.cuda.synchronize(DEV)
+    before = torch.cuda.memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    step()
+    torch.cuda.synchronize(DEV)
+    return {"state_gb": state / 1e9, "step_transient_gb":
+            (torch.cuda.max_memory_allocated(DEV) - before) / 1e9}
+
+
+def check_tp_step(engine: str, data, padded=None) -> dict:
+    """Phases 9t and 9tb: the step split over 'model' on a (2 x 2) mesh of
+    the card (the dense MLP's hidden width, the MAG table's columns), a
+    path of its own: ``TP_STEPS`` steps, every drop rate of the run on,
+    then the eval, against the one-card steps and eval from the same state
+    and generator seed (metrics, parameters, gradients, BN buffers and Adam
+    moments within 1e-5, the blocks joined); exact launches (dense: K1
+    once a data row a step and eval, the model shards of a row sharing
+    it; MAG: K3's forward and backward once a shard a step, its forward
+    once a shard an eval); then ``TP_TIMED`` synchronized steps against
+    phase 9's or 9b's data-parallel mesh and the one card, and (MAG) the
+    peak device memory of a step against the vocab-sharded one's."""
+    n_class = data.num_classes
+    cfg, shards, nfeat, operands, mcfg, batch = _tp_inputs(engine, data,
+                                                           padded)
+    tag = "9t" if engine == "dense" else "9tb"
+    mesh = _tp_mesh()
+    init = init_mlp if engine == "dense" else init_mag_mlp
+    one = init(mcfg, cfg.seed2, DEV)
+    split = copy.deepcopy(one)
+    opt1, step1, eval1 = _step_on(engine, cfg, mcfg, one, None, operands,
+                                  batch, n_class)
+    opt2, step2, eval2 = _step_on(engine, cfg, mcfg, split, mesh, operands,
+                                  batch, n_class, tp=True)
+    rows = _tp_eval_rows(cfg, operands[-1].shape[0], n_class)
+    m1 = [step1() for _ in range(TP_STEPS)]
+    e1 = eval1(*rows)
+    torch.cuda.synchronize(DEV)
+    _reset_counts()
+    m2 = [step2() for _ in range(TP_STEPS)]
+    e2 = eval2(*rows)
+    torch.cuda.synchronize(DEV)
+    launches = _read_counts()
+    want = dict.fromkeys(launches, 0)
+    if engine == "dense":
+        want["dropnode_mean"] = TP_SHAPE[0] * (TP_STEPS + 1)
+    else:
+        n = TP_SHAPE[0] * TP_SHAPE[1]
+        want["embed_prop_fwd"] = n * (TP_STEPS + 1)
+        want["embed_prop_bwd"] = n * TP_STEPS
+    errs = {f"step{i}.{k}": _errors(m2[i][k], m1[i][k])[1]
+            for i in range(TP_STEPS) for k in m1[i]}
+    errs.update(_state_errors(one, opt1, split, opt2, nfeat))
+    errs.update({f"eval.{k}": _errors(g, w)[1]
+                 for k, g, w in zip(("nll", "acc"), e2, e1)})
+    worst = max(errs, key=errs.get)
+    if errs[worst] > TOL or launches != want:
+        raise AssertionError(f"[{tag}] the split step against one card: "
+                             f"{errs}; launches {launches}, want {want}")
+    dp = init(mcfg, cfg.seed2, DEV)
+    _, step_dp, _ = _step_on(engine, cfg, mcfg, dp, _mesh(shards), operands,
+                             batch, n_class)
+    times = {"one_card": _synced_ms(step1, TP_TIMED),
+             f"data_parallel_{shards}x1": _synced_ms(step_dp, TP_TIMED),
+             "tp_{}x{}".format(*TP_SHAPE): _synced_ms(step2, TP_TIMED)}
+    peak = {}
+    if engine == "mag":
+        del one, opt1, step1, eval1
+        torch.cuda.empty_cache()
+        peak = {"tp": _step_memory_gb(step2, split),
+                "vocab": _step_memory_gb(step_dp, dp)}
+    print(f"[{tag}] {TP_STEPS} {engine} steps split over 'model' on a "
+          f"{TP_SHAPE[0]} x {TP_SHAPE[1]} mesh of the card, then the eval, "
+          f"against one card (every drop rate of the run on: dropnode "
+          f"{cfg.dropnode_rate}, input {cfg.input_droprate}, hidden "
+          f"{cfg.hidden_droprate}; weight decay {cfg.weight_decay}): "
+          f"{len(errs)} quantities, worst {worst} {errs[worst]}; first "
+          f"step {({k: float(v) for k, v in m2[0].items()})}; launches "
+          f"{({k: v for k, v in launches.items() if v})}; step ms "
+          f"(synchronized wall, {TP_TIMED} steps) {times}; device memory "
+          f"{peak} (9b's vocab-sharded train() peak: "
+          f"{PEAK_GB.get('9b')} GB)", flush=True)
+    return {"max_rel_err": errs[worst], "worst": worst, "launches": launches,
+            "step_ms": times, "peak_gb": peak,
+            "first_loss": float(m2[0]["loss"])}
 
 
 def run_mesh_path(cfg, data, shards: int, tag: str) -> tuple:
@@ -3569,11 +3770,11 @@ def _proc_step(engine: str, data, padded=None) -> dict:
     proc = (init_mlp if engine == "dense" else init_mag_mlp)(mcfg, cfg.seed2,
                                                              DEV)
     one = copy.deepcopy(proc)
-    _, step1 = _step_on(engine, cfg, mcfg, one, Mesh((DEV,) * shards),
-                        operands, batch, n_class)
+    _, step1, _ = _step_on(engine, cfg, mcfg, one, Mesh((DEV,) * shards),
+                           operands, batch, n_class)
     mesh = make_mesh(shards)
-    _, step2 = _step_on(engine, cfg, mcfg, proc, mesh, operands, batch,
-                        n_class)
+    _, step2, _ = _step_on(engine, cfg, mcfg, proc, mesh, operands, batch,
+                           n_class)
     m1, m2 = step1(), step2()
     torch.cuda.synchronize(DEV)
     errs = {k: _errors(m2[k], m1[k])[1] for k in m1}
@@ -3603,6 +3804,67 @@ def _proc_step(engine: str, data, padded=None) -> dict:
     return {"shards": list(mesh.shards), "worst": worst,
             "max_rel_err": errs[worst], "loss": float(m2["loss"]),
             "step_ms": step_ms, "transport_a_step": transport,
+            "transport_share": (transport["stage_s"] + transport["comm_s"])
+            * 1e3 / step_ms}
+
+
+def _proc_tp_step(engine: str, data, padded=None) -> dict:
+    """9p, tp: the step split over 'model' on a (1 x 2) mesh whose model
+    shards are the 2 ranks (each holds one column block), against the
+    one-process (1 x 2) mesh of the card from the same state, inputs and
+    seeds (metrics and the joined parameters within 1e-5, values relative
+    to the model's largest); then 10 synchronized steps, their launches (a
+    path: counts set to 0 before, read after) and the transport's calls,
+    bytes and seconds a step. The whole parameters' digest goes to the
+    parent, which holds the ranks to each other."""
+    n_class = data.num_classes
+    cfg, _, _, operands, mcfg, batch = _tp_inputs(engine, data, padded)
+    proc = (init_mlp if engine == "dense" else init_mag_mlp)(mcfg, cfg.seed2,
+                                                             DEV)
+    one = copy.deepcopy(proc)
+    _, step1, _ = _step_on(engine, cfg, mcfg, one, Mesh((DEV,) * 2,
+                                                        n_model=2),
+                           operands, batch, n_class, tp=True)
+    mesh = make_mesh(1, n_model=2)
+    if mesh.model_group != (0, 1) or len(mesh.local_columns) != 1:
+        raise AssertionError(f"[9p] tp: 'model' does not span the ranks: "
+                             f"{mesh}")
+    _, step2, _ = _step_on(engine, cfg, mcfg, proc, mesh, operands, batch,
+                           n_class, tp=True)
+    m1 = step1()
+    torch.cuda.synchronize(DEV)
+    _reset_counts()
+    reset_transport()
+    m2 = step2()
+    torch.cuda.synchronize(DEV)
+    first = dict(TRANSPORT)
+    errs = {k: _errors(m2[k], m1[k])[1] for k in m1}
+    # the whole trees (joining the blocks is a collective of the ranks)
+    want, got = (_flatten_with_paths(dict(zip(("params", "state"),
+                                              model_trees(m))))
+                 for m in (one, proc))
+    scale = max(float(np.abs(w).max()) for w in want.values())
+    for key, w in want.items():
+        errs[key] = float(np.abs(got[key] - w).max()) / scale
+    worst = max(errs, key=errs.get)
+    digest = _digest(torch.as_tensor(got[k]) for k in sorted(got))
+    del one, step1
+    torch.cuda.empty_cache()
+    reset_transport()
+    t0 = time.time()
+    for _ in range(10):
+        step2()
+    torch.cuda.synchronize(DEV)
+    step_ms = (time.time() - t0) / 10 * 1e3
+    launches = {k: v for k, v in _read_counts().items() if v}
+    transport = {k: v / 10 for k, v in TRANSPORT.items()}
+    if errs[worst] > TOL:
+        raise AssertionError(f"[9p] the {engine} step split over the ranks "
+                             f"differs from the one-process mesh's: {errs}")
+    return {"columns": list(mesh.local_columns), "worst": worst,
+            "max_rel_err": errs[worst], "loss": float(m2["loss"]),
+            "digest": digest, "step_ms": step_ms, "launches": launches,
+            "transport_first_step": first, "transport_a_step": transport,
             "transport_share": (transport["stage_s"] + transport["comm_s"])
             * 1e3 / step_ms}
 
@@ -3775,6 +4037,7 @@ def rank_main(argv) -> int:
     _emit("gloo_cuda", coverage=_gloo_cuda_coverage())
     data = load_data(DATASET, split_seed=preset("reddit").seed1)
     _emit("reddit_step", **_proc_step("dense", data))
+    _emit("reddit_tp", **_proc_tp_step("dense", data))
     cfg = preset("reddit").replace(
         dataset=DATASET, epochs=2, num_devices=PROC_RANKS,
         ckpt_dir=os.path.join(workdir, "ckpt"))
@@ -3786,6 +4049,7 @@ def rank_main(argv) -> int:
     mag = load_data(MAG_DATASET, split_seed=preset("mag_scholar_c").seed1)
     padded = PaddedFeatures.from_csr(mag.features)
     _emit("mag_step", **_proc_step("mag", mag, padded))
+    _emit("mag_tp", **_proc_tp_step("mag", mag, padded))
     del padded
     torch.cuda.empty_cache()
     _emit("mag_train", **_proc_train(preset("mag_scholar_c").replace(
@@ -3878,6 +4142,25 @@ def run_process_mesh(mesh_steps: dict, reddit_acc: float,
     for run in a["d1"]["runs"]:
         if a["d1"]["runs"][run]["digest"] != b["d1"]["runs"][run]["digest"]:
             raise AssertionError(f"[9p] D1 {run}: the ranks' results differ")
+    steps_per_rank = 11                   # _proc_tp_step's first and 10 timed
+    for part, engine in (("reddit_tp", "dense"), ("mag_tp", "mag")):
+        if a[part]["digest"] != b[part]["digest"]:
+            raise AssertionError(f"[9p] {part}: the ranks' parameters differ")
+        first = mesh_steps[f"{engine}_tp"]["first_loss"]
+        if abs(a[part]["loss"] - first) > TOL * abs(first):
+            raise AssertionError(f"[9p] {part}: loss {a[part]['loss']} "
+                                 f"against {first} in the first step of "
+                                 f"9t/9tb")
+        want = ({"dropnode_mean": steps_per_rank} if engine == "dense" else
+                {"embed_prop_fwd": steps_per_rank,
+                 "embed_prop_bwd": steps_per_rank})
+        for r, rank in enumerate(ranks):
+            if rank[part]["launches"] != want:
+                raise AssertionError(f"[9p] {part}: rank {r} launched "
+                                     f"{rank[part]['launches']}, want {want}")
+        if [a[part]["columns"], b[part]["columns"]] != [[0], [1]]:
+            raise AssertionError(f"[9p] {part}: columns {a[part]['columns']}"
+                                 f", {b[part]['columns']}")
     for part, ref in (("reddit_train", reddit_acc), ("mag_train", mag_acc)):
         got, n_test = a[part]["test_acc"], a[part]["n_test"]
         if abs(got - ref) > 1.0 / n_test + 1e-12:
@@ -3903,6 +4186,20 @@ def run_process_mesh(mesh_steps: dict, reddit_acc: float,
               f"first step against the one-process mesh: worst "
               f"{a[part]['worst']} {a[part]['max_rel_err']}, "
               f"{b[part]['max_rel_err']}", flush=True)
+    for engine, part, tag in (("dense", "reddit_tp", "9t"),
+                              ("mag", "mag_tp", "9tb")):
+        one = mesh_steps[f"{engine}_tp"]
+        print(f"[9p] {engine} step split over 'model' on a 1 x 2 mesh whose "
+              f"model shards are the 2 ranks (synchronized wall, ms): rank 0 "
+              f"{a[part]['step_ms']}, rank 1 {b[part]['step_ms']}; the "
+              f"transport a step {a[part]['transport_a_step']}, share "
+              f"{a[part]['transport_share']}, "
+              f"{b[part]['transport_share']}; phase {tag}: "
+              f"{one['step_ms']}; first step against the one-process 1 x 2 "
+              f"mesh: worst {a[part]['worst']} {a[part]['max_rel_err']}, "
+              f"{b[part]['max_rel_err']}; loss {a[part]['loss']} ({tag}'s "
+              f"first {one['first_loss']}); replicas bit for bit "
+              f"{a[part]['digest'] == b[part]['digest']}", flush=True)
     for part, ref, tag in (("reddit_train", reddit_acc, "9"),
                            ("mag_train", mag_acc, "9b")):
         print(f"[9p] {part}: test_acc {a[part]['test_acc']} (phase {tag}: "
@@ -3921,7 +4218,7 @@ def run_process_mesh(mesh_steps: dict, reddit_acc: float,
           f"{a['nccl_refusal']['message']!r}; gloo on card tensors: "
           f"{a['gloo_cuda']['coverage']}; phase wall {wall} s", flush=True)
     launches = {}
-    for part in ("reddit_train", "mag_train"):
+    for part in ("reddit_train", "mag_train", "reddit_tp", "mag_tp"):
         launches[part] = {k: a[part]["launches"].get(k, 0)
                           + b[part]["launches"].get(k, 0)
                           for k in COUNTED}
@@ -3978,6 +4275,8 @@ def main() -> int:
           f"card (5) {r_main.test_acc}; train_call total_s "
           f"{r_mesh.total_time} against {r_main.total_time}", flush=True)
     mark("9")
+    mesh_steps["dense_tp"] = check_tp_step("dense", data)
+    mark("9t")
     del data
 
     t0 = time.time()
@@ -4000,7 +4299,6 @@ def main() -> int:
                                                  epochs=5), mag, "profile-mag")
     mark("6b")
     mesh_steps["mag"] = check_mesh_step("mag", mag, mag_padded)
-    del mag_padded
     r_mag_mesh, mag_mesh_launches = run_mesh_path(
         preset("mag_scholar_c").replace(dataset=MAG_DATASET, epochs=5), mag,
         MAG_SHARDS, "9b")
@@ -4016,6 +4314,9 @@ def main() -> int:
     mag_mesh_acc = r_mag_mesh.test_acc
     del table, r_mag_mesh
     mark("9b")
+    mesh_steps["mag_tp"] = check_tp_step("mag", mag, mag_padded)
+    del mag_padded
+    mark("9tb")
     del mag
     torch.cuda.empty_cache()
     proc = run_process_mesh(mesh_steps, r_mesh.test_acc, mag_mesh_acc)
@@ -4072,6 +4373,7 @@ def main() -> int:
     k1["launches_by_path"] = {
         "reddit": launches["dropnode_mean"],
         "reddit_mesh": mesh_launches["dropnode_mean"],
+        "reddit_tp": mesh_steps["dense_tp"]["launches"]["dropnode_mean"],
         "amazon": amazon_launches["dropnode_mean"],
         "amazon_bucket": bucket_launches["dropnode_mean"],
         "files_train": files["train"]["launches"]["dropnode_mean"]}
@@ -4100,6 +4402,9 @@ def main() -> int:
     for k in k3 + k3_window:
         k["launches_by_path"] = {"mag": mag_launches[k["name"]],
                                  "mag_mesh": mag_mesh_launches[k["name"]]}
+        if mesh_steps["mag_tp"]["launches"].get(k["name"]):
+            k["launches_by_path"]["mag_tp"] = mesh_steps["mag_tp"][
+                "launches"][k["name"]]
         k["launches"] = sum(k["launches_by_path"].values())
     for k in fast:
         if k["name"] == "csr_spmm_prop_bf16":

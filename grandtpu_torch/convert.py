@@ -11,8 +11,12 @@ and the MAG model adds ``params['emb'] = {'table': [V, out]}``.
 transposed) and :func:`mlp_to_jax` / :func:`mag_to_jax` go back, so tests
 can start both packages from the same weights and compare what they end
 with. With a mesh, :func:`mag_from_jax` splits the table over its shards
-(``MagMLP.shard_vocab``) and :func:`mag_to_jax` joins them back, padded
-as grandtpu's vocab-sharded table is.
+(``MagMLP.shard_vocab``, or its columns over 'model' with
+``emb_mode="tp"``) and :func:`mlp_from_jax` with ``tensor_parallel``
+splits the hidden width (``MLP.shard_hidden``); :func:`mlp_to_jax` and
+:func:`mag_to_jax` join them back into grandtpu's whole trees (a
+vocab-sharded table padded as grandtpu's is). On a mesh over processes
+the join is a collective: every rank calls it.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from grandtpu_torch.nn.mag_mlp import MagMLP
-from grandtpu_torch.nn.mlp import MLP, MLPConfig
+from grandtpu_torch.nn.mlp import MLP, MLPConfig, fc_tensors
 
 
 @torch.no_grad()
@@ -36,19 +40,28 @@ def _load_head(model: MLP | MagMLP, params, state) -> None:
         bn.running_var.copy_(torch.tensor(np.asarray(s["var"])))
 
 
-def mlp_from_jax(params, state, mlp_cfg: MLPConfig, device) -> MLP:
+def mlp_from_jax(params, state, mlp_cfg: MLPConfig, device, mesh=None,
+                 tensor_parallel: bool = False) -> MLP:
+    """``MLP`` from ``grandtpu``'s ``init_mlp`` pytrees; with ``mesh`` on
+    its first device, and with ``tensor_parallel`` its hidden width split
+    over the mesh's 'model' axis."""
     model = MLP(mlp_cfg)
     _load_head(model, params, state)
-    return model.to(device)
+    if mesh is None:
+        return model.to(device)
+    model.to(mesh.devices[0])
+    return model.shard_hidden(mesh) if tensor_parallel else model
 
 
 def mlp_to_jax(model: MLP | MagMLP):
-    """(params, state) pytrees of numpy arrays in ``grandtpu``'s layout."""
+    """(params, state) pytrees of numpy arrays in ``grandtpu``'s layout,
+    whole."""
     def np_(t):
         return t.detach().cpu().numpy()
 
-    params = {"fcs": [{"w": np_(fc.weight).T, "b": np_(fc.bias)}
-                      for fc in model.fcs],
+    mesh = model.model_mesh
+    fcs = [[np_(t) for t in fc_tensors(fc, mesh)] for fc in model.fcs]
+    params = {"fcs": [{"w": w.T, "b": b} for w, b in fcs],
               "bns": [{"scale": np_(bn.weight), "bias": np_(bn.bias)}
                       for bn in model.bns]}
     state = {"bns": [{"mean": np_(bn.running_mean),
@@ -57,11 +70,13 @@ def mlp_to_jax(model: MLP | MagMLP):
 
 
 def mag_from_jax(params, state, mlp_cfg: MLPConfig, device,
-                 mesh=None) -> MagMLP:
+                 mesh=None, emb_mode: str = "vocab") -> MagMLP:
     """``MagMLP`` from ``grandtpu``'s ``init_mag_mlp`` pytrees: the table
     [V, out] (its first V rows, if a mesh placement padded it), the fcs and
     BatchNorms as in :func:`mlp_from_jax`. With ``mesh``, the model is on
-    its first device and its table vocab-sharded over it."""
+    its first device and its table placed as ``emb_mode`` says
+    ("vocab": vocab-sharded, "tp": its columns split over 'model',
+    "replicate": whole)."""
     model = MagMLP(mlp_cfg)
     table = np.asarray(params["emb"]["table"])[: mlp_cfg.num_features]
     with torch.no_grad():
@@ -69,12 +84,20 @@ def mag_from_jax(params, state, mlp_cfg: MLPConfig, device,
     _load_head(model, params, state)
     if mesh is None:
         return model.to(device)
-    return model.to(mesh.devices[0]).shard_vocab(mesh)
+    model.to(mesh.devices[0])
+    if emb_mode == "vocab":
+        return model.shard_vocab(mesh)
+    if emb_mode == "tp":
+        return model.shard_columns(mesh)
+    if emb_mode != "replicate":
+        raise ValueError(f"unknown emb_mode {emb_mode!r}")
+    return model
 
 
 def mag_to_jax(model: MagMLP):
     """(params, state) pytrees of numpy arrays in ``init_mag_mlp``'s
-    layout; a vocab-sharded table joined, with its zero padding rows."""
+    layout; a vocab-sharded table joined, with its zero padding rows, and
+    column blocks joined."""
     params, state = mlp_to_jax(model)
     params["emb"] = {"table": model.gathered_table().cpu().numpy()}
     return params, state

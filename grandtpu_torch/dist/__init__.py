@@ -1,13 +1,13 @@
 """Distribution layer, on one process or across ``torch.distributed``
 ranks: the device mesh and its differentiable collectives, data-parallel
-placement of the training step (D2), row-partitioned full-graph
-propagation (D1, the all_gather and the halo-exchange variants), and the
-source-sharded pushes (over a mesh, and over processes). Tensor
-parallelism is ROADMAP Queue A 24."""
+placement of the training step (D2) with its tensor-parallel form on the
+mesh's 'model' axis, row-partitioned full-graph propagation (D1, the
+all_gather and the halo-exchange variants), and the source-sharded pushes
+(over a mesh, and over processes)."""
 
 from grandtpu_torch.dist.mesh import Mesh, make_mesh  # noqa: F401
 from grandtpu_torch.dist.data_parallel import (  # noqa: F401
-    shard_batch, shard_sparse_train_inputs, shard_train_inputs,
+    joined_state, shard_batch, shard_sparse_train_inputs, shard_train_inputs,
 )
 from grandtpu_torch.dist.spmm_shard import (  # noqa: F401
     BlockShardedGraph, BlockShardedPropagator, ShardedGraph,

@@ -1,6 +1,9 @@
 """The port's device mesh (port of ``grandtpu/dist/mesh.py``).
 
-A :class:`Mesh` is S shards on the data axis. grandtpu's mesh spans every
+A :class:`Mesh` is a (data, model) grid of S = n_data x n_model shards,
+shard ``g = d * n_model + m`` at data row d and model column m (the order
+of grandtpu's ``devices.reshape(n_data, n_model)``); a 1-D mesh is the
+case ``n_model == 1``. grandtpu's mesh spans every
 device of every process once the user has called
 ``jax.distributed.initialize``; the port's spans the ranks of
 ``torch.distributed`` once the user has called ``init_process_group`` (or
@@ -43,18 +46,51 @@ shard order on every rank (an all-gather, then a local sum), so every rank
 holds the same bits and the replicas (parameters, BatchNorm state, Adam
 moments) cannot drift apart.
 
+On a 2-D mesh each of these acts on the data axis, within each model
+column, as on the 1-D mesh of that column (:meth:`Mesh.column`). A value
+that the model columns hold alike (replicated over 'model') is
+backpropagated by every column, as Megatron's tensor-parallel ranks each
+backpropagate the same loss: so ``broadcast`` and ``scatter_rows`` take
+their gradient from one model column (the first this process holds),
+summed over the data axis, and ``reduce_sum`` and ``gather_rows`` return
+that column's result, ``reduce_sum`` handing its gradient to every
+column's terms. The model axis has its own operations, each with its
+adjoint written out (Megatron's pair and the column blocks):
+
+========================  ============================  ===================
+method                    forward                       backward
+========================  ============================  ===================
+``model_all_reduce`` (g)  the sum over a data row's     the identity (what
+                          model shards, in model order  follows is
+                                                        replicated)
+``model_copy`` (f)        the identity                  that sum
+``model_split``           block m of a replicated       a model all-gather
+                          value on model shard m
+``model_all_gather``      the row's blocks joined       the shard's block
+``broadcast_columns``     model shard m's parameter on  summed over the
+                          column m's shards             data axis
+``broadcast_rows``        data row d's parameter on     the first local
+                          row d's shards                column's gradient
+========================  ============================  ===================
+
+Over processes a rank holds contiguous shards: whole data rows ('model'
+inside the rank) or a part of one row ('model' across ranks). The
+``torch.distributed`` groups of the data rows and model columns that span
+ranks are made once, by :func:`make_mesh`, in the same order on every
+rank.
+
 The transport follows the process group's backend, with no fall-back
 from one to the other: ``nccl`` takes card tensors as they are (a CPU
 tensor goes through the rank's card), ``gloo`` stages card tensors
 through pinned host memory. NCCL refuses two ranks on one card, so
 :func:`make_mesh` raises on such a job and names gloo, which runs it.
-:data:`TRANSPORT` counts the collectives and their seconds. Tensor
-parallelism is ROADMAP Queue A 24.
+:data:`TRANSPORT` counts the collectives and their seconds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import socket
 import time
 
@@ -63,8 +99,9 @@ import torch.distributed as tdist
 
 from grandtpu_torch.device import resolve_device
 
-_TP = ("ROADMAP Queue A 24: tensor parallelism (_shard_params_tp, "
-       "emb_mode='tp'), split from ROADMAP Queue A 8")
+# a 2-D mesh's data-axis work that is not ported
+MESH_2D = ("ROADMAP Queue A 25: D1, the sharded pushes and the trainers on "
+           "a mesh with a 'model' axis")
 
 # the cross-process collectives of this process: calls, bytes sent, and
 # the seconds of gloo's staging copies and of the collectives themselves
@@ -75,25 +112,40 @@ def reset_transport() -> None:
     TRANSPORT.update(calls=0, bytes=0, stage_s=0.0, comm_s=0.0)
 
 
+def refuse_model_axis(mesh: "Mesh", what: str) -> None:
+    """Raise on a mesh with a 'model' axis (grandtpu runs ``what`` on its
+    'data' axis, replicated over 'model': not ported)."""
+    if mesh.n_model > 1:
+        raise NotImplementedError(f"{what} on a mesh of {mesh.n_model} model "
+                                  f"shards ({MESH_2D})")
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Shards on the data axis: ``devices[i]`` holds shard ``shards[i]``
-    (default: every shard, 0..len(devices)-1, in one process). On a mesh
-    over ``ranks`` processes this process, rank ``rank``, holds the
-    shards ``shards``."""
+    """Shards of a (data, model) grid: ``devices[i]`` holds shard
+    ``shards[i]`` (default: every shard, 0..len(devices)-1, in one
+    process), shard g at data row ``g // n_model`` and model column
+    ``g % n_model``. On a mesh over ``ranks`` processes this process, rank
+    ``rank``, holds the shards ``shards``; ``group`` names the ranks its
+    collectives span (None: every rank)."""
     devices: tuple[torch.device, ...]
     shards: tuple[int, ...] | None = None
     ranks: int = 1
     rank: int = 0
+    n_model: int = 1
+    group: tuple[int, ...] | None = None
 
     def __post_init__(self):
         if self.shards is None:
             object.__setattr__(self, "shards",
                                tuple(range(len(self.devices))))
+        if self.size % self.n_model:
+            raise ValueError(f"{self.size} shards do not make rows of "
+                             f"{self.n_model} model shards")
 
     @property
     def shape(self) -> dict[str, int]:
-        return {"data": self.size, "model": 1}
+        return {"data": self.n_data, "model": self.n_model}
 
     @property
     def size(self) -> int:
@@ -101,8 +153,32 @@ class Mesh:
         return len(self.shards) * self.ranks
 
     @property
+    def n_data(self) -> int:
+        return self.size // self.n_model
+
+    @property
+    def data_shards(self) -> tuple[int, ...]:
+        """The data row of each of this process's shards."""
+        return tuple(g // self.n_model for g in self.shards)
+
+    @property
+    def model_shards(self) -> tuple[int, ...]:
+        """The model column of each of this process's shards."""
+        return tuple(g % self.n_model for g in self.shards)
+
+    @property
+    def local_columns(self) -> tuple[int, ...]:
+        """The model columns this process holds shards of, in order."""
+        return tuple(dict.fromkeys(self.model_shards))
+
+    @property
     def multiprocess(self) -> bool:
         return self.ranks > 1
+
+    def column(self, c: int) -> "Mesh":
+        """The 1-D mesh of model column ``c``'s data shards that this
+        process holds (the mesh itself when ``n_model == 1``)."""
+        return _columns(self)[c][1]
 
     def per_device(self, make):
         """``make(device)`` once for each distinct local device, in shard
@@ -113,6 +189,29 @@ class Mesh:
                 made[d] = make(d)
         return [made[d] for d in self.devices]
 
+    def _by_column(self, args: dict, op) -> list:
+        """``op(column c's 1-D mesh, args[c])`` for each local model column
+        c, the per-shard results back in shard order."""
+        out = [None] * len(self.shards)
+        for c, (idx, sub) in _columns(self).items():
+            for i, y in zip(idx, op(sub, args[c])):
+                out[i] = y
+        return out
+
+    def _per_column(self, xs: list, op) -> list:
+        """``op(column mesh, the column's tensors)`` for each local model
+        column."""
+        return self._by_column({c: [xs[i] for i in idx] for c, (idx, _)
+                                in _columns(self).items()}, op)
+
+    def _replicated(self, x: torch.Tensor, op) -> list:
+        """``op(column mesh, x)`` for each local model column, the columns
+        holding ``x`` alike: its gradient is taken from the first local
+        column only (the others see it detached)."""
+        first = self.model_shards[0]
+        return self._by_column({c: x if c == first else x.detach()
+                                for c in self.local_columns}, op)
+
     def all_gather(self, xs: list[torch.Tensor],
                    dim: int = 0) -> list[torch.Tensor]:
         """Each shard's block, concatenated in shard order along ``dim`` on
@@ -120,6 +219,8 @@ class Mesh:
         share the copy, which they must only read. Differentiable: the
         backward sums each copy's gradient slices back onto their shards
         (a reduce-scatter)."""
+        if self.n_model > 1:
+            return self._per_column(xs, lambda m, ys: m.all_gather(ys, dim))
         if self.multiprocess:
             out = _apply(_AllGather, xs, self, dim)
             return self.per_device(lambda d: out.to(d))
@@ -130,15 +231,52 @@ class Mesh:
         """``x`` (on any device; on a process mesh the same on every rank)
         on every local shard's device; shards on one device share it. The
         backward sums the shards' gradients (a reduce onto ``x``'s device,
-        then over the ranks)."""
+        then over the ranks); on a 2-D mesh those of the first local model
+        column."""
+        if self.n_model > 1:
+            return self._replicated(x, lambda m, y: m.broadcast(y))
         if self.multiprocess and _needs_grad(x):
-            x = _SumGrads.apply(x)
+            x = _SumGrads.apply(x, self.group)
         return self.per_device(lambda d: x.to(d))
+
+    def broadcast_columns(self, ps: list[torch.Tensor]) -> list:
+        """``ps[j]``, the block of model column ``local_columns[j]`` (a
+        model-sharded parameter), on each local shard of that column; the
+        backward sums the column's gradients over the data axis."""
+        return self._by_column(dict(zip(self.local_columns, ps)),
+                               lambda m, p: m.broadcast(p))
+
+    def broadcast_rows(self, ps: list[torch.Tensor]) -> list:
+        """``ps[j]``, the block of this process's j-th data row (a parameter
+        split over 'data', replicated over 'model'), on each local shard of
+        that row. Its gradient is taken from the first local model column,
+        as :meth:`broadcast`'s: the row's other model shards compute
+        alike."""
+        blocks = dict(zip(dict.fromkeys(self.data_shards), ps))
+        first = self.model_shards[0]
+        return [(blocks[d] if m == first else blocks[d].detach()).to(dev)
+                for d, m, dev in zip(self.data_shards, self.model_shards,
+                                     self.devices)]
+
+    def gather_row_blocks(self, ps: list[torch.Tensor]) -> torch.Tensor:
+        """Forward only: a parameter split over 'data' whole on the first
+        local device, its blocks ``ps`` (one for each local data row, as
+        :meth:`broadcast_rows` takes them) joined by rows; over processes
+        a collective of the first local column's ranks."""
+        return self.column(self.model_shards[0]).gather_rows(
+            [p.detach() for p in ps])
 
     def reduce_sum(self, xs: list[torch.Tensor]) -> torch.Tensor:
         """The sum of every shard's tensor on the first local device, added
         in shard order (the same bits on every rank). The backward hands
-        the gradient to each shard."""
+        the gradient to each shard. On a 2-D mesh the sum over the data
+        axis of the first local column's tensors (the columns hold alike
+        values), whose gradient goes to every column's."""
+        if self.n_model > 1:
+            idx, sub = _columns(self)[self.model_shards[0]]
+            total = sub.reduce_sum([xs[i] for i in idx])
+            return _Collapse.apply(total, *(x for i, x in enumerate(xs)
+                                            if i not in idx))
         if self.multiprocess:
             return _apply(_ReduceSum, xs, self)
         root = self.devices[0]
@@ -151,18 +289,23 @@ class Mesh:
         """The sum of every shard's tensor, on every shard's device (the
         same sum in shard order everywhere). Its backward is again an
         all-reduce."""
+        if self.n_model > 1:
+            return self._per_column(xs, lambda m, ys: m.all_reduce_sum(ys))
         return self.broadcast(self.reduce_sum(xs))
 
     def scatter_rows(self, x: torch.Tensor,
                      dim: int = 0) -> list[torch.Tensor]:
-        """``x``'s S equal blocks along ``dim``, block s on shard s's
-        device, contiguous (the kernels take them as they are); on a
-        process mesh ``x`` is the same on every rank and each rank gets its
-        own blocks. The backward gathers the blocks' gradients."""
+        """``x``'s n_data equal blocks along ``dim``, block d on the devices
+        of data row d's shards, contiguous (the kernels take them as they
+        are); on a process mesh ``x`` is the same on every rank and each
+        rank gets its own blocks. The backward gathers the blocks'
+        gradients."""
         n = x.shape[dim]
-        if n % self.size:
-            raise ValueError(f"{n} rows do not split over {self.size} "
+        if n % self.n_data:
+            raise ValueError(f"{n} rows do not split over {self.n_data} "
                              "shards")
+        if self.n_model > 1:
+            return self._replicated(x, lambda m, y: m.scatter_rows(y, dim))
         if self.multiprocess:
             if _needs_grad(x):
                 return list(_ScatterRows.apply(x, self, dim))
@@ -177,6 +320,9 @@ class Mesh:
         """The sum of every shard's [S * r, ...] tensor, block s of its rows
         (along ``dim``) on shard s's device. The backward all-gathers the
         blocks' gradients."""
+        if self.n_model > 1:
+            return self._per_column(
+                xs, lambda m, ys: m.reduce_scatter_rows(ys, dim))
         return self.scatter_rows(self.reduce_sum(xs), dim)
 
     def all_to_all(self, sends: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -184,6 +330,8 @@ class Mesh:
         shard d receives ``stack_s(sends[s][d])`` [S, C, ...] on its
         device (grandtpu's ``lax.all_to_all`` with split and concat axis
         0, untiled)."""
+        if self.n_model > 1:
+            return self._per_column(sends, lambda m, ys: m.all_to_all(ys))
         if self.multiprocess:
             return _all_to_all(self, sends)
         return [torch.stack([send[d].to(dev) for send in sends])
@@ -192,6 +340,8 @@ class Mesh:
     def pmax(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
         """The elementwise max of every shard's tensor, on every shard's
         device."""
+        if self.n_model > 1:
+            return self._per_column(xs, lambda m, ys: m.pmax(ys))
         if self.multiprocess:
             xs = _global_terms(self, xs)
 
@@ -205,10 +355,191 @@ class Mesh:
 
     def gather_rows(self, xs: list[torch.Tensor]) -> torch.Tensor:
         """The shards' row blocks concatenated on the first local device
-        (on a process mesh the whole result on every rank)."""
+        (on a process mesh the whole result on every rank; on a 2-D mesh
+        the first local column's)."""
+        if self.n_model > 1:
+            idx, sub = _columns(self)[self.model_shards[0]]
+            return sub.gather_rows([xs[i] for i in idx])
         if self.multiprocess:
             xs = _global_terms(self, xs)
         return torch.cat([x.to(self.devices[0]) for x in xs])
+
+    # ------------------------------------------------- the model axis
+
+    @property
+    def model_group(self) -> tuple[int, ...] | None:
+        """The ranks that hold this process's data row, when 'model' spans
+        ranks (None when every row lies inside a rank)."""
+        return _layout(self)[1]
+
+    def model_all_reduce(self, xs: list[torch.Tensor]) -> list:
+        """(g) the sum over each data row's model shards, in model order, on
+        each of the row's shards; the backward is the identity, since what
+        follows is replicated over 'model'."""
+        return list(_apply(_ModelSum, xs, self))
+
+    def model_copy(self, xs: list[torch.Tensor]) -> list:
+        """(f) the identity on a value replicated over 'model' whose
+        shards each use a part; the backward sums the row's gradients."""
+        return list(_apply(_ModelCopy, xs, self))
+
+    def model_split(self, xs: list[torch.Tensor], dim: int = -1) -> list:
+        """Block m (of n_model equal blocks along ``dim``) of each model
+        shard m's replicated value, contiguous; the backward joins the
+        row's block gradients (a model all-gather)."""
+        return list(_apply(_ModelSplit, xs, self, dim))
+
+    def model_all_gather(self, xs: list[torch.Tensor], dim: int = -1
+                         ) -> list:
+        """The row's model blocks joined along ``dim`` on each of its
+        shards; the backward hands each shard its block of the gradient."""
+        return list(_apply(_ModelGather, xs, self, dim))
+
+    def gather_columns(self, ps: list[torch.Tensor], dim: int
+                       ) -> torch.Tensor:
+        """Forward only: a model-sharded parameter whole on the first local
+        device, its blocks ``ps`` (one for each local column, as
+        :meth:`broadcast_columns` takes them) joined along ``dim``; when
+        'model' spans ranks a collective of the row's ranks."""
+        root = self.devices[0]
+        ps = [p.detach().to(root) for p in ps]
+        if self.model_group is not None:
+            ps = [t for part in all_gather_tensor(torch.stack(ps),
+                                                  self.model_group)
+                  for t in part.unbind()]
+        return torch.cat(ps, dim)
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(mesh: Mesh) -> tuple:
+    """(the ranks that hold this process's model columns, over the data
+    rows, or None for every rank; the ranks that hold its data row, or
+    None when the row lies inside the rank)."""
+    per, n_model = len(mesh.shards), mesh.n_model
+    if not mesh.multiprocess or per % n_model == 0:
+        return mesh.group, None
+    q = n_model // per                    # ranks a data row spans
+    j, d = mesh.rank % q, mesh.rank // q
+    return (tuple(j + i * q for i in range(mesh.n_data)),
+            tuple(range(d * q, (d + 1) * q)))
+
+
+@functools.lru_cache(maxsize=64)
+def _columns(mesh: Mesh) -> dict:
+    """{model column: (its local shard indices, the 1-D mesh of its data
+    shards)} for each local column, in order."""
+    if mesh.n_model == 1:
+        return {0: (tuple(range(len(mesh.shards))), mesh)}
+    data_group = _layout(mesh)[0]
+    out = {}
+    for c in mesh.local_columns:
+        idx = tuple(i for i, m in enumerate(mesh.model_shards) if m == c)
+        rows = tuple(mesh.data_shards[i] for i in idx)
+        if not mesh.multiprocess:
+            sub = Mesh(tuple(mesh.devices[i] for i in idx), rows)
+        elif data_group is None:            # every rank holds every column
+            sub = Mesh(tuple(mesh.devices[i] for i in idx), rows,
+                       mesh.ranks, mesh.rank)
+        else:                               # one row a rank, its blocks
+            sub = Mesh(tuple(mesh.devices[i] for i in idx), rows,
+                       len(data_group), data_group.index(mesh.rank),
+                       group=data_group)
+        out[c] = (idx, sub)
+    return out
+
+
+def _model_rows(mesh: Mesh, xs) -> dict:
+    """{data row: its n_model tensors in model order} for this process's
+    data rows (gathered from the row's ranks when 'model' spans them)."""
+    rows = {}
+    for d, x in zip(mesh.data_shards, xs):
+        rows.setdefault(d, []).append(x)
+    group = mesh.model_group
+    if group is not None:
+        (d, local), = rows.items()
+        stacked = torch.stack([x.to(mesh.devices[0]) for x in local])
+        rows[d] = [t for part in all_gather_tensor(stacked, group)
+                   for t in part.unbind()]
+    return rows
+
+
+def _block(x: torch.Tensor, m: int, n: int, dim: int) -> torch.Tensor:
+    width = x.shape[dim]
+    if width % n:
+        raise ValueError(f"a width of {width} does not split over {n} model "
+                         "shards")
+    return x.narrow(dim, m * (width // n), width // n)
+
+
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        rows = _model_rows(mesh, [x.detach() for x in xs])
+        return tuple(_sum_in_order([t.to(x.device) for t in rows[d]])
+                     for d, x in zip(mesh.data_shards, xs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *gs)
+
+
+class _ModelCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh = ctx.mesh
+        rows = _model_rows(mesh, [g.contiguous() for g in gs])
+        return (None, *(_sum_in_order([t.to(g.device) for t in rows[d]])
+                        for d, g in zip(mesh.data_shards, gs)))
+
+
+class _ModelSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, dim, *xs):
+        ctx.mesh, ctx.dim = mesh, dim
+        return tuple(_block(x, m, mesh.n_model, dim).contiguous()
+                     for m, x in zip(mesh.model_shards, xs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh = ctx.mesh
+        rows = _model_rows(mesh, [g.contiguous() for g in gs])
+        return (None, None, *(torch.cat([t.to(g.device) for t in rows[d]],
+                                        ctx.dim)
+                              for d, g in zip(mesh.data_shards, gs)))
+
+
+class _ModelGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, dim, *xs):
+        ctx.mesh, ctx.dim = mesh, dim
+        rows = _model_rows(mesh, [x.detach() for x in xs])
+        return tuple(torch.cat([t.to(x.device) for t in rows[d]], dim)
+                     for d, x in zip(mesh.data_shards, xs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh = ctx.mesh
+        return (None, None, *(_block(g, m, mesh.n_model, ctx.dim).contiguous()
+                              for m, g in zip(mesh.model_shards, gs)))
+
+
+class _Collapse(torch.autograd.Function):
+    """``total`` (one model column's sum); the backward hands its gradient
+    to ``total`` and, as it is, to every other column's term."""
+
+    @staticmethod
+    def forward(ctx, total, *others):
+        ctx.devices = [o.device for o in others]
+        return total.view_as(total)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(g.to(d) for d in ctx.devices))
 
 
 # ------------------------------------------------- the cross-process part
@@ -260,14 +591,42 @@ def _returned(outs: list[torch.Tensor], device: torch.device) -> list:
     return back
 
 
-def all_gather_tensor(t: torch.Tensor) -> list[torch.Tensor]:
+# the process groups make_mesh made: {(the world group, ranks): group}
+_GROUPS: dict = {}
+
+
+def _process_group(ranks: tuple[int, ...] | None):
+    """The group of ``ranks`` (None, or every rank: the world), which
+    :func:`make_mesh` made."""
+    if ranks is None or len(ranks) == tdist.get_world_size():
+        return None
+    try:
+        return _GROUPS[(tdist.group.WORLD, ranks)]
+    except KeyError:
+        raise RuntimeError(f"no process group of the ranks {ranks}: "
+                           f"make_mesh makes a mesh's groups") from None
+
+
+def _make_groups(groups: list) -> None:
+    """Make the groups ``groups`` (tuples of ranks) not made yet; every
+    rank calls this with the same list."""
+    for ranks in groups:
+        key = (tdist.group.WORLD, ranks)
+        if 1 < len(ranks) < tdist.get_world_size() and key not in _GROUPS:
+            _GROUPS[key] = tdist.new_group(list(ranks))
+
+
+def all_gather_tensor(t: torch.Tensor,
+                      ranks: tuple[int, ...] | None = None) -> list:
     """Every rank's ``t`` (the same shape on every rank), in rank order, on
-    ``t``'s device."""
+    ``t``'s device; of the ranks ``ranks`` (default every rank), which
+    this rank is one of."""
     backend = _backend()
     src = _staged(t.contiguous(), backend)
-    outs = _buffers(src, tdist.get_world_size())
+    outs = _buffers(src, tdist.get_world_size() if ranks is None
+                    else len(ranks))
     t0 = time.perf_counter()
-    tdist.all_gather(outs, src)
+    tdist.all_gather(outs, src, group=_process_group(ranks))
     TRANSPORT["comm_s"] += time.perf_counter() - t0
     TRANSPORT["calls"] += 1
     TRANSPORT["bytes"] += t.numel() * t.element_size()
@@ -279,7 +638,8 @@ def _global_terms(mesh: Mesh, xs: list[torch.Tensor]) -> list:
     device (the local ones stacked, then gathered over the ranks)."""
     root = mesh.devices[0]
     stacked = torch.stack([x.detach().to(root) for x in xs])
-    return [t for part in all_gather_tensor(stacked) for t in part.unbind()]
+    return [t for part in all_gather_tensor(stacked, mesh.group)
+            for t in part.unbind()]
 
 
 def _sum_in_order(terms: list[torch.Tensor]) -> torch.Tensor:
@@ -289,9 +649,10 @@ def _sum_in_order(terms: list[torch.Tensor]) -> torch.Tensor:
     return out
 
 
-def _all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """The sum of every rank's ``t``, added in rank order."""
-    return _sum_in_order(all_gather_tensor(t))
+def _all_reduce(t: torch.Tensor, ranks=None) -> torch.Tensor:
+    """The sum of every rank's ``t`` (of ``ranks``), added in rank
+    order."""
+    return _sum_in_order(all_gather_tensor(t, ranks))
 
 
 class _SumGrads(torch.autograd.Function):
@@ -299,12 +660,13 @@ class _SumGrads(torch.autograd.Function):
     gradients (broadcast's adjoint across processes)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, ranks):
+        ctx.ranks = ranks
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g.contiguous())
+        return _all_reduce(g.contiguous(), ctx.ranks), None
 
 
 class _ReduceSum(torch.autograd.Function):
@@ -336,7 +698,7 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        total = _all_reduce(g.contiguous())
+        total = _all_reduce(g.contiguous(), ctx.mesh.group)
         blocks = total.split(ctx.width, ctx.dim)
         return (None, None, *(blocks[s].to(d) for s, d in
                               zip(ctx.mesh.shards, ctx.devices)))
@@ -374,7 +736,7 @@ def _all_to_all(mesh: Mesh, sends: list[torch.Tensor]) -> list:
     src = _staged(send, backend)                          # [W, L, L, C, ...]
     out = _buffers(src, 1)[0]
     t0 = time.perf_counter()
-    tdist.all_to_all_single(out, src)
+    tdist.all_to_all_single(out, src, group=_process_group(mesh.group))
     TRANSPORT["comm_s"] += time.perf_counter() - t0
     TRANSPORT["calls"] += 1
     TRANSPORT["bytes"] += send.numel() * send.element_size()
@@ -419,16 +781,23 @@ def _check_transport(device: torch.device) -> None:
     refuse_shared_cards(keys)
 
 
-def _process_mesh(n_data, devices, device) -> Mesh:
+def _process_mesh(n_data, n_model, devices, device) -> Mesh:
     world, rank = tdist.get_world_size(), tdist.get_rank()
     if devices is not None:
         devices = [resolve_device(d) for d in devices]
-    if n_data is None:
-        n_data = world * (len(devices) if devices else 1)
-    if n_data % world:
-        raise ValueError(f"{n_data} shards do not divide over the "
+    total = (world * (len(devices) if devices else 1) if n_data is None
+             else n_data * n_model)
+    if total % n_model:
+        raise ValueError(f"{total} shards do not make rows of {n_model}")
+    if total % world:
+        raise ValueError(f"{total} shards do not divide over the "
                          f"{world} processes")
-    per = n_data // world
+    per = total // world
+    if per % n_model and n_model % per:
+        raise ValueError(
+            f"a rank holds {per} shards: a process mesh puts whole data "
+            f"rows of {n_model} model shards on a rank, or a rank's shards "
+            f"in one row")
     if devices is None:
         devices = [resolve_device(device)] * per
     if len(devices) < per:
@@ -441,8 +810,17 @@ def _process_mesh(n_data, devices, device) -> Mesh:
             f"backward's collectives then run on one autograd thread, in "
             f"the same order on every rank), not {devices}")
     _check_transport(devices[0])
-    return Mesh(tuple(devices), tuple(range(rank * per, (rank + 1) * per)),
-                world, rank)
+    mesh = Mesh(tuple(devices), tuple(range(rank * per, (rank + 1) * per)),
+                world, rank, n_model)
+    if n_model % per == 0 and n_model > per:
+        # the data groups (one a block of model columns), then the model
+        # groups (one a data row), the same on every rank
+        q, n_rows = n_model // per, total // n_model
+        _make_groups([tuple(j + i * q for i in range(n_rows))
+                      for j in range(q)]
+                     + [tuple(range(d * q, (d + 1) * q))
+                        for d in range(n_rows)])
+    return mesh
 
 
 def _indexed(d: torch.device) -> torch.device:
@@ -454,40 +832,43 @@ def _indexed(d: torch.device) -> torch.device:
 
 def make_mesh(n_data: int | None = None, n_model: int = 1, devices=None,
               device="cuda") -> Mesh:
-    """A mesh of ``n_data`` shards on the data axis.
+    """A mesh of ``n_data`` x ``n_model`` shards, shard ``d * n_model + m``
+    at data row d and model column m (grandtpu's grid).
 
     In one process: ``devices`` are the devices in shard order (repeats
-    allowed); by default the first ``n_data`` visible cards, or
-    ``n_data`` times the CPU when ``device`` is "cpu". Raises when there
-    are fewer cards than ``n_data`` (no quiet fall-back to sharing one).
+    allowed); by default the first ``n_data * n_model`` visible cards, or
+    that many times the CPU when ``device`` is "cpu". Raises when there
+    are fewer cards than shards (no quiet fall-back to sharing one).
+    ``n_data`` defaults to the devices (or cards) over ``n_model``.
 
     Once ``torch.distributed`` is initialized with a world size above 1,
-    the mesh spans the ranks: ``n_data`` (default: one shard a rank) is the
-    global shard count and must divide by the world size, and this rank
-    holds its ``n_data / world`` shards, on its current card
-    (``torch.cuda.current_device()``, which ``torchrun`` users set), on
-    the CPU with ``device="cpu"``, or on ``devices`` (this rank's).
-
-    ``n_model > 1`` (tensor parallel) is not ported."""
-    if n_model != 1:
-        raise NotImplementedError(f"n_model > 1 is not ported yet ({_TP})")
+    the mesh spans the ranks: its shards (default: one a rank) must divide
+    by the world size, a rank holding whole data rows or a part of one,
+    and this rank holds its contiguous ``S / world`` shards, on its
+    current card (``torch.cuda.current_device()``, which ``torchrun``
+    users set), on the CPU with ``device="cpu"``, or on ``devices`` (this
+    rank's). The groups of the rows and columns that span ranks are made
+    here, on every rank."""
+    if n_model < 1:
+        raise ValueError(f"n_model {n_model}")
     if tdist.is_available() and tdist.is_initialized() \
             and tdist.get_world_size() > 1:
-        return _process_mesh(n_data, devices, device)
+        return _process_mesh(n_data, n_model, devices, device)
     if devices is None:
         device = resolve_device(device)
         if device.type == "cpu":
-            devices = [device] * (n_data or 1)
+            devices = [device] * ((n_data or 1) * n_model)
         else:
             count = torch.cuda.device_count()
-            n = count if n_data is None else n_data
+            n = count if n_data is None else n_data * n_model
             if n > count:
                 raise ValueError(f"need {n} CUDA devices, have {count}; "
                                  "list the devices to share one")
             devices = [torch.device("cuda", i) for i in range(n)]
     devices = [resolve_device(d) for d in devices]
     if n_data is None:
-        n_data = len(devices)
-    if not 0 < n_data <= len(devices):
-        raise ValueError(f"need {n_data} devices, have {len(devices)}")
-    return Mesh(tuple(_indexed(d) for d in devices[:n_data]))
+        n_data = len(devices) // n_model
+    n = n_data * n_model
+    if not 0 < n <= len(devices):
+        raise ValueError(f"need {n} devices, have {len(devices)}")
+    return Mesh(tuple(_indexed(d) for d in devices[:n]), n_model=n_model)

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from grandtpu_torch.dist.mesh import Mesh, all_gather_tensor
+from grandtpu_torch.dist.mesh import (Mesh, all_gather_tensor,
+                                     refuse_model_axis)
 from grandtpu_torch.ppr.dense_push import DensePushGraph, push_block
 from grandtpu_torch.sparse.topk import TopKProp
 
@@ -37,7 +38,9 @@ def sharded_gfpush(mesh: Mesh, indptr: np.ndarray, indices: np.ndarray,
     shard runs P1 over its contiguous share, ``block`` sources a
     ``push_block`` call (which bounds its [n, block] carries; every
     source's row is the same in any block). Returns numpy (cols int32
-    [n_src, k], vals float32 [n_src, k]), as ``gfpush_jax``."""
+    [n_src, k], vals float32 [n_src, k]), as ``gfpush_jax``. A mesh with a
+    'model' axis raises."""
+    refuse_model_axis(mesh, "sharded_gfpush")
     if axis != "data":
         raise ValueError(f"the port's mesh has the axis 'data' only, not "
                          f"{axis!r}")

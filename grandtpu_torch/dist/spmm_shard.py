@@ -38,7 +38,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from grandtpu_torch.dist.mesh import Mesh
+from grandtpu_torch.dist.mesh import Mesh, refuse_model_axis
 from grandtpu_torch.infer.propagate import (_max_row_nnz,
                                             choose_fast_precision,
                                             exact_propagator)
@@ -71,6 +71,7 @@ _PLAIN = types.SimpleNamespace(
 
 
 def _check_axis(mesh: Mesh, axis: str, num_shards: int) -> None:
+    refuse_model_axis(mesh, "D1")
     if axis != "data":
         raise ValueError(f"the port's mesh has the axis 'data' only, not "
                          f"{axis!r}")
@@ -379,6 +380,7 @@ def dist_exact_propagator(mesh: Mesh, adj_sl: sp.spmatrix, num_features: int,
     from grandtpu_torch.dist.halo import (HaloPropagator, HaloShardedGraph,
                                           estimate_halo_compression)
 
+    refuse_model_axis(mesh, "D1")
     if precision == "bf16_carry":
         # the sharded carries are already split over the mesh: bf16 terms
         # on f32 carries

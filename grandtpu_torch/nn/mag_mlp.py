@@ -12,10 +12,16 @@ identity. As in ``grandtpu``, the BatchNorms exist whatever ``use_bn``
 says and are applied only when it is set.
 
 For data-parallel training (D2) :meth:`MagMLP.shard_vocab` splits the
-table over a mesh's shards by vocabulary rows (``table_shards``, one
-``nn.Parameter`` a shard on its device, on a mesh over processes for
-this process's shards only, the vocabulary row-padded with
-zero rows to a multiple of S, as grandtpu's ``emb_mode="vocab"``);
+table over a mesh's data axis by vocabulary rows (``table_shards``, one
+``nn.Parameter`` a data row on the device of its first local shard, on
+a mesh over processes for this process's data rows only, replicated over
+'model', the vocabulary row-padded with zero rows to a multiple of the
+data rows, as grandtpu's ``emb_mode="vocab"``);
+:meth:`MagMLP.shard_columns` splits its columns over the mesh's 'model'
+axis instead (``table_columns``, [V, H/m] a local model column, as
+grandtpu's ``emb_mode="tp"``), and the head's first fc becomes
+row-parallel on the embedding's column blocks (with one layer the table
+maps to classes and its column blocks are joined over 'model');
 :meth:`MagMLP.forward_sharded` is the head over the shards' row blocks,
 as ``MLP.forward_sharded``.
 """
@@ -27,9 +33,11 @@ import math
 import torch
 from torch import nn
 
-from grandtpu_torch.nn.mlp import (MaskedBatchNorm, MLPConfig, _dropout,
-                                   _dropout_sharded, _linear_sharded,
-                                   _node_normalize)
+from grandtpu_torch.nn.mlp import (MaskedBatchNorm, MLPConfig, _check_width,
+                                   _dropout, _dropout_sharded,
+                                   _linear_sharded, _node_normalize,
+                                   _node_normalize_sharded, split_fc,
+                                   split_parameters)
 from grandtpu_torch.nn.sparse_input import init_embedding
 
 
@@ -45,38 +53,78 @@ class MagMLP(nn.Module):
         self.fcs = nn.ModuleList(nn.Linear(i, o) for i, o in dims)
         self.bns = nn.ModuleList(MaskedBatchNorm(h) for _ in dims)
         self.vocab_mesh = None      # set by shard_vocab
+        self.model_mesh = None      # set by shard_columns
 
     def shard_vocab(self, mesh) -> "MagMLP":
-        """Split ``table`` [V, H] over ``mesh``'s shards by rows, in place:
-        the table becomes ``table_shards``, one for each of this process's
-        shards, shard s holding the rows :meth:`vocab_window` (s) of the
-        vocabulary padded with zero rows to a multiple of S, on its
-        device."""
+        """Split ``table`` [V, H] over ``mesh``'s data axis by rows, in
+        place: the table becomes ``table_shards``, one for each of this
+        process's data rows, row d holding the rows :meth:`vocab_window`
+        (d) of the vocabulary padded with zero rows to a multiple of the
+        data rows, on the device of the first of its row's local shards
+        (every model shard of the row reads it)."""
         table = self.table.detach()
         v, h = table.shape
-        per = -(-v // mesh.size)
-        padded = torch.cat([table, table.new_zeros(per * mesh.size - v, h)])
+        n = mesh.n_data
+        per = -(-v // n)
+        padded = torch.cat([table, table.new_zeros(per * n - v, h)])
         blocks = padded.split(per)
         del self.table
         self.table_shards = nn.ParameterList(
-            nn.Parameter(blocks[s].to(d, copy=True))
-            for s, d in zip(mesh.shards, mesh.devices))
+            nn.Parameter(blocks[d].to(mesh.devices[mesh.data_shards.index(d)],
+                                      copy=True))
+            for d in dict.fromkeys(mesh.data_shards))
         self.vocab_mesh = mesh
         return self
 
-    def vocab_window(self, s: int) -> tuple[int, int]:
-        """The rows [lo, hi) of the (padded) vocabulary shard s holds."""
+    def shard_columns(self, mesh) -> "MagMLP":
+        """Split ``table`` [V, out] over ``mesh``'s 'model' axis by columns,
+        in place: ``table_columns``, one [V, out/m] block a local model
+        column on the device of the first of its column's shards, and the
+        head's first fc row-parallel. Raises when ``out`` (the hidden
+        width, or the classes with one layer) does not divide."""
+        table = self.table.detach()
+        _check_width(table.shape[1], mesh, "the table's width")
+        parts = table.chunk(mesh.n_model, 1)
+        del self.table
+        self.table_columns = nn.ParameterList(
+            nn.Parameter(parts[c].to(mesh.devices[mesh.model_shards.index(c)],
+                                     copy=True).contiguous())
+            for c in mesh.local_columns)
+        if self.fcs:
+            split_fc(self.fcs[0], mesh, 1)
+        self.model_mesh = mesh
+        return self
+
+    def table_blocks(self):
+        """(blocks, join) of a sharded table as ``split_parameters`` gives
+        them (vocab rows, or column blocks), or None for a whole one."""
+        if self.model_mesh is not None:
+            return (list(self.table_columns),
+                    lambda ts: self.model_mesh.gather_columns(ts, 1))
+        if self.vocab_mesh is not None:
+            return list(self.table_shards), self.vocab_mesh.gather_row_blocks
+        return None
+
+    def sharded_parameters(self) -> list:
+        """The parameters of which each rank holds only its own blocks (a
+        vocab-sharded table, or the column blocks over 'model')."""
+        return [p for blocks, _ in split_parameters(self).values()
+                for p in blocks]
+
+    def vocab_window(self, d: int) -> tuple[int, int]:
+        """The rows [lo, hi) of the (padded) vocabulary data row d holds."""
         per = self.table_shards[0].shape[0]
-        return s * per, (s + 1) * per
+        return d * per, (d + 1) * per
 
     def gathered_table(self) -> torch.Tensor:
         """The whole table (with a sharded one's zero padding rows) on the
         first device, detached. On a mesh over processes a collective:
         every rank calls it and receives the whole table."""
-        if self.vocab_mesh is None:
+        split = self.table_blocks()
+        if split is None:
             return self.table.detach()
-        return self.vocab_mesh.gather_rows(
-            [t.detach() for t in self.table_shards])
+        blocks, join = split
+        return join(blocks)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> "MagMLP":
@@ -93,6 +141,9 @@ class MagMLP(nn.Module):
         ([B] 0/1) marks real rows for the BN statistics; ``generator``
         draws the hidden dropout."""
         cfg = self.cfg
+        if self.model_mesh is not None:
+            raise ValueError("a MagMLP split over 'model' runs "
+                             "forward_sharded")
         for fc, bn in zip(self.fcs, self.bns):
             x = torch.relu(x)
             if cfg.node_norm:
@@ -108,18 +159,24 @@ class MagMLP(nn.Module):
                         split=None) -> list:
         """The head on the shards' [b_s, H] embeddings, equal to
         :meth:`forward` on the batch they make up (arguments as
-        ``MLP.forward_sharded``)."""
+        ``MLP.forward_sharded``). With the table's columns split over
+        'model', ``xs`` are each model shard's column blocks; the logits
+        are replicated over 'model'."""
         cfg = self.cfg
         split = split or mesh.scatter_rows
+        columns = self.model_mesh is not None
         for fc, bn in zip(self.fcs, self.bns):
             xs = [torch.relu(x) for x in xs]
             if cfg.node_norm:
-                xs = [_node_normalize(x) for x in xs]
+                xs = _node_normalize_sharded(mesh, xs, columns)
             if cfg.use_bn:
-                xs = bn.forward_sharded(mesh, xs, batch_masks)
+                xs = bn.forward_sharded(mesh, xs, batch_masks, columns)
             xs = _dropout_sharded(mesh, xs, cfg.hidden_droprate,
-                                  self.training, generator, split)
-            xs = _linear_sharded(mesh, fc, xs)
+                                  self.training, generator, split, columns)
+            xs = _linear_sharded(mesh, fc, xs, columns)
+            columns = False
+        if columns:
+            xs = mesh.model_all_gather(xs, -1)
         return xs
 
 

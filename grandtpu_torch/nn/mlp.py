@@ -26,11 +26,27 @@ order and handed out by rows, and train-mode BatchNorm takes its masked
 moments over the mesh (mean first, then the centered sums; only
 [width]-sized partials cross the shards) and updates its running stats
 once.
+
+:meth:`MLP.shard_hidden` splits the hidden width over the mesh's 'model'
+axis (tensor parallelism, grandtpu's ``_shard_params_tp``): ``fcs[0]``
+becomes column-parallel (``weight_shards`` [H/m, F] and ``bias_shards``
+[H/m], one a local model column) and every later fc row-parallel
+(``weight_shards`` [out, H/m], its ``bias`` replicated). The hidden
+activation after ``fcs[0]`` is then a column block on each model shard:
+its node_norm sums the squares over 'model' (``model_all_reduce`` with
+``model_copy``'s summed gradient, since each shard's block follows), its
+BatchNorm takes per-column moments over 'data' on its slice of the
+replicated weight, bias and running stats, and its dropout mask is drawn
+at [B, H] and handed out by rows and columns. A row-parallel fc sums its
+shards' partial products over 'model' (``model_all_reduce``) and adds its
+bias after; on a replicated input (layers 2 on) each shard first takes
+its column block (``model_split``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -95,10 +111,17 @@ class MaskedBatchNorm(nn.Module):
         y = (x - mean) * torch.rsqrt(var + BN_EPS)
         return y * self.weight + self.bias
 
-    def forward_sharded(self, mesh, xs: list, masks: list | None = None
-                        ) -> list:
+    def forward_sharded(self, mesh, xs: list, masks: list | None = None,
+                        columns: bool = False) -> list:
         """:meth:`forward` over the shards' row blocks ``xs`` (with their
-        [b_s] row weights ``masks``), with the batch's moments."""
+        [b_s] row weights ``masks``), with the batch's moments. With
+        ``columns`` each model shard holds its column block of the width:
+        it reads its slice of the weight, bias and running stats, and the
+        running stats update once from the joined moments."""
+        def read(t):
+            ts = mesh.broadcast(t)
+            return mesh.model_split(ts, 0) if columns else ts
+
         if self.training:
             if masks is None:
                 masks = [x.new_ones(x.shape[0]) for x in xs]
@@ -111,15 +134,18 @@ class MaskedBatchNorm(nn.Module):
                                       for x, mu, mk in zip(xs, means, masks)])
             vars_ = [a / c for a, c in zip(sq, m)]
             with torch.no_grad():
-                unbiased = vars_[0] * (m[0] / (m[0] - 1.0).clamp(min=1.0))
+                mean, var = means[0], vars_[0]
+                if columns:
+                    mean = mesh.model_all_gather(means, 0)[0]
+                    var = mesh.model_all_gather(vars_, 0)[0]
+                unbiased = var * (m[0] / (m[0] - 1.0).clamp(min=1.0))
                 self.running_mean.mul_(1 - BN_MOMENTUM).add_(
-                    BN_MOMENTUM * means[0].to(self.running_mean.device))
+                    BN_MOMENTUM * mean.to(self.running_mean.device))
                 self.running_var.mul_(1 - BN_MOMENTUM).add_(
                     BN_MOMENTUM * unbiased.to(self.running_var.device))
         else:
-            means = mesh.broadcast(self.running_mean)
-            vars_ = mesh.broadcast(self.running_var)
-        ws, bs = mesh.broadcast(self.weight), mesh.broadcast(self.bias)
+            means, vars_ = read(self.running_mean), read(self.running_var)
+        ws, bs = read(self.weight), read(self.bias)
         return [(x - mu) * torch.rsqrt(v + BN_EPS) * w + b
                 for x, mu, v, w, b in zip(xs, means, vars_, ws, bs)]
 
@@ -127,6 +153,19 @@ class MaskedBatchNorm(nn.Module):
 def _node_normalize(x: torch.Tensor) -> torch.Tensor:
     """x / (1e-12 + ||x||), the reference's epsilon placement."""
     return x / (1e-12 + torch.linalg.vector_norm(x, dim=-1, keepdim=True))
+
+
+def _node_normalize_sharded(mesh, xs: list, columns: bool) -> list:
+    """:func:`_node_normalize` of each shard's rows; with ``columns`` the
+    rows' squares summed over 'model' first (the norm of a row of 0 has
+    the gradient 0, as ``vector_norm``'s)."""
+    if not columns:
+        return [_node_normalize(x) for x in xs]
+    sq = mesh.model_copy(mesh.model_all_reduce(
+        [(x * x).sum(-1, keepdim=True) for x in xs]))
+    norms = [torch.where(s > 0, torch.where(s > 0, s, 1.0).sqrt(), 0.0)
+             for s in sq]
+    return [x / (1e-12 + n) for x, n in zip(xs, norms)]
 
 
 def _dropout(x, rate: float, training: bool, generator):
@@ -138,22 +177,121 @@ def _dropout(x, rate: float, training: bool, generator):
 
 
 def _dropout_sharded(mesh, xs: list, rate: float, training: bool, generator,
-                     split) -> list:
+                     split, columns: bool = False) -> list:
     """:func:`_dropout` of the batch the mesh's equal row blocks ``xs``
     (this process's) make up: one mask of the batch's shape drawn on the
     generator's device, handed out by ``split`` (batch rows -> the shards'
-    blocks)."""
+    blocks), and with ``columns`` by the model shards' column blocks."""
     if not training or rate <= 0.0:
         return xs
-    shape = (xs[0].shape[0] * mesh.size, xs[0].shape[1])
+    n = mesh.n_model if columns else 1
+    shape = (xs[0].shape[0] * mesh.n_data, xs[0].shape[1] * n)
     keeps = split(torch.rand(shape, generator=generator,
                              device=generator.device) < 1.0 - rate)
+    if columns:
+        w = xs[0].shape[1]
+        keeps = [k[:, m * w:(m + 1) * w]
+                 for k, m in zip(keeps, mesh.model_shards)]
     return [torch.where(k, x / (1.0 - rate), 0.0) for k, x in zip(keeps, xs)]
 
 
-def _linear_sharded(mesh, fc: nn.Linear, xs: list) -> list:
-    return [torch.nn.functional.linear(x, w, b) for x, w, b in
-            zip(xs, mesh.broadcast(fc.weight), mesh.broadcast(fc.bias))]
+def _linear_sharded(mesh, fc: nn.Linear, xs: list,
+                    columns: bool = False) -> list:
+    """``fc`` on each shard's rows: replicated, or over 'model' when split
+    (:meth:`MLP.shard_hidden`): column-parallel on a replicated input (its
+    output a column block), or row-parallel on the column blocks of its
+    input (``columns``) or of its replicated input (split here), summed
+    over 'model', then its bias."""
+    linear = torch.nn.functional.linear
+    shards = getattr(fc, "weight_shards", None)
+    if shards is None:
+        return [linear(x, w, b) for x, w, b in
+                zip(xs, mesh.broadcast(fc.weight), mesh.broadcast(fc.bias))]
+    ws = mesh.broadcast_columns(list(shards))
+    if hasattr(fc, "bias_shards"):
+        # each model shard reads all of the replicated input: its gradient
+        # is the sum of theirs (f)
+        xs = mesh.model_copy(xs)
+        return [linear(x, w, b) for x, w, b in
+                zip(xs, ws, mesh.broadcast_columns(list(fc.bias_shards)))]
+    if not columns:
+        xs = mesh.model_split(xs, -1)
+    sums = mesh.model_all_reduce([linear(x, w) for x, w in zip(xs, ws)])
+    return [y + b for y, b in zip(sums, mesh.broadcast(fc.bias))]
+
+
+def _check_width(width: int, mesh, what: str) -> None:
+    if width % mesh.n_model:
+        raise ValueError(f"{what} {width} does not divide over the mesh's "
+                         f"{mesh.n_model} model shards")
+
+
+def split_fc(fc: nn.Linear, mesh, dim: int) -> None:
+    """Split ``fc`` over ``mesh``'s model columns in place: its weight along
+    ``dim`` (0: column-parallel, the bias split too; 1: row-parallel),
+    one ``nn.Parameter`` block a local model column, on the device of the
+    first of its column's local shards."""
+    devices = {c: mesh.devices[mesh.model_shards.index(c)]
+               for c in mesh.local_columns}
+
+    def blocks(t, d):
+        _check_width(t.shape[d], mesh, "a width of")
+        parts = t.detach().chunk(mesh.n_model, d)
+        return nn.ParameterList(nn.Parameter(parts[c].to(dev, copy=True))
+                                for c, dev in devices.items())
+
+    weight = blocks(fc.weight, dim)
+    del fc.weight
+    fc.weight_shards = weight
+    if dim == 0:
+        bias = blocks(fc.bias, 0)
+        del fc.bias
+        fc.bias_shards = bias
+
+
+def _fc_split(fc: nn.Linear, mesh) -> dict:
+    """{"weight" / "bias": (its blocks, join)} of each parameter of ``fc``
+    split over 'model' (:func:`split_fc`); ``join`` as
+    :func:`split_parameters` says."""
+    if not hasattr(fc, "weight_shards"):
+        return {}
+    column = hasattr(fc, "bias_shards")
+    out = {"weight": (list(fc.weight_shards), functools.partial(
+        mesh.gather_columns, dim=0 if column else 1))}
+    if column:
+        out["bias"] = (list(fc.bias_shards),
+                       functools.partial(mesh.gather_columns, dim=0))
+    return out
+
+
+def fc_tensors(fc: nn.Linear, mesh) -> tuple:
+    """(weight [out, in], bias [out]) of ``fc`` whole and detached on the
+    first local device, a split fc's blocks joined (a collective of the
+    row's ranks when 'model' spans ranks)."""
+    split = _fc_split(fc, mesh)
+    out = []
+    for k in ("weight", "bias"):
+        if k in split:
+            blocks, join = split[k]
+            out.append(join(blocks))
+        else:
+            out.append(getattr(fc, k).detach())
+    return tuple(out)
+
+
+def split_parameters(model) -> dict:
+    """{whole name: (its blocks, join)} of each parameter that ``model``
+    (an ``MLP`` or ``MagMLP``) holds in blocks over a mesh: the blocks are
+    this process's ``nn.Parameter``s, and ``join(tensors)``, given one
+    tensor a block (their values, gradients or Adam moments), returns the
+    whole tensor detached on the first local device (a collective when
+    the blocks span ranks)."""
+    out = {f"fcs.{i}.{k}": v for i, fc in enumerate(model.fcs)
+           for k, v in _fc_split(fc, model.model_mesh).items()}
+    table = getattr(model, "table_blocks", lambda: None)()
+    if table is not None:
+        out["table"] = table
+    return out
 
 
 class MLP(nn.Module):
@@ -163,6 +301,27 @@ class MLP(nn.Module):
         fc_dims, bn_dims = layer_dims(cfg)
         self.fcs = nn.ModuleList(nn.Linear(i, o) for i, o in fc_dims)
         self.bns = nn.ModuleList(MaskedBatchNorm(d) for d in bn_dims)
+        self.model_mesh = None      # set by shard_hidden
+
+    def shard_hidden(self, mesh) -> "MLP":
+        """Split the hidden width over ``mesh``'s 'model' axis in place
+        (grandtpu's ``_shard_params_tp``): ``fcs[0]`` column-parallel, every
+        later fc row-parallel; with one layer nothing is split. Raises when
+        the hidden width does not divide over 'model'."""
+        if self.cfg.nlayers == 1:
+            return self
+        _check_width(self.cfg.hidden, mesh, "the hidden width")
+        split_fc(self.fcs[0], mesh, 0)
+        for fc in self.fcs[1:]:
+            split_fc(fc, mesh, 1)
+        self.model_mesh = mesh
+        return self
+
+    def sharded_parameters(self) -> list:
+        """The parameters split over 'model' (each rank holds its own
+        columns' blocks)."""
+        return [p for blocks, _ in split_parameters(self).values()
+                for p in blocks]
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> "MLP":
@@ -177,6 +336,8 @@ class MLP(nn.Module):
         """Logits. ``batch_mask`` ([B] 0/1) marks real rows for the BN
         statistics of wrap-padded batches; ``generator`` draws dropout."""
         cfg = self.cfg
+        if self.model_mesh is not None:
+            raise ValueError("an MLP split over 'model' runs forward_sharded")
         if cfg.node_norm:
             x = _node_normalize(x).detach()
         if cfg.use_bn:
@@ -201,7 +362,9 @@ class MLP(nn.Module):
         ``batch_masks[i]`` their
         BN row weights. ``split`` hands a batch-shaped tensor's rows out to
         the shards (default: ``mesh.scatter_rows``, the batch in shard
-        order); dropout draws from ``generator`` as :meth:`forward` does."""
+        order); dropout draws from ``generator`` as :meth:`forward` does.
+        Split over 'model', the first hidden activation is each model
+        shard's column block and the logits are replicated over 'model'."""
         cfg = self.cfg
         split = split or mesh.scatter_rows
         if cfg.node_norm:
@@ -211,15 +374,18 @@ class MLP(nn.Module):
         xs = _dropout_sharded(mesh, xs, cfg.input_droprate, self.training,
                               generator, split)
         xs = _linear_sharded(mesh, self.fcs[0], xs)
+        columns = self.model_mesh is not None
         for i in range(1, cfg.nlayers):
             xs = [torch.relu(x) for x in xs]
             if cfg.node_norm:
-                xs = [_node_normalize(x) for x in xs]
+                xs = _node_normalize_sharded(mesh, xs, columns)
             if cfg.use_bn:
-                xs = self.bns[i].forward_sharded(mesh, xs, batch_masks)
+                xs = self.bns[i].forward_sharded(mesh, xs, batch_masks,
+                                                 columns)
             xs = _dropout_sharded(mesh, xs, cfg.hidden_droprate,
-                                  self.training, generator, split)
-            xs = _linear_sharded(mesh, self.fcs[i], xs)
+                                  self.training, generator, split, columns)
+            xs = _linear_sharded(mesh, self.fcs[i], xs, columns)
+            columns = False
         return xs
 
 

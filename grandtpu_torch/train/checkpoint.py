@@ -194,7 +194,9 @@ def load_checkpoint(path: str, *, params_template, state_template,
 
 
 def model_trees(model) -> tuple:
-    """(params, state) of an ``MLP`` or ``MagMLP`` in grandtpu's layout."""
+    """(params, state) of an ``MLP`` or ``MagMLP`` in grandtpu's layout,
+    whole (a model sharded over a mesh over processes is gathered: every
+    rank calls it, and ``save_checkpoint`` writes on rank 0)."""
     from grandtpu_torch.convert import mag_to_jax, mlp_to_jax
     from grandtpu_torch.nn.mag_mlp import MagMLP
 

@@ -22,6 +22,13 @@ BN moments and the loss normalizers are the batch's, and autograd sums
 the shards' gradients onto the one copy of the parameters, where the
 grad norm, the clip and Adam run. On a mesh over processes each rank
 holds such a copy and runs the same update on the same summed gradients.
+
+On a 2-D mesh the model shards of a data row share its rows: K1 runs once
+a data row and device, the logits are replicated over 'model' and every
+loss and metric sums over 'data' alone; with the MLP split over 'model'
+(``shard_train_inputs(tensor_parallel=True)``) each model shard computes
+its column block of the hidden layer, and the norm that the clip takes
+counts every block once.
 """
 
 from __future__ import annotations
@@ -89,20 +96,27 @@ def _accuracy_sharded(mesh, logps, labels, masks):
     return hits / mesh.reduce_sum([m.sum() for m in masks]).clamp(min=1.0)
 
 
-def _global_norm(grads, mesh=None, sharded=()) -> torch.Tensor:
-    """The norm of all ``grads``, on the first one's device. On a mesh over
-    processes, ``sharded`` are the parameters each rank holds its own
-    shards of (a vocab-sharded table, the last of the model's), whose
-    gradients are among ``grads``: every shard's norm is gathered, in
-    global order, so that each rank takes the same norm and counts each
-    replicated gradient once."""
+def _global_norm(grads, mesh=None, sharded=(), rows: bool = False
+                 ) -> torch.Tensor:
+    """The norm of all ``grads``, on the first one's device. ``sharded`` are
+    the parameters of which each rank holds only its own blocks, split over
+    'model' (with ``rows``: by vocabulary rows over 'data'), whose gradients
+    are among ``grads``. Where those blocks span ranks, every block's norm
+    is gathered, in global order, so that each rank takes the same norm and
+    counts each block and each replicated gradient once."""
     dev = grads[0].device
     norms = [torch.linalg.vector_norm(g).to(dev) for g in grads]
-    if mesh is not None and mesh.multiprocess and sharded:
+    gather = None
+    if mesh is not None and sharded and mesh.multiprocess:
+        if rows:
+            gather = mesh.gather_row_blocks
+        elif mesh.model_group is not None:
+            gather = lambda ns: mesh.gather_columns(ns, 0)  # noqa: E731
+    if gather is not None:
         ids = {id(p.grad) for p in sharded}
-        local = [n for g, n in zip(grads, norms) if id(g) in ids]
+        local = [n.reshape(1) for g, n in zip(grads, norms) if id(g) in ids]
         norms = ([n for g, n in zip(grads, norms) if id(g) not in ids]
-                 + list(mesh.gather_rows([n.reshape(1) for n in local])))
+                 + list(gather(local)))
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -184,14 +198,15 @@ def build_train_step(cfg: StepConfig, model: MLP,
     return step
 
 
-def _step_update(loss, params, optimizer, clip_norm: float) -> torch.Tensor:
-    """Backward, the grad norm (always measured), the clip, Adam; returns
-    the norm."""
+def _step_update(loss, params, optimizer, clip_norm: float, mesh=None,
+                 sharded=()) -> torch.Tensor:
+    """Backward, the grad norm (always measured; ``mesh`` and ``sharded`` as
+    :func:`_global_norm` takes them), the clip, Adam; returns the norm."""
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     grads = [p.grad for p in params if p.grad is not None]
     # the reference measures the grad norm even with clipping off
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, mesh, sharded)
     if clip_norm > 0:
         _clip_(grads, gnorm, clip_norm)
     optimizer.step()
@@ -201,10 +216,10 @@ def _step_update(loss, params, optimizer, clip_norm: float) -> torch.Tensor:
 def _sharded_batch(mesh, batches, n_train: int):
     """(labeled rows a shard, unlabel masks, BN row masks, the batch's
     :class:`BatchSplit`) of ``shard_batch``'s list."""
-    nts = n_train // mesh.size
+    nts = n_train // mesh.n_data
     ums = [_unlabel_mask(b, nts) for b in batches]
     bmasks = [torch.cat([b["label_mask"], um]) for b, um in zip(batches, ums)]
-    n_unlabeled = ums[0].shape[0] * mesh.size
+    n_unlabeled = ums[0].shape[0] * mesh.n_data
     return nts, ums, bmasks, BatchSplit(mesh, n_train, n_unlabeled)
 
 
@@ -223,6 +238,17 @@ def _sharded_losses(mesh, logps, batches, nts: int, ums, ramp: float,
     return sup + ramp * unsup, sup, unsup, acc
 
 
+def per_data_row(mesh, fn, *lists) -> list:
+    """``fn(*args)`` for each local shard, once for each data row and
+    device: the model shards of a row on one device share the result
+    (which they must only read)."""
+    made = {}
+    for key, args in zip(zip(mesh.data_shards, mesh.devices), zip(*lists)):
+        if key not in made:
+            made[key] = fn(*args)
+    return [made[key] for key in zip(mesh.data_shards, mesh.devices)]
+
+
 def _build_sharded_train_step(cfg: StepConfig, model: MLP,
                               optimizer: torch.optim.Optimizer,
                               mesh) -> Callable:
@@ -237,8 +263,8 @@ def _build_sharded_train_step(cfg: StepConfig, model: MLP,
         keeps = split(torch.rand(shape, generator=generator,
                                  device=generator.device)
                       < 1.0 - cfg.dropnode_rate, dim=1)
-        xs = [gather_and_prop(f, c, v, k)                    # [K, b_s, F]
-              for f, c, v, k in zip(features, cols, vals, keeps)]
+        xs = per_data_row(mesh, gather_and_prop, features, cols, vals,
+                          keeps)                             # [K, b_s, F]
         outs = [model.forward_sharded(
             mesh, [x[k] for x in xs],
             batch_masks=bmasks if cfg.mlp.use_bn else None,
@@ -249,7 +275,8 @@ def _build_sharded_train_step(cfg: StepConfig, model: MLP,
         loss, sup, unsup, acc = _sharded_losses(
             mesh, logps, batches, nts, ums, ramp, cfg.tem, cfg.conf,
             cfg.loss_kind)
-        gnorm = _step_update(loss, params, optimizer, cfg.clip_norm)
+        gnorm = _step_update(loss, params, optimizer, cfg.clip_norm, mesh,
+                             model.sharded_parameters())
         return {"loss": loss.detach(), "sup_loss": sup.detach(),
                 "consis_loss": unsup.detach(), "train_acc": acc,
                 "grad_norm": gnorm}
@@ -279,8 +306,8 @@ def build_eval_step(cfg: StepConfig, model: MLP, mesh=None) -> Callable:
         @torch.no_grad()
         def evaluate_sharded(features, tk_cols, tk_vals, rows, labels, mask):
             model.eval()
-            xs = [gather_and_prop(f, tc[r], tv[r])[0] for f, tc, tv, r in
-                  zip(features, tk_cols, tk_vals, rows)]
+            xs = per_data_row(mesh, lambda f, tc, tv, r: gather_and_prop(
+                f, tc[r], tv[r])[0], features, tk_cols, tk_vals, rows)
             return _eval_sharded(mesh, model, xs, labels, mask)
 
         return evaluate_sharded

@@ -70,7 +70,11 @@ def train_mesh(cfg: GrandConfig, mesh, device: torch.device):
     """The mesh a trainer runs on: None for ``num_devices == 1``, else
     ``mesh`` (default ``make_mesh(num_devices, device=device)``), checked
     to have ``num_devices`` shards of ``device``'s type and a batch that
-    splits over them (``ValueError`` before any step)."""
+    splits over them (``ValueError`` before any step). A mesh with a
+    'model' axis raises: grandtpu's trainers build none, and their predict
+    (D1) is not ported to one."""
+    if mesh is not None:
+        dist.mesh.refuse_model_axis(mesh, "train()")
     if cfg.num_devices <= 1:
         if mesh is not None and mesh.size != 1:
             raise ValueError(f"a mesh of {mesh.size} shards with "

@@ -20,7 +20,12 @@ moments are vocab-sharded and the step runs vocab-parallel (every shard
 embeds all the batch's rows over its vocab window with the K3 window
 kernel, the partial sums meet in a reduce-scatter, and the backward's
 all-gather feeds each shard's window backward); the predict embeds every
-node with the gathered table and propagates row-partitioned (D1).
+node with the gathered table and propagates row-partitioned (D1). Its
+steps also run on a (data, model) mesh: vocab-parallel within each model
+column (the table's rows over 'data', replicated over 'model'), or
+tensor-parallel (``shard_sparse_train_inputs(emb_mode="tp")``: each model
+shard embeds its data row's rows over its column block of the table with
+K3).
 """
 
 from __future__ import annotations
@@ -71,7 +76,8 @@ def build_sparse_steps(cfg: GrandConfig, model: MagMLP,
     ``build_train_step``'s: the tables per-shard lists
     (``shard_sparse_train_inputs``), batch ``shard_batch``'s list, the
     eval's rows, labels and mask ``split_rows``' lists. The model's table
-    is vocab-sharded (``MagMLP.shard_vocab``) or whole on the first device.
+    is vocab-sharded (``MagMLP.shard_vocab``), split by columns over
+    'model' (``MagMLP.shard_columns``) or whole on the first device.
     """
     if mesh is not None:
         return _build_sharded_sparse_steps(cfg, model, optimizer, n_class,
@@ -145,12 +151,26 @@ def _build_sharded_sparse_steps(cfg: GrandConfig, model: MagMLP,
     mcfg = model.cfg
     params = list(model.parameters())
     vocab = model.vocab_mesh is not None
+    columns = model.model_mesh is not None
     q = cfg.input_droprate
 
     def embed(attr_cols, attr_vals, cols, vals, keep, drop, split):
-        """The K augmentations' inputs [K, b_s, H] of each shard's rows;
+        """The K augmentations' inputs [K, b_s, H] of each shard's rows
+        ([K, b_s, H/m] column blocks with the table split over 'model');
         ``keep``/``drop`` in the batch's row order on the first device."""
         local = len(mesh.devices)
+        if columns:
+            # each model shard: K3 over its column block for its data
+            # row's rows, the input dropout's columns of that block
+            drops = [None] * local
+            if drop is not None:
+                w = drop.shape[-1] // mesh.n_model
+                drops = [d[..., m * w:(m + 1) * w].contiguous() for d, m in
+                         zip(split(drop, 1), mesh.model_shards)]
+            tables = mesh.broadcast_columns(list(model.table_columns))
+            return [embed_prop(t, ac, av, c, v, k, d, q) for t, ac, av, c, v,
+                    k, d in zip(tables, attr_cols, attr_vals, cols, vals,
+                                split(keep, 1), drops)]
         if not vocab:
             keeps, drops = split(keep, 1), ([None] * local if drop is None
                                             else split(drop, 1))
@@ -164,11 +184,12 @@ def _build_sharded_sparse_steps(cfg: GrandConfig, model: MagMLP,
         drops = ([None] * local if drop is None
                  else mesh.broadcast(split.to_mesh_order(drop, 1)))
         cols_all, vals_all = mesh.all_gather(cols), mesh.all_gather(vals)
-        partials = [embed_prop_window(t, *model.vocab_window(s), ac, av, c, v,
+        tables = mesh.broadcast_rows(list(model.table_shards))
+        partials = [embed_prop_window(t, *model.vocab_window(r), ac, av, c, v,
                                       k, d, q)
-                    for s, t, ac, av, c, v, k, d in zip(
-                        mesh.shards, model.table_shards, attr_cols,
-                        attr_vals, cols_all, vals_all, keeps, drops)]
+                    for r, t, ac, av, c, v, k, d in zip(
+                        mesh.data_shards, tables, attr_cols, attr_vals,
+                        cols_all, vals_all, keeps, drops)]
         return mesh.reduce_scatter_rows(partials, dim=1)
 
     def train_step(attr_cols, attr_vals, tk_cols, tk_vals, batches, generator,
@@ -185,7 +206,7 @@ def _build_sharded_sparse_steps(cfg: GrandConfig, model: MagMLP,
                           device=dev) < 1.0 - cfg.dropnode_rate
         drop = None
         if q > 0.0:
-            width = (model.table_shards[0] if vocab else model.table).shape[1]
+            width = mcfg.hidden if mcfg.nlayers > 1 else mcfg.num_classes
             drop = torch.rand((*shape, attr_cols[0].shape[1], width),
                               generator=generator, device=dev) < 1.0 - q
         xs = embed(attr_cols, attr_vals, cols, vals, keep, drop, split)
@@ -202,16 +223,22 @@ def _build_sharded_sparse_steps(cfg: GrandConfig, model: MagMLP,
         loss.backward()
         if cfg.clip_norm > 0:
             grads = [p.grad for p in params if p.grad is not None]
-            sharded = list(model.table_shards) if vocab else ()
-            _clip_(grads, _global_norm(grads, mesh, sharded), cfg.clip_norm)
+            _clip_(grads, _global_norm(grads, mesh,
+                                       model.sharded_parameters(), vocab),
+                   cfg.clip_norm)
         optimizer.step()
         return {"loss": loss.detach()}
 
     @torch.no_grad()
     def eval_step(attr_cols, attr_vals, tk_cols, tk_vals, rows, labels, mask):
         model.eval()
-        tables = (mesh.all_gather(list(model.table_shards)) if vocab
-                  else mesh.broadcast(model.table))
+        if columns:
+            tables = mesh.broadcast_columns(list(model.table_columns))
+        elif vocab:
+            tables = mesh.all_gather(mesh.broadcast_rows(
+                list(model.table_shards)))
+        else:
+            tables = mesh.broadcast(model.table)
         xs = [embed_prop(t, ac, av, tc[r], tv[r])[0] for t, ac, av, tc, tv, r
               in zip(tables, attr_cols, attr_vals, tk_cols, tk_vals, rows)]
         return _eval_sharded(mesh, model, xs, labels, mask)
@@ -290,7 +317,7 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
         embed_cols, embed_vals = attr_cols[0], attr_vals[0]
         # the leaves the vocab padding grew, so that a restore slices them
         row_padded = _vocab_row_padded(
-            padded.num_features, model.vocab_window(mesh.size - 1)[1],
+            padded.num_features, model.vocab_window(mesh.n_data - 1)[1],
             model.table_shards[0].shape[1], cfg.weight_decay)
         val_rows, val_labels, val_mask = (split_rows(mesh, t) for t in
                                           (val_rows, val_labels, val_mask))

@@ -109,8 +109,13 @@ def test_make_mesh():
     mesh = make_mesh(3, device="cpu")
     assert mesh.devices == (torch.device("cpu"),) * 3
     assert mesh.shape == {"data": 3, "model": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 8"):
-        make_mesh(2, n_model=2, device="cpu")
+    # a (data, model) grid: shard d * n_model + m, as grandtpu's
+    grid = make_mesh(2, n_model=2, device="cpu")
+    assert grid.shape == {"data": 2, "model": 2} and grid.size == 4
+    assert grid.data_shards == (0, 0, 1, 1)
+    assert grid.model_shards == (0, 1, 0, 1)
+    assert make_mesh(n_model=3, devices=["cpu"] * 6).shape == \
+        {"data": 2, "model": 3}
     with pytest.raises(ValueError, match="need 3"):
         make_mesh(3, devices=["cpu"] * 2)
     if not torch.cuda.is_available():

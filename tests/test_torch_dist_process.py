@@ -27,7 +27,15 @@ computes and hands them in an npz. Parts, one test each:
   loaded by the port on every rank and by grandtpu here, the row-padded
   table sliced back;
 - ``collectives``: every cross-process collective's forward and gradient
-  against the one-process mesh's on the same inputs.
+  against the one-process mesh's on the same inputs;
+- ``tp``: tensor parallelism over the ranks, both engines (the dense MLP's
+  hidden width, the MAG table's columns split over 'model'; and the MAG
+  table's rows split over 'data' on the same 2-D meshes), every drop
+  rate on, on a (2 x 2) mesh ('model' inside a rank, 'data' across the
+  ranks) and a (1 x 4) mesh ('model' across the ranks), each against the
+  one-process mesh of its shape (metrics, and every parameter, gradient,
+  Adam moment and BN buffer with the split ones joined); the ranks'
+  replicas bit-identical.
 
 Tolerance: max |a - b| / max |b| <= 1e-5 (f32 sums in another order).
 """
@@ -176,24 +184,6 @@ def same_on_every_rank(tensors) -> bool:
     return all(torch.equal(g, flat) for g in all_gather_tensor(flat))
 
 
-def _state(model, optimizer, mesh) -> dict:
-    """{name: [value, grad, exp_avg, exp_avg_sq]} and {buffer: [value]};
-    a vocab-sharded table gathered as ``table`` (a collective)."""
-    out = {}
-    for name, p in model.named_parameters():
-        st = optimizer.state[p]
-        out[name] = [p.detach(), p.grad, st["exp_avg"], st["exp_avg_sq"]]
-    shards = sorted((k for k in out if k.startswith("table_shards.")),
-                    key=lambda k: int(k.split(".")[1]))
-    if shards:
-        parts = [out.pop(k) for k in shards]
-        out["table"] = [mesh.gather_rows([p[i] for p in parts])
-                        for i in range(4)]
-    for name, buf in model.named_buffers():
-        out[name] = [buf]
-    return out
-
-
 def _compare_states(got: dict, want: dict, vocab: int | None = None):
     assert got.keys() == want.keys(), (sorted(got), sorted(want))
     for name, w in want.items():
@@ -237,7 +227,8 @@ def _dense_cfgs(drop: bool):
 
 
 def part_dense(rank, world, shared):
-    from grandtpu_torch.dist import shard_batch, shard_train_inputs
+    from grandtpu_torch.dist import (joined_state, shard_batch,
+                                     shard_train_inputs)
     from grandtpu_torch.nn.mlp import init_mlp
     from grandtpu_torch.train.checkpoint import load_model
     from grandtpu_torch.train.step import build_train_step, make_optimizer
@@ -262,7 +253,7 @@ def part_dense(rank, world, shared):
             gen = torch.Generator().manual_seed(5)
             metrics = [step(*placed, shard_batch(mesh, _batch(inp, i)), gen,
                             i) for i in range(2)]
-            runs[name] = (metrics, _state(model, opt, mesh))
+            runs[name] = (metrics, joined_state(model, opt))
         (m_p, s_p), (m_o, s_o) = runs["proc"], runs["one"]
         for i in range(2):
             for k in m_o[i]:
@@ -351,7 +342,8 @@ def _mag_cfgs():
 
 
 def part_mag(rank, world, shared):
-    from grandtpu_torch.dist import shard_batch, shard_sparse_train_inputs
+    from grandtpu_torch.dist import (joined_state, shard_batch,
+                                     shard_sparse_train_inputs)
     from grandtpu_torch.nn.mag_mlp import init_mag_mlp
     from grandtpu_torch.train.step import make_optimizer
     from grandtpu_torch.train.trainer_sparse import build_sparse_steps
@@ -374,7 +366,7 @@ def part_mag(rank, world, shared):
         gen = torch.Generator().manual_seed(5)
         losses = [step(*placed, shard_batch(mesh, _batch(inp, i)), gen, i)
                   ["loss"] for i in range(2)]
-        runs[name] = (losses, _state(model, opt, mesh))
+        runs[name] = (losses, joined_state(model, opt))
     (l_p, s_p), (l_o, s_o) = runs["proc"], runs["one"]
     for a, b in zip(l_p, l_o):
         assert rel(a, b) <= TOL, (float(a), float(b))
@@ -552,7 +544,8 @@ def part_card(rank, world, shared, ports):
     2-shard mesh of the card, then the NCCL refusal of such a job."""
     import torch.distributed as tdist
 
-    from grandtpu_torch.dist import make_mesh, shard_batch, shard_train_inputs
+    from grandtpu_torch.dist import (joined_state, make_mesh, shard_batch,
+                                     shard_train_inputs)
     from grandtpu_torch.dist.mesh import Mesh
     from grandtpu_torch.nn.mlp import init_mlp
     from grandtpu_torch.train.step import build_train_step, make_optimizer
@@ -582,7 +575,7 @@ def part_card(rank, world, shared, ports):
         step = build_train_step(scfg, model, opt, mesh=mesh)
         gen = torch.Generator(device=dev).manual_seed(5)
         metrics = step(*placed, shard_batch(mesh, batch), gen, 3)
-        runs[name] = (metrics, _state(model, opt, mesh))
+        runs[name] = (metrics, joined_state(model, opt))
     for k in runs["one"][0]:
         assert rel(runs["proc"][0][k], runs["one"][0][k]) <= TOL, k
     _compare_states(runs["proc"][1], runs["one"][1])
@@ -599,9 +592,73 @@ def part_card(rank, world, shared, ports):
         raise AssertionError("NCCL with two ranks on one card was taken")
 
 
+TP_SHAPES = ((2, 2), (1, 4))
+
+
+def part_tp(rank, world, shared):
+    from grandtpu_torch.dist import (joined_state, make_mesh, shard_batch,
+                                     shard_sparse_train_inputs,
+                                     shard_train_inputs)
+    from grandtpu_torch.dist.mesh import Mesh
+    from grandtpu_torch.nn.mag_mlp import init_mag_mlp
+    from grandtpu_torch.nn.mlp import init_mlp
+    from grandtpu_torch.train.step import build_train_step, make_optimizer
+    from grandtpu_torch.train.trainer_sparse import build_sparse_steps
+
+    inp = _inputs(shared)
+    dense_ops = [torch.as_tensor(inp[k]) for k in ("feats", "cols", "vals")]
+    mag_ops = [torch.as_tensor(inp[k])
+               for k in ("attr_cols", "attr_vals", "cols", "vals")]
+    mcfg, scfg = _dense_cfgs(True)
+    cfg, mag_mcfg = _mag_cfgs()
+    report = {}
+    for engine in ("dense", "mag", "vocab"):
+        base = (init_mlp(mcfg, 0, "cpu") if engine == "dense"
+                else init_mag_mlp(mag_mcfg, 0, "cpu"))
+        for n_data, n_model in TP_SHAPES:
+            runs = {}
+            for name, mesh in (
+                    ("proc", make_mesh(n_data, n_model=n_model,
+                                       device="cpu")),
+                    ("one", Mesh((CPU,) * 4, n_model=n_model))):
+                model = copy.deepcopy(base)
+                if engine == "dense":
+                    placed = shard_train_inputs(
+                        mesh, model=model, features=dense_ops[0],
+                        tk_cols=dense_ops[1], tk_vals=dense_ops[2],
+                        tensor_parallel=True)
+                    opt = make_optimizer(model, 0.01, 1e-3)
+                    step = build_train_step(scfg, model, opt, mesh=mesh)
+                else:
+                    placed = shard_sparse_train_inputs(
+                        mesh, model=model, attr_cols=mag_ops[0],
+                        attr_vals=mag_ops[1], tk_cols=mag_ops[2],
+                        tk_vals=mag_ops[3],
+                        emb_mode="tp" if engine == "mag" else "vocab")
+                    opt = make_optimizer(model, cfg.lr, 1e-3)
+                    step = build_sparse_steps(cfg, model, opt, C,
+                                              mesh=mesh)[0]
+                gen = torch.Generator().manual_seed(5)
+                metrics = [step(*placed, shard_batch(mesh, _batch(inp, i)),
+                                gen, i) for i in range(2)]
+                runs[name] = (metrics, joined_state(model, opt), mesh)
+            (m_p, s_p, proc), (m_o, s_o, _) = runs["proc"], runs["one"]
+            errs = [rel(m_p[i][k], m_o[i][k]) for i in range(2)
+                    for k in m_o[i]]
+            assert s_p.keys() == s_o.keys(), (sorted(s_p), sorted(s_o))
+            errs += [rel(g, w) for name in s_o
+                     for g, w in zip(s_p[name], s_o[name])]
+            report[f"{engine}/{n_data}x{n_model}"] = {
+                "err": max(errs), "same": same_on_every_rank(_flat(s_p)),
+                "model_group": proc.model_group,
+                "columns": list(proc.local_columns)}
+    with open(os.path.join(shared, f"tp_{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
 PARTS = {"push": part_push, "dense": part_dense, "d1": part_d1,
          "mag": part_mag, "e2e": part_e2e, "collectives": part_collectives,
-         "card": part_card}
+         "card": part_card, "tp": part_tp}
 
 
 def worker(argv) -> None:
@@ -786,6 +843,34 @@ def test_process_collective_and_its_adjoint(collectives, name):
         assert r["same"], (rank, r)
 
 
+@pytest.fixture(scope="module")
+def tensor_parallel(shared):
+    spawn("tp", shared, timeout=240)
+    out = []
+    for rank in range(WORLD):
+        with open(os.path.join(shared, f"tp_{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+@pytest.mark.parametrize("case", ["dense/2x2", "dense/1x4", "mag/2x2",
+                                  "mag/1x4", "vocab/2x2", "vocab/1x4"])
+def test_two_rank_tensor_parallel_step(tensor_parallel, case):
+    """The step split over 'model' (or, for ``vocab``, the MAG table's rows
+    over 'data', replicated over 'model') on 2 ranks x 2 shards equals the
+    one-process mesh of its shape, every drop rate on; the replicas are
+    bit-identical. (2 x 2) keeps 'model' inside a rank, (1 x 4) puts each
+    rank on 2 of a row's 4 model columns."""
+    across = case.endswith("1x4")
+    for rank, report in enumerate(tensor_parallel):
+        r = report[case]
+        assert r["err"] <= TOL, (rank, r)
+        assert r["same"], (rank, r)
+        assert r["model_group"] == ([0, 1] if across else None), r
+        assert r["columns"] == ([2 * rank, 2 * rank + 1] if across
+                                else [0, 1]), r
+
+
 def test_hand_made_process_mesh_places_its_own_shards():
     """Placement needs no process group: rank 1 of a 2-rank mesh of 4
     shards gets blocks 2 and 3 of the rows, the batch and the features."""
@@ -860,8 +945,23 @@ def test_one_rank_multihost_push_is_the_plain_push(shared):
 
 
 def test_tensor_parallel_names_its_item():
-    from grandtpu_torch.dist import make_mesh
+    """A hand-made rank of a (1 x 4) mesh over 2 ranks holds model columns
+    2 and 3 of data row 0: 'model' spans the ranks, and the groups its
+    collectives take are the row's ranks; what the 2-D mesh does not port
+    names ROADMAP Queue A 25."""
+    from grandtpu_torch.dist import make_mesh, sharded_gfpush
+    from grandtpu_torch.dist.mesh import Mesh
 
+    mesh = Mesh((CPU, CPU), shards=(2, 3), ranks=2, rank=1, n_model=4)
+    assert mesh.shape == {"data": 1, "model": 4}
+    assert mesh.local_columns == (2, 3) and mesh.data_shards == (0, 0)
+    assert mesh.model_group == (0, 1)
+    assert mesh.column(3).shards == (0,) and not mesh.column(3).multiprocess
+    inside = Mesh((CPU, CPU), shards=(2, 3), ranks=2, rank=1, n_model=2)
+    assert inside.model_group is None and inside.column(0).multiprocess
     with pytest.raises(NotImplementedError,
-                       match="Queue A 24: tensor parallelism"):
-        make_mesh(2, n_model=2, device="cpu")
+                       match="Queue A 25: D1, the sharded pushes"):
+        sharded_gfpush(make_mesh(2, n_model=2, device="cpu"),
+                       np.zeros(1, np.int64), np.zeros(0, np.int32),
+                       np.zeros(1, np.int32), np.ones(2, np.float32), 1e-4,
+                       2)

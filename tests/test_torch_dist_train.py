@@ -42,7 +42,7 @@ import grandtpu_torch.dist as tdist
 from grandtpu_torch.config import GrandConfig
 from grandtpu_torch.convert import (mag_from_jax, mag_to_jax, mlp_from_jax,
                                     mlp_to_jax)
-from grandtpu_torch.dist import (make_mesh, shard_batch,
+from grandtpu_torch.dist import (joined_state, make_mesh, shard_batch,
                                  shard_sparse_train_inputs,
                                  shard_train_inputs)
 from grandtpu_torch.dist.data_parallel import split_rows
@@ -127,23 +127,6 @@ def _mag_mlp_cfg(cls=MLPConfig, drop=False):
                hidden_droprate=rate)
 
 
-def _named(model, optimizer):
-    """{name: (value, grad, exp_avg, exp_avg_sq)} with a vocab-sharded
-    table joined as ``table`` (padding rows included)."""
-    out = {}
-    for name, p in model.named_parameters():
-        st = optimizer.state[p]
-        out[name] = (p.detach(), p.grad, st["exp_avg"], st["exp_avg_sq"])
-    shards = sorted(k for k in out if k.startswith("table_shards."))
-    if shards:
-        parts = [out.pop(k) for k in shards]
-        out["table"] = tuple(torch.cat([p[i] for p in parts])
-                             for i in range(4))
-    for name, buf in model.named_buffers():
-        out[name] = (buf,)
-    return out
-
-
 def _dense_pair(graph, mesh):
     mcfg = MLPConfig(F_, C, 16, 3, use_bn=True, node_norm=True,
                      input_droprate=0.3, hidden_droprate=0.3)
@@ -201,7 +184,7 @@ def test_mesh_step_equals_one_device_step(graph, engine, shards):
         assert r1.keys() == r2.keys()
         for k in r1:
             assert rel(r2[k], r1[k]) <= TOL, (nb, k)
-    want, got = _named(m1, o1), _named(m2, o2)
+    want, got = joined_state(m1, o1), joined_state(m2, o2)
     assert want.keys() == got.keys()
     for name, w in want.items():
         g = got[name]
@@ -332,8 +315,12 @@ def test_mesh_collectives_and_their_adjoints(shards):
         assert torch.allclose(g, torch.cat(weights))
     with pytest.raises(ValueError, match="split"):
         mesh.scatter_rows(torch.zeros(2 * shards + 1, 3))
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        make_mesh(2, n_model=2, device="cpu")
+    # on a (shards x 2) mesh each model column sums on its own over 'data'
+    grid = make_mesh(shards, n_model=2, device="cpu")
+    cols = [torch.tensor(rs.randn(2, 3)) for _ in range(2 * shards)]
+    sums = grid.all_reduce_sum(cols)
+    for i, got in enumerate(sums):
+        assert torch.allclose(got, sum(cols[i % 2::2]))
 
 
 @pytest.mark.parametrize("form", ["train", "train_drop", "node"])
@@ -457,16 +444,32 @@ def test_uneven_batch_raises_before_any_step(monkeypatch):
 
 
 def test_unported_placements_raise():
-    mesh = make_mesh(2, device="cpu")
+    """The placements on a 2-D mesh work (the split MLP, the table's
+    columns over 'model' or its rows over 'data'); what a 2-D mesh does
+    not port (D1) raises, naming its ROADMAP item."""
+    mesh = make_mesh(2, n_model=2, device="cpu")
     model = init_mag_mlp(_mag_mlp_cfg(), 0, "cpu")
     z = torch.zeros(4, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        shard_sparse_train_inputs(mesh, model=model, attr_cols=z,
-                                  attr_vals=z.float(), tk_cols=z,
-                                  tk_vals=z.float(), emb_mode="tp")
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        shard_train_inputs(mesh, model=model, features=z, tk_cols=z,
-                           tk_vals=z, tensor_parallel=True)
+    placed = shard_sparse_train_inputs(mesh, model=model, attr_cols=z,
+                                       attr_vals=z.float(), tk_cols=z,
+                                       tk_vals=z.float(), emb_mode="tp")
+    assert len(placed[0]) == 4 and len(model.table_columns) == 2
+    assert model.table_columns[0].shape == (VOCAB, 8)
+    dense = init_mlp(MLPConfig(F_, C, 16, 2), 0, "cpu")
+    shard_train_inputs(mesh, model=dense, features=z, tk_cols=z, tk_vals=z,
+                       tensor_parallel=True)
+    assert [tuple(p.shape) for p in dense.sharded_parameters()] == \
+        [(8, F_), (8, F_), (8,), (8,), (C, 8), (C, 8)]
+    vocab = init_mag_mlp(_mag_mlp_cfg(), 0, "cpu")
+    shard_sparse_train_inputs(mesh, model=vocab, attr_cols=z,
+                              attr_vals=z.float(), tk_cols=z,
+                              tk_vals=z.float(), emb_mode="vocab")
+    assert [tuple(t.shape) for t in vocab.table_shards] == [(VOCAB // 2,
+                                                             16)] * 2
+    assert vocab.vocab_window(1) == (VOCAB // 2, VOCAB)
+    with pytest.raises(NotImplementedError, match="Queue A 25"):
+        tdist.dist_exact_propagate(mesh, sp.eye(4, format="csr"),
+                                   np.zeros((4, 2), np.float32))
 
 
 def test_split_rows_covers_the_rows_once():

@@ -474,6 +474,40 @@ def test_embed_prop_windows_sum_to_the_full_op(device, shards):
     assert not torch.cat(grads)[300:].any()
 
 
+@pytest.mark.parametrize("h,q", [(64, 0.0), (64, 0.5), (66, 0.5)])
+def test_embed_prop_on_a_column_block_matches_plain(device, h, q):
+    """K3 forward and backward on each model shard's column block [V, H/2]
+    of the table (a strided slice made contiguous, as
+    ``MagMLP.shard_columns`` stores it; H/2 = 33 takes the scalar path),
+    with the input-dropout mask's matching columns, against the plain
+    version; the blocks join to the full op's output and gradient."""
+    table, args, grad = _k3_inputs(device, 2, 40, 32, 24, h, q, False, False)
+    w = h // 2
+    full, d_full = _k3_window_run(embed_prop, table, None, None, args, grad,
+                                  q)
+    outs, grads = [], []
+    for m in range(2):
+        cols = slice(m * w, (m + 1) * w)
+        block = table[:, cols].contiguous()
+        part = dict(args)
+        if "drop" in part:
+            part["drop"] = part["drop"][..., cols].contiguous()
+        g = grad[..., cols].contiguous()
+        fwd0, bwd0 = embed_prop.launches, embed_prop_backward.launches
+        out, d_k = _k3_window_run(embed_prop, block, None, None, part, g, q)
+        assert embed_prop.launches == fwd0 + 1
+        assert embed_prop_backward.launches == bwd0 + 1
+        t_p = block.clone().requires_grad_(True)
+        want = embed_prop_plain(t_p, droprate=q, **part)
+        (want * g).sum().backward()
+        assert _rel_err(out, want.detach()) <= TOL
+        assert _rel_err(d_k, t_p.grad) <= TOL
+        outs.append(out)
+        grads.append(d_k)
+    assert _rel_err(torch.cat(outs, -1), full) <= TOL
+    assert _rel_err(torch.cat(grads, 1), d_full) <= TOL
+
+
 @functools.lru_cache(maxsize=None)
 def _hop_operator(n):
     """Row-normalized D^-1 (adj + I) with an empty row 5 and, when n is
