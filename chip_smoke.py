@@ -53,6 +53,20 @@ Phases, in order; any failure exits non-zero without the result line:
    ``order`` times;
 6. profile: the main path once more under torch.profiler, device time by
    kernel and the device's busy share (after the counters were read).
+5g. (after 5) the long-run options of the reddit path: ``train()`` with
+    the reddit preset on ``synth:233000:41:602`` at full width in a child
+    process, with ``ckpt_dir``, ``save_every=1``, ``metrics_path``,
+    ``push_cache_dir`` and ``profile_dir``; once the first eval line is in
+    the metrics file the parent sends SIGTERM, and the child must stop at a
+    group end, write ``latest.npz`` (the next step's index), log
+    ``preempted`` and exit 0 with ``preempted`` true. Then ``train(...,
+    resume=True)`` here, a path (counts set to 0 before): its first eval
+    after the saved index, the push a cache hit (no push kernel, no native
+    push; cols and vals the child's bit for bit), the metrics file with
+    eval lines, ``preempted`` and ``train_end`` (``train_edges_per_s`` >
+    0), the trace in ``profile_dir`` naming K2's kernel, K2 exactly
+    ``order`` launches; preprocess times and test accuracy beside the
+    child's and phase 5's.
 
 Then the same for the MAG (sparse-feature) engine, on
 ``synth:1000000:8:2780000:sparse`` (vocabulary 2,780,000, P = 24):
@@ -145,7 +159,19 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     (<= 1e-5), its peak device memory against the csr run's; the fused
     hop's, the bare product's and the whole run's times, the hop's plain
     time, the library's (``torch.sparse.mm`` on the coalesced COO, A x
-    only) and the bounds (the fused hop: 12 e_pad + 16 n F bytes);
+    only) and the bounds (the fused hop: 12 e_pad + 16 n F bytes); then
+    K2-seg's bf16-carry form (grandtpu's segment hop on bf16 carries: f32
+    terms summed in f32, each row rounded to bf16 once, the update in
+    bf16): 6 fused hops on bf16 carries against its plain version, every
+    element bit for bit (the largest difference printed in bf16 ulps;
+    3j holds its split hub rows the same way), the
+    ``exact_propagator(backend="segment", precision="bf16_carry")`` run
+    as a path (K2-seg exactly ``order`` launches, nothing else), its error
+    against the csr f32 run beside the 2e-2 bf16_carry gate, its time
+    beside the f32 segment run's and the csr bf16_carry run's, its peak
+    memory beside the f32 segment run's, and the hop's time, plain time,
+    library time (bf16 COO, if this torch takes it) and bound (12 e_pad +
+    8 n F bytes; with its gathers, nnz rows of x at 2 F bytes, beside);
 8.  D1, row-partitioned propagation on a 4-shard mesh on the one card
     (``make_mesh(4, devices=[cuda:0] * 4)``): ``dist_exact_propagate``
     all_gather in f32, bf16 and int8 and halo (``halo_threshold=1.0``) in
@@ -327,12 +353,14 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import dataclasses
 import hashlib
 import io
 import itertools
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -375,13 +403,15 @@ from grandtpu_torch.nn.sparse_input import (PaddedFeatures, embed_prop,
                                             embed_prop_window_backward)
 from grandtpu_torch.ops._build import build, build_dir, load_kernels
 from grandtpu_torch.ppr import bucket_push, dense_push, gfpush
+from grandtpu_torch.ppr import cache as push_cache
 from grandtpu_torch.ppr.coef import build_coef
 from grandtpu_torch.ppr.dense_push import (dense_push_mask,
                                            dense_push_mask_plain)
 from grandtpu_torch.ppr.native import gfpush_native
 from grandtpu_torch.ppr.push_topk import push_topk, push_topk_plain
 from grandtpu_torch.sparse.spmm import (CSROperator, PaddedCSR,
-                                        Q8HopConfig, SplitPlan,
+                                        Q8HopConfig, SplitPlan, bf16_round,
+                                        bf16_ulps,
                                         column_absmax,
                                         column_absmax_plain, quantize_columns,
                                         quantize_columns_plain,
@@ -398,6 +428,7 @@ from grandtpu_torch.sparse.spmm import (CSROperator, PaddedCSR,
                                         spmm_segment_prop_step_plain)
 from grandtpu_torch.train import loop as loop_mod
 from grandtpu_torch.train import train
+from grandtpu_torch.train import trainer as trainer_mod
 from grandtpu_torch.train.checkpoint import _flatten_with_paths, model_trees
 from grandtpu_torch.train.step import (StepConfig, build_eval_step,
                                        build_train_step, make_optimizer)
@@ -1092,7 +1123,24 @@ def _hub_segment(op, x0, scale: float) -> dict:
     if not (err[1] <= TOL and differ == 0):
         raise AssertionError(f"[3j] coo_spmm disagrees with its plain "
                              f"version: {err[1]}, {differ} differ")
+    # the bf16-carry form on the same plan: split rows too bit for bit
+    xb = x0.bfloat16()
+    bf16_differ, ulps_b, abs_b = _bf16_hops(padded, xb, scale, 1)
+    yb, accb = torch.empty_like(xb), xb.clone()
+    bf16_ms = _time_ms(lambda: spmm_segment_prop_step(padded, xb, yb, accb,
+                                                      scale, True), 30)
+    del xb, yb, accb
+    print(f"[3j] coo_spmm bf16 carries, split: elements differing "
+          f"{bf16_differ} (limit 0, split rows included), largest "
+          f"difference {ulps_b} bf16 ulps (max_abs_err {abs_b}); ms "
+          f"{bf16_ms}", flush=True)
+    if bf16_differ:
+        raise AssertionError(f"[3j] coo_spmm's bf16 form disagrees with "
+                             f"its plain version: {bf16_differ} differ")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bf16_carry": {"ms": bf16_ms, "elements_differing": bf16_differ,
+                           "max_bf16_ulps": ulps_b,
+                           "max_abs_err": abs_b},
             "bound_by": bound_by, "max_abs_err": err[0],
             "max_rel_err": err[1], "elements_differing_under_cap": differ,
             "split_rows": int(plan.rows.numel()), "chunks": plan.num_chunks}
@@ -2336,6 +2384,158 @@ def run_main_path(data) -> tuple:
     return launches, r
 
 
+LONG_RUN_DIR = os.path.join("build", "chip_smoke_5g")
+LONG_RUN_TIMEOUT = 300              # seconds the 5g child may take
+K2_KERNEL = "csr_spmm_prop_kernel"  # K2's name in a profiler trace
+# 5g's child: train() with the config given as JSON, the push's cols and
+# vals digested as the trainer received them, and every checkpoint the
+# loop writes (file, num_batch) in order; one JSON line on stdout
+_LONG_RUN_CHILD = """
+import hashlib, json, os, sys
+from grandtpu_torch.config import GrandConfig
+from grandtpu_torch.data import load_data
+from grandtpu_torch.train import loop, trainer
+cfg = GrandConfig(**json.loads(sys.argv[1]))
+real, digests = trainer.push, []
+def push(*args, **kwargs):
+    tk = real(*args, **kwargs)
+    digests.append(hashlib.sha256(tk.cols.tobytes() + tk.vals.tobytes())
+                   .hexdigest())
+    return tk
+trainer.push = push
+real_save, saves = loop.save_checkpoint, []
+def save(path, **kwargs):
+    real_save(path, **kwargs)
+    saves.append([os.path.basename(path), kwargs["num_batch"]])
+loop.save_checkpoint = save
+r = trainer.train(cfg, data=load_data(cfg.dataset, split_seed=cfg.seed1),
+                  device="cuda")
+print(json.dumps({"preempted": r.preempted, "num_batches": r.num_batches,
+                  "evals": len(r.history), "test_acc": r.test_acc,
+                  "preprocess_time": r.preprocess_time,
+                  "push_digest": digests[0], "saves": saves}))
+"""
+
+
+def _metrics_lines(path: str) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.endswith("\n")]
+
+
+def _preempted_child(cfg) -> tuple:
+    """5g's first run: the child trains with ``cfg``; once its metrics file
+    holds an eval line, SIGTERM. Returns (its JSON result, the seconds
+    from its start to the signal, its wall seconds)."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    child = subprocess.Popen(
+        [sys.executable, "-c", _LONG_RUN_CHILD, json.dumps(fields)],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    sent = None
+    try:
+        while child.poll() is None and time.time() - t0 < LONG_RUN_TIMEOUT:
+            if any("val_acc" in ln for ln in _metrics_lines(
+                    cfg.metrics_path)):
+                child.send_signal(signal.SIGTERM)
+                sent = time.time() - t0
+                break
+            time.sleep(0.02)
+        out, err = child.communicate(
+            timeout=max(LONG_RUN_TIMEOUT - (time.time() - t0), 1.0))
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    if child.returncode != 0 or sent is None:
+        raise AssertionError(f"[5g] the child exited {child.returncode} "
+                             f"(signal sent at {sent} s):\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1]), sent, time.time() - t0
+
+
+def run_long_run(data, r_main) -> dict:
+    """Phase 5g: the reddit path preempted in a child process, then resumed
+    here as a path with the push cache, the metrics stream and a profile
+    (see the module docstring)."""
+    shutil.rmtree(LONG_RUN_DIR, ignore_errors=True)
+    base = os.path.abspath(LONG_RUN_DIR)
+    cfg = preset("reddit").replace(
+        dataset=DATASET, epochs=20, ckpt_dir=os.path.join(base, "ck"),
+        save_every=1, metrics_path=os.path.join(base, "metrics.jsonl"),
+        push_cache_dir=os.path.join(base, "push_cache"),
+        profile_dir=os.path.join(base, "profile"))
+    first, sent, child_s = _preempted_child(cfg)
+    latest = os.path.join(cfg.ckpt_dir, "latest.npz")
+    with np.load(latest) as z:
+        saved = json.loads(bytes(z["__meta__"]).decode())["num_batch"]
+    events = [ln.get("event") for ln in _metrics_lines(cfg.metrics_path)]
+    # save_every=1 writes latest.npz at every eval, so the preemption's own
+    # save is the one beyond them: evals + 1 writes, the last at the stop
+    latest_saves = [nb for name, nb in first["saves"] if name == "latest.npz"]
+    print(f"[5g] child: SIGTERM {sent} s after its start (its first eval "
+          f"line), exit 0 after {child_s} s, preempted {first['preempted']} "
+          f"at num_batch {first['num_batches']} after {first['evals']} "
+          f"evals, latest.npz num_batch {saved}, latest.npz writes "
+          f"{latest_saves} (expected {first['evals']} at the evals and the "
+          f"preemption's), metrics events {[e for e in events if e]}, "
+          f"preprocess_s {first['preprocess_time']} (the push, a cache "
+          f"miss), test_acc {first['test_acc']}", flush=True)
+    if not (first["preempted"] and saved == first["num_batches"]
+            and len(latest_saves) == first["evals"] + 1
+            and latest_saves[-1] == saved
+            and events.count("preempted") == 1):
+        raise AssertionError(f"[5g] the preempted run: {first}, latest "
+                             f"{saved}, events {events}")
+
+    pushes, received, logs = [], [], []
+    real_gfpush, real_push = push_cache.gfpush, trainer_mod.push
+    push_cache.gfpush = lambda *a, **k: pushes.append(1) or real_gfpush(
+        *a, **k)
+    trainer_mod.push = lambda *a, **k: received.append(
+        real_push(*a, **k)) or received[-1]
+    traces = set(os.listdir(cfg.profile_dir))
+    try:
+        _reset_counts()
+        r = train(cfg.replace(resume=True), data=data, device=DEV,
+                  log=logs.append)
+        launches = _read_counts()
+    finally:
+        push_cache.gfpush, trainer_mod.push = real_gfpush, real_push
+    tk = received[0]
+    digest = hashlib.sha256(tk.cols.tobytes() + tk.vals.tobytes()).hexdigest()
+    lines = _metrics_lines(cfg.metrics_path)
+    ends = [ln for ln in lines if ln.get("event") == "train_end"]
+    new_traces = sorted(set(os.listdir(cfg.profile_dir)) - traces)
+    with open(os.path.join(cfg.profile_dir, new_traces[-1])) as f:
+        k2_in_trace = K2_KERNEL in f.read()
+    first_eval = r.history[0]["batch"] if r.history else None
+    print(f"[5g] resumed: {'resumed from' in ' '.join(map(str, logs))}, "
+          f"first eval at batch {first_eval} (saved {saved}, eval_batch "
+          f"{cfg.eval_batch}), steps to {r.num_batches}, launches "
+          f"{launches}; pushes run {len(pushes)} (limit 0), cols and vals "
+          f"as the child's {digest == first['push_digest']}; preprocess_s "
+          f"{r.preprocess_time} (the child's {first['preprocess_time']}); "
+          f"metrics: {sum('val_acc' in ln for ln in lines)} eval lines, "
+          f"train_end train_edges_per_s {[e['train_edges_per_s'] for e in ends]}"
+          f"; trace {new_traces[-1]} names {K2_KERNEL} "
+          f"{k2_in_trace}; test_acc {r.test_acc} (the child's "
+          f"{first['test_acc']}, phase 5's {r_main.test_acc})", flush=True)
+    if not (first_eval is not None and saved <= first_eval
+            < saved + cfg.eval_batch and not pushes
+            and digest == first["push_digest"] and len(ends) == 2
+            and all(e["train_edges_per_s"] > 0 for e in ends)
+            and k2_in_trace and not r.preempted):
+        raise AssertionError("[5g] the resumed run failed a check")
+    _check_hops(launches, r.predict_precision, cfg.order)
+    if any(launches[name] for name in PUSH_COUNTED):
+        raise AssertionError(f"[5g] a push kernel launched: {launches}")
+    if launches["dropnode_mean"] < len(r.history):
+        raise AssertionError("[5g] K1 did not launch for every eval")
+    return launches
+
+
 def run_mag_path(data) -> dict:
     cfg = preset("mag_scholar_c").replace(dataset=MAG_DATASET, epochs=5)
     r, launches = run_path(cfg, data, "mag")
@@ -2574,6 +2774,137 @@ def check_segment(ops: dict) -> dict:
             "launches_by_path": {"segment": launches["coo_spmm"]},
             "peak_extra_GB": {"segment": seg_gb, "csr": csr_gb},
             "propagate_vs_csr_max_rel_err": err[1]}
+
+
+def _bf16_hops(padded, x0: torch.Tensor, scale: float, order: int) -> tuple:
+    """K2-seg's bf16-carry form against its plain version, ``order`` fused
+    ppr hops one at a time on a shared input (each takes the plain hop's
+    output): (elements differing, the largest difference in bf16 ulps,
+    the largest |got - want|), y and acc of every row."""
+    cur, acc, differ, ulps, worst = x0, x0.clone(), 0, 0.0, 0.0
+    for _ in range(order):
+        got_y, got_acc = torch.empty_like(cur), acc.clone()
+        spmm_segment_prop_step(padded, cur, got_y, got_acc, scale, True)
+        torch.cuda.synchronize(DEV)
+        want_y, want_acc = torch.empty_like(cur), acc.clone()
+        spmm_segment_prop_step_plain(padded, cur, want_y, want_acc, scale,
+                                     True)
+        for got, want in ((got_y, want_y), (got_acc, want_acc)):
+            differ += int((got != want).sum())
+            ulps = max(ulps, bf16_ulps(got, want))
+            worst = max(worst, float((got.float() - want.float()).abs()
+                                     .max()))
+        cur, acc = want_y, want_acc
+        del got_y, got_acc
+    return differ, ulps, worst
+
+
+def check_segment_bf16(ops: dict, seg: dict) -> dict:
+    """Phase 3g, bf16 carries: K2-seg's bf16-carry form hop by hop against
+    its plain version (every element bit for bit), the segment backend's
+    bf16_carry run as a path against the csr f32 run and beside the f32
+    segment run (``seg``, :func:`check_segment`'s entry) and the csr
+    bf16_carry run; the hop's times and bound."""
+    cfg = preset("Amazon2M")
+    adj, x = ops["adj"], ops["x"]
+    kw = dict(mode="ppr", order=cfg.order, alpha=cfg.alpha)
+    t0 = time.time()
+    (prop, precision), build_gb = _peak_gb(
+        lambda: propagate_mod.exact_propagator(
+            adj, x.shape[1], backend="segment", precision="bf16_carry",
+            device=DEV))
+    build_s = time.time() - t0
+    padded = prop.adj_op
+    n, nfeat = x.shape
+    e_pad, nnz = padded.num_edges_padded, ops["f32"].adj_op.nnz
+    scale = 1.0 - cfg.alpha
+    x0 = x.bfloat16() * bf16_round(cfg.alpha)
+    differ, ulps, worst = _bf16_hops(padded, x0, scale, cfg.order)
+    print(f"[3g] coo_spmm bf16 carries: {cfg.order} fused ppr hops at "
+          f"[{n},{nfeat}] one at a time on a shared input: elements "
+          f"differing {differ} (limit 0: bit for bit, every row), largest "
+          f"difference {ulps} bf16 ulps, max_abs_err {worst}", flush=True)
+    if differ:
+        raise AssertionError(f"coo_spmm's bf16 form disagrees with its "
+                             f"plain version: {differ} elements, {ulps} "
+                             f"ulps")
+    ref = ops["f32"](x, **kw)
+    _reset_counts()
+    out, gb = _peak_gb(lambda: prop(x, precision=precision, **kw))
+    launches = _read_counts()
+    err = _errors(out.float(), ref)
+    print(f"[3g] exact_propagator(backend='segment', "
+          f"precision='bf16_carry') {cfg.order} ppr hops: launches "
+          f"{launches}; out {out.dtype}; against the csr backend's f32 run "
+          f"max_abs_err {err[0]} max_rel_err {err[1]} (gate 2e-2); peak "
+          f"device memory above the resident operands {gb} GB (f32 segment "
+          f"{seg['peak_extra_GB']['segment']} GB); build {build_s} s "
+          f"({build_gb} GB)", flush=True)
+    bad = {k: v for k, v in launches.items()
+           if v != (cfg.order if k == "coo_spmm" else 0)}
+    if bad or out.dtype != torch.bfloat16 or not err[1] <= 2e-2:
+        raise AssertionError(f"segment bf16_carry path: launches {bad}, "
+                             f"dtype {out.dtype}, err {err}")
+    del out, ref
+    y, acc = torch.empty_like(x0), x0.clone()
+    ms = _time_ms(lambda: spmm_segment_prop_step(padded, x0, y, acc, scale,
+                                                 True), 30)
+    device_ms = _device_ms(lambda: spmm_segment_prop_step(
+        padded, x0, y, acc, scale, True), 30, "coo_spmm_kernel")
+    plain_ms = _time_ms(lambda: spmm_segment_prop_step_plain(
+        padded, x0, y, acc, scale, True), 3, warmup=1)
+    run_ms = _time_ms(lambda: prop(x, precision=precision, **kw), 10)
+    csr_ms = _time_ms(lambda: ops["bf16"](x, precision="bf16", **kw), 10)
+    # the library call: torch.sparse.mm on a bf16 CSR of the same operator
+    # (this torch's sparse.mm refuses a bf16 COO, noted beside it)
+    op = ops["f32"].adj_op
+    a = torch.sparse_csr_tensor(op.indptr, op.indices, op.values.bfloat16(),
+                                size=(op.num_rows, n))
+    library_ms = _time_ms(lambda: torch.sparse.mm(a, x0), 30)
+    library = "torch.sparse.mm on the bf16 CSR"
+    try:
+        coo = torch.sparse_coo_tensor(
+            torch.stack([padded.rows.long(), padded.cols.long()]),
+            padded.vals.bfloat16(), (n + 1, n)).coalesce()
+        coo_ms = _time_ms(lambda: torch.sparse.mm(coo, x0), 30)
+        library += f"; on the coalesced bf16 COO {coo_ms} ms"
+        del coo
+    except RuntimeError as e:
+        library += (f"; on the coalesced bf16 COO it raises: "
+                    f"{str(e).splitlines()[0][:120]}")
+    del a, y, acc
+    # each padded edge's 12 bytes, x read, acc read, y and acc written, at
+    # 2 bytes an element; the gathers read nnz rows of x
+    nbytes = 12 * e_pad + 8 * n * nfeat
+    bound_ms, bound_by = _bound(nbytes, 2 * nnz * nfeat + 2 * n * nfeat)
+    gather_bytes = nbytes + 2 * nfeat * nnz
+    gather_bound = gather_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[3g] coo_spmm bf16 fused hop at [{n},{nfeat}]: ms {ms} "
+          f"(device_ms {device_ms}; f32 form {seg['ms']}) plain_ms "
+          f"{plain_ms} bound_ms {bound_ms} ({bound_by}, "
+          f"{nbytes / 1e9:.3f} GB, {bound_ms / ms:.1%} of it; with its "
+          f"gathers {gather_bound} ms, {gather_bytes / 1e9:.3f} GB) "
+          f"library_ms {library_ms} ({library}, A x only); the whole "
+          f"{cfg.order}-hop run ms {run_ms}, against the f32 segment run's "
+          f"{seg['run_ms']} and the csr bf16_carry run's {csr_ms}",
+          flush=True)
+    return {"name": "coo_spmm_bf16_carry", "route": "cuda",
+            "source": "grandtpu_torch/csrc/coo_spmm.cu",
+            "replaces": "grandtpu/sparse/spmm.py:74",
+            "max_abs_err": worst, "max_bf16_ulps": ulps,
+            "elements_differing": differ,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "gather_bound_ms": gather_bound, "library_ms": library_ms,
+            "library": library,
+            "shape": f"x [{n},{nfeat}] bf16, {e_pad} padded edges, per "
+                     "fused hop (spmm_segment_prop_step on bf16 carries)",
+            "run_ms": run_ms, "csr_bf16_carry_run_ms": csr_ms,
+            "f32_segment_run_ms": seg["run_ms"],
+            "launches_by_path": {"segment_bf16_carry": launches["coo_spmm"]},
+            "peak_extra_GB": {"segment_bf16_carry": gb,
+                              "segment_f32": seg["peak_extra_GB"]["segment"]},
+            "propagate_vs_f32_max_rel_err": err[1]}
 
 
 # phase 8's runs: (name, halo_threshold, precision, the kernels of its
@@ -4264,6 +4595,8 @@ def main() -> int:
     mark("4d")
     launches, r_main = run_main_path(data)
     mark("5")
+    long_launches = run_long_run(data, r_main)
+    mark("5g")
     profile_path(preset("reddit").replace(dataset=DATASET, epochs=2), data,
                  "profile")
     mark("6")
@@ -4341,6 +4674,7 @@ def main() -> int:
     sweep_launches = precision_sweep(ops)
     mark("7")
     seg = check_segment(ops)
+    seg_bf16 = check_segment_bf16(ops, seg)
     mark("3g")
     d1 = check_d1(ops)
     mark("8")
@@ -4372,6 +4706,7 @@ def main() -> int:
 
     k1["launches_by_path"] = {
         "reddit": launches["dropnode_mean"],
+        "reddit_resumed": long_launches["dropnode_mean"],
         "reddit_mesh": mesh_launches["dropnode_mean"],
         "reddit_tp": mesh_steps["dense_tp"]["launches"]["dropnode_mean"],
         "amazon": amazon_launches["dropnode_mean"],
@@ -4380,6 +4715,7 @@ def main() -> int:
     p1 = push_reddit["launches"]["jax"]
     k2["launches_by_path"] = {
         "reddit": launches["csr_spmm_prop"],
+        "reddit_resumed": long_launches["csr_spmm_prop"],
         "mag": mag_launches["csr_spmm_prop"],
         "amazon": amazon_launches["csr_spmm_prop"],
         "sweep": sweep_launches["csr_spmm_prop"],
@@ -4441,8 +4777,10 @@ def main() -> int:
         k["launches"] = sum(k["launches_by_path"].values())
     pushes = push_entries(push_reddit, push_amazon, push_hub,
                           bucket_launches, push_sharded)
+    seg_bf16["hub"] = hub["segment"].pop("bf16_carry")
     seg["hub"] = hub["segment"]
     served = serving_entries(seg, d1, serve)
+    served.insert(1, seg_bf16)
     # 9p's launches, summed over its ranks
     for k in (k1, k2, *fast, *k3, *k3_window, *pushes, *served):
         for path, counts in proc["launches"].items():

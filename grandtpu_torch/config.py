@@ -105,7 +105,7 @@ class GrandConfig:
     resume: bool = False             # resume from ckpt_dir/latest.npz
     save_every: int = 0              # full-state ckpt every N evals (0=off)
     metrics_path: Optional[str] = None  # JSONL metrics stream
-    profile_dir: Optional[str] = None   # jax.profiler trace output
+    profile_dir: Optional[str] = None   # torch.profiler Chrome traces
 
     # test-time exact-propagation precision (reference computes this on the
     # host in f32/f64, model.py:186-210 — f32 is the parity default).

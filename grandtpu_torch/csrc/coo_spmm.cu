@@ -54,6 +54,19 @@
 // its plain version (sparse/spmm.py::spmm_segment_prop_step_plain), which
 // groups a split row's terms as the chunks do. Offsets into x and y are
 // 64-bit: E * F passes 2^31 near the Amazon2M stand-in.
+//
+// bf16 carries (exact_propagate's bf16_carry): x, y and acc are bf16, the
+// rest is the f32 form. grandtpu's segment hop on bf16 x computes each
+// term x[c] * v in f32 (bf16 times the f32 edge value promotes), and its
+// scatter-add promotes the bf16 accumulator to f32 too (jax's
+// _scatter_impl: promote_dtypes, then one convert back): each row is an
+// f32 sum of f32 terms in edge order, rounded to bf16 once, and the ppr
+// update then runs in bf16 (csr_hop.cuh's bf16 store_update, with the
+// scale rounded to bf16 by the caller). So the bf16 form gathers bf16
+// rows, adds as the f32 form adds, and rounds h, y and acc to bf16; it
+// moves half the carries' bytes. grandtpu also rounds at the boundaries
+// of its scan's 2^18-edge chunks, which the port does not: a row that
+// straddles one (at most one a chunk) may differ by about a bf16 ulp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,13 +80,15 @@ using grandtpu::Split;
 constexpr int kThreads = 256;
 constexpr int kRun = 32;   // edges a run holds; the plan's cap is >= kRun
 
+// T: the carries' type, float or __nv_bfloat16.
+template <typename T>
 struct SegArgs {
   const int32_t* rows;
   const int32_t* cols;
   const float* vals;
-  const float* x;
-  float* y;
-  float* acc;              // null when accumulate is 0
+  const T* x;
+  T* y;
+  T* acc;                  // null when accumulate is 0
   const float* row_scale;  // null: none
   int64_t num_edges;
   int num_rows, num_features;
@@ -91,8 +106,9 @@ struct Lane {
 
 // y and acc of row r at features f..f+V from the row's sums s and acc's
 // values a there (zero when not accumulating).
-template <int V>
-__device__ __forceinline__ void store_row(const SegArgs& a, int64_t r, int f,
+template <typename T, int V>
+__device__ __forceinline__ void store_row(const SegArgs<T>& a, int64_t r,
+                                          int f,
                                           const float (&s)[V],
                                           const float (&acc_v)[V]) {
   float h[V], stored[V];
@@ -105,9 +121,9 @@ __device__ __forceinline__ void store_row(const SegArgs& a, int64_t r, int f,
                          r * a.num_features + f, a.accumulate, stored);
 }
 
-template <int V>
-__device__ __forceinline__ void load_acc(const SegArgs& a, int64_t r, int f,
-                                         float (&acc_v)[V]) {
+template <typename T, int V>
+__device__ __forceinline__ void load_acc(const SegArgs<T>& a, int64_t r,
+                                         int f, float (&acc_v)[V]) {
   if (a.accumulate) {
     grandtpu::load_carries(a.acc + r * a.num_features + f, acc_v);
   } else {
@@ -117,8 +133,9 @@ __device__ __forceinline__ void load_acc(const SegArgs& a, int64_t r, int f,
 }
 
 // The rows r0..r1-1, which have no edge: h = 0, then the update.
-template <int V, int NPER>
-__device__ void empty_rows(const SegArgs& a, Lane l, int64_t r0, int64_t r1) {
+template <typename T, int V, int NPER>
+__device__ void empty_rows(const SegArgs<T>& a, Lane l, int64_t r0,
+                           int64_t r1) {
   const int F = a.num_features;
   for (int64_t r = r0; r < r1; ++r) {
     for (int f_tile = 0; f_tile < F; f_tile += l.lanes * NPER * V) {
@@ -140,8 +157,8 @@ __device__ void empty_rows(const SegArgs& a, Lane l, int64_t r0, int64_t r1) {
 // then, for a chunk (item >= 0), its sums before any scale into the
 // partial scratch, else the update of row r. Returns the end of the edges
 // walked (the row's end, or limit).
-template <int V, int NPER, int U>
-__device__ int64_t walk_row(const SegArgs& a, Lane l, int r, int64_t lo,
+template <typename T, int V, int NPER, int U>
+__device__ int64_t walk_row(const SegArgs<T>& a, Lane l, int r, int64_t lo,
                             int64_t limit, int64_t item) {
   const int F = a.num_features;
   const bool chunk = item >= 0;
@@ -233,7 +250,8 @@ __device__ int64_t walk_row(const SegArgs& a, Lane l, int r, int64_t lo,
 }
 
 // Whether edge e is past the last real edge: the end, or the padding.
-__device__ __forceinline__ bool past_real(const SegArgs& a, int64_t e) {
+template <typename T>
+__device__ __forceinline__ bool past_real(const SegArgs<T>& a, int64_t e) {
   return e >= a.num_edges || __ldg(a.rows + e) >= a.num_rows;
 }
 
@@ -253,9 +271,9 @@ __device__ int next_split_row(const Split& s, int r) {
                                              : 0x7fffffff;
 }
 
-template <int V, int NPER, int U, int MINB>
+template <typename T, int V, int NPER, int U, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
-coo_spmm_kernel(SegArgs a, int lanes, int log_lanes) {
+coo_spmm_kernel(SegArgs<T> a, int lanes, int log_lanes) {
   const Lane l{static_cast<int>(threadIdx.x & (lanes - 1)), lanes};
   const int64_t item =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >>
@@ -267,9 +285,9 @@ coo_spmm_kernel(SegArgs a, int lanes, int log_lanes) {
     const int r = sp.rows[sp.chunk_row[item]];
     const int64_t lo = sp.chunk_lo[item];
     const int64_t limit = lo + sp.cap < E ? lo + sp.cap : E;
-    const int64_t end = walk_row<V, NPER, U>(a, l, r, lo, limit, item);
+    const int64_t end = walk_row<T, V, NPER, U>(a, l, r, lo, limit, item);
     // the chunk that ends the last real row writes the rows after it
-    if (past_real(a, end)) empty_rows<V, NPER>(a, l, r + 1, n);
+    if (past_real(a, end)) empty_rows<T, V, NPER>(a, l, r + 1, n);
     if (!grandtpu::last_chunk(sp, item, lanes)) return;
     // the group that finished the row's last chunk adds the row's partials
     // in chunk order, then applies the update
@@ -291,7 +309,7 @@ coo_spmm_kernel(SegArgs a, int lanes, int log_lanes) {
   }
   const int64_t e0 = (item - sp.num_chunks) * kRun;
   if (e0 == 0 && past_real(a, 0)) {
-    empty_rows<V, NPER>(a, l, 0, n);   // no real edge at all
+    empty_rows<T, V, NPER>(a, l, 0, n);   // no real edge at all
     return;
   }
   if (e0 >= E) return;
@@ -305,10 +323,10 @@ coo_spmm_kernel(SegArgs a, int lanes, int log_lanes) {
   while (e < e_end) {
     const int r = __ldg(a.rows + e);
     if (r >= n) break;   // the padding: the last real row's owner is done
-    empty_rows<V, NPER>(a, l, prev + 1, r);
+    empty_rows<T, V, NPER>(a, l, prev + 1, r);
     if (r == split_row) break;         // its chunks add it
-    e = walk_row<V, NPER, U>(a, l, r, e, E, -1);
-    if (past_real(a, e)) empty_rows<V, NPER>(a, l, r + 1, n);
+    e = walk_row<T, V, NPER, U>(a, l, r, e, E, -1);
+    if (past_real(a, e)) empty_rows<T, V, NPER>(a, l, r + 1, n);
     prev = r;
   }
 }
@@ -321,12 +339,12 @@ struct Config {
 
 #define SEG_CONFIGS(X) X(4, 1, 4, 4) X(2, 2, 4, 4) X(1, 2, 4, 4)
 
-// The widest vector (4, 2 or 1 floats) that F and the alignment of x, y
+// The widest vector (4, 2 or 1 carries) that F and the alignment of x, y
 // and acc allow, and that width's configuration.
-Config pick_config(int num_features, const void* x, const void* y,
-                   const void* acc) {
+Config pick_config(int num_features, int carry_bytes, const void* x,
+                   const void* y, const void* acc) {
   for (int v = 4; v > 1; v /= 2) {
-    const unsigned int bytes = 4 * v;
+    const unsigned int bytes = carry_bytes * v;
     if (num_features % v == 0 && grandtpu::aligned(x, bytes) &&
         grandtpu::aligned(y, bytes) &&
         (acc == nullptr || grandtpu::aligned(acc, bytes))) {
@@ -336,25 +354,55 @@ Config pick_config(int num_features, const void* x, const void* y,
   return Config{1, 2, 4, 4};
 }
 
-template <int V, int NPER, int U, int MINB>
-int launch_kernel(const SegArgs& a, int64_t items, int lanes,
+template <typename T, int V, int NPER, int U, int MINB>
+int launch_kernel(const SegArgs<T>& a, int64_t items, int lanes,
                   cudaStream_t stream) {
   int log_lanes = 0;
   while ((1 << log_lanes) < lanes) ++log_lanes;
   const int64_t blocks = (items * lanes + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  coo_spmm_kernel<V, NPER, U, MINB>
+  coo_spmm_kernel<T, V, NPER, U, MINB>
       <<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
           a, lanes, log_lanes);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch for carries of type T (the pointers' type as the caller gives
+// them, float or __nv_bfloat16).
+template <typename T>
+int launch(const int32_t* rows, const int32_t* cols, const float* vals,
+           const void* x, void* y, void* acc, const float* row_scale,
+           int64_t num_edges, int num_rows, int num_features, float scale,
+           int accumulate, const Split& split, cudaStream_t s) {
+  const SegArgs<T> a{rows, cols, vals, static_cast<const T*>(x),
+                     static_cast<T*>(y),
+                     accumulate ? static_cast<T*>(acc) : nullptr, row_scale,
+                     num_edges, num_rows, num_features, scale, accumulate,
+                     split};
+  const Config c = pick_config(num_features, sizeof(T), x, y, a.acc);
+  const int vecs = (num_features + c.v - 1) / c.v;
+  int lanes = 1;
+  while (lanes < 32 && lanes * c.nper < vecs) lanes *= 2;
+  // the chunks, then the runs (one at least: with no real edge, run 0
+  // writes every row)
+  const int64_t runs = num_edges > 0 ? (num_edges + kRun - 1) / kRun : 1;
+  const int64_t items = split.num_chunks + runs;
+#define SEG_PICK(V, N, U, M)                                         \
+  if (c.v == V && c.nper == N && c.u == U && c.minb == M) {          \
+    return launch_kernel<T, V, N, U, M>(a, items, lanes, s);         \
+  }
+  SEG_CONFIGS(SEG_PICK)
+#undef SEG_PICK
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). rows, cols, vals
 // [num_edges] (rows sorted, the padding rows = num_rows at the end, which
-// the caller checks), x [num_cols, F] f32, y [num_rows, F] f32 (every row
-// written), acc [num_rows, F] f32 (may be null when accumulate is 0),
+// the caller checks), x [num_cols, F], y [num_rows, F] (every row
+// written), acc [num_rows, F] (may be null when accumulate is 0): f32, or
+// all three bf16 with carry_bf16 (scale then already rounded to bf16);
 // row_scale [num_rows] f32 or null. x must alias neither y nor acc. The
 // split plan as csr_spmm_prop's (num_chunks = 0: none; cap >= 32, the
 // run length): the split rows (ascending), each one's chunks
@@ -362,37 +410,25 @@ int launch_kernel(const SegArgs& a, int64_t items, int lanes,
 // edge; partial is f32 [num_chunks, F] scratch and counters int32 [split
 // rows], zero before the launch.
 extern "C" int coo_spmm(const int32_t* rows, const int32_t* cols,
-                        const float* vals, const float* x, float* y,
-                        float* acc, const float* row_scale, int64_t num_edges,
+                        const float* vals, const void* x, void* y, void* acc,
+                        const float* row_scale, int64_t num_edges,
                         int num_rows, int num_features, float scale,
-                        int accumulate, const int32_t* split_rows,
-                        const int32_t* chunk_ptr, const int32_t* chunk_row,
-                        const int32_t* chunk_lo, int num_chunks, int cap,
-                        float* partial, int* counters, void* stream) {
+                        int accumulate, int carry_bf16,
+                        const int32_t* split_rows, const int32_t* chunk_ptr,
+                        const int32_t* chunk_row, const int32_t* chunk_lo,
+                        int num_chunks, int cap, float* partial,
+                        int* counters, void* stream) {
   if (num_rows == 0 || num_features == 0) return 0;
   if (num_chunks > 0 && cap < kRun) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const SegArgs a{rows, cols, vals, x, y, accumulate ? acc : nullptr,
-                  row_scale, num_edges, num_rows, num_features, scale,
-                  accumulate,
-                  Split{split_rows, chunk_ptr, chunk_row, chunk_lo,
-                        num_chunks, num_chunks ? cap : 0x7fffffff, partial,
-                        counters}};
-  const Config c = pick_config(num_features, x, y, a.acc);
-  const int vecs = (num_features + c.v - 1) / c.v;
-  int lanes = 1;
-  while (lanes < 32 && lanes * c.nper < vecs) lanes *= 2;
-  // the chunks, then the runs (one at least: with no real edge, run 0
-  // writes every row)
-  const int64_t runs = num_edges > 0 ? (num_edges + kRun - 1) / kRun : 1;
-  const int64_t items = num_chunks + runs;
+  const Split split{split_rows, chunk_ptr, chunk_row, chunk_lo, num_chunks,
+                    num_chunks ? cap : 0x7fffffff, partial, counters};
   auto s = static_cast<cudaStream_t>(stream);
-#define SEG_PICK(V, N, U, M)                                         \
-  if (c.v == V && c.nper == N && c.u == U && c.minb == M) {          \
-    return launch_kernel<V, N, U, M>(a, items, lanes, s);            \
-  }
-  SEG_CONFIGS(SEG_PICK)
-#undef SEG_PICK
-  return static_cast<int>(cudaErrorInvalidValue);
+  return carry_bf16
+      ? launch<__nv_bfloat16>(rows, cols, vals, x, y, acc, row_scale,
+                              num_edges, num_rows, num_features, scale,
+                              accumulate, split, s)
+      : launch<float>(rows, cols, vals, x, y, acc, row_scale, num_edges,
+                      num_rows, num_features, scale, accumulate, split, s);
 }

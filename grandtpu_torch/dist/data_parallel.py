@@ -181,10 +181,10 @@ def joined_state(model, optimizer) -> dict:
         return (p.detach(), p.grad, st.get("exp_avg"), st.get("exp_avg_sq"))
 
     split = split_parameters(model)
-    blocks = {id(p) for ps, _ in split.values() for p in ps}
+    blocks = {id(p) for ps, *_ in split.values() for p in ps}
     out = {name: four(p) for name, p in model.named_parameters()
            if id(p) not in blocks}
-    for name, (ps, join) in split.items():
+    for name, (ps, join, _) in split.items():
         parts = [four(p) for p in ps]
         out[name] = tuple(None if parts[0][i] is None
                           else join([q[i] for q in parts]) for i in range(4))

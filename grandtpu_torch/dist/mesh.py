@@ -266,6 +266,16 @@ class Mesh:
         return self.column(self.model_shards[0]).gather_rows(
             [p.detach() for p in ps])
 
+    def row_blocks(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """The inverse of :meth:`gather_row_blocks`: ``x`` (whole, with or
+        without its zero padding rows) padded with zero rows to a multiple
+        of the data rows and cut into n_data equal row blocks, those of
+        this process's data rows in order (views of ``x``'s device)."""
+        per = -(-x.shape[0] // self.n_data)
+        pad = x.new_zeros(per * self.n_data - x.shape[0], *x.shape[1:])
+        parts = torch.cat([x, pad]).split(per)
+        return [parts[d] for d in dict.fromkeys(self.data_shards)]
+
     def reduce_sum(self, xs: list[torch.Tensor]) -> torch.Tensor:
         """The sum of every shard's tensor on the first local device, added
         in shard order (the same bits on every rank). The backward hands
@@ -408,6 +418,13 @@ class Mesh:
                                                   self.model_group)
                   for t in part.unbind()]
         return torch.cat(ps, dim)
+
+    def column_blocks(self, x: torch.Tensor, dim: int) -> list:
+        """The inverse of :meth:`gather_columns`: ``x``'s n_model equal
+        blocks along ``dim``, those of this process's model columns in
+        order (views on ``x``'s device)."""
+        parts = x.chunk(self.n_model, dim)
+        return [parts[c] for c in self.local_columns]
 
 
 @functools.lru_cache(maxsize=64)

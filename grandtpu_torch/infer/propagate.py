@@ -21,8 +21,10 @@ are, else K2-q8), 'int8mxu' and 'int8cast' (force one of the two), and
 ``exact_propagate`` adds 'bf16_carry': bf16 terms AND bf16 carries (half
 the [n, F] memory). The dense backend ignores the precision; so does the
 'segment' one as grandtpu's does ('auto', 'bf16' and 'int8' run its f32
-hop, 'int8mxu' and 'int8cast' raise). 'segment' with bf16 carries raises
-(ROADMAP Queue A 15).
+hop, 'int8mxu' and 'int8cast' raise). 'segment' with bf16 carries
+(bf16_carry) runs K2-seg's bf16 form: f32 terms summed in f32, each row
+rounded to bf16 once, the update in bf16, as grandtpu's scatter-add,
+which promotes its bf16 accumulator to f32.
 
 An int8 run quantizes its first hop's input in full (column maxima, then
 the quantize); each later hop quantizes with the maxima that the hop
@@ -127,13 +129,8 @@ class Propagator:
             if rv is not None:
                 self.row_val = torch.as_tensor(rv, device=self.device)
         elif backend == "segment":
-            if dtype == BF16:
-                # grandtpu's segment hop then scatter-adds in bf16, in an
-                # order atomics cannot keep
-                raise NotImplementedError(
-                    "backend 'segment' with bf16 carries (bf16_carry) is not "
-                    "ported yet (ROADMAP Queue A 15: K2-seg with bf16 "
-                    "carries)")
+            # K2-seg: f32 or bf16 carries, each row added in edge order by
+            # its owner, no atomics
             self.adj_op = PaddedCSR.from_scipy(a_norm, device=self.device)
         else:
             raise ValueError(f"unknown propagation backend {backend!r} "

@@ -62,17 +62,12 @@ class MagMLP(nn.Module):
         (d) of the vocabulary padded with zero rows to a multiple of the
         data rows, on the device of the first of its row's local shards
         (every model shard of the row reads it)."""
-        table = self.table.detach()
-        v, h = table.shape
-        n = mesh.n_data
-        per = -(-v // n)
-        padded = torch.cat([table, table.new_zeros(per * n - v, h)])
-        blocks = padded.split(per)
+        blocks = mesh.row_blocks(self.table.detach())
         del self.table
         self.table_shards = nn.ParameterList(
-            nn.Parameter(blocks[d].to(mesh.devices[mesh.data_shards.index(d)],
-                                      copy=True))
-            for d in dict.fromkeys(mesh.data_shards))
+            nn.Parameter(b.to(mesh.devices[mesh.data_shards.index(d)],
+                              copy=True))
+            for b, d in zip(blocks, dict.fromkeys(mesh.data_shards)))
         self.vocab_mesh = mesh
         return self
 
@@ -84,31 +79,36 @@ class MagMLP(nn.Module):
         width, or the classes with one layer) does not divide."""
         table = self.table.detach()
         _check_width(table.shape[1], mesh, "the table's width")
-        parts = table.chunk(mesh.n_model, 1)
         del self.table
         self.table_columns = nn.ParameterList(
-            nn.Parameter(parts[c].to(mesh.devices[mesh.model_shards.index(c)],
-                                     copy=True).contiguous())
-            for c in mesh.local_columns)
+            nn.Parameter(b.to(mesh.devices[mesh.model_shards.index(c)],
+                              copy=True).contiguous())
+            for b, c in zip(mesh.column_blocks(table, 1),
+                            mesh.local_columns))
         if self.fcs:
             split_fc(self.fcs[0], mesh, 1)
         self.model_mesh = mesh
         return self
 
     def table_blocks(self):
-        """(blocks, join) of a sharded table as ``split_parameters`` gives
-        them (vocab rows, or column blocks), or None for a whole one."""
+        """(blocks, join, cut) of a sharded table as ``split_parameters``
+        gives them (vocab rows, or column blocks), or None for a whole
+        one."""
         if self.model_mesh is not None:
+            mesh = self.model_mesh
             return (list(self.table_columns),
-                    lambda ts: self.model_mesh.gather_columns(ts, 1))
+                    lambda ts: mesh.gather_columns(ts, 1),
+                    lambda t: mesh.column_blocks(t, 1))
         if self.vocab_mesh is not None:
-            return list(self.table_shards), self.vocab_mesh.gather_row_blocks
+            mesh = self.vocab_mesh
+            return (list(self.table_shards), mesh.gather_row_blocks,
+                    mesh.row_blocks)
         return None
 
     def sharded_parameters(self) -> list:
         """The parameters of which each rank holds only its own blocks (a
         vocab-sharded table, or the column blocks over 'model')."""
-        return [p for blocks, _ in split_parameters(self).values()
+        return [p for blocks, *_ in split_parameters(self).values()
                 for p in blocks]
 
     def vocab_window(self, d: int) -> tuple[int, int]:
@@ -123,7 +123,7 @@ class MagMLP(nn.Module):
         split = self.table_blocks()
         if split is None:
             return self.table.detach()
-        blocks, join = split
+        blocks, join, _ = split
         return join(blocks)
 
     @torch.no_grad()

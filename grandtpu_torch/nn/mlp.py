@@ -231,14 +231,14 @@ def split_fc(fc: nn.Linear, mesh, dim: int) -> None:
     ``dim`` (0: column-parallel, the bias split too; 1: row-parallel),
     one ``nn.Parameter`` block a local model column, on the device of the
     first of its column's local shards."""
-    devices = {c: mesh.devices[mesh.model_shards.index(c)]
-               for c in mesh.local_columns}
+    devices = [mesh.devices[mesh.model_shards.index(c)]
+               for c in mesh.local_columns]
 
     def blocks(t, d):
         _check_width(t.shape[d], mesh, "a width of")
-        parts = t.detach().chunk(mesh.n_model, d)
-        return nn.ParameterList(nn.Parameter(parts[c].to(dev, copy=True))
-                                for c, dev in devices.items())
+        return nn.ParameterList(
+            nn.Parameter(part.to(dev, copy=True)) for part, dev in
+            zip(mesh.column_blocks(t.detach(), d), devices))
 
     weight = blocks(fc.weight, dim)
     del fc.weight
@@ -250,17 +250,20 @@ def split_fc(fc: nn.Linear, mesh, dim: int) -> None:
 
 
 def _fc_split(fc: nn.Linear, mesh) -> dict:
-    """{"weight" / "bias": (its blocks, join)} of each parameter of ``fc``
-    split over 'model' (:func:`split_fc`); ``join`` as
+    """{"weight" / "bias": (its blocks, join, cut)} of each parameter of
+    ``fc`` split over 'model' (:func:`split_fc`); ``join`` and ``cut`` as
     :func:`split_parameters` says."""
     if not hasattr(fc, "weight_shards"):
         return {}
+
+    def split(blocks, dim):
+        return (list(blocks), functools.partial(mesh.gather_columns, dim=dim),
+                functools.partial(mesh.column_blocks, dim=dim))
+
     column = hasattr(fc, "bias_shards")
-    out = {"weight": (list(fc.weight_shards), functools.partial(
-        mesh.gather_columns, dim=0 if column else 1))}
+    out = {"weight": split(fc.weight_shards, 0 if column else 1)}
     if column:
-        out["bias"] = (list(fc.bias_shards),
-                       functools.partial(mesh.gather_columns, dim=0))
+        out["bias"] = split(fc.bias_shards, 0)
     return out
 
 
@@ -272,7 +275,7 @@ def fc_tensors(fc: nn.Linear, mesh) -> tuple:
     out = []
     for k in ("weight", "bias"):
         if k in split:
-            blocks, join = split[k]
+            blocks, join, _ = split[k]
             out.append(join(blocks))
         else:
             out.append(getattr(fc, k).detach())
@@ -280,12 +283,13 @@ def fc_tensors(fc: nn.Linear, mesh) -> tuple:
 
 
 def split_parameters(model) -> dict:
-    """{whole name: (its blocks, join)} of each parameter that ``model``
-    (an ``MLP`` or ``MagMLP``) holds in blocks over a mesh: the blocks are
-    this process's ``nn.Parameter``s, and ``join(tensors)``, given one
-    tensor a block (their values, gradients or Adam moments), returns the
-    whole tensor detached on the first local device (a collective when
-    the blocks span ranks)."""
+    """{whole name: (its blocks, join, cut)} of each parameter that
+    ``model`` (an ``MLP`` or ``MagMLP``) holds in blocks over a mesh: the
+    blocks are this process's ``nn.Parameter``s; ``join(tensors)``, given
+    one tensor a block (their values, gradients or Adam moments), returns
+    the whole tensor detached on the first local device (a collective when
+    the blocks span ranks); ``cut(whole)`` is its inverse, one tensor a
+    block (no collective)."""
     out = {f"fcs.{i}.{k}": v for i, fc in enumerate(model.fcs)
            for k, v in _fc_split(fc, model.model_mesh).items()}
     table = getattr(model, "table_blocks", lambda: None)()
@@ -320,7 +324,7 @@ class MLP(nn.Module):
     def sharded_parameters(self) -> list:
         """The parameters split over 'model' (each rank holds its own
         columns' blocks)."""
-        return [p for blocks, _ in split_parameters(self).values()
+        return [p for blocks, *_ in split_parameters(self).values()
                 for p in blocks]
 
     @torch.no_grad()

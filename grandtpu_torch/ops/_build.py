@@ -51,9 +51,9 @@ _SIGNATURES = {
     # x_bf16, stream
     "quantize_with_amax": [_P] * 5 + [_I, _I, _I, _P],
     # rows, cols, vals, x, y, acc, row_scale, num_edges, num_rows,
-    # num_features, scale, accumulate, split_rows, chunk_ptr, chunk_row,
-    # chunk_lo, num_chunks, cap, partial, counters, stream
-    "coo_spmm": [_P] * 7 + [ctypes.c_int64, _I, _I, ctypes.c_float, _I]
+    # num_features, scale, accumulate, carry_bf16, split_rows, chunk_ptr,
+    # chunk_row, chunk_lo, num_chunks, cap, partial, counters, stream
+    "coo_spmm": [_P] * 7 + [ctypes.c_int64, _I, _I, ctypes.c_float, _I, _I]
                 + [_P] * 4 + [_I, _I, _P, _P, _P],
     # x, item_src, item_ptr, dst, num_items, amax, col_scale, out, num_out,
     # num_features, quantize, stream

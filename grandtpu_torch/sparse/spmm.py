@@ -196,6 +196,16 @@ def bf16_round(v: float) -> float:
     return float(torch.tensor(v, dtype=torch.float32).to(BF16))
 
 
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| of two bf16 tensors in units of the bf16
+    ulp at the larger magnitude of the two (a diagnostic of how far a
+    kernel's bf16 output is from its plain version's)."""
+    got, want = got.double(), want.double()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got - want).abs() / ulp).max())
+
+
 def _row_sums(indptr: torch.Tensor, term,
               out: torch.Tensor) -> torch.Tensor:
     """``out[r] += term(e)`` for the edges ``e`` of each row ``r`` (edges
@@ -762,14 +772,14 @@ def spmm_segment_prop_step_plain(padded: PaddedCSR, cur_in: torch.Tensor,
                                  row_scale: torch.Tensor | None = None
                                  ) -> None:
     """Plain PyTorch version of :func:`spmm_segment_prop_step`: each row's
-    terms ``x[c]·v`` added in edge order (a split row's by chunks, then
-    the chunks in order, as the kernel groups them), the padding skipped,
-    then the update."""
+    f32 terms ``x[c]·v`` added in f32 in edge order (a split row's by
+    chunks, then the chunks in order, as the kernel groups them), the
+    padding skipped, then the update in the carries' dtype."""
     n = padded.num_nodes
     bounds = torch.arange(n + 1, dtype=torch.int32, device=cur_in.device)
     op = types.SimpleNamespace(
         indptr=torch.searchsorted(padded.rows, bounds), plan=padded.plan)
-    h = _hop_sums(op, lambda e: cur_in[padded.cols[e].long()]
+    h = _hop_sums(op, lambda e: cur_in[padded.cols[e].long()].float()
                   * padded.vals[e, None],
                   torch.zeros(cur_out.shape, device=cur_out.device))
     if row_scale is not None:
@@ -790,9 +800,11 @@ def _segment_launch(name: str, padded: PaddedCSR, x: torch.Tensor,
         [] if row_scale is None else [row_scale])
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: all tensors must be on {x.device}")
-    if any(t.dtype != torch.float32 for t in [x] + carries) or (
-            row_scale is not None and row_scale.dtype != torch.float32):
-        raise TypeError(f"{name} wants f32 x, carries and row scale")
+    if (x.dtype not in (torch.float32, BF16)
+            or any(t.dtype != x.dtype for t in carries)
+            or (row_scale is not None and row_scale.dtype != torch.float32)):
+        raise TypeError(f"{name} wants x and carries all f32 or all bf16, "
+                        "and an f32 row scale")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
     if (tuple(x.shape) != (padded.num_cols, nfeat)
@@ -807,12 +819,15 @@ def _segment_launch(name: str, padded: PaddedCSR, x: torch.Tensor,
     plan = padded.plan
     split, _scratch = _plan_args(name, types.SimpleNamespace(plan=plan), x,
                                  torch.float32)
+    bf16 = x.dtype == BF16
     check(load_kernels().coo_spmm(
         padded.rows.data_ptr(), padded.cols.data_ptr(),
         padded.vals.data_ptr(), x.data_ptr(), y.data_ptr(),
         acc.data_ptr() if accumulate else None, _ptr(row_scale),
-        padded.num_edges_padded, n, nfeat, float(scale), int(accumulate),
-        *split, torch.cuda.current_stream(x.device).cuda_stream), "coo_spmm")
+        padded.num_edges_padded, n, nfeat,
+        bf16_round(scale) if bf16 else float(scale), int(accumulate),
+        int(bf16), *split,
+        torch.cuda.current_stream(x.device).cuda_stream), "coo_spmm")
     return True
 
 
@@ -824,8 +839,11 @@ def spmm_segment_prop_step(padded: PaddedCSR, cur_in: torch.Tensor,
     cur_in`` for ``A`` as :class:`PaddedCSR` (each row's terms in edge
     order), ``cur_out = scale * h`` (with ``row_scale`` [num_nodes] f32:
     ``(h · row_scale[r]) · scale``, two roundings, D1's scatter variant),
-    then ``acc += cur_out`` if ``accumulate``. f32 carries [num_nodes, F]
-    (every row written), ``cur_in`` [num_cols, F] aliasing neither."""
+    then ``acc += cur_out`` if ``accumulate``. Carries [num_nodes, F]
+    (every row written), ``cur_in`` [num_cols, F] aliasing neither, all
+    f32, or all bf16: grandtpu's segment hop on bf16 carries (f32 terms
+    summed in f32, ``h`` rounded to bf16, the update in bf16 with the
+    scale rounded to bf16)."""
     if cur_in.device.type == "cpu":
         spmm_segment_prop_step_plain(padded, cur_in, cur_out, acc, scale,
                                      accumulate, row_scale)
@@ -839,7 +857,8 @@ def spmm_segment_plain(padded: PaddedCSR, x: torch.Tensor,
                        out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`spmm_segment`."""
     if out is None:
-        out = torch.empty((padded.num_nodes, x.shape[1]), device=x.device)
+        out = torch.empty((padded.num_nodes, x.shape[1]), dtype=x.dtype,
+                          device=x.device)
     spmm_segment_prop_step_plain(padded, x, out, None, 1.0, False)
     return out
 
@@ -847,9 +866,9 @@ def spmm_segment_plain(padded: PaddedCSR, x: torch.Tensor,
 def spmm_segment(padded: PaddedCSR, x: torch.Tensor,
                  out: torch.Tensor | None = None) -> torch.Tensor:
     """K2-seg's bare product ``y = A @ x`` for ``A`` as :class:`PaddedCSR`,
-    ``x`` [num_cols, F] f32: the hop's kernel with scale 1 and no update.
-    Writes every row of ``out`` [num_nodes, F] f32 (a new one if None) and
-    returns it."""
+    ``x`` [num_cols, F] f32 or bf16: the hop's kernel with scale 1 and no
+    update. Writes every row of ``out`` [num_nodes, F] of x's dtype (a new
+    one if None) and returns it."""
     if out is not None and tuple(out.shape) != (padded.num_nodes,
                                                 x.shape[-1]):
         raise ValueError(f"spmm_segment: out must be [{padded.num_nodes}, "
@@ -857,7 +876,8 @@ def spmm_segment(padded: PaddedCSR, x: torch.Tensor,
     if x.device.type == "cpu":
         return spmm_segment_plain(padded, x, out)
     if out is None:
-        out = torch.empty((padded.num_nodes, x.shape[-1]), device=x.device)
+        out = torch.empty((padded.num_nodes, x.shape[-1]),
+                          dtype=x.dtype, device=x.device)
     if _segment_launch("spmm_segment", padded, x, out, None, 1.0, False,
                        None):
         spmm_segment.launches += 1

@@ -37,6 +37,10 @@ class TopKProp:
         pos[self.sources] = np.arange(self.sources.shape[0], dtype=np.int32)
         self._pos_of_node = pos
 
+    @property
+    def k(self) -> int:
+        return self.cols.shape[1]
+
     def row_positions(self, node_ids: np.ndarray) -> np.ndarray:
         """Map global node ids -> row positions (raises if any is absent)."""
         pos = self._pos_of_node[np.asarray(node_ids, dtype=np.int64)]

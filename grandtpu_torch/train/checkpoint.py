@@ -11,17 +11,22 @@ example ``params|['fcs']/[0]/['w']``). ``__meta__`` holds the JSON bytes of
 
 The trees are grandtpu's, as numpy: :func:`grandtpu_torch.convert.mlp_to_jax`
 and ``mag_to_jax`` make them from the port's modules, ``mlp_from_jax`` and
-``mag_from_jax`` build modules from them (:func:`load_model`). The orbax
-backend is not ported.
+``mag_from_jax`` build modules from them (:func:`load_model`). A full
+training state (``latest.npz``) adds the ``opt`` section, optax's Adam
+state: torch ``Adam``'s ``exp_avg``, ``exp_avg_sq`` and ``step`` are its
+``mu``, ``nu`` and ``count`` (:func:`training_trees`,
+:func:`restore_training`). The orbax backend is not ported.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import os
 
 import numpy as np
+import torch
 import torch.distributed as tdist
 
 _ORBAX = "ROADMAP Queue A 5: the orbax checkpoint backend"
@@ -215,3 +220,109 @@ def load_model(path: str, mlp_cfg, *, sparse: bool, device="cuda"):
         path, params_template=template[0], state_template=template[1])
     build = mag_from_jax if sparse else mlp_from_jax
     return build(params, state, mlp_cfg, device), meta
+
+
+def _param_leaves(model) -> list:
+    """(whole parameter name, its leaf's keys in grandtpu's params tree,
+    whether the leaf is the parameter transposed) of an ``MLP`` or
+    ``MagMLP``."""
+    from grandtpu_torch.nn.mag_mlp import MagMLP
+
+    out = ([("table", ("emb", "table"), False)]
+           if isinstance(model, MagMLP) else [])
+    for i in range(len(model.fcs)):
+        out += [(f"fcs.{i}.weight", ("fcs", i, "w"), True),
+                (f"fcs.{i}.bias", ("fcs", i, "b"), False)]
+    for i in range(len(model.bns)):
+        out += [(f"bns.{i}.weight", ("bns", i, "scale"), False),
+                (f"bns.{i}.bias", ("bns", i, "bias"), False)]
+    return out
+
+
+def _leaf(tree, keys):
+    return functools.reduce(lambda t, k: t[k], keys, tree)
+
+
+def _zeros_like(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zeros_like(v) for v in tree]
+    return np.zeros_like(tree)
+
+
+def _moved(model, name: str) -> bool:
+    """Whether Adam moves parameter ``name``: not the BatchNorms' when
+    ``use_bn`` is off (they get no gradient, so torch's Adam keeps no
+    state for them)."""
+    return model.cfg.use_bn or not name.startswith("bns.")
+
+
+def training_templates(model) -> tuple:
+    """(params, state) trees of ``model``'s shapes, whole and unpadded, for
+    :func:`load_checkpoint` (an unsharded model of the same config on the
+    CPU: no collective, and no weights read)."""
+    return model_trees(type(model)(model.cfg))
+
+
+def training_trees(model, optimizer, weight_decay: float) -> tuple:
+    """(params, state, opt) of ``model`` and its ``torch.optim.Adam`` in
+    grandtpu's layout: ``opt`` is :func:`adam_tree` of the moments (zeros
+    for a parameter with no Adam state) with ``count`` the step count.
+    Whole trees, a sharded model's values and moments joined (a collective
+    over processes: every rank calls it)."""
+    from grandtpu_torch.nn.mlp import split_parameters
+
+    params, state = model_trees(model)
+    split = split_parameters(model)
+    named = dict(model.named_parameters())
+    mu, nu = _zeros_like(params), _zeros_like(params)
+    for name, keys, transposed in _param_leaves(model):
+        blocks, join, _ = split.get(name, ([named.get(name)], None, None))
+        sts = [optimizer.state.get(p, {}) for p in blocks]
+        for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            if key not in sts[0]:
+                continue
+            m = sts[0][key] if join is None else join([st[key] for st in sts])
+            m = m.detach().cpu().numpy()
+            _leaf(tree, keys[:-1])[keys[-1]] = m.T if transposed else m
+    count = max((int(st["step"]) for st in optimizer.state.values()
+                 if "step" in st), default=0)
+    return params, state, adam_tree(mu, nu, count, weight_decay)
+
+
+@torch.no_grad()
+def restore_training(model, optimizer, params, state, opt=None) -> None:
+    """Load grandtpu-layout trees into ``model`` (whole or sharded: each
+    block takes its part) and, with ``opt`` (optax's Adam state, as
+    :func:`training_trees` writes it), the moments and step count into
+    ``optimizer``'s state. A parameter that Adam does not move (an unused
+    BatchNorm) gets no state, whatever the file holds for it."""
+    from grandtpu_torch.nn.mlp import split_parameters
+
+    adam = None if opt is None else next(s for s in opt if hasattr(s, "mu"))
+    split = split_parameters(model)
+    named = dict(model.named_parameters())
+    for name, keys, transposed in _param_leaves(model):
+        def cut(tree):
+            a = np.asarray(_leaf(tree, keys))
+            whole = torch.as_tensor(np.ascontiguousarray(
+                a.T if transposed else a))
+            if name not in split:
+                return [named[name]], [whole]
+            ps, _, cut_whole = split[name]
+            return ps, cut_whole(whole)
+
+        targets, values = cut(params)
+        for p, v in zip(targets, values):
+            p.copy_(v)
+        if adam is None or not _moved(model, name):
+            continue
+        for p, mu, nu in zip(targets, cut(adam.mu)[1], cut(adam.nu)[1]):
+            optimizer.state[p] = {
+                "step": torch.tensor(float(adam.count), dtype=torch.float32),
+                "exp_avg": mu.to(p.device, p.dtype).clone(),
+                "exp_avg_sq": nu.to(p.device, p.dtype).clone()}
+    for bn, s in zip(model.bns, state["bns"]):
+        bn.running_mean.copy_(torch.as_tensor(np.asarray(s["mean"])))
+        bn.running_var.copy_(torch.as_tensor(np.asarray(s["var"])))

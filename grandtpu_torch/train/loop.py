@@ -5,25 +5,92 @@ Around the step, it does what the reference's epoch x batch loop does
 upload them once, evaluate every ``eval_batch`` steps, early-stop on
 patience with the acc/both rules, and keep the best state. It makes the
 same ``RandomState`` calls in the same order as ``grandtpu``, so both
-packages see identical batch schedules. With ``ckpt_dir`` it writes
-``{ckpt_dir}/best.npz`` at every eval that improves, as grandtpu does
-(``grandtpu/train/loop.py:273-281``). On a mesh over processes every rank
-runs this loop: the eval metrics are replicated, so every rank takes the
-same improvement and stop decisions, gathers the checkpoint's trees, and
-rank 0 alone writes the file. Resume, periodic full-state saves, metrics streams,
-scan-rolled steps and preemption are not ported
-(``trainer.check_supported`` rejects their config fields).
+packages see identical batch schedules. Beyond the reference, as
+grandtpu's:
+
+- with ``ckpt_dir``, ``best.npz`` at every eval that improves, and with
+  ``save_every`` the full training state (``latest.npz``: the weights,
+  the Adam state and the NEXT step's index) every ``save_every`` evals;
+- ``resume``: continue from ``latest.npz`` (the weights, the Adam state,
+  the step index and the best acc/loss), with the best weights from
+  ``best.npz``. As in grandtpu the epoch loop restarts at 0 with the same
+  ``RandomState`` calls; the early-stop counter, the epoch and the
+  generators' states are not saved;
+- graceful preemption: SIGTERM or SIGINT finishes the step group in
+  flight (the steps up to the next eval or the epoch's end,
+  :func:`plan_groups`), saves ``latest.npz`` and stops;
+- ``metrics_path``: a JSONL line an eval, ``preempted`` and ``train_end``
+  (with :class:`~grandtpu_torch.observe.StepTimer`'s summary).
+
+On a mesh over processes every rank runs this loop: the eval metrics are
+replicated, so every rank takes the same improvement and stop decisions,
+gathers the checkpoint's trees, and rank 0 alone writes the files. A
+preemption there saves only when no parameter is sharded across the ranks
+(grandtpu's rule: signals reach the ranks at different steps, and the
+gather is a collective); the ``save_every`` checkpoints, which every rank
+reaches together, are then the resume point. grandtpu's scan-rolled
+groups (``scan_steps``) are not ported: each group runs step by step.
 """
 
 from __future__ import annotations
 
+import signal
+import threading
 import time
 
 import numpy as np
 import torch
 
 from grandtpu_torch.config import GrandConfig
-from grandtpu_torch.train.checkpoint import model_trees, save_checkpoint
+from grandtpu_torch.observe import MetricsLogger, StepTimer
+from grandtpu_torch.train.checkpoint import (adam_tree, load_checkpoint,
+                                             model_trees, restore_training,
+                                             save_checkpoint,
+                                             training_templates,
+                                             training_trees)
+
+
+def plan_groups(nb0: int, n_steps: int, eval_batch: int) -> list:
+    """grandtpu's ``_plan_groups``: an epoch's steps cut into groups that
+    end exactly at the eval steps (num_batch % eval_batch == 0) or at the
+    epoch's end. Returns [(epoch-local start, length, eval_after)]."""
+    groups = []
+    i = 0
+    while i < n_steps:
+        nb = nb0 + i
+        nxt = nb if nb % eval_batch == 0 else \
+            nb + (eval_batch - nb % eval_batch)
+        k = min(nxt - nb + 1, n_steps - i)
+        groups.append((i, k, nb + k - 1 == nxt))
+        i += k
+    return groups
+
+
+class _PreemptionGuard:
+    """SIGTERM/SIGINT set a flag that the loop reads at the end of each step
+    group. Handlers install only on the main thread (a limit of the signal
+    module); elsewhere the guard is inert. The previous handlers come back
+    on exit."""
+
+    _SIGNALS = (signal.SIGTERM, signal.SIGINT)
+
+    def __init__(self):
+        self.requested = False
+        self._prev = {}
+
+    def _handler(self, signum, frame):
+        self.requested = True
+
+    def __enter__(self):
+        if threading.current_thread() is threading.main_thread():
+            for s in self._SIGNALS:
+                self._prev[s] = signal.signal(s, self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        for s, h in self._prev.items():
+            signal.signal(s, h)
+        return False
 
 
 def pad_batch(idx: np.ndarray, size: int):
@@ -36,22 +103,70 @@ def pad_batch(idx: np.ndarray, size: int):
     return idx, mask
 
 
+def _sharded_over_ranks(model) -> bool:
+    """Whether some parameter of ``model`` is split across processes (its
+    gather for a checkpoint is a collective)."""
+    return any(m is not None and m.multiprocess
+               for m in (getattr(model, "vocab_mesh", None),
+                         getattr(model, "model_mesh", None)))
+
+
+def _resume(cfg: GrandConfig, model, optimizer, best: dict, snapshot,
+            verbose) -> int:
+    """Load ``latest.npz`` into ``model`` and ``optimizer``, the best
+    acc/loss into ``best`` and the best weights from ``best.npz`` (the
+    loaded ones when it is missing). Returns the step index to continue
+    at (0 when there is no checkpoint)."""
+    latest = f"{cfg.ckpt_dir}/latest.npz"
+    params_t, state_t = training_templates(model)
+    opt_t = (None if optimizer is None
+             else adam_tree(params_t, weight_decay=cfg.weight_decay))
+    try:
+        params, state, opt, meta = load_checkpoint(
+            latest, params_template=params_t, state_template=state_t,
+            opt_template=opt_t)
+    except FileNotFoundError:
+        verbose(f"no checkpoint at {latest}; starting fresh")
+        return 0
+    # the best weights live in best.npz, not in latest.npz: a resumed run
+    # that never improves still tests with them
+    try:
+        bp, bs, _, _ = load_checkpoint(f"{cfg.ckpt_dir}/best.npz",
+                                       params_template=params_t,
+                                       state_template=state_t)
+        restore_training(model, None, bp, bs)
+        best["state"] = snapshot()
+    except FileNotFoundError:
+        bp = None
+    restore_training(model, optimizer, params, state, opt)
+    if bp is None:
+        best["state"] = snapshot()
+    best["acc"] = float(meta["best_val_acc"])
+    best["loss"] = float(meta["best_val_loss"])
+    num_batch = int(meta["num_batch"])
+    verbose(f"resumed from {latest} at batch {num_batch}")
+    return num_batch
+
+
 def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
                       step_fn, eval_fn, snapshot, train_positions,
                       sample_positions, train_labels_all, device,
-                      verbose, model=None, batch_transform=None,
+                      verbose, model=None, optimizer=None,
+                      edges_per_step: int = 0, batch_transform=None,
                       row_padded=None):
     """Run the early-stopped training.
 
     step_fn(batch, num_batch) -> metrics; eval_fn() -> (val_loss, val_acc);
     snapshot() -> a copy of the model state, kept for the best eval;
-    ``model``: the trained module, saved at each improving eval when
-    ``cfg.ckpt_dir`` is set (a vocab-sharded table gathered, with the
-    ``row_padded`` meta, as grandtpu writes a mesh run's);
-    ``batch_transform``: applied to each step's batch (a mesh's
-    ``shard_batch``, grandtpu ``loop.py:236-237``).
+    ``model`` and ``optimizer`` (its ``torch.optim.Adam``): what the
+    checkpoints save and a resume loads (needed with ``cfg.ckpt_dir``; a
+    vocab-sharded table gathered, with the ``row_padded`` meta, as
+    grandtpu writes a mesh run's); ``edges_per_step``: the StepTimer's
+    edges a step; ``batch_transform``: applied to each step's batch (a
+    mesh's ``shard_batch``, grandtpu ``loop.py:236-237``).
     Returns a dict with the best eval (``best``: acc, loss, state, batch,
-    epoch), ``num_batch``, per-step host ``batch_times`` and ``history``.
+    epoch), ``num_batch``, ``preempted``, per-step host ``batch_times``
+    and ``history``.
     """
     best = {"acc": 0.0, "loss": np.inf, "state": snapshot(),
             "batch": 0, "epoch": 0}
@@ -59,83 +174,133 @@ def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
     num_batch = 0
     batch_times: list[float] = []
     history: list[dict] = []
-    stop = False
+    stop = preempted = False
 
-    for epoch in range(cfg.epochs):
-        order_perm = rng.permutation(len(train_positions))
-        n_steps = -(-len(order_perm) // cfg.batch_size)
-        rows_np = np.empty((n_steps, cfg.batch_size
-                            + cfg.unlabel_batch_size), np.int64)
-        labels_np = np.empty((n_steps, cfg.batch_size), np.int64)
-        masks_np = np.empty((n_steps, cfg.batch_size), np.float32)
-        umasks_np = np.empty((n_steps, cfg.unlabel_batch_size), np.float32)
-        for i, start in enumerate(range(0, len(order_perm),
-                                        cfg.batch_size)):
-            sel = order_perm[start: start + cfg.batch_size]
-            tr_idx, label_mask = pad_batch(sel, cfg.batch_size)
-            # unlabeled batch: uniform subsample (reference model.py:107-113)
-            un_sel = rng.permutation(len(sample_positions))[
-                : cfg.unlabel_batch_size]
-            un_idx, un_mask = pad_batch(un_sel, cfg.unlabel_batch_size)
-            rows_np[i] = np.concatenate([train_positions[tr_idx],
-                                         sample_positions[un_idx]])
-            labels_np[i] = train_labels_all[tr_idx]
-            masks_np[i] = label_mask
-            umasks_np[i] = un_mask
-        rows_e, labels_e, masks_e, umasks_e = (
-            torch.as_tensor(a, device=device)
-            for a in (rows_np, labels_np, masks_np, umasks_np))
+    metrics_log = MetricsLogger(cfg.metrics_path)
+    timer = StepTimer(edges_per_step=edges_per_step)
+    if cfg.resume and cfg.ckpt_dir:
+        num_batch = _resume(cfg, model, optimizer, best, snapshot, verbose)
 
-        for i in range(n_steps):
-            bt0 = time.time()
-            batch = {"rows": rows_e[i], "labels": labels_e[i],
-                     "label_mask": masks_e[i], "unlabel_mask": umasks_e[i]}
-            if batch_transform is not None:
-                batch = batch_transform(batch)
-            metrics = step_fn(batch, num_batch)
-            batch_times.append(time.time() - bt0)
+    def save(name: str, nb: int, full: bool) -> None:
+        if full:
+            params, state, opt = training_trees(model, optimizer,
+                                                cfg.weight_decay)
+        else:
+            (params, state), opt = model_trees(model), None
+        save_checkpoint(f"{cfg.ckpt_dir}/{name}", params=params, state=state,
+                        opt_state=opt, num_batch=nb,
+                        best_val_acc=best["acc"], best_val_loss=best["loss"],
+                        row_padded=row_padded, backend=cfg.ckpt_backend)
 
-            if num_batch % cfg.eval_batch == 0:
-                val_loss, val_acc = (float(v) for v in eval_fn())
-                train_loss = float(metrics["loss"])
-                history.append({"batch": num_batch, "val_loss": val_loss,
-                                "val_acc": val_acc, "loss": train_loss})
-                verbose(f"epoch {epoch}, batch {num_batch}, "
-                        f"validation loss {val_loss:.4f}, "
-                        f"validation acc {val_acc:.4f}")
-                # reference improvement rule (model.py:344-346)
-                if val_acc >= best["acc"]:
-                    if cfg.stop_mode == "acc" or (
-                            cfg.stop_mode == "both"
-                            and val_loss <= best["loss"]):
-                        best.update(acc=val_acc, loss=val_loss,
-                                    state=snapshot(), batch=num_batch,
-                                    epoch=epoch)
-                        bad_counter = 0
-                        if cfg.ckpt_dir:
-                            params, state = model_trees(model)
-                            save_checkpoint(
-                                f"{cfg.ckpt_dir}/best.npz", params=params,
-                                state=state, num_batch=num_batch,
-                                best_val_acc=best["acc"],
-                                best_val_loss=best["loss"],
-                                row_padded=row_padded,
-                                backend=cfg.ckpt_backend)
-                else:
-                    bad_counter += 1
-                if bad_counter >= cfg.patience:
-                    verbose(f"Early stop! Min loss: {best['loss']:.4f}, "
-                            f"Max accuracy: {best['acc']:.4f}, "
-                            f"num batch: {num_batch}, epoch: {epoch}")
-                    stop = True
+    guard = _PreemptionGuard()
+    with guard:
+        for epoch in range(cfg.epochs):
+            order_perm = rng.permutation(len(train_positions))
+            n_steps = -(-len(order_perm) // cfg.batch_size)
+            rows_np = np.empty((n_steps, cfg.batch_size
+                                + cfg.unlabel_batch_size), np.int64)
+            labels_np = np.empty((n_steps, cfg.batch_size), np.int64)
+            masks_np = np.empty((n_steps, cfg.batch_size), np.float32)
+            umasks_np = np.empty((n_steps, cfg.unlabel_batch_size),
+                                 np.float32)
+            for i, start in enumerate(range(0, len(order_perm),
+                                            cfg.batch_size)):
+                sel = order_perm[start: start + cfg.batch_size]
+                tr_idx, label_mask = pad_batch(sel, cfg.batch_size)
+                # unlabeled batch: uniform subsample (reference
+                # model.py:107-113)
+                un_sel = rng.permutation(len(sample_positions))[
+                    : cfg.unlabel_batch_size]
+                un_idx, un_mask = pad_batch(un_sel, cfg.unlabel_batch_size)
+                rows_np[i] = np.concatenate([train_positions[tr_idx],
+                                             sample_positions[un_idx]])
+                labels_np[i] = train_labels_all[tr_idx]
+                masks_np[i] = label_mask
+                umasks_np[i] = un_mask
+            rows_e, labels_e, masks_e, umasks_e = (
+                torch.as_tensor(a, device=device)
+                for a in (rows_np, labels_np, masks_np, umasks_np))
+
+            for i0, k, eval_after in plan_groups(num_batch, n_steps,
+                                                 cfg.eval_batch):
+                for i in range(i0, i0 + k):
+                    bt0 = time.time()
+                    batch = {"rows": rows_e[i], "labels": labels_e[i],
+                             "label_mask": masks_e[i],
+                             "unlabel_mask": umasks_e[i]}
+                    if batch_transform is not None:
+                        batch = batch_transform(batch)
+                    metrics = step_fn(batch, num_batch + i - i0)
+                    batch_times.append(time.time() - bt0)
+                timer.times.extend(batch_times[-k:])
+                num_batch += k - 1    # the global index of the group's last
+
+                if eval_after and num_batch % cfg.eval_batch == 0:
+                    val_loss, val_acc = (float(v) for v in eval_fn())
+                    train_loss = float(metrics["loss"])
+                    history.append({"batch": num_batch, "val_loss": val_loss,
+                                    "val_acc": val_acc, "loss": train_loss})
+                    metrics_log.log(batch=num_batch, epoch=epoch,
+                                    val_loss=val_loss, val_acc=val_acc,
+                                    train_loss=train_loss,
+                                    batch_time_s=batch_times[-1])
+                    verbose(f"epoch {epoch}, batch {num_batch}, "
+                            f"validation loss {val_loss:.4f}, "
+                            f"validation acc {val_acc:.4f}")
+                    improved = False
+                    # reference improvement rule (model.py:344-346)
+                    if val_acc >= best["acc"]:
+                        if cfg.stop_mode == "acc" or (
+                                cfg.stop_mode == "both"
+                                and val_loss <= best["loss"]):
+                            best.update(acc=val_acc, loss=val_loss,
+                                        state=snapshot(), batch=num_batch,
+                                        epoch=epoch)
+                            bad_counter = 0
+                            improved = True
+                    else:
+                        bad_counter += 1
+                    if cfg.ckpt_dir:
+                        if improved:
+                            save("best.npz", num_batch, full=False)
+                        n_evals = num_batch // cfg.eval_batch
+                        if cfg.save_every and n_evals % cfg.save_every == 0:
+                            # latest.npz holds the NEXT step's index, so a
+                            # resume never re-runs the step it saved after
+                            save("latest.npz", num_batch + 1, full=True)
+                    if bad_counter >= cfg.patience:
+                        verbose(f"Early stop! Min loss: {best['loss']:.4f}, "
+                                f"Max accuracy: {best['acc']:.4f}, "
+                                f"num batch: {num_batch}, epoch: {epoch}")
+                        stop = True
+                if stop:
+                    # early stop exits BEFORE the increment, matching the
+                    # reference's counting (model.py:355-360)
+                    break
+                num_batch += 1
+                if guard.requested:
+                    if cfg.ckpt_dir and not _sharded_over_ranks(model):
+                        save("latest.npz", num_batch, full=True)
+                        verbose(f"preemption signal at batch {num_batch}: "
+                                f"state saved, stopping (resume=True "
+                                f"continues)")
+                    else:
+                        verbose(f"preemption signal at batch {num_batch}: "
+                                f"stopping WITHOUT a fresh save "
+                                f"(cross-process-sharded state; the last "
+                                f"save_every checkpoint is the resume "
+                                f"point)" if cfg.ckpt_dir else
+                                f"preemption signal at batch {num_batch}: "
+                                f"stopping (no ckpt_dir)")
+                    metrics_log.log(event="preempted", num_batch=num_batch)
+                    preempted = stop = True
+                    break
             if stop:
-                # early stop exits BEFORE the increment, matching the
-                # reference's counting (model.py:355-360)
                 break
-            num_batch += 1
-        if stop:
-            break
+    metrics_log.log(event="train_end", num_batch=num_batch,
+                    best_val_acc=best["acc"], **timer.summary())
+    metrics_log.close()
     verbose(f"Optimization finished. Best val acc {best['acc']:.4f} "
             f"at batch {best['batch']}")
-    return {"best": best, "num_batch": num_batch,
+    return {"best": best, "num_batch": num_batch, "preempted": preempted,
             "batch_times": batch_times, "history": history}

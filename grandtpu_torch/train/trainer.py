@@ -3,9 +3,12 @@ CSR features goes to the MAG engine (``trainer_sparse.train_sparse``);
 the dense-feature engine here runs
 
   load -> self-loops -> unlabeled pool -> GFPush top-k (``push_backend``:
-  the host C++ kernel, or the dense or bucketed push on the device) ->
-  device-resident features and top-k table -> training loop -> exact
-  full-graph propagation with the best weights -> chunked classification.
+  the host C++ kernel, or the dense or bucketed push on the device; with
+  ``push_cache_dir`` through its on-disk cache) -> device-resident
+  features and top-k table -> training loop (checkpoints, resume,
+  preemption, the metrics stream: ``train/loop.py``) -> exact full-graph
+  propagation with the best weights -> chunked classification (profiled
+  with ``profile_dir``).
 
 With ``num_devices > 1`` both engines train data-parallel on a mesh (D2,
 ``dist/data_parallel.py``) and predict through the row-partitioned
@@ -37,33 +40,27 @@ from grandtpu_torch.dist.data_parallel import (check_batch_split,
                                                split_rows)
 from grandtpu_torch.infer import exact_propagator, test_accuracy
 from grandtpu_torch.nn.mlp import MLPConfig, init_mlp
-from grandtpu_torch.ppr import gfpush
+from grandtpu_torch.observe import profile_trace
+from grandtpu_torch.ppr import cached_gfpush, gfpush
 from grandtpu_torch.train.loop import run_training_loop
 from grandtpu_torch.train.step import (StepConfig, build_eval_step,
                                        build_train_step, make_optimizer)
 
-_CKPT = "ROADMAP Queue A 5: resume, periodic saves, metrics, profiles"
-
 
 def check_supported(cfg: GrandConfig) -> None:
     """Raise NotImplementedError for config fields whose feature the port
-    does not have yet, naming the ROADMAP item; nothing is ignored.
-    ``ckpt_dir`` (the best-weights npz) is ported."""
+    does not have, naming the ROADMAP item; nothing is ignored. The orbax
+    backend needs JAX's orbax package; ``scan_steps`` is grandtpu's
+    scan-rolled step groups, whose counterpart is a CUDA graph."""
     unported = [
         (cfg.ckpt_backend != "npz", f"ckpt_backend {cfg.ckpt_backend!r}",
          "ROADMAP Queue A 5: the orbax checkpoint backend"),
-        (cfg.resume, "resume", _CKPT),
-        (cfg.save_every != 0, "save_every", _CKPT),
-        (cfg.metrics_path is not None, "metrics_path", _CKPT),
-        (cfg.profile_dir is not None, "profile_dir", _CKPT),
-        (cfg.push_cache_dir is not None, "push_cache_dir",
-         "ROADMAP Queue A 5: the push cache"),
         (cfg.scan_steps, "scan_steps",
-         "ROADMAP Queue A: CUDA-graph step groups"),
+         "ROADMAP Queue A 11: CUDA-graph step groups"),
     ]
     for bad, what, item in unported:
         if bad:
-            raise NotImplementedError(f"{what} is not ported yet ({item})")
+            raise NotImplementedError(f"{what} is not ported ({item})")
 
 
 def train_mesh(cfg: GrandConfig, mesh, device: torch.device):
@@ -107,6 +104,18 @@ class TrainResult:
     predict_precision: Optional[str] = None
     model: Optional[nn.Module] = None   # MLP or MagMLP, best weights
     history: list = dataclasses.field(default_factory=list)
+    preempted: bool = False    # a SIGTERM/SIGINT stopped the training
+
+
+def push(cfg: GrandConfig, adj_sl, sources, device):
+    """The GFPush top-k rows of ``sources``, through ``cfg.push_cache_dir``'s
+    cache when it is set (grandtpu ``trainer.py:80-88``)."""
+    kw = dict(prop_mode=cfg.prop_mode, order=cfg.order, alpha=cfg.alpha,
+              rmax=cfg.rmax, k=cfg.top_k, backend=cfg.push_backend,
+              device=device)
+    if cfg.push_cache_dir:
+        return cached_gfpush(cfg.push_cache_dir, adj_sl, sources, **kw)
+    return gfpush(adj_sl, sources, **kw)
 
 
 def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
@@ -143,9 +152,7 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
     idx_sample = rng.permutation(data.idx_test)[: cfg.unlabel_num]
     idx_unlabel = np.concatenate([data.idx_val, idx_sample])
     sources = np.concatenate([data.idx_train, idx_unlabel])
-    tk = gfpush(adj_sl, sources, prop_mode=cfg.prop_mode, order=cfg.order,
-                alpha=cfg.alpha, rmax=cfg.rmax, k=cfg.top_k,
-                backend=cfg.push_backend, device=device)
+    tk = push(cfg, adj_sl, sources, device)
     preprocess_time = time.time() - t_start
     verbose(f"preprocessing done, time: {preprocess_time:.3f}s")
 
@@ -199,32 +206,35 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
         train_positions=tk.row_positions(data.idx_train),
         sample_positions=tk.row_positions(idx_sample),
         train_labels_all=labels_int[data.idx_train],
-        device=device, verbose=verbose, model=model,
+        device=device, verbose=verbose, model=model, optimizer=optimizer,
+        edges_per_step=(cfg.batch_size + cfg.unlabel_batch_size) * tk.k
+        * cfg.sample,
         batch_transform=batch_transform)
     best = out["best"]
     model.load_state_dict(best["state"])
     step_operands = None
 
     # exact full-graph propagation test with the best weights; on a mesh
-    # row-partitioned (D1), as grandtpu's
-    t_prop = time.time()
-    if mesh is not None:
-        prop = dist.dist_exact_propagate(
-            mesh, adj_sl, features, mode=cfg.prop_mode, order=cfg.order,
-            alpha=cfg.alpha, precision=cfg.predict_precision)
-        predict_precision = None
-    else:
-        propagator, precision = exact_propagator(
-            adj_sl, features.shape[1], precision=cfg.predict_precision,
-            device=device)
-        prop = propagator(features, mode=cfg.prop_mode, order=cfg.order,
-                          alpha=cfg.alpha, precision=precision)
-        predict_precision = propagator.last_precision
-        del propagator      # the operator, before the head's activations
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    propagate_time = time.time() - t_prop
-    test_acc = test_accuracy(model, prop, data.idx_test, labels_int)
+    # row-partitioned (D1), as grandtpu's; profiled with profile_dir
+    with profile_trace(cfg.profile_dir):
+        t_prop = time.time()
+        if mesh is not None:
+            prop = dist.dist_exact_propagate(
+                mesh, adj_sl, features, mode=cfg.prop_mode, order=cfg.order,
+                alpha=cfg.alpha, precision=cfg.predict_precision)
+            predict_precision = None
+        else:
+            propagator, precision = exact_propagator(
+                adj_sl, features.shape[1], precision=cfg.predict_precision,
+                device=device)
+            prop = propagator(features, mode=cfg.prop_mode, order=cfg.order,
+                              alpha=cfg.alpha, precision=precision)
+            predict_precision = propagator.last_precision
+            del propagator  # the operator, before the head's activations
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        propagate_time = time.time() - t_prop
+        test_acc = test_accuracy(model, prop, data.idx_test, labels_int)
     total_time = time.time() - t_start
     verbose(f"Total time elapsed: {total_time:.4f}s")
     verbose(f"Test Accuracy {test_acc:.4f}")
@@ -237,4 +247,4 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
         batch_time_median=float(np.median(bt)) if bt else 0.0,
         preprocess_time=preprocess_time, propagate_time=propagate_time,
         predict_precision=predict_precision, model=model,
-        history=out["history"])
+        history=out["history"], preempted=out["preempted"])

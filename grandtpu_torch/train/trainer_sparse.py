@@ -51,7 +51,7 @@ from grandtpu_torch.nn.mag_mlp import MagMLP, init_mag_mlp
 from grandtpu_torch.nn.mlp import MLPConfig
 from grandtpu_torch.nn.sparse_input import (PaddedFeatures, embed_prop,
                                             embed_prop_window)
-from grandtpu_torch.ppr import gfpush
+from grandtpu_torch.observe import profile_trace
 from grandtpu_torch.train.checkpoint import adam_tree, row_padded_meta
 from grandtpu_torch.train.loop import run_training_loop
 from grandtpu_torch.train.step import (_clip_, _eval_metrics, _eval_sharded,
@@ -59,7 +59,7 @@ from grandtpu_torch.train.step import (_clip_, _eval_metrics, _eval_sharded,
                                        _sharded_batch, _sharded_losses,
                                        make_optimizer)
 from grandtpu_torch.train.trainer import (TrainResult, check_supported,
-                                          train_mesh)
+                                          push, train_mesh)
 
 
 def build_sparse_steps(cfg: GrandConfig, model: MagMLP,
@@ -283,9 +283,7 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
     idx_sample = rng.permutation(data.idx_test)[: cfg.unlabel_num]
     idx_unlabel = np.concatenate([data.idx_val, idx_sample])
     sources = np.concatenate([data.idx_train, idx_unlabel])
-    tk = gfpush(adj_sl, sources, prop_mode=cfg.prop_mode, order=cfg.order,
-                alpha=cfg.alpha, rmax=cfg.rmax, k=cfg.top_k,
-                backend=cfg.push_backend, device=device)
+    tk = push(cfg, adj_sl, sources, device)
     padded = PaddedFeatures.from_csr(data.features)
     preprocess_time = time.time() - t_start
     verbose(f"preprocessing done, time: {preprocess_time:.3f}s")
@@ -339,7 +337,9 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
         train_positions=tk.row_positions(data.idx_train),
         sample_positions=tk.row_positions(idx_sample),
         train_labels_all=labels_int[data.idx_train],
-        device=device, verbose=verbose, model=model,
+        device=device, verbose=verbose, model=model, optimizer=optimizer,
+        edges_per_step=(cfg.batch_size + cfg.unlabel_batch_size) * tk.k
+        * cfg.sample,
         batch_transform=batch_transform, row_padded=row_padded)
     best = out.pop("best")
     model.load_state_dict(best.pop("state"))
@@ -347,33 +347,38 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
     # predict, phase-wise so the [n, H] power iteration never shares the
     # device with the training operands: embeddings first, then release the
     # optimizer state, the grads and the attr and top-k tables (the step
-    # and eval closures read the rebound locals), then propagate, then head
-    embs = embed_all_nodes(model.gathered_table(), embed_cols, embed_vals)
-    attr_cols = attr_vals = tk_cols = tk_vals = embed_cols = embed_vals = None
-    optimizer.state.clear()
-    model.zero_grad(set_to_none=True)
-    t_prop = time.time()
-    if mesh is not None:
-        # row-partitioned power iteration (D1), as grandtpu's mesh predict;
-        # the sharded propagators keep no record of their hops' form
-        prop = dist.dist_exact_propagate(
-            mesh, adj_sl, embs, mode=cfg.prop_mode, order=cfg.order,
-            alpha=cfg.alpha, precision=cfg.predict_precision)
-        predict_precision = None
-    else:
-        propagator, precision = exact_propagator(
-            adj_sl, embs.shape[1], precision=cfg.predict_precision,
-            device=device)
-        prop = propagator(embs, mode=cfg.prop_mode, order=cfg.order,
-                          alpha=cfg.alpha, precision=precision)
-        predict_precision = propagator.last_precision
-        del propagator      # the operator, before the head's activations
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    propagate_time = time.time() - t_prop
-    del embs
-    logits = head_logits(model, prop)
-    del prop
+    # and eval closures read the rebound locals), then propagate, then
+    # head; profiled with profile_dir
+    with profile_trace(cfg.profile_dir):
+        embs = embed_all_nodes(model.gathered_table(), embed_cols,
+                               embed_vals)
+        attr_cols = attr_vals = tk_cols = tk_vals = None
+        embed_cols = embed_vals = None
+        optimizer.state.clear()
+        model.zero_grad(set_to_none=True)
+        t_prop = time.time()
+        if mesh is not None:
+            # row-partitioned power iteration (D1), as grandtpu's mesh
+            # predict; the sharded propagators keep no record of their
+            # hops' form
+            prop = dist.dist_exact_propagate(
+                mesh, adj_sl, embs, mode=cfg.prop_mode, order=cfg.order,
+                alpha=cfg.alpha, precision=cfg.predict_precision)
+            predict_precision = None
+        else:
+            propagator, precision = exact_propagator(
+                adj_sl, embs.shape[1], precision=cfg.predict_precision,
+                device=device)
+            prop = propagator(embs, mode=cfg.prop_mode, order=cfg.order,
+                              alpha=cfg.alpha, precision=precision)
+            predict_precision = propagator.last_precision
+            del propagator  # the operator, before the head's activations
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        propagate_time = time.time() - t_prop
+        del embs
+        logits = head_logits(model, prop)
+        del prop
     preds = logits.argmax(1)
     test_acc = float(np.equal(preds[data.idx_test],
                               labels_int[data.idx_test]).mean())
@@ -388,4 +393,4 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
         batch_time_median=float(np.median(bt)) if bt else 0.0,
         preprocess_time=preprocess_time, propagate_time=propagate_time,
         predict_precision=predict_precision, model=model,
-        history=out["history"])
+        history=out["history"], preempted=out["preempted"])

@@ -26,6 +26,13 @@ computes and hands them in an npz. Parts, one test each:
   history and weights on every rank, one ``best.npz`` written by rank 0,
   loaded by the port on every rank and by grandtpu here, the row-padded
   table sliced back;
+- (f) ``longrun``: ``train()``'s long-run options over the processes:
+  only rank 0 writes the metrics stream and ``latest.npz``; every rank
+  resumes from it to the same weights (a digest taken as the resume loads
+  them) and the same history; a SIGTERM on every rank stops both engines
+  at the same step, with a fresh save for the replicated dense model and
+  none for the vocab-sharded MAG table (grandtpu's rule: its gather is a
+  collective that signals do not line up);
 - ``collectives``: every cross-process collective's forward and gradient
   against the one-process mesh's on the same inputs;
 - ``tp``: tensor parallelism over the ranks, both engines (the dense MLP's
@@ -445,6 +452,111 @@ def part_e2e(rank, world, shared):
         json.dump(report, f)
 
 
+def _digest(model) -> torch.Tensor:
+    """A checksum of a model's whole weights and buffers, a vocab-sharded
+    table gathered (a collective: every rank calls it), the same bits
+    giving the same value."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in [*model.named_parameters(), *model.named_buffers()]:
+        if not name.startswith("table_shards."):
+            h.update(t.detach().contiguous().numpy().tobytes())
+    if hasattr(model, "gathered_table"):
+        h.update(model.gathered_table().contiguous().numpy().tobytes())
+    return torch.tensor(list(h.digest()), dtype=torch.uint8)
+
+
+def part_longrun(rank, world, shared):
+    import signal
+
+    import torch.distributed as tdist
+
+    from grandtpu_torch.config import GrandConfig
+    from grandtpu_torch.train import loop, train
+    from grandtpu_torch.train import trainer as dense_trainer
+    from grandtpu_torch.train import trainer_sparse
+
+    writes, digests = [], []
+    real_save, real_restore = loop.save_checkpoint, loop.restore_training
+    loop.save_checkpoint = lambda *a, **k: writes.append(
+        (os.path.basename(a[0]), real_save(*a, **k)))
+
+    def restore(model, optimizer, *a):
+        real_restore(model, optimizer, *a)
+        if optimizer is not None:           # latest.npz, not best.npz
+            digests.append(_digest(model))
+
+    loop.restore_training = restore
+    report = {}
+    for engine, spec in (("dense", "synth:240:3:16"),
+                         ("sparse", "synth:240:3:30:sparse")):
+        base = os.path.join(shared, "longrun", engine)
+        cfg = GrandConfig(dataset=spec, epochs=2, patience=50, order=3,
+                          alpha=0.2, rmax=1e-6, top_k=8, hidden=16,
+                          batch_size=16, unlabel_batch_size=16,
+                          eval_batch=2, push_backend="numpy",
+                          num_devices=4, ckpt_dir=os.path.join(base, "ck"),
+                          save_every=1,
+                          metrics_path=os.path.join(base, "m.jsonl"))
+        writes.clear()
+        first = train(cfg, device="cpu")
+        tdist.barrier()
+        assert writes and all(ok == (rank == 0) for _, ok in writes), writes
+        lines = [json.loads(ln) for ln in open(cfg.metrics_path)]
+        # one writer: each eval once, then train_end
+        assert len(lines) == len(first.history) + 1, lines
+        assert lines[-1]["event"] == "train_end"
+        logs, digests[:] = [], []
+        res = train(cfg.replace(resume=True, epochs=4), device="cpu",
+                    log=logs.append)
+        assert any("resumed from" in str(m) for m in logs)
+        assert len(digests) == 1 and same_on_every_rank(digests), \
+            "the ranks resumed to other weights"
+        hist = torch.tensor([[h["batch"], h["val_loss"], h["val_acc"],
+                              h["loss"]] for h in res.history])
+        assert same_on_every_rank([hist]), "the resumed histories differ"
+        assert res.history[0]["batch"] > first.history[-1]["batch"]
+
+        # SIGTERM on every rank at the 3rd step: both stop after the group
+        stop_dir = os.path.join(base, "stop")
+        steps = {"n": 0}
+
+        def signalling(step):
+            def sig_step(*a, **k):
+                steps["n"] += 1
+                if steps["n"] == 3:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return step(*a, **k)
+            return sig_step
+
+        real_dense = dense_trainer.build_train_step
+        real_sparse = trainer_sparse.build_sparse_steps
+        dense_trainer.build_train_step = lambda *a, **k: signalling(
+            real_dense(*a, **k))
+        trainer_sparse.build_sparse_steps = lambda *a, **k: (
+            lambda st, ev: (signalling(st), ev))(*real_sparse(*a, **k))
+        logs, writes[:] = [], []
+        try:
+            stopped = train(cfg.replace(ckpt_dir=stop_dir, save_every=0,
+                                        metrics_path=None, epochs=4),
+                            device="cpu", log=logs.append)
+        finally:
+            dense_trainer.build_train_step = real_dense
+            trainer_sparse.build_sparse_steps = real_sparse
+        tdist.barrier()
+        assert stopped.preempted and stopped.num_batches == 3, \
+            stopped.num_batches
+        saved = "latest.npz" in os.listdir(stop_dir)
+        assert saved == (engine == "dense"), os.listdir(stop_dir)
+        if engine == "sparse":
+            assert any("WITHOUT a fresh save" in str(m) for m in logs)
+        report[engine] = {"num_batches": res.num_batches,
+                          "stopped": stopped.num_batches, "saved": saved}
+    with open(os.path.join(shared, f"longrun_{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
 COLLECTIVES = ("broadcast", "reduce_sum", "all_reduce_sum", "all_gather_0",
                "all_gather_1", "scatter_rows", "reduce_scatter_rows",
                "all_to_all", "pmax", "gather_rows")
@@ -657,7 +769,8 @@ def part_tp(rank, world, shared):
 
 
 PARTS = {"push": part_push, "dense": part_dense, "d1": part_d1,
-         "mag": part_mag, "e2e": part_e2e, "collectives": part_collectives,
+         "mag": part_mag, "e2e": part_e2e, "longrun": part_longrun,
+         "collectives": part_collectives,
          "card": part_card, "tp": part_tp}
 
 
@@ -819,6 +932,20 @@ def test_two_rank_trainers_end_to_end_with_checkpoints(shared):
                 np.testing.assert_array_equal(
                     np.asarray(params["emb"]["table"]), d["table"][:vocab])
                 assert meta["__row_padded__"]
+
+
+def test_two_rank_long_run_options(shared):
+    """(f) over 2 gloo ranks: rank 0 alone writes the metrics stream and
+    latest.npz, every rank resumes from it to the same weights and
+    history, and a preemption saves for the replicated dense model but not
+    for the vocab-sharded MAG table (grandtpu's ``saveable`` rule)."""
+    spawn("longrun", shared, timeout=240)
+    reports = []
+    for rank in range(WORLD):
+        with open(os.path.join(shared, f"longrun_{rank}.json")) as f:
+            reports.append(json.load(f))
+    assert reports[0] == reports[1]
+    assert reports[0]["dense"]["saved"] and not reports[0]["sparse"]["saved"]
 
 
 @pytest.fixture(scope="module")

@@ -83,12 +83,21 @@ def test_csr_plain_dispatch_on_cpu(small_graph):
 
 
 def test_unported_precision_raises(small_graph):
-    """Every precision and backend is ported; what still raises, naming its
-    ROADMAP item, is the 'segment' backend with bf16 carries."""
+    """Every precision and backend is ported: the 'segment' backend with
+    bf16 carries, the last one that raised, gives grandtpu's bf16 result
+    (the same bits here: f32 sums in edge order, each row rounded once)
+    within 2e-2 of f32."""
     adj, feats, _ = small_graph
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 15"):
-        exact_propagate(adj, feats, precision="bf16_carry",
-                        backend="segment", device="cpu")
+    kw = dict(precision="bf16_carry", backend="segment", order=5)
+    got = exact_propagate(adj, feats, device="cpu", **kw)
+    want = np.asarray(jax_exact_propagate(adj, feats, **kw))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  want.astype(np.float32))
+    f32 = exact_propagate(adj, feats, backend="segment", order=5,
+                          device="cpu").numpy()
+    err = np.abs(got.float().numpy() - f32).max() / np.abs(f32).max()
+    assert err <= 2e-2
 
 
 def test_predict_logits_and_accuracy_parity(small_graph):

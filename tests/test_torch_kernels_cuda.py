@@ -32,7 +32,8 @@ plain versions (K2-q8mxu's split hop bit for bit its unsplit one), the
 unsplit hops and misaligned views at those widths, rows shorter than the
 kernels' batch of edges and split rows whose last chunk is, and the Python
 mirrors of their configuration choice and alignment rule against the
-kernels' own; for K2-seg (coo_spmm), D1's halo_pack (its send plan: a row
+kernels' own; for K2-seg (coo_spmm; its bf16-carry form bit for bit, split
+hub rows included), D1's halo_pack (its send plan: a row
 every receiver needs, empty and all-padding groups, a row longer than a plan
 item, two windows of shared scales) and halo_hop (each form) and the
 quantize split (column_absmax, quantize_with_amax) 4-wide and 1-wide lanes,
@@ -60,7 +61,7 @@ from grandtpu_torch.nn.sparse_input import (embed_prop, embed_prop_backward,
                                             embed_prop_window,
                                             embed_prop_window_backward)
 from grandtpu_torch.ops._build import load_kernels
-from grandtpu_torch.sparse.spmm import (CSROperator, Q8HopConfig,
+from grandtpu_torch.sparse.spmm import (CSROperator, Q8HopConfig, bf16_ulps,
                                         q8_hop_align, q8_hop_config,
                                         quantize_columns,
                                         quantize_columns_plain,
@@ -1415,6 +1416,52 @@ def test_segment_prop_step_matches_plain(device, n, nfeat, hub, trailing,
         assert bool(empty[n - trailing:].all())
 
 
+@pytest.mark.parametrize("n,nfeat,hub,trailing", [
+    (2, 4, False, 1), (300, 1, False, 0), (300, 33, False, 7),
+    (9500, 100, True, 0), (9500, 64, True, 3), (9500, 602, True, 2),
+    (3000, 128, False, 5)])
+@pytest.mark.parametrize("accumulate", [True, False])
+def test_segment_prop_step_bf16_carries_match_plain(device, n, nfeat, hub,
+                                                    trailing, accumulate):
+    """K2-seg's bf16-carry form (bf16 x, y and acc; f32 terms summed in f32,
+    h rounded to bf16, the update in bf16 with a bf16-rounded scale)
+    against its plain version: every row bit for bit, split hub rows
+    included (both add a chunk's terms in edge order and the chunks in
+    order), one launch, the same bits on a second launch, and within
+    2e-2 of the f32 hop."""
+    from grandtpu_torch.sparse.spmm import (PaddedCSR,
+                                            spmm_segment_prop_step,
+                                            spmm_segment_prop_step_plain)
+    adj = _seg_case(n, hub, trailing)
+    padded = PaddedCSR.from_scipy(adj, device=device)
+    gen = torch.Generator(device).manual_seed(4)
+    x = torch.randn(n, nfeat, device=device, generator=gen).bfloat16()
+    acc0 = torch.randn(n, nfeat, device=device, generator=gen).bfloat16()
+
+    def hop(fn, dtype=torch.bfloat16):
+        y = torch.full((n, nfeat), 3.0, device=device, dtype=dtype)
+        acc = acc0.to(dtype, copy=True) if accumulate else None
+        fn(padded, x.to(dtype), y, acc, 0.8, accumulate)
+        return y, acc
+
+    before = spmm_segment_prop_step.launches
+    got = hop(spmm_segment_prop_step)
+    torch.cuda.synchronize()
+    assert spmm_segment_prop_step.launches == before + 1
+    want = hop(spmm_segment_prop_step_plain)
+    again = hop(spmm_segment_prop_step)
+    f32 = hop(spmm_segment_prop_step, torch.float32)
+    for g, w, a, f in zip(got, want, again, f32):
+        if w is None:
+            continue
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w), (int((g != w).sum()), bf16_ulps(g, w))
+        assert torch.equal(g, a)                       # deterministic
+        assert _rel_err(g.float(), f) <= 2e-2
+    empty = torch.as_tensor(np.diff(adj.indptr) == 0, device=device)
+    assert float(got[0][empty].float().abs().max()) == 0.0
+
+
 def test_segment_prop_step_with_no_real_edge(device):
     """An operator with no edge at all (a shard of padding only): every
     row written, y zero and acc unchanged in value."""
@@ -1437,6 +1484,10 @@ def test_coo_spmm_wrapper_checks(device):
     with pytest.raises(TypeError):
         spmm_segment(padded, torch.zeros(40, 4, dtype=torch.float64,
                                          device=device))
+    with pytest.raises(TypeError):                    # mixed carries
+        spmm_segment(padded, torch.zeros(40, 4, device=device),
+                     out=torch.zeros(40, 4, dtype=torch.bfloat16,
+                                     device=device))
     with pytest.raises(ValueError):
         spmm_segment(padded, torch.zeros(41, 4, device=device))
     with pytest.raises(ValueError):

@@ -449,8 +449,14 @@ def test_grandtpu_keywords_work_on_the_port(small_graph):
     want = np.asarray(jax_exact_propagate(adj, feats, **seg))
     assert rel(exact_propagate(adj, feats, device="cpu", **seg).numpy(),
                want) <= 1e-5
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 15"):
-        Propagator(adj, backend="segment", dtype=jnp.bfloat16, device="cpu")
+    # bf16 carries on the segment backend, given as JAX's dtype
+    jseg = JaxPropagator(adj, backend="segment", dtype=jnp.bfloat16)
+    port = Propagator(adj, backend="segment", dtype=jnp.bfloat16,
+                      device="cpu")
+    assert port.dtype == torch.bfloat16
+    w = np.asarray(jseg(feats, mode="ppr", order=3, alpha=0.1))
+    g = port(feats, mode="ppr", order=3, alpha=0.1)
+    assert within_one_bf16_ulp(g.float().numpy(), w.astype(np.float32))
     with pytest.raises(TypeError, match="bfloat16"):
         Propagator(adj, dtype=np.float64, device="cpu")
 

@@ -267,13 +267,17 @@ def test_segment_calibrate_returns_f32(graph):
 
 
 def test_segment_bf16_carry_decision(graph):
-    """grandtpu's segment backend takes bf16 carries (its scatter then adds
-    in bf16); the port raises, naming the ROADMAP item, rather than add in
-    another order or precision."""
+    """grandtpu's segment backend takes bf16 carries, and so does the
+    port's: its scatter-add promotes the bf16 accumulator to f32 (f32 sums
+    in edge order, each row rounded to bf16 once), as K2-seg's bf16 form
+    adds. The hub row (400 nonzeros) included, the two agree bit for bit
+    here."""
     adj, feats = graph
-    out = jax_exact_propagate(adj, feats, backend="segment", order=2,
-                              precision="bf16_carry")
-    assert out.dtype == jnp.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        exact_propagate(adj, feats, backend="segment", order=2,
-                        precision="bf16_carry", device="cpu")
+    want = jax_exact_propagate(adj, feats, backend="segment", order=2,
+                               precision="bf16_carry")
+    assert want.dtype == jnp.bfloat16
+    got = exact_propagate(adj, feats, backend="segment", order=2,
+                          precision="bf16_carry", device="cpu")
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want).astype(np.float32))

@@ -3,6 +3,7 @@
 import isolation."""
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -136,7 +137,10 @@ def test_cli_presets_and_unported_flag(capsys):
     ("metrics_path", "m.jsonl"), ("profile_dir", "prof"),
     ("scan_steps", True), ("num_devices", 2), ("push_cache_dir", "cache"),
 ])
-def test_unported_config_raises(field, value):
+def test_unported_config_raises(field, value, tmp_path):
+    """Only the orbax backend and ``scan_steps`` still raise, naming their
+    ROADMAP items. The long-run options that used to raise here run and
+    do what their field asks."""
     cfg = GrandConfig(dataset="synth:200:4:16").replace(**{field: value})
     if field == "num_devices":
         # data-parallel training is ported (tests/test_torch_dist_train.py);
@@ -145,8 +149,70 @@ def test_unported_config_raises(field, value):
         with pytest.raises(ValueError, match="unlabel_batch_size"):
             ttrainer.train(cfg.replace(batch_size=3), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.train(cfg, device="cpu")
+    if field in ("ckpt_backend", "scan_steps"):
+        item = "5" if field == "ckpt_backend" else "11"
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue A {item}"):
+            ttrainer.train(cfg, device="cpu")
+        return
+    base = GrandConfig(dataset="synth:400:4:16", epochs=4, eval_batch=1,
+                       patience=100)
+    ck = str(tmp_path / "ck")
+    if field in ("metrics_path", "profile_dir", "push_cache_dir"):
+        value = str(tmp_path / value)
+    logs = []
+    if field == "resume":
+        first = ttrainer.train(base.replace(ckpt_dir=ck, save_every=1),
+                               device="cpu")
+        got = ttrainer.train(base.replace(ckpt_dir=ck, resume=True,
+                                          epochs=6),
+                             device="cpu", log=logs.append)
+        assert any("resumed from" in str(m) for m in logs)
+        # the first run's last step saved the next one's index, its count
+        assert got.history[0]["batch"] == first.num_batches
+        return
+    got = ttrainer.train(base.replace(ckpt_dir=ck, **{field: value}),
+                         device="cpu", log=logs.append)
+    assert got.num_batches > 0 and not got.preempted
+    if field == "save_every":
+        # every 5th eval (one a step here) saves the next step's index
+        with np.load(os.path.join(ck, "latest.npz")) as z:
+            meta = json.loads(bytes(z["__meta__"]).decode())
+            assert "opt|[1]/.count" in z.files
+        assert meta["num_batch"] % 5 == 1
+    elif field == "metrics_path":
+        lines = [json.loads(ln) for ln in open(value)]
+        assert sum("val_acc" in ln for ln in lines) == len(got.history)
+        assert lines[-1]["event"] == "train_end"
+        assert lines[-1]["train_edges_per_s"] > 0
+    elif field == "profile_dir":
+        assert [f for f in os.listdir(value) if f.endswith(".json")]
+    else:
+        assert len(os.listdir(value)) == 1
+        again = ttrainer.train(base.replace(**{field: value}), device="cpu")
+        assert len(os.listdir(value)) == 1
+        assert again.history == got.history
+
+
+def test_cli_long_run_flags_reach_train(tmp_path, capsys):
+    """The CLI's generated flags for the long-run options reach train():
+    a run writes latest.npz, the metrics stream, a push-cache entry and a
+    trace; ``--resume true`` continues from latest.npz."""
+    d = str(tmp_path)
+    base = ["run", "--dataset", "synth:400:4:16", "--device", "cpu",
+            "--eval-batch", "2", "--ckpt-dir", f"{d}/ck",
+            "--push-cache-dir", f"{d}/pc"]
+    assert cli(base + ["--epochs", "2", "--save-every", "1",
+                       "--metrics-path", f"{d}/m.jsonl",
+                       "--profile-dir", f"{d}/prof"]) == 0
+    assert sorted(os.listdir(f"{d}/ck")) == ["best.npz", "latest.npz"]
+    assert len(os.listdir(f"{d}/pc")) == 1 and os.listdir(f"{d}/prof")
+    lines = [json.loads(ln) for ln in open(f"{d}/m.jsonl")]
+    assert lines[-1]["event"] == "train_end"
+    capsys.readouterr()
+    assert cli(base + ["--epochs", "3", "--resume", "true", "--visible",
+                       "true"]) == 0
+    assert "resumed from" in capsys.readouterr().out
 
 
 @pytest.fixture(scope="module")
