@@ -187,6 +187,15 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     collectives' times at the shard shapes (halo_pack through the
     propagator's send plan, also on the device alone), and the halo
     compression;
+8m. (after 8) D1 on the (2 x 2) mesh of the card (``make_mesh(2,
+    n_model=2, devices=[cuda:0] * 4)``), sharded along 'data' (all_gather
+    f32 and int8, halo int8, scatter f32: each model column a replica)
+    and along 'model' (all_gather f32, halo f32: each data row a
+    replica), each a path of its own with phase 8's launch counts on all
+    4 shards, every group's result equal, held to its plain run at phase
+    8's limits and bit for bit to the same form on a 1-D mesh of 2 shards
+    of the card; build and hop seconds and the bound beside phase 8's,
+    and the device memory the operators hold;
 5e. the slice's main path, serving: ``python -m grandtpu_torch.cli.main
     predict --preset Amazon2M --dataset synth:2000000:47:100 --ckpt
     <5d's best.npz>`` (run in this process through ``cli()``, its counts
@@ -262,6 +271,10 @@ Data-parallel training (D2) on meshes of the one card:
     4)`` over 3e's 12,050 sources, a path of its own: P1's mask, K2 and
     top-k launched exactly per shard and block, held to 3e's one-card P1
     under the row rule (max(1e-5, 2 rmax)); sources/s beside 3e's P1;
+3m. (after 3i; 8m's push, run where 3e's tables are) ``sharded_gfpush``
+    on the (2 x 2) mesh of the card along 'data' and along 'model', each a
+    path as 3i's (every group pushes every source), each equal element
+    for element to the push on ``make_mesh(2, devices=[cuda:0] * 2)``;
 9.  (after 6) the dense engine on ``make_mesh(2, devices=[cuda:0] * 2)``:
     one step of the reddit preset (every drop rate on) against one one-card
     step from the same state and generator seed (metrics, gradients, Adam
@@ -322,7 +335,12 @@ Meshes over processes (``torch.distributed``), on the one card:
     phase 9's, ``best.npz`` written by rank 0 alone; D1 over the ranks on
     the reddit operator (all_gather and halo, f32 within 1e-5 of the
     one-card ``exact_propagate``, int8 within 1e-3 of the one-process
-    mesh's int8 run, exact launches, the default threshold 0.5);
+    mesh's int8 run, exact launches, the default threshold 0.5), then
+    the all_gather f32 and int8 runs on a (2 x 2) mesh along 'data' (two
+    shards a rank, the model columns spanning the ranks) and a (1 x 2)
+    mesh along 'model' (the data row spanning them), each rank's result
+    from every local group bit for bit the 1-D run's, with its launches
+    and the transport's calls and seconds;
     ``multihost_native_gfpush`` of the reddit sources, cols and vals equal
     to the native push of one process; MAG on
     ``synth:1000000:8:2780000:sparse`` with ``num_devices`` 4 (2 ranks x
@@ -492,13 +510,17 @@ def _device_times(fn, iters: int, kernel: str) -> list:
 
     fn()
     torch.cuda.synchronize(DEV)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize(DEV)
-    return [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.name]
+    for _retry in range(3):  # the profiler drops records, now and then all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize(DEV)
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        if times:
+            break
+    return times
 
 
 def _device_ms(fn, iters: int, kernel: str, per_call: int = 1):
@@ -1954,6 +1976,19 @@ def _p1_times(g, src, coef, k) -> dict:
     mask_plain = _time_ms(lambda: dense_push_mask_plain(*args), 3, warmup=1)
     mask_bound = _bound(16 * n * b + 8 * n + 12 * b, 5 * n * b)
     k2_ms = _time_ms(lambda: g.product(pushed, residue), 20)
+    # K2 over A^T with no update: pushed read once, residue written once,
+    # A^T's structure read once; torch.sparse.mm on the same CSR
+    op = g.op_t
+    k2_bytes = 2 * n * b * 4 + 8 * op.nnz + 4 * (n + 1)
+    k2_bound = _bound(k2_bytes, 2 * op.nnz * b)
+    a_csr = torch.sparse_csr_tensor(op.indptr, op.indices, op.values,
+                                    size=(n, n))
+    k2_lib = _time_ms(lambda: torch.sparse.mm(a_csr, pushed), 20)
+    del a_csr
+    k2_at = {"ms": k2_ms, "library_ms": k2_lib, "bound_ms": k2_bound[0],
+             "bound_by": k2_bound[1], "bytes": k2_bytes,
+             **_gathers(op, pushed),
+             "shape": f"A^T (nnz {op.nnz}), x [{n},{b}], per hop"}
     rows = reserve.t().contiguous().reshape(-1)
     off = torch.arange(b + 1, device=DEV, dtype=torch.int64) * n
     dense_rows = rows.view(b, n)
@@ -1981,7 +2016,11 @@ def _p1_times(g, src, coef, k) -> dict:
           f"{'held' if topk_ms < topk_lib else 'missed'}", flush=True)
     print(f"[3e] P1 block [{n},{b}]: dense_push_mask ms {mask_ms} plain_ms "
           f"{mask_plain} bound_ms {mask_bound[0]} ({mask_bound[1]}); K2 over "
-          f"A^T ms {k2_ms} per hop; push_topk over [{b},{n}] ms {topk_ms} "
+          f"A^T per hop: ms {k2_ms} library_ms {k2_lib} (torch.sparse.mm) "
+          f"bound_ms {k2_bound[0]} ({k2_bound[1]}, {k2_bytes / 1e9:.3f} GB),"
+          f" gathered {k2_at['gather_bytes'] / 1e9:.3f} GB = "
+          f"{k2_at['gather_ms']} ms at the HBM rate; push_topk over "
+          f"[{b},{n}] ms {topk_ms} "
           f"plain_ms {topk_plain} library_ms {topk_lib} (torch.topk) "
           f"bound_ms {topk_bound[0]} ({topk_bound[1]})", flush=True)
     return {"dense_push_mask": {"ms": mask_ms, "plain_ms": mask_plain,
@@ -1993,7 +2032,7 @@ def _p1_times(g, src, coef, k) -> dict:
                           "bound_ms": topk_bound[0],
                           "bound_by": topk_bound[1], "library_ms": topk_lib,
                           "shape": f"P1 rows [{b},{n}], k {k}"},
-            "k2_over_at_ms": k2_ms}
+            "k2_over_at": k2_at}
 
 
 def _check_hop(g, fr, src, got, tag: str, hop: int) -> None:
@@ -3135,6 +3174,102 @@ def check_d1(ops: dict) -> dict:
     return res
 
 
+# 8m's runs on the TP_SHAPE mesh of the card: (name, axis, halo_threshold,
+# precision, the kernels of its hops), launched as phase 8's on every
+# shard of the mesh
+D1_2D_RUNS = (
+    ("all_gather_f32", "data", None, "f32", {"csr_spmm_prop"}),
+    ("all_gather_int8", "data", None, "int8",
+     {"column_absmax", "quantize_with_amax", "csr_spmm_q8mxu"}),
+    ("halo_int8", "data", 1.0, "int8",
+     {"column_absmax", "halo_pack", "halo_hop"}),
+    ("scatter_f32", "data", None, "f32", {"coo_spmm"}),
+    ("all_gather_f32", "model", None, "f32", {"csr_spmm_prop"}),
+    ("halo_f32", "model", 1.0, "f32", {"halo_pack", "halo_hop"}),
+)
+
+
+def check_d1_2d(ops: dict, d1: dict) -> dict:
+    """Phase 8m: D1 on the (2 x 2) mesh of the card (TP_SHAPE), sharded
+    along 'data' (the model columns replicas) and along 'model' (the data
+    rows replicas), each run a path of its own: exact launch counts on
+    every shard, every group's result equal, held to its plain run at
+    phase 8's limits and bit for bit to the same form on a 1-D mesh of
+    the axis's 2 shards of the card. Returns the launches, errors and
+    times."""
+    cfg = preset("Amazon2M")
+    adj, x = ops["adj"], ops["x"]
+    kw = dict(mode="ppr", order=cfg.order, alpha=cfg.alpha)
+    n_data, n_model = TP_SHAPE
+    mesh = make_mesh(n_data, n_model=n_model,
+                     devices=[DEV] * (n_data * n_model))
+    res = {"launches": {}, "err": {}, "wall_s": {}, "held_GB": {}}
+    for name, axis, threshold, precision, kernels in D1_2D_RUNS:
+        run = f"{name}_{axis}"
+        shards = mesh.shape[axis]
+        torch.cuda.synchronize(DEV)
+        before = torch.cuda.memory_allocated(DEV)
+        t0 = time.time()
+        if name.startswith("scatter"):
+            prop = ShardedPropagator(mesh, ShardedGraph.build(adj, shards),
+                                     axis)
+            call = {}
+        else:
+            prop, p = dist_exact_propagator(mesh, adj, x.shape[1],
+                                            axis=axis,
+                                            halo_threshold=threshold,
+                                            precision=precision)
+            call = {"precision": p}
+        torch.cuda.synchronize(DEV)
+        build_s = time.time() - t0
+        held = (torch.cuda.memory_allocated(DEV) - before) / 1e9
+        _reset_counts()
+        t0 = time.time()
+        outs = prop.each(x, **kw, **call)
+        torch.cuda.synchronize(DEV)
+        hops_s = time.time() - t0
+        launches = _read_counts()
+        groups_equal = all(torch.equal(o, outs[0]) for o in outs[1:])
+        e_plain = _errors(outs[0], prop(x, **kw, **call, plain=True))
+        one = type(prop)(_mesh(shards), prop.g)
+        same_1d = bool(torch.equal(outs[0], one(x, **kw, **call)))
+        del one
+        bound_ms = sum(_d1_bound(q, precision, x.shape[1], cfg.order)
+                       for q in prop.groups)
+        limit = 5e-3 if precision == "int8" else TOL
+        first = D1_FIRST_HOP.get(name, set())
+        want = {k: (mesh.size if k in first else cfg.order * mesh.size)
+                if k in kernels else 0 for k in launches}
+        flat = d1["wall_s"][name]
+        print(f"[8m] {name} along '{axis}' ({type(prop).__name__}, "
+              f"{len(prop.groups)} groups of {shards} shards of "
+              f"{prop.g.rows_per_shard} rows on a {n_data} x {n_model} "
+              f"mesh of the card): build {build_s} s, {cfg.order} hops "
+              f"{hops_s} s (bound {bound_ms} ms; phase 8 on 4 shards: build "
+              f"{flat['build']} s, hops {flat['hops']} s, bound "
+              f"{flat['bound_ms']} ms); operators held {held} GB; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; groups equal "
+              f"{groups_equal}; vs its plain run max_rel_err {e_plain[1]} "
+              f"(limit {limit}); bit for bit the 1-D mesh of {shards} "
+              f"shards: {same_1d}", flush=True)
+        if launches != want:
+            raise AssertionError(f"[8m] {run}: launches {launches}, want "
+                                 f"{want}")
+        if not (groups_equal and same_1d and e_plain[1] <= limit
+                and outs[0].shape == x.shape):
+            raise AssertionError(f"[8m] {run}: groups equal {groups_equal},"
+                                 f" 1-D equal {same_1d}, {e_plain[1]} from "
+                                 f"its plain run")
+        res["launches"][run] = launches
+        res["err"][run] = {"vs_plain": e_plain, "groups_equal": groups_equal,
+                           "equal_1d": same_1d}
+        res["wall_s"][run] = {"build": build_s, "hops": hops_s,
+                              "bound_ms": bound_ms}
+        res["held_GB"][run] = held
+        del prop, outs
+    return res
+
+
 def run_serving(r, data, ckpt: str) -> dict:
     """Phase 5e: the predict CLI from 5d's best.npz, at f32 and auto, each
     a path of its own; its test accuracy against 5d's model at the same
@@ -3972,25 +4107,22 @@ def _window_grad(out_case, gout):
     return torch.autograd.grad(out, t, gout, retain_graph=True)
 
 
-def check_sharded_push(data, cfg, push_reddit: dict) -> dict:
-    """Phase 3i: ``sharded_gfpush`` on 4 shards of the card over 3e's
-    sources, a path of its own, against the one-card P1 under the row rule;
-    P1's launches per shard; sources/s beside 3e's P1."""
-    adj_sl = add_self_loops_adj(data.adj)
-    indptr = np.asarray(adj_sl.indptr, np.int32)
-    indices = np.asarray(adj_sl.indices, np.int32)
-    sources = train_sources(cfg, data)
-    coef = np.asarray(build_coef(cfg.prop_mode, cfg.order, cfg.alpha),
-                      np.float32)
-    mesh = _mesh(SHARDS)
+def _sharded_push_path(mesh, axis: str, inputs: tuple, cfg,
+                       push_reddit: dict, tag: str) -> tuple:
+    """``sharded_gfpush`` along ``axis`` of ``mesh`` (shards of the card)
+    over 3e's sources, a path of its own: P1's launches on every shard
+    (each group along the axis pushes every source), within the row rule
+    of 3e's one-card P1. Returns (the tables, launches, sources/s, bit for
+    bit the one-card P1)."""
+    indptr, indices, sources, coef = inputs
     _reset_counts()
     t0 = time.time()
     got = sharded_gfpush(mesh, indptr, indices, sources, coef, cfg.rmax,
-                         cfg.top_k)
+                         cfg.top_k, axis=axis)
     seconds = time.time() - t0
     launches = _read_counts()
-    per = -(-len(sources) // SHARDS)
-    blocks = SHARDS * -(-per // 512)
+    per = -(-len(sources) // mesh.shape[axis])
+    blocks = mesh.size * -(-per // 512)
     want = dict.fromkeys(launches, 0)
     want.update(dense_push_mask=blocks * (cfg.order + 1),
                 csr_spmm_prop=blocks * cfg.order, push_topk=blocks)
@@ -3998,14 +4130,57 @@ def check_sharded_push(data, cfg, push_reddit: dict) -> dict:
     _row_rule(one[0], one[1], *got, max(1e-5, 2 * cfg.rmax))
     same = _same(got, one)
     sps = len(sources) / seconds
-    print(f"[3i] sharded_gfpush on {SHARDS} shards of the card: "
-          f"{len(sources)} sources ({per} a shard) in {seconds} s = {sps} "
-          f"sources/s (one-card P1, 3e: {push_reddit['sps']['jax']}); "
-          f"launches { {k: v for k, v in launches.items() if v} }; within "
+    print(f"[{tag}] sharded_gfpush along '{axis}' of a {mesh.n_data} x "
+          f"{mesh.n_model} mesh of the card: {len(sources)} sources ({per} "
+          f"a shard, groups {mesh.size // mesh.shape[axis]}) in {seconds} s "
+          f"= {sps} sources/s (one-card P1, 3e: {push_reddit['sps']['jax']});"
+          f" launches { {k: v for k, v in launches.items() if v} }; within "
           f"the row rule of the one-card P1, bit for bit {same}", flush=True)
     if launches != want:
-        raise AssertionError(f"[3i] launches {launches}, want {want}")
-    return {"launches": launches, "sources_per_s": sps, "same": same}
+        raise AssertionError(f"[{tag}] launches {launches}, want {want}")
+    return got, {"launches": launches, "sources_per_s": sps, "same": same}
+
+
+def _push_inputs(data, cfg) -> tuple:
+    adj_sl = add_self_loops_adj(data.adj)
+    return (np.asarray(adj_sl.indptr, np.int32),
+            np.asarray(adj_sl.indices, np.int32), train_sources(cfg, data),
+            np.asarray(build_coef(cfg.prop_mode, cfg.order, cfg.alpha),
+                       np.float32))
+
+
+def check_sharded_push(data, cfg, push_reddit: dict) -> dict:
+    """Phase 3i: ``sharded_gfpush`` on 4 shards of the card over 3e's
+    sources, a path of its own, against the one-card P1 under the row rule;
+    P1's launches per shard; sources/s beside 3e's P1."""
+    return _sharded_push_path(_mesh(SHARDS), "data",
+                              _push_inputs(data, cfg), cfg, push_reddit,
+                              "3i")[1]
+
+
+def check_sharded_push_2d(data, cfg, push_reddit: dict) -> dict:
+    """Phase 3m (8m's push, here where 3e's reddit tables are):
+    ``sharded_gfpush`` on the (2 x 2) mesh of the card (TP_SHAPE) along
+    'data' and along 'model', each a path as 3i's, and each equal to the
+    push on a 1-D mesh of 2 shards of the card, element for element."""
+    inputs = _push_inputs(data, cfg)
+    n_data, n_model = TP_SHAPE
+    mesh = make_mesh(n_data, n_model=n_model,
+                     devices=[DEV] * (n_data * n_model))
+    flat, _ = _sharded_push_path(_mesh(n_data), "data", inputs, cfg,
+                                 push_reddit, "3m")
+    out = {}
+    for axis in ("data", "model"):
+        got, res = _sharded_push_path(mesh, axis, inputs, cfg, push_reddit,
+                                      "3m")
+        res["equal_1d"] = _same(got, flat)
+        print(f"[3m] along '{axis}': equal to the 1-D mesh's tables "
+              f"{res['equal_1d']}", flush=True)
+        if not res["equal_1d"]:
+            raise AssertionError(f"[3m] along '{axis}': the tables differ "
+                                 f"from the 1-D mesh's")
+        out[axis] = res
+    return out
 
 
 # ------------------------------------------------- 9p: a mesh over processes
@@ -4019,6 +4194,10 @@ RANK_COMMAND = [sys.executable, os.path.abspath(__file__)]   # a 9p rank
 PROC_D1 = (("all_gather_f32", 0.0, "f32"), ("all_gather_int8", 0.0, "int8"),
            ("halo_f32", float("inf"), "f32"),
            ("halo_int8", float("inf"), "int8"))
+# 9p's 2-D process meshes ((n_data, n_model), axis), each running
+# PROC_D1's all_gather forms: the model columns of a (2 x 2) mesh span the
+# ranks ('model' inside each), the data row of a (1 x 2) mesh spans them
+PROC_D1_2D = (((2, 2), "data"), ((1, 2), "model"))
 
 
 def _emit(part: str, **kw) -> None:
@@ -4263,7 +4442,9 @@ def _proc_d1(data, cfg) -> dict:
     reddit operator, all_gather and halo at f32 and int8, each a path of
     its own with its launches: f32 within 1e-5 of the one-card
     ``exact_propagate``, int8 within 1e-3 of the one-process mesh's int8
-    run of the same variant; the default threshold 0.5."""
+    run of the same variant; the default threshold 0.5. Then the
+    all_gather runs on the 2-D process meshes of PROC_D1_2D, every local
+    group's result bit for bit the 1-D run's."""
     adj = add_self_loops_adj(data.adj)
     x = torch.as_tensor(np.asarray(data.features, np.float32), device=DEV)
     kw = dict(mode=cfg.prop_mode, order=cfg.order, alpha=cfg.alpha)
@@ -4276,45 +4457,67 @@ def _proc_d1(data, cfg) -> dict:
     out = {"default_threshold": threshold, "default_propagator": auto,
            "compression": estimate_halo_compression(adj, PROC_RANKS),
            "runs": {}}
-    for name, thr, precision in PROC_D1:
-        prop, p = dist_exact_propagator(mesh, adj, x.shape[1],
-                                        halo_threshold=thr,
-                                        precision=precision)
-        _reset_counts()
-        reset_transport()
-        t0 = time.time()
-        got = prop(x, precision=p, **kw)
-        torch.cuda.synchronize(DEV)
-        hops_s = time.time() - t0
-        launches = _read_counts()
-        transport = dict(TRANSPORT)
-        if precision == "f32":
-            err, limit = _errors(got, ref)[1], TOL
-        else:
-            oprop, op = dist_exact_propagator(one, adj, x.shape[1],
-                                              halo_threshold=thr,
-                                              precision=precision)
-            err, limit = _errors(got, oprop(x, precision=op, **kw))[1], 1e-3
-            del oprop
-        kernels = {"all_gather_f32": {"csr_spmm_prop"},
-                   "halo_f32": {"halo_pack", "halo_hop"},
-                   "halo_int8": {"column_absmax", "halo_pack", "halo_hop"},
-                   "all_gather_int8": {
-                       "column_absmax", "quantize_with_amax",
-                       "csr_spmm_q8mxu" if getattr(prop, "row_val", None)
-                       is not None else "csr_spmm_q8"}}[name]
-        want = {k: (1 if (name, k) == ("all_gather_int8", "column_absmax")
-                    else cfg.order) if k in kernels else 0 for k in launches}
-        if launches != want or err > limit or got.shape != x.shape:
-            raise AssertionError(f"[9p] D1 {name}: launches {launches} (want "
-                                 f"{want}), error {err} (limit {limit}), "
-                                 f"shape {tuple(got.shape)}")
-        out["runs"][name] = {
-            "propagator": type(prop).__name__,
-            "launches": {k: v for k, v in launches.items() if v},
-            "max_rel_err": err, "limit": limit, "hops_s": hops_s,
-            "transport": transport, "digest": _digest([got])}
-        del prop, got
+    meshes = [("", mesh, "data", PROC_D1)] + [
+        (f"_{a}x{b}_{axis}", make_mesh(a, n_model=b), axis, PROC_D1[:2])
+        for (a, b), axis in PROC_D1_2D]
+    for suffix, m, axis, runs in meshes:
+        for name, thr, precision in runs:
+            prop, p = dist_exact_propagator(m, adj, x.shape[1], axis=axis,
+                                            halo_threshold=thr,
+                                            precision=precision)
+            _reset_counts()
+            reset_transport()
+            t0 = time.time()
+            outs = prop.each(x, precision=p, **kw)
+            torch.cuda.synchronize(DEV)
+            hops_s = time.time() - t0
+            launches = _read_counts()
+            transport = dict(TRANSPORT)
+            got, digest = outs[0], _digest(outs[:1])
+            same = all(torch.equal(o, got) for o in outs[1:])
+            if suffix:
+                # the 2-D run bit for bit the 1-D process run of its form,
+                # whose error an int8 run then shares
+                base = out["runs"][name]
+                same = same and digest == base["digest"]
+                err, limit = ((_errors(got, ref)[1], TOL) if precision
+                              == "f32" else (base["max_rel_err"],
+                                             base["limit"]))
+            elif precision == "f32":
+                err, limit = _errors(got, ref)[1], TOL
+            else:
+                oprop, op = dist_exact_propagator(one, adj, x.shape[1],
+                                                  halo_threshold=thr,
+                                                  precision=precision)
+                err, limit = _errors(got, oprop(x, precision=op,
+                                                **kw))[1], 1e-3
+                del oprop
+            kernels = {"all_gather_f32": {"csr_spmm_prop"},
+                       "halo_f32": {"halo_pack", "halo_hop"},
+                       "halo_int8": {"column_absmax", "halo_pack",
+                                     "halo_hop"},
+                       "all_gather_int8": {
+                           "column_absmax", "quantize_with_amax",
+                           "csr_spmm_q8mxu" if prop.g.row_val is not None
+                           else "csr_spmm_q8"}}[name]
+            local = len(m.shards)
+            want = {k: (local if (name, k) == ("all_gather_int8",
+                                               "column_absmax")
+                        else cfg.order * local) if k in kernels else 0
+                    for k in launches}
+            if (launches != want or err > limit or got.shape != x.shape
+                    or not same):
+                raise AssertionError(
+                    f"[9p] D1 {name}{suffix}: launches {launches} (want "
+                    f"{want}), error {err} (limit {limit}), shape "
+                    f"{tuple(got.shape)}, the groups and the 1-D run "
+                    f"equal {same}")
+            out["runs"][name + suffix] = {
+                "propagator": type(prop).__name__, "groups": len(outs),
+                "launches": {k: v for k, v in launches.items() if v},
+                "max_rel_err": err, "limit": limit, "hops_s": hops_s,
+                "transport": transport, "digest": digest}
+            del prop, outs, got
     return out
 
 
@@ -4473,6 +4676,21 @@ def run_process_mesh(mesh_steps: dict, reddit_acc: float,
     for run in a["d1"]["runs"]:
         if a["d1"]["runs"][run]["digest"] != b["d1"]["runs"][run]["digest"]:
             raise AssertionError(f"[9p] D1 {run}: the ranks' results differ")
+    for (n_data, n_model), axis in PROC_D1_2D:
+        for name, _, _ in PROC_D1[:2]:
+            run = f"{name}_{n_data}x{n_model}_{axis}"
+            ra, rb = a["d1"]["runs"][run], b["d1"]["runs"][run]
+            print(f"[9p] D1 {name} along '{axis}' of a {n_data} x {n_model} "
+                  f"mesh over the ranks: groups a rank {ra['groups']}; "
+                  f"launches rank 0 {ra['launches']}, rank 1 "
+                  f"{rb['launches']}; hops_s {ra['hops_s']}, {rb['hops_s']}"
+                  f" (1-D: {a['d1']['runs'][name]['hops_s']}); transport "
+                  f"calls {ra['transport']['calls']}, comm_s "
+                  f"{ra['transport']['comm_s']}, stage_s "
+                  f"{ra['transport']['stage_s']} (1-D: "
+                  f"{a['d1']['runs'][name]['transport']['calls']} calls); "
+                  f"max_rel_err {ra['max_rel_err']} (limit {ra['limit']}); "
+                  f"bit for bit the 1-D run and across the ranks", flush=True)
     steps_per_rank = 11                   # _proc_tp_step's first and 10 timed
     for part, engine in (("reddit_tp", "dense"), ("mag_tp", "mag")):
         if a[part]["digest"] != b[part]["digest"]:
@@ -4583,6 +4801,9 @@ def main() -> int:
     push_sharded = check_sharded_push(
         data, preset("reddit").replace(dataset=DATASET), push_reddit)
     mark("3i")
+    push_2d = check_sharded_push_2d(
+        data, preset("reddit").replace(dataset=DATASET), push_reddit)
+    mark("3m")
     hub = check_hub_graph()
     mark("3j")
     push_hub = check_hub_push()
@@ -4678,6 +4899,8 @@ def main() -> int:
     mark("3g")
     d1 = check_d1(ops)
     mark("8")
+    d1_2d = check_d1_2d(ops, d1)
+    mark("8m")
     del ops
     torch.cuda.empty_cache()
     push_amazon = check_push(amazon, amazon_cfg, "3f", ("bucket",))
@@ -4730,9 +4953,8 @@ def main() -> int:
     k2["launches_by_path"]["hub"] = hub["launches"]["csr_spmm_prop"]
     k2["hub"] = {k: v for k, v in hub.items()
                  if k not in ("launches", "int8")}
-    k2["p1_over_at"] = {"ms": push_reddit["jax"]["times"]["k2_over_at_ms"],
-                        "shape": "A^T of the reddit stand-in, x [233000, "
-                                 "512], per hop"}
+    k2["p1_over_at"] = {k: v for k, v in push_reddit["jax"]["times"][
+        "k2_over_at"].items() if k != "bytes"}
     for k in (k1, k2):
         k["launches"] = sum(k["launches_by_path"].values())
     for k in k3 + k3_window:
@@ -4781,15 +5003,22 @@ def main() -> int:
     seg["hub"] = hub["segment"]
     served = serving_entries(seg, d1, serve)
     served.insert(1, seg_bf16)
-    # 9p's launches, summed over its ranks
+    # 9p's launches, summed over its ranks; 8m's and 3m's on the 2-D mesh
+    paths = {f"process_mesh_{path}": counts
+             for path, counts in proc["launches"].items()}
+    paths.update({f"d1_2d_{run}": la
+                  for run, la in d1_2d["launches"].items()})
+    paths.update({f"p1_sharded_2d_{axis}": r["launches"]
+                  for axis, r in push_2d.items()})
     for k in (k1, k2, *fast, *k3, *k3_window, *pushes, *served):
-        for path, counts in proc["launches"].items():
+        for path, counts in paths.items():
             if counts.get(k["name"], 0):
-                k["launches_by_path"][f"process_mesh_{path}"] = counts[
-                    k["name"]]
+                k["launches_by_path"][path] = counts[k["name"]]
         k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"serving": serve, "serving_files": files, "d1": {
-        k: d1[k] for k in ("err", "wall_s", "compression")},
+        k: d1[k] for k in ("err", "wall_s", "compression")}, "d1_2d": {
+        k: d1_2d[k] for k in ("err", "wall_s", "held_GB")},
+        "push_2d": push_2d,
         "mesh_steps": mesh_steps, "peak_gb": PEAK_GB, "process_mesh": {
             k: proc[k] for k in ("wall_s", "predict_test_acc")}}))
     print(json.dumps({"kernels": [k1, k2, *fast, *k3, *k3_window, *pushes,

@@ -33,8 +33,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from grandtpu_torch.dist.mesh import Mesh
-from grandtpu_torch.dist.spmm_shard import (_KERNELS, _PLAIN, _check_axis,
+from grandtpu_torch.dist.spmm_shard import (_KERNELS, _PLAIN,
+                                            AxisPropagator,
                                             _check_dist_precision,
                                             _iterate, _row_val_blocks,
                                             _shard_csrs, _to_ops, place)
@@ -336,15 +336,14 @@ class HaloShardedGraph:
             _row_val_blocks(vals, col, adj, S, rows_per))
 
 
-class HaloPropagator:
+class HaloPropagator(AxisPropagator):
     """Row-partitioned propagation with the halo exchange. precision:
     'f32' | 'bf16' (runs as f32, as in grandtpu) | 'int8' | 'int8cast'
     ('int8mxu' = 'int8'); the int8 forms quantize the exchange only, with
     the global per-column scale: the diagonal sum stays exact f32."""
 
-    def __init__(self, mesh: Mesh, g: HaloShardedGraph, axis: str = "data"):
-        _check_axis(mesh, axis, g.num_shards)
-        self.mesh, self.g = mesh, g
+    def _build(self):
+        g, mesh = self.g, self.mesh
         S, rows_per, c_max = g.num_shards, g.rows_per_shard, g.halo_per_pair
         local = list(zip(mesh.shards, mesh.devices))
         self.diag = _to_ops([g.diag[s] for s in mesh.shards], mesh.devices,
@@ -358,9 +357,9 @@ class HaloPropagator:
                         [torch.as_tensor(g.row_val[s], device=d)
                          for s, d in local])
 
-    def __call__(self, x, *, mode: str = "ppr", order: int = 10,
-                 alpha: float = 0.2, precision: str = "f32",
-                 plain: bool = False) -> torch.Tensor:
+    def _run(self, x, *, mode: str = "ppr", order: int = 10,
+             alpha: float = 0.2, precision: str = "f32",
+             plain: bool = False) -> torch.Tensor:
         precision = _check_dist_precision(precision)
         k, mesh, g = (_PLAIN if plain else _KERNELS), self.mesh, self.g
         pack, hop_fn = ((halo_pack_plain, halo_hop_plain) if plain

@@ -47,7 +47,12 @@ holds the same bits and the replicas (parameters, BatchNorm state, Adam
 moments) cannot drift apart.
 
 On a 2-D mesh each of these acts on the data axis, within each model
-column, as on the 1-D mesh of that column (:meth:`Mesh.column`). A value
+column, as on the 1-D mesh of that column (:meth:`Mesh.column`). What
+grandtpu shards along one axis and replicates over the other (D1, the
+source-sharded push) runs once on each 1-D mesh that :meth:`Mesh.along`
+gives: along 'data' the model columns, along 'model' the data rows
+(:meth:`Mesh.row`), each with its shards named by their index along the
+axis. A value
 that the model columns hold alike (replicated over 'model') is
 backpropagated by every column, as Megatron's tensor-parallel ranks each
 backpropagate the same loss: so ``broadcast`` and ``scatter_rows`` take
@@ -99,10 +104,6 @@ import torch.distributed as tdist
 
 from grandtpu_torch.device import resolve_device
 
-# a 2-D mesh's data-axis work that is not ported
-MESH_2D = ("ROADMAP Queue A 25: D1, the sharded pushes and the trainers on "
-           "a mesh with a 'model' axis")
-
 # the cross-process collectives of this process: calls, bytes sent, and
 # the seconds of gloo's staging copies and of the collectives themselves
 TRANSPORT = {"calls": 0, "bytes": 0, "stage_s": 0.0, "comm_s": 0.0}
@@ -110,14 +111,6 @@ TRANSPORT = {"calls": 0, "bytes": 0, "stage_s": 0.0, "comm_s": 0.0}
 
 def reset_transport() -> None:
     TRANSPORT.update(calls=0, bytes=0, stage_s=0.0, comm_s=0.0)
-
-
-def refuse_model_axis(mesh: "Mesh", what: str) -> None:
-    """Raise on a mesh with a 'model' axis (grandtpu runs ``what`` on its
-    'data' axis, replicated over 'model': not ported)."""
-    if mesh.n_model > 1:
-        raise NotImplementedError(f"{what} on a mesh of {mesh.n_model} model "
-                                  f"shards ({MESH_2D})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,6 +172,27 @@ class Mesh:
         """The 1-D mesh of model column ``c``'s data shards that this
         process holds (the mesh itself when ``n_model == 1``)."""
         return _columns(self)[c][1]
+
+    def row(self, d: int) -> "Mesh":
+        """The 1-D mesh of data row ``d``'s model shards that this process
+        holds, its shards named by model column; over the row's ranks when
+        'model' spans ranks (:attr:`model_group`)."""
+        return _rows(self)[d][1]
+
+    def along(self, axis: str) -> dict:
+        """{group: (its local shard indices, its 1-D mesh)} for each group
+        of shards along ``axis`` that this process holds, in ascending
+        order: along 'data' the model columns (:meth:`column`), along
+        'model' the data rows (:meth:`row`). Work that grandtpu shards
+        along ``axis`` and replicates over the other axis runs once on each
+        group's mesh; on a 1-D mesh along 'data' the one group's mesh is
+        the mesh itself."""
+        if axis == "data":
+            return _columns(self)
+        if axis == "model":
+            return _rows(self)
+        raise ValueError(f"the mesh's axes are 'data' and 'model', not "
+                         f"{axis!r}")
 
     def per_device(self, make):
         """``make(device)`` once for each distinct local device, in shard
@@ -462,6 +476,25 @@ def _columns(mesh: Mesh) -> dict:
                        len(data_group), data_group.index(mesh.rank),
                        group=data_group)
         out[c] = (idx, sub)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _rows(mesh: Mesh) -> dict:
+    """{data row: (its local shard indices, the 1-D mesh of its model
+    shards)} for each local row, in order."""
+    group = _layout(mesh)[1]
+    out = {}
+    for d in dict.fromkeys(mesh.data_shards):
+        idx = tuple(i for i, r in enumerate(mesh.data_shards) if r == d)
+        devices = tuple(mesh.devices[i] for i in idx)
+        cols = tuple(mesh.model_shards[i] for i in idx)
+        if group is None:                   # the row lies inside the rank
+            sub = Mesh(devices, cols)
+        else:                               # the row spans the ranks group
+            sub = Mesh(devices, cols, len(group), group.index(mesh.rank),
+                       group=group)
+        out[d] = (idx, sub)
     return out
 
 

@@ -6,8 +6,9 @@ The precompute is embarrassingly parallel over source nodes:
 - :func:`sharded_gfpush`: the dense-residue push (P1,
   ``ppr/dense_push.py``) over the port's mesh: the graph replicated (one
   copy per distinct device), the sources padded with node 0 and split
-  over the shards, no communication until the tables are gathered in
-  source order (on a mesh over processes, on every rank);
+  over the shards of one axis ('data' or 'model'), each group of shards
+  along it pushing every source, no communication until the tables are
+  gathered in source order (on a mesh over processes, on every rank);
 - :func:`push_source_shard`: the pure per-rank unit, a rank's contiguous
   share of the sources through :func:`grandtpu_torch.ppr.gfpush`;
 - :func:`multihost_native_gfpush`: every ``torch.distributed`` rank
@@ -24,8 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from grandtpu_torch.dist.mesh import (Mesh, all_gather_tensor,
-                                     refuse_model_axis)
+from grandtpu_torch.dist.mesh import Mesh, all_gather_tensor
 from grandtpu_torch.ppr.dense_push import DensePushGraph, push_block
 from grandtpu_torch.sparse.topk import TopKProp
 
@@ -34,35 +34,37 @@ def sharded_gfpush(mesh: Mesh, indptr: np.ndarray, indices: np.ndarray,
                    sources: np.ndarray, coef: np.ndarray, rmax: float,
                    k: int, *, axis: str = "data",
                    dense_threshold: int = 8192, block: int = 512):
-    """GFPush with ``sources`` sharded over ``mesh``'s axis ``axis``: each
-    shard runs P1 over its contiguous share, ``block`` sources a
-    ``push_block`` call (which bounds its [n, block] carries; every
-    source's row is the same in any block). Returns numpy (cols int32
-    [n_src, k], vals float32 [n_src, k]), as ``gfpush_jax``. A mesh with a
-    'model' axis raises."""
-    refuse_model_axis(mesh, "sharded_gfpush")
-    if axis != "data":
-        raise ValueError(f"the port's mesh has the axis 'data' only, not "
-                         f"{axis!r}")
-    graphs = mesh.per_device(lambda d: DensePushGraph(
-        indptr, indices, rmax, dense_threshold, d))
-    if any(g.device.type == "cuda" for g in graphs):
+    """GFPush with ``sources`` sharded along ``mesh``'s axis ``axis`` and
+    replicated over the other: the sources split ``mesh.shape[axis]``
+    ways, each group of shards along the axis (:meth:`Mesh.along`, in
+    ascending order) pushes all of them, each shard P1 over its contiguous
+    share, ``block`` sources a ``push_block`` call (which bounds its [n,
+    block] carries; every source's row is the same in any block). Returns
+    the first local group's tables as numpy (cols int32 [n_src, k], vals
+    float32 [n_src, k]), as ``gfpush_jax``."""
+    groups = mesh.along(axis)
+    graphs = dict(zip(mesh.devices, mesh.per_device(lambda d: DensePushGraph(
+        indptr, indices, rmax, dense_threshold, d))))
+    if any(d.type == "cuda" for d in graphs):
         torch.backends.cuda.matmul.allow_tf32 = False
     coef = np.asarray(coef, np.float32)
-    n_src = sources.shape[0]
-    per = -(-n_src // mesh.size)
+    n_src, n_dev = sources.shape[0], mesh.shape[axis]
+    per = -(-n_src // n_dev)
     # the pad pushes from node 0 and is sliced off
-    src_pad = np.zeros(per * mesh.size, np.int32)
+    src_pad = np.zeros(per * n_dev, np.int32)
     src_pad[:n_src] = sources
-    cols, vals = [], []
-    for s, g in zip(mesh.shards, graphs):
-        src = torch.as_tensor(src_pad[s * per:(s + 1) * per], device=g.device)
-        outs = [push_block(g, src[i:i + block], coef, k)
-                for i in range(0, per, block)]
-        cols.append(torch.cat([c for c, _ in outs]))
-        vals.append(torch.cat([v for _, v in outs]))
-    return (mesh.gather_rows(cols)[:n_src].cpu().numpy(),
-            mesh.gather_rows(vals)[:n_src].cpu().numpy())
+    tables = []
+    for _, sub in groups.values():
+        cols, vals = [], []
+        for s, d in zip(sub.shards, sub.devices):
+            src = torch.as_tensor(src_pad[s * per:(s + 1) * per], device=d)
+            outs = [push_block(graphs[d], src[i:i + block], coef, k)
+                    for i in range(0, per, block)]
+            cols.append(torch.cat([c for c, _ in outs]))
+            vals.append(torch.cat([v for _, v in outs]))
+        tables.append((sub.gather_rows(cols)[:n_src].cpu().numpy(),
+                       sub.gather_rows(vals)[:n_src].cpu().numpy()))
+    return tables[0]
 
 
 def push_source_shard(adj, sources: np.ndarray, rank: int, world: int, *,

@@ -26,6 +26,16 @@ default the all_gather variant on a one-process mesh, and the halo
 exchange where it moves less than half the rows on a mesh over
 processes. Every process holds its own shards' operators and receives the
 whole [n, F] result, on its first device.
+
+On a (data, model) mesh D1 runs along the axis ``axis``, as grandtpu's
+``shard_map`` with ``P(axis, ...)``: the graph is cut into
+``mesh.shape[axis]`` blocks, and every group of shards along the axis
+(:meth:`Mesh.along`: along 'data' each model column, along 'model' each
+data row) runs the 1-D propagator on its own 1-D mesh, its shards named
+by their index along the axis. The groups are replicas: each computes the
+whole result, bit for bit the 1-D mesh's, and the propagator returns the
+first local group's (:meth:`AxisPropagator.each` returns every group's).
+One block along the axis goes to the one-device propagator.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from grandtpu_torch.dist.mesh import Mesh, refuse_model_axis
+from grandtpu_torch.dist.mesh import Mesh
 from grandtpu_torch.infer.propagate import (_max_row_nnz,
                                             choose_fast_precision,
                                             exact_propagator)
@@ -70,14 +80,40 @@ _PLAIN = types.SimpleNamespace(
     segment=spmm_segment_prop_step_plain)
 
 
-def _check_axis(mesh: Mesh, axis: str, num_shards: int) -> None:
-    refuse_model_axis(mesh, "D1")
-    if axis != "data":
-        raise ValueError(f"the port's mesh has the axis 'data' only, not "
-                         f"{axis!r}")
-    if mesh.size != num_shards:
-        raise ValueError(f"the graph has {num_shards} shards, the mesh "
-                         f"{mesh.size}")
+class AxisPropagator:
+    """A D1 propagator sharded along the mesh's axis ``axis`` and
+    replicated over the other, as grandtpu's ``shard_map`` with ``P(axis,
+    ...)``. On the 1-D mesh of its axis (a 1-D mesh along 'data') it runs
+    the shards' own work (``_build``, ``_run``); on any other mesh it holds
+    one such propagator for each group of shards that :meth:`Mesh.along`
+    gives (``groups``), each computing the whole result, as grandtpu's
+    replicas do, with the graph's shards named by their index along the
+    axis. The groups run in ascending order, so that every rank reaches
+    the collectives in the same order."""
+
+    def __init__(self, mesh: Mesh, g, axis: str = "data"):
+        groups = mesh.along(axis)
+        if mesh.shape[axis] != g.num_shards:
+            raise ValueError(f"the graph has {g.num_shards} shards, the "
+                             f"mesh's axis {axis!r} {mesh.shape[axis]}")
+        self.mesh, self.g = mesh, g
+        subs = [sub for _, sub in groups.values()]
+        if subs == [mesh]:
+            self.groups = None
+            self._build()
+        else:
+            self.groups = [type(self)(sub, g) for sub in subs]
+
+    def each(self, x, **kw) -> list:
+        """The [n, F] result of every local group, in order (one on the
+        1-D mesh of the axis): the same bits in each."""
+        if self.groups is None:
+            return [self._run(x, **kw)]
+        return [p._run(x, **kw) for p in self.groups]
+
+    def __call__(self, x, **kw) -> torch.Tensor:
+        """The first local group's [n, F] result, on its first device."""
+        return self.each(x, **kw)[0]
 
 
 def place(mesh: Mesh, num_nodes: int, rows_per: int, x) -> list:
@@ -164,14 +200,14 @@ class ShardedGraph:
                             dinv.reshape(num_shards, rows_per), n, rows_per)
 
 
-class ShardedPropagator:
+class ShardedPropagator(AxisPropagator):
     """Row-partitioned propagation with each shard's rows applied by K2-seg
     (grandtpu's scatter variant): the shards' COO and ``D^-1`` go to their
-    devices once, at construction."""
+    devices once, at construction. Call it with ``x`` [n, F] and
+    ``mode``, ``order``, ``alpha``, ``plain``."""
 
-    def __init__(self, mesh: Mesh, g: ShardedGraph, axis: str = "data"):
-        _check_axis(mesh, axis, g.num_shards)
-        self.mesh, self.g = mesh, g
+    def _build(self):
+        g, mesh = self.g, self.mesh
         n_pad = g.rows_per_shard * g.num_shards
         rows = g.rows_per_shard
         self.coo = [PaddedCSR(*(torch.as_tensor(a[s], device=d)
@@ -183,8 +219,8 @@ class ShardedPropagator:
         self.dinv = [torch.as_tensor(g.dinv[s], device=d)
                      for s, d in zip(mesh.shards, mesh.devices)]
 
-    def __call__(self, x, *, mode: str = "ppr", order: int = 10,
-                 alpha: float = 0.2, plain: bool = False) -> torch.Tensor:
+    def _run(self, x, *, mode: str = "ppr", order: int = 10,
+             alpha: float = 0.2, plain: bool = False) -> torch.Tensor:
         ops = _PLAIN if plain else _KERNELS
         xs = place(self.mesh, self.g.num_nodes, self.g.rows_per_shard, x)
 
@@ -299,25 +335,23 @@ class BlockShardedGraph:
             _row_val_blocks(vals, cols, adj, num_shards, rows_per))
 
 
-class BlockShardedPropagator:
+class BlockShardedPropagator(AxisPropagator):
     """Row-partitioned propagation on the K2 family. precision: 'f32' |
     'bf16' | 'int8' | 'int8cast' ('int8mxu' = 'int8'); the int8 forms
     quantize each shard's block with the global per-column scale BEFORE the
     all_gather, which then moves a quarter of the f32 bytes."""
 
-    def __init__(self, mesh: Mesh, g: BlockShardedGraph,
-                 axis: str = "data"):
-        _check_axis(mesh, axis, g.num_shards)
-        self.mesh, self.g = mesh, g
+    def _build(self):
+        g, mesh = self.g, self.mesh
         self.ops = _to_ops([g.csrs[s] for s in mesh.shards], mesh.devices,
                            g.rows_per_shard, g.rows_per_shard * g.num_shards)
         self.row_val = (None if g.row_val is None else
                         [torch.as_tensor(g.row_val[s], device=d)
                          for s, d in zip(mesh.shards, mesh.devices)])
 
-    def __call__(self, x, *, mode: str = "ppr", order: int = 10,
-                 alpha: float = 0.2, precision: str = "f32",
-                 plain: bool = False) -> torch.Tensor:
+    def _run(self, x, *, mode: str = "ppr", order: int = 10,
+             alpha: float = 0.2, precision: str = "f32",
+             plain: bool = False) -> torch.Tensor:
         precision = _check_dist_precision(precision)
         k, mesh = (_PLAIN if plain else _KERNELS), self.mesh
         use_mxu = precision == "int8" and self.row_val is not None
@@ -380,7 +414,7 @@ def dist_exact_propagator(mesh: Mesh, adj_sl: sp.spmatrix, num_features: int,
     from grandtpu_torch.dist.halo import (HaloPropagator, HaloShardedGraph,
                                           estimate_halo_compression)
 
-    refuse_model_axis(mesh, "D1")
+    mesh.along(axis)                      # an unknown axis raises
     if precision == "bf16_carry":
         # the sharded carries are already split over the mesh: bf16 terms
         # on f32 carries

@@ -68,10 +68,14 @@ def train_mesh(cfg: GrandConfig, mesh, device: torch.device):
     ``mesh`` (default ``make_mesh(num_devices, device=device)``), checked
     to have ``num_devices`` shards of ``device``'s type and a batch that
     splits over them (``ValueError`` before any step). A mesh with a
-    'model' axis raises: grandtpu's trainers build none, and their predict
-    (D1) is not ported to one."""
-    if mesh is not None:
-        dist.mesh.refuse_model_axis(mesh, "train()")
+    'model' axis raises ``NotImplementedError``: grandtpu's trainers take
+    no mesh and always build a (num_devices x 1) one
+    (``grandtpu/train/trainer.py:129``)."""
+    if mesh is not None and mesh.n_model > 1:
+        raise NotImplementedError(
+            f"train() on a mesh of {mesh.n_model} model shards: grandtpu's "
+            f"trainers build a (num_devices x 1) mesh, "
+            f"grandtpu/train/trainer.py:129")
     if cfg.num_devices <= 1:
         if mesh is not None and mesh.size != 1:
             raise ValueError(f"a mesh of {mesh.size} shards with "

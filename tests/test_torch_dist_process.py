@@ -35,6 +35,10 @@ computes and hands them in an npz. Parts, one test each:
   collective that signals do not line up);
 - ``collectives``: every cross-process collective's forward and gradient
   against the one-process mesh's on the same inputs;
+- ``d1_2d``: D1 (the all_gather, halo and scatter variants) and the
+  source-sharded push on 2-D meshes along either axis, the groups along
+  the axis spanning the ranks or lying inside them, each rank's result
+  equal to the one-process mesh of the same shape;
 - ``tp``: tensor parallelism over the ranks, both engines (the dense MLP's
   hidden width, the MAG table's columns split over 'model'; and the MAG
   table's rows split over 'data' on the same 2-D meshes), every drop
@@ -331,6 +335,82 @@ def part_d1(rank, world, shared):
     assert same_on_every_rank([got])
     with open(os.path.join(shared, f"d1_{rank}.json"), "w") as f:
         json.dump(results, f)
+
+
+# the 2-D meshes of part d1_2d, with the axis D1 and the push run along:
+# the (2 x 2) mesh's model columns span the ranks ('model' inside each),
+# the (1 x 2) and (1 x 4) meshes' data row spans them, the (2 x 2) mesh's
+# rows lie inside the ranks
+D1_2D_MESHES = (("2x2", "data"), ("1x2", "model"), ("1x4", "model"),
+                ("2x2", "model"))
+D1_2D_FORMS = (("block", "f32"), ("block", "int8"), ("halo", "f32"),
+               ("halo", "int8"), ("scatter", "f32"))
+
+
+def part_d1_2d(rank, world, shared):
+    """D1 (each variant built on 8-row blocks, so that every shard holds
+    rows) and the push on 2-D process meshes along either axis: each
+    rank's result equal to the one-process mesh of the same shape and to
+    every local group's, f32 within 1e-5 of exact_propagate, the same bits
+    on every rank."""
+    from grandtpu_torch.dist import (BlockShardedGraph,
+                                     BlockShardedPropagator,
+                                     HaloPropagator, HaloShardedGraph,
+                                     ShardedGraph, ShardedPropagator,
+                                     dist_exact_propagate, make_mesh,
+                                     sharded_gfpush)
+    from grandtpu_torch.dist.mesh import Mesh
+    from grandtpu_torch.infer import exact_propagate
+
+    inp = _inputs(shared)
+    adj, x = _adj(inp), torch.as_tensor(inp["feats"])
+    kw = dict(mode="ppr", order=3, alpha=0.2)
+    ref = exact_propagate(adj, x, device="cpu", **kw)
+    variants = {
+        "block": lambda s: (BlockShardedPropagator,
+                            BlockShardedGraph.build(adj, s,
+                                                    rows_per_block=8)),
+        "halo": lambda s: (HaloPropagator,
+                           HaloShardedGraph.build(adj, s, rows_per_block=8)),
+        "scatter": lambda s: (ShardedPropagator, ShardedGraph.build(adj, s))}
+    coef = np.array([0.2, 0.16, 0.128, 0.1024], np.float32)
+    indptr = adj.indptr.astype(np.int32)
+    indices = adj.indices.astype(np.int32)
+    report = {}
+    for shape, axis in D1_2D_MESHES:
+        n_data, n_model = map(int, shape.split("x"))
+        proc = make_mesh(n_data, n_model=n_model, device="cpu")
+        one = Mesh((CPU,) * (n_data * n_model), n_model=n_model)
+        assert proc.multiprocess and proc.size == one.size, proc
+        shards = proc.shape[axis]
+        for variant, precision in D1_2D_FORMS:
+            cls, g = variants[variant](shards)
+            run = dict(kw) if variant == "scatter" else dict(
+                kw, precision=precision)
+            outs = cls(proc, g, axis).each(x, **run)
+            want = cls(one, g, axis)(x, **run)
+            err = rel(outs[0], ref)
+            if precision == "f32":
+                assert err <= TOL, (shape, axis, variant, err)
+            report[f"{shape}/{axis}/{variant}_{precision}"] = {
+                "groups": len(outs), "err": err,
+                "equal_one_process": all(torch.equal(o, want)
+                                         for o in outs),
+                "same": same_on_every_rank(outs)}
+        got = dist_exact_propagate(proc, adj, x, axis=axis, **kw)
+        assert rel(got, ref) <= TOL
+        push = sharded_gfpush(proc, indptr, indices, np.arange(N - 3), coef,
+                              1e-4, 4, axis=axis, block=16)
+        want = sharded_gfpush(one, indptr, indices, np.arange(N - 3), coef,
+                              1e-4, 4, axis=axis, block=16)
+        flat = [torch.as_tensor(a) for a in push]
+        report[f"{shape}/{axis}/push"] = {
+            "groups": len(proc.along(axis)), "err": 0.0,
+            "equal_one_process": all(np.array_equal(a, b)
+                                     for a, b in zip(push, want)),
+            "same": same_on_every_rank(flat)}
+    with open(os.path.join(shared, f"d1_2d_{rank}.json"), "w") as f:
+        json.dump(report, f)
 
 
 def _mag_cfgs():
@@ -769,6 +849,7 @@ def part_tp(rank, world, shared):
 
 
 PARTS = {"push": part_push, "dense": part_dense, "d1": part_d1,
+         "d1_2d": part_d1_2d,
          "mag": part_mag, "e2e": part_e2e, "longrun": part_longrun,
          "collectives": part_collectives,
          "card": part_card, "tp": part_tp}
@@ -890,6 +971,40 @@ def test_two_rank_d1_both_branches(shared):
     for rank in range(WORLD):
         with open(os.path.join(shared, f"d1_{rank}.json")) as f:
             assert len(json.load(f)) == 4
+
+
+@pytest.fixture(scope="module")
+def d1_2d(shared):
+    spawn("d1_2d", shared)
+    out = []
+    for rank in range(WORLD):
+        with open(os.path.join(shared, f"d1_2d_{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    f"{shape}/{axis}/{what}" for shape, axis in D1_2D_MESHES
+    for what in [f"{v}_{p}" for v, p in D1_2D_FORMS] + ["push"]])
+def test_two_rank_d1_and_push_on_a_2d_mesh(d1_2d, case):
+    """D1 and the push over 2 ranks on a 2-D mesh along either axis: the
+    column groups of a (2 x 2) mesh span the ranks, the row of a (1 x 2)
+    or (1 x 4) mesh spans them, the rows of a (2 x 2) mesh along 'model'
+    lie inside them. Each rank's result, from every local group, equals
+    the one-process mesh of the same shape bit for bit, the same on every
+    rank; f32 within 1e-5 of exact_propagate."""
+    shape, axis = case.split("/")[:2]
+    n_data, n_model = map(int, shape.split("x"))
+    # local groups: a rank holds n_model / 2 columns of the data row it is
+    # in when 'model' spans the ranks, every column otherwise; along
+    # 'model' one row a rank, or its share of the only one
+    groups = {"data": n_model, "model": max(n_data // WORLD, 1)}[axis]
+    for rank, report in enumerate(d1_2d):
+        r = report[case]
+        assert r["groups"] == groups, (rank, r)
+        assert r["equal_one_process"] and r["same"], (rank, r)
+        if case.endswith("f32"):
+            assert r["err"] <= TOL, (rank, r)
 
 
 def test_two_rank_vocab_sharded_mag_step(shared):
@@ -1074,8 +1189,10 @@ def test_one_rank_multihost_push_is_the_plain_push(shared):
 def test_tensor_parallel_names_its_item():
     """A hand-made rank of a (1 x 4) mesh over 2 ranks holds model columns
     2 and 3 of data row 0: 'model' spans the ranks, and the groups its
-    collectives take are the row's ranks; what the 2-D mesh does not port
-    names ROADMAP Queue A 25."""
+    collectives take are the row's ranks; the source-sharded push runs on
+    a (2 x 2) mesh along either axis, equal to the 1-D mesh's."""
+    import scipy.sparse as sp
+
     from grandtpu_torch.dist import make_mesh, sharded_gfpush
     from grandtpu_torch.dist.mesh import Mesh
 
@@ -1086,9 +1203,49 @@ def test_tensor_parallel_names_its_item():
     assert mesh.column(3).shards == (0,) and not mesh.column(3).multiprocess
     inside = Mesh((CPU, CPU), shards=(2, 3), ranks=2, rank=1, n_model=2)
     assert inside.model_group is None and inside.column(0).multiprocess
-    with pytest.raises(NotImplementedError,
-                       match="Queue A 25: D1, the sharded pushes"):
-        sharded_gfpush(make_mesh(2, n_model=2, device="cpu"),
-                       np.zeros(1, np.int64), np.zeros(0, np.int32),
-                       np.zeros(1, np.int32), np.ones(2, np.float32), 1e-4,
-                       2)
+    ring = sp.csr_matrix(sp.eye(6, k=1) + sp.eye(6, k=-5) + sp.eye(6))
+    args = (ring.indptr.astype(np.int32), ring.indices.astype(np.int32),
+            np.arange(6, dtype=np.int32), np.ones(2, np.float32), 1e-4, 2)
+    want = sharded_gfpush(make_mesh(2, device="cpu"), *args)
+    for axis in ("data", "model"):
+        got = sharded_gfpush(make_mesh(2, n_model=2, device="cpu"), *args,
+                             axis=axis)
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def test_row_and_along_name_each_layout():
+    """``Mesh.row(d)`` and ``Mesh.along(axis)`` on hand-made process
+    meshes: the groups' shards named by their index along the axis, and a
+    group over the ranks that hold it. (1 x 4) over 2 ranks: the row spans
+    them; (2 x 2) over 2 ranks: the rows lie inside them and the columns
+    span them; (2 x 4) over 4 ranks: a row spans 2 of them, a column the
+    other 2."""
+    from grandtpu_torch.dist.mesh import Mesh
+
+    across = Mesh((CPU, CPU), shards=(2, 3), ranks=2, rank=1, n_model=4)
+    (idx, row), = across.along("model").items()
+    assert idx == 0 and row[0] == (0, 1) and row[1] is across.row(0)
+    row = across.row(0)
+    assert (row.shards, row.ranks, row.rank, row.group, row.size) == (
+        (2, 3), 2, 1, (0, 1), 4)
+    assert list(across.along("data")) == [2, 3]
+    assert across.along("data")[3] == ((1,), across.column(3))
+
+    inside = Mesh((CPU, CPU), shards=(2, 3), ranks=2, rank=1, n_model=2)
+    row = inside.row(1)
+    assert list(inside.along("model")) == [1]
+    assert row.shards == (0, 1) and not row.multiprocess
+    col = inside.column(1)
+    assert inside.along("data")[1] == ((1,), col)
+    assert (col.shards, col.ranks, col.rank, col.group) == ((1,), 2, 1,
+                                                            None)
+
+    grid = Mesh((CPU, CPU), shards=(4, 5), ranks=4, rank=2, n_model=4)
+    assert grid.shape == {"data": 2, "model": 4}
+    row, col = grid.row(1), grid.column(1)
+    assert (row.shards, row.ranks, row.rank, row.group) == ((0, 1), 2, 0,
+                                                            (2, 3))
+    assert (col.shards, col.ranks, col.rank, col.group) == ((1,), 2, 1,
+                                                            (0, 2))
+    with pytest.raises(ValueError, match="not 'bogus'"):
+        grid.along("bogus")

@@ -69,10 +69,12 @@ def test_sharded_push_matches_grandtpu_and_one_device(adj, shards,
 
 
 def test_sharded_push_rejects_other_axes(adj):
+    """An axis the mesh does not name ('data' and 'model' run:
+    test_torch_dist_2d.py)."""
     with pytest.raises(ValueError, match="'data'"):
         sharded_gfpush(make_mesh(2, device="cpu"), adj.indptr, adj.indices,
                        np.arange(4), build_coef("ppr", 3, 0.2), 1e-4, 4,
-                       axis="model")
+                       axis="bogus")
 
 
 @pytest.mark.parametrize("world", [1, 2, 3])

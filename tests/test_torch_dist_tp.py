@@ -562,10 +562,13 @@ def test_a_width_that_does_not_divide_raises():
 
 
 def test_trainers_d1_and_pushes_refuse_a_model_axis(graph):
-    """(multihost_native_gfpush runs over the process group and takes no
-    mesh: it has none to refuse.)"""
+    """The trainers refuse a mesh with a 'model' axis, as grandtpu's build
+    none (they take no mesh); D1 and the push run on one, along either
+    axis, equal to the 1-D mesh of the axis's size.
+    (multihost_native_gfpush runs over the process group and takes no
+    mesh.)"""
     mesh = make_mesh(2, n_model=2, device="cpu")
-    item = "ROADMAP Queue A 25"
+    item = r"\(num_devices x 1\) mesh, grandtpu/train/trainer.py:129"
     cfg = GrandConfig(dataset="synth:240:3:16", num_devices=4,
                       push_backend="numpy")
     with pytest.raises(NotImplementedError, match=item):
@@ -573,12 +576,16 @@ def test_trainers_d1_and_pushes_refuse_a_model_axis(graph):
     with pytest.raises(NotImplementedError, match=item):
         ttsparse.train_sparse(cfg.replace(dataset="synth:240:3:30:sparse"),
                               device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match=item):
-        dist_exact_propagate(mesh, graph["adj"], graph["feats"])
-    adj = graph["adj"]
-    with pytest.raises(NotImplementedError, match=item):
-        sharded_gfpush(mesh, adj.indptr, adj.indices, np.arange(8),
-                       np.ones(3, np.float32), 1e-4, 4)
+    adj, one = graph["adj"], make_mesh(2, device="cpu")
+    want = dist_exact_propagate(one, adj, graph["feats"], halo_threshold=1.0)
+    push = sharded_gfpush(one, adj.indptr, adj.indices, np.arange(8),
+                          np.ones(3, np.float32), 1e-4, 4)
+    for axis in ("data", "model"):
+        assert torch.equal(dist_exact_propagate(
+            mesh, adj, graph["feats"], axis=axis, halo_threshold=1.0), want)
+        got = sharded_gfpush(mesh, adj.indptr, adj.indices, np.arange(8),
+                             np.ones(3, np.float32), 1e-4, 4, axis=axis)
+        assert all(np.array_equal(g, w) for g, w in zip(got, push))
 
 
 def test_one_layer_split_equals_the_replicated_step(graph):

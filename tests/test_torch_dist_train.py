@@ -443,10 +443,10 @@ def test_uneven_batch_raises_before_any_step(monkeypatch):
                        device="cpu", mesh=make_mesh(4, device="cpu"))
 
 
-def test_unported_placements_raise():
+def test_placements_and_d1_run_on_a_2d_mesh():
     """The placements on a 2-D mesh work (the split MLP, the table's
-    columns over 'model' or its rows over 'data'); what a 2-D mesh does
-    not port (D1) raises, naming its ROADMAP item."""
+    columns over 'model' or its rows over 'data'), and so does D1 along
+    'data', equal to the 1-D mesh's run."""
     mesh = make_mesh(2, n_model=2, device="cpu")
     model = init_mag_mlp(_mag_mlp_cfg(), 0, "cpu")
     z = torch.zeros(4, 2, dtype=torch.int32)
@@ -467,9 +467,11 @@ def test_unported_placements_raise():
     assert [tuple(t.shape) for t in vocab.table_shards] == [(VOCAB // 2,
                                                              16)] * 2
     assert vocab.vocab_window(1) == (VOCAB // 2, VOCAB)
-    with pytest.raises(NotImplementedError, match="Queue A 25"):
-        tdist.dist_exact_propagate(mesh, sp.eye(4, format="csr"),
-                                   np.zeros((4, 2), np.float32))
+    x = np.arange(8, dtype=np.float32).reshape(4, 2)
+    assert torch.equal(
+        tdist.dist_exact_propagate(mesh, sp.eye(4, format="csr"), x),
+        tdist.dist_exact_propagate(make_mesh(2, device="cpu"),
+                                   sp.eye(4, format="csr"), x))
 
 
 def test_split_rows_covers_the_rows_once():

@@ -1804,6 +1804,40 @@ def test_sharded_propagators_match_plain_runs(device, variant, precision):
     assert _rel_err(got, want) <= limit
 
 
+@pytest.mark.parametrize("axis", ["data", "model"])
+@pytest.mark.parametrize("variant,precision", [
+    ("scatter", "f32"), ("block", "f32"), ("block", "int8"),
+    ("halo", "int8")])
+def test_sharded_propagators_on_a_2d_mesh_equal_the_1d_mesh(
+        device, variant, precision, axis):
+    """A 4-hop run of each D1 variant on a (2 x 2) mesh of the card along
+    ``axis``: every group's result equal, and bit for bit the run on a 1-D
+    mesh of 2 shards of the card."""
+    from grandtpu_torch.dist import (BlockShardedGraph,
+                                     BlockShardedPropagator,
+                                     HaloPropagator, HaloShardedGraph,
+                                     ShardedGraph, ShardedPropagator,
+                                     make_mesh)
+    adj = _seg_graph(3000, False, seed=7) + sp.eye(3000, format="csr")
+    mesh = make_mesh(2, n_model=2, devices=[device] * 4)
+    x = torch.randn(3000, 36, device=device,
+                    generator=torch.Generator(device).manual_seed(3))
+    if variant == "scatter":
+        cls, g, kw = ShardedPropagator, ShardedGraph.build(adj, 2), {}
+    else:
+        cls, gcls = ((BlockShardedPropagator, BlockShardedGraph)
+                     if variant == "block" else
+                     (HaloPropagator, HaloShardedGraph))
+        g, kw = gcls.build(adj, 2, rows_per_block=64), {"precision":
+                                                          precision}
+    outs = cls(mesh, g, axis).each(x, order=4, alpha=0.2, **kw)
+    one = cls(make_mesh(2, devices=[device] * 2), g)(x, order=4, alpha=0.2,
+                                                     **kw)
+    torch.cuda.synchronize()
+    assert len(outs) == 2
+    assert all(torch.equal(o, one) for o in outs)
+
+
 def test_process_mesh_on_one_card(device, tmp_path):
     """2 ranks on cuda:0 with the gloo backend (one shard each, a process
     apiece, tests/test_torch_dist_process.py's ``card`` part): one dense
