@@ -67,6 +67,30 @@ Phases, in order; any failure exits non-zero without the result line:
     0), the trace in ``profile_dir`` naming K2's kernel, K2 exactly
     ``order`` launches; preprocess times and test accuracy beside the
     child's and phase 5's.
+5h. (after 5g) ``scan_steps``: ``train()`` with the reddit preset on
+    ``synth:233000:41:602`` for 10 epochs, per step (twice: the second
+    run's differences are the runs' own spread) and then with
+    ``scan_steps`` (the same seeds), each a path: grandtpu's policy rolls
+    the length-10 groups (6 of them, 60 of the 170 steps), each a CUDA
+    graph replay; the same step count, the validation histories within
+    1e-4 (bit for bit, or the largest differences printed: the capturable
+    Adam rounds its bias corrections on the card), test_acc within
+    max(1, 1e-5 of the test set) nodes, K1 launched once a step and eval
+    in every run (a replay adds the
+    launches its capture took back); each run's host batch_time_median,
+    its synchronized seconds a step and peak memory. Then, from one saved
+    state (model, BN buffers, Adam, generator) at full width with every
+    drop rate of the step on, one captured group of 10 steps against the
+    same 10 steps run eagerly: bit for bit, the generator's state too;
+    the wrappers' counts after the capture's first and second replay;
+    the group's synchronized time against the eager steps'.
+    After 5b the same for the MAG engine (mag_scholar_c, 10 epochs:
+    lengths 3 and 7 roll, 20 of 80 steps; histories within 1e-4, test_acc
+    within 1e-5 of the test set, 10 of 999,600 nodes, where rounding
+    flips near-ties; K3's forward and backward once a step; a group of 7
+    within 1e-5 of its eager steps, K3's backward adding with float
+    atomics), with the graph pools' memory against the per-step run's
+    peak.
 
 Then the same for the MAG (sparse-feature) engine, on
 ``synth:1000000:8:2780000:sparse`` (vocabulary 2,780,000, P = 24):
@@ -2575,6 +2599,241 @@ def run_long_run(data, r_main) -> dict:
     return launches
 
 
+SCAN_EPOCHS = 10
+# 5h: the group lengths grandtpu's policy rolls in a SCAN_EPOCHS run and how
+# many groups of each (reddit: 17 steps an epoch, an eval every 10; MAG: 8
+# steps an epoch; grandtpu/train/loop.py:214-222)
+SCAN_ROLLED = {"reddit": {10: 6}, "mag": {3: 2, 7: 2}}
+SCAN_GROUP = {"dense": 10, "mag": 7}   # the group held to its eager steps
+SCAN_TOL = 1e-4                     # |d val_loss|, phase 4's
+# test_acc: max(1, this share of the test set) nodes; a rounding-level
+# difference (the capturable Adam's bias corrections) flips near-ties
+# among MAG's 999,600 test nodes
+SCAN_TEST_SHARE = 1e-5
+
+
+def _scan_launches(engine: str, r, launches: dict, chunks: int) -> None:
+    """K1 once a step and eval (dense), K3's forward once a step, eval and
+    predict chunk and its backward once a step (MAG)."""
+    steps, evals = r.num_batches, len(r.history)
+    want = ({"dropnode_mean": steps + evals} if engine == "dense" else
+            {"embed_prop_fwd": steps + evals + chunks,
+             "embed_prop_bwd": steps})
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"[5h] {name} launched {launches[name]} "
+                                 f"times, not {n} ({steps} steps, {evals} "
+                                 f"evals)")
+
+
+def _history_diff(a, b) -> dict:
+    return {k: max(abs(x[k] - y[k]) for x, y in zip(a.history, b.history))
+            for k in ("val_loss", "val_acc", "loss")}
+
+
+def run_scan_pair(name: str, data) -> dict:
+    """Phase 5h's pair: ``train()`` per step, then with ``scan_steps``,
+    each a path (counts set to 0 before, read after); between them the
+    per-step run once more, whose differences from the first are the runs'
+    own spread."""
+    engine = "dense" if name == "reddit" else "mag"
+    cfg = preset("mag_scholar_c" if engine == "mag" else "reddit").replace(
+        dataset=MAG_DATASET if engine == "mag" else DATASET,
+        epochs=SCAN_EPOCHS)
+    chunks = -(-data.num_nodes // K3_SHAPE[4])
+    runs = {}
+    for scan in (False, "again", True):
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats(DEV)
+        t0 = time.time()
+        r = train(cfg.replace(scan_steps=scan is True), data=data, device=DEV)
+        wall = time.time() - t0
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated(DEV) / 1e9
+        _scan_launches(engine, r, launches, chunks)
+        runs[scan] = {"r": r, "launches": launches, "wall_s": wall,
+                      "peak_GB": peak}
+        print(f"[5h] {name} scan_steps={scan}: steps {r.num_batches}, evals "
+              f"{len(r.history)}, test_acc {r.test_acc}, "
+              f"batch_time_median_s {r.batch_time_median}, synchronized s "
+              f"a step {r.batch_time_synced}, train_call_s {wall}, "
+              f"peak_mem_GB {peak}, rolled groups {r.scan_groups}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    per, rolled = runs[False]["r"], runs[True]["r"]
+    got = {k: (s["runs"], s["graph"]) for k, s in rolled.scan_groups.items()}
+    want = {k: (n, DEV.type == "cuda")
+            for k, n in SCAN_ROLLED[name].items()}
+    if got != want or per.scan_groups:
+        raise AssertionError(f"[5h] rolled groups {got}, expected {want} "
+                             f"(per step: {per.scan_groups})")
+    for k, s in rolled.scan_groups.items():
+        kernels = ({"gather_and_prop": k} if engine == "dense" else
+                   {"embed_prop": k, "embed_prop_backward": k})
+        if DEV.type == "cuda" and s["launches"] != kernels:
+            raise AssertionError(f"[5h] a replay of length {k} adds "
+                                 f"{s['launches']}, not {kernels}")
+    if rolled.num_batches != per.num_batches or len(rolled.history) != len(
+            per.history):
+        raise AssertionError(f"[5h] {rolled.num_batches} steps and "
+                             f"{len(rolled.history)} evals against "
+                             f"{per.num_batches} and {len(per.history)}")
+    again = runs["again"]["r"]
+    diff = _history_diff(rolled, per)
+    n_val = len(data.idx_val)
+    n_test = len(data.idx_test)
+    bits = rolled.history == per.history
+    nodes = round(abs(rolled.test_acc - per.test_acc) * n_test)
+    spread = {"history_bit_for_bit": again.history == per.history,
+              "max_diff": _history_diff(again, per),
+              "test_nodes": round(abs(again.test_acc - per.test_acc)
+                                  * n_test)}
+    print(f"[5h] {name} scan_steps against per step: history bit for bit "
+          f"{bits}, largest differences {diff}; test_acc "
+          f"{rolled.test_acc} against {per.test_acc} ({nodes} of {n_test} "
+          f"test nodes; the per-step run against itself: {spread}); "
+          f"steps a second "
+          f"(host, batch_time_median) {1 / rolled.batch_time_median} against "
+          f"{1 / per.batch_time_median}; synchronized ms a step "
+          f"{rolled.batch_time_synced * 1e3} against "
+          f"{per.batch_time_synced * 1e3}; graph pools "
+          f"{sum(s['pool_bytes'] for s in rolled.scan_groups.values()) / 1e9}"
+          f" GB, peak memory {runs[True]['peak_GB']} GB against "
+          f"{runs[False]['peak_GB']} GB", flush=True)
+    if (diff["val_loss"] > SCAN_TOL or diff["val_acc"] * n_val > 1.0 + 1e-9
+            or nodes > max(1.0, SCAN_TEST_SHARE * n_test)):
+        raise AssertionError(f"[5h] the scan_steps run left the per-step "
+                             f"run: {diff}, test_acc {rolled.test_acc} "
+                             f"against {per.test_acc}")
+    return {"bit_for_bit": bits, "max_diff": diff, "test_nodes": nodes,
+            "per_step_spread": spread,
+            "test_acc": [per.test_acc, rolled.test_acc],
+            "batch_time_median_s": [per.batch_time_median,
+                                    rolled.batch_time_median],
+            "synced_s_a_step": [per.batch_time_synced,
+                                rolled.batch_time_synced],
+            "peak_GB": [runs[False]["peak_GB"], runs[True]["peak_GB"]],
+            "pool_bytes": {k: s["pool_bytes"]
+                           for k, s in rolled.scan_groups.items()},
+            "capture_s": {k: s["capture_s"]
+                          for k, s in rolled.scan_groups.items()},
+            "rolled": {k: s["runs"] for k, s in rolled.scan_groups.items()},
+            "launches": [runs[False]["launches"], runs[True]["launches"]]}
+
+
+def _train_state(model, opt, gen) -> dict:
+    """Copies of the model's parameters and buffers, the Adam state and the
+    generator's state."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in model.state_dict().items()}
+    for i, p in enumerate(model.parameters()):
+        for key, v in opt.state.get(p, {}).items():
+            out[f"adam.{i}.{key}"] = v.detach().clone()
+    out["generator"] = gen.get_state()
+    return out
+
+
+def _load_train_state(model, opt, gen, saved: dict) -> None:
+    """:func:`_train_state`'s copies back, in place."""
+    model.load_state_dict({k[len("model."):]: v for k, v in saved.items()
+                           if k.startswith("model.")})
+    for i, p in enumerate(model.parameters()):
+        for key, v in opt.state.get(p, {}).items():
+            v.copy_(saved[f"adam.{i}.{key}"])
+    gen.set_state(saved["generator"])
+
+
+def check_group(engine: str, data, padded=None) -> dict:
+    """Phase 5h's group check: a ``StepGroup`` of SCAN_GROUP[engine] steps
+    (captured, then replayed) against the same steps run eagerly from one
+    saved state, at full width with the step's drop rates on; the
+    wrappers' counts after the first and second call; synchronized times
+    of the group and of its eager steps."""
+    n_class = data.num_classes
+    cfg, _, _, operands, mcfg, _ = _step_inputs(engine, data, padded)
+    k = SCAN_GROUP[engine]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = (init_mlp if engine == "dense" else init_mag_mlp)(mcfg, cfg.seed2,
+                                                              DEV)
+    opt = make_optimizer(model, cfg.lr, cfg.weight_decay,
+                         capturable=DEV.type == "cuda")
+    if engine == "dense":
+        step = build_train_step(StepConfig(
+            mlp=mcfg, k_aug=cfg.sample, dropnode_rate=cfg.dropnode_rate,
+            n_train=cfg.batch_size, lam=cfg.lam, warmup=cfg.warmup,
+            tem=cfg.tem, conf=cfg.resolve_conf(n_class), loss_kind=cfg.loss,
+            clip_norm=cfg.clip_norm), model, opt)
+    else:
+        step = build_sparse_steps(cfg, model, opt, n_class)[0]
+    gen = torch.Generator(device=DEV).manual_seed(cfg.seed2)
+    g = torch.Generator(device=DEV).manual_seed(4)
+    n_src = operands[-1].shape[0]
+    batches = [_mesh_batch(cfg, n_src, n_class, g) for _ in range(k + 2)]
+    epoch = {name: torch.stack([b[name] for b in batches])
+             for name in batches[0]}
+    # inside the warmup ramp: every step reads its own index
+    nbs = torch.arange(100, 102 + k, dtype=torch.float32, device=DEV)
+
+    def step_fn(batch, nb):
+        return step(*operands, batch, gen, nb)
+
+    def eager(i0: int):
+        for i in range(i0, i0 + k):
+            loss = step_fn({n: t[i] for n, t in epoch.items()}, nbs[i])["loss"]
+        return loss
+
+    # two eager steps first: Adam's state, the kernels' first launches
+    for i in range(2):
+        step_fn({n: t[i] for n, t in epoch.items()}, nbs[i])
+    saved = _train_state(model, opt, gen)
+    want_loss = float(eager(2))
+    torch.cuda.synchronize(DEV)
+    want = _train_state(model, opt, gen)
+    _load_train_state(model, opt, gen, saved)
+    rest = {n: t[2:] for n, t in epoch.items()}
+    group = loop_mod.StepGroup(k, step_fn, rest, DEV, (gen,))
+    _reset_counts()
+    got_loss = float(group(rest, nbs[2:], 0))
+    torch.cuda.synchronize(DEV)
+    first = _read_counts()
+    got = _train_state(model, opt, gen)
+    group(rest, nbs[2:], 0)
+    second = _read_counts()
+    kernels = (("dropnode_mean",) if engine == "dense" else
+               ("embed_prop_fwd", "embed_prop_bwd"))
+    for name in kernels:
+        if first[name] != k or second[name] != 2 * k:
+            raise AssertionError(f"[5h] {name} counted {first[name]} after "
+                                 f"the capture and a replay, {second[name]} "
+                                 f"after another, not {k} and {2 * k}")
+    errs = {}
+    for key, w in want.items():
+        if key == "generator":
+            errs[key] = 0.0 if torch.equal(got[key], w) else float("inf")
+        else:
+            errs[key] = _errors(got[key], w)[1]
+    errs["loss"] = abs(got_loss - want_loss) / max(abs(want_loss), 1e-30)
+    worst = max(errs, key=errs.get)
+    tol = 0.0 if engine == "dense" else TOL
+    group_ms = _synced_ms(lambda: group(rest, nbs[2:], 0), 5) / k
+    eager_ms = _synced_ms(lambda: eager(2), 5) / k
+    print(f"[5h] one captured {engine} group of {k} steps against its eager "
+          f"steps from one state ({len(errs)} quantities: parameters, "
+          f"buffers, Adam, the generator): worst {worst} {errs[worst]} "
+          f"(allowed {tol}); generator state equal "
+          f"{errs['generator'] == 0.0}; counts after the first call "
+          f"{ {n: first[n] for n in kernels} }, after the second "
+          f"{ {n: second[n] for n in kernels} }; graph pool "
+          f"{group.pool_bytes / 1e9} GB, captured in {group.capture_s} s "
+          f"(host); synchronized ms a step: replayed "
+          f"{group_ms}, eager {eager_ms}", flush=True)
+    if errs[worst] > tol:
+        raise AssertionError(f"[5h] the {engine} group differs from its "
+                             f"eager steps: {errs}")
+    return {"max_rel_err": errs[worst], "replay_ms_a_step": group_ms,
+            "eager_ms_a_step": eager_ms, "pool_bytes": group.pool_bytes,
+            "capture_s": group.capture_s}
+
+
 def run_mag_path(data) -> dict:
     cfg = preset("mag_scholar_c").replace(dataset=MAG_DATASET, epochs=5)
     r, launches = run_path(cfg, data, "mag")
@@ -4818,6 +5077,9 @@ def main() -> int:
     mark("5")
     long_launches = run_long_run(data, r_main)
     mark("5g")
+    scan = {"reddit": run_scan_pair("reddit", data)}
+    scan["reddit"]["group"] = check_group("dense", data)
+    mark("5h")
     profile_path(preset("reddit").replace(dataset=DATASET, epochs=2), data,
                  "profile")
     mark("6")
@@ -4849,6 +5111,9 @@ def main() -> int:
     mark("4b")
     mag_launches = run_mag_path(mag)
     mark("5b")
+    scan["mag"] = run_scan_pair("mag", mag)
+    scan["mag"]["group"] = check_group("mag", mag, mag_padded)
+    mark("5h (MAG)")
     profile_path(preset("mag_scholar_c").replace(dataset=MAG_DATASET,
                                                  epochs=5), mag, "profile-mag")
     mark("6b")
@@ -5010,6 +5275,10 @@ def main() -> int:
                   for run, la in d1_2d["launches"].items()})
     paths.update({f"p1_sharded_2d_{axis}": r["launches"]
                   for axis, r in push_2d.items()})
+    # 5h's runs, per step and with scan_steps (graph replays)
+    for name, sc in scan.items():
+        per, rolled = sc.pop("launches")
+        paths[f"{name}_10_epochs"], paths[f"{name}_scan_steps"] = per, rolled
     for k in (k1, k2, *fast, *k3, *k3_window, *pushes, *served):
         for path, counts in paths.items():
             if counts.get(k["name"], 0):
@@ -5019,7 +5288,8 @@ def main() -> int:
         k: d1[k] for k in ("err", "wall_s", "compression")}, "d1_2d": {
         k: d1_2d[k] for k in ("err", "wall_s", "held_GB")},
         "push_2d": push_2d,
-        "mesh_steps": mesh_steps, "peak_gb": PEAK_GB, "process_mesh": {
+        "mesh_steps": mesh_steps, "scan_steps": scan,
+        "peak_gb": PEAK_GB, "process_mesh": {
             k: proc[k] for k in ("wall_s", "predict_test_acc")}}))
     print(json.dumps({"kernels": [k1, k2, *fast, *k3, *k3_window, *pushes,
                                   *served]}))

@@ -85,14 +85,13 @@ class GrandConfig:
     #                                precompute once, train many
     # (a pallas_dropnode flag existed through r3: the fused kernel lost to
     #  XLA's random_prop on every preset shape on hardware and was deleted)
-    scan_steps: bool = False       # roll steps between evals into one
-    #                                lax.scan dispatch. Opt-in: per-step
-    #                                dispatch is async and already overlaps
-    #                                device compute, so this only pays for
-    #                                sub-ms steps over runs long enough to
-    #                                amortize ~15-20s of extra compiles
-    #                                (>~20K steps); measured NET LOSS on
-    #                                typical early-stopped runs (loop.py)
+    scan_steps: bool = False       # run each group of steps between
+    #                                evals as one unit, with grandtpu's
+    #                                policy (train/loop.py): on a card one
+    #                                CUDA-graph replay, on the CPU step by
+    #                                step; ignored on a mesh. Opt-in, as in
+    #                                grandtpu; the trajectory is per-step
+    #                                training's
 
     # distribution (no reference equivalent; reference is single-process)
     num_devices: int = 1           # data-parallel replication of the step

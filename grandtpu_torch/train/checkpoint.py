@@ -296,11 +296,17 @@ def restore_training(model, optimizer, params, state, opt=None) -> None:
     """Load grandtpu-layout trees into ``model`` (whole or sharded: each
     block takes its part) and, with ``opt`` (optax's Adam state, as
     :func:`training_trees` writes it), the moments and step count into
-    ``optimizer``'s state. A parameter that Adam does not move (an unused
-    BatchNorm) gets no state, whatever the file holds for it."""
+    ``optimizer``'s state (the count on the parameter's device for a
+    capturable Adam). A parameter that Adam does not move (an unused
+    BatchNorm) gets no state, whatever the file holds for it. The weights
+    are copied in place; the Adam state is new tensors, so a CUDA graph
+    that holds the old ones must be captured again."""
     from grandtpu_torch.nn.mlp import split_parameters
 
     adam = None if opt is None else next(s for s in opt if hasattr(s, "mu"))
+    # a capturable Adam keeps its step count on the parameter's device
+    capturable = optimizer is not None and optimizer.defaults.get(
+        "capturable", False)
     split = split_parameters(model)
     named = dict(model.named_parameters())
     for name, keys, transposed in _param_leaves(model):
@@ -320,7 +326,8 @@ def restore_training(model, optimizer, params, state, opt=None) -> None:
             continue
         for p, mu, nu in zip(targets, cut(adam.mu)[1], cut(adam.nu)[1]):
             optimizer.state[p] = {
-                "step": torch.tensor(float(adam.count), dtype=torch.float32),
+                "step": torch.tensor(float(adam.count), dtype=torch.float32,
+                                     device=p.device if capturable else None),
                 "exp_avg": mu.to(p.device, p.dtype).clone(),
                 "exp_avg_sq": nu.to(p.device, p.dtype).clone()}
     for bn, s in zip(model.bns, state["bns"]):

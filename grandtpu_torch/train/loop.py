@@ -28,8 +28,19 @@ gathers the checkpoint's trees, and rank 0 alone writes the files. A
 preemption there saves only when no parameter is sharded across the ranks
 (grandtpu's rule: signals reach the ranks at different steps, and the
 gather is a collective); the ``save_every`` checkpoints, which every rank
-reaches together, are then the resume point. grandtpu's scan-rolled
-groups (``scan_steps``) are not ported: each group runs step by step.
+reaches together, are then the resume point.
+
+``scan_steps`` is grandtpu's scan-rolled groups (``_build_multi_step``):
+a group length is rolled once it has occurred ``SCAN_COMPILE_THRESHOLD``
+times, at most ``MAX_SCAN_SIZES`` lengths are, and every other group runs
+step by step. A rolled group is a :class:`StepGroup`: on a card one CUDA
+graph replay of its k steps, on the CPU its steps one by one. The
+trajectory is per-step training's. On a mesh (``batch_transform`` set)
+the option is ignored, as grandtpu ignores it there. As in grandtpu, each
+group is timed as a whole and each of its steps gets the group's host time
+over k, with no device sync (``batch_times``); the groups that end at an
+eval are also timed to a device sync taken before the eval
+(``synced_times``).
 """
 
 from __future__ import annotations
@@ -42,12 +53,26 @@ import numpy as np
 import torch
 
 from grandtpu_torch.config import GrandConfig
+from grandtpu_torch.nn.dropnode import gather_and_prop
+from grandtpu_torch.nn.sparse_input import (embed_prop, embed_prop_backward,
+                                            embed_prop_window,
+                                            embed_prop_window_backward)
 from grandtpu_torch.observe import MetricsLogger, StepTimer
 from grandtpu_torch.train.checkpoint import (adam_tree, load_checkpoint,
                                              model_trees, restore_training,
                                              save_checkpoint,
                                              training_templates,
                                              training_trees)
+
+
+# grandtpu's policy (grandtpu/train/loop.py:33-34, 214-222): roll a group
+# length once it has occurred this many times, and at most this many
+# lengths
+SCAN_COMPILE_THRESHOLD = 3
+MAX_SCAN_SIZES = 2
+# the counted wrappers that a training step can launch
+STEP_KERNELS = (gather_and_prop, embed_prop, embed_prop_backward,
+                embed_prop_window, embed_prop_window_backward)
 
 
 def plan_groups(nb0: int, n_steps: int, eval_batch: int) -> list:
@@ -64,6 +89,110 @@ def plan_groups(nb0: int, n_steps: int, eval_batch: int) -> list:
         groups.append((i, k, nb + k - 1 == nxt))
         i += k
     return groups
+
+
+def scan_rolls(scan_seen: dict, scan_sizes: set, k: int) -> bool:
+    """grandtpu's rule, in its order: count one more group of length ``k``
+    in ``scan_seen``, admit ``k`` to ``scan_sizes`` when it is longer than
+    1, the threshold is reached and there is room; return whether a group
+    of length ``k`` is rolled."""
+    scan_seen[k] = scan_seen.get(k, 0) + 1
+    if (k > 1 and k not in scan_sizes and len(scan_sizes) < MAX_SCAN_SIZES
+            and scan_seen[k] >= SCAN_COMPILE_THRESHOLD):
+        scan_sizes.add(k)
+    return k in scan_sizes
+
+
+class StepGroup:
+    """k consecutive training steps run as one unit.
+
+    ``step_fn(batch, num_batch) -> metrics`` reads its batch and its step
+    index (a 0-d f32 tensor) from static buffers [k, ...], into which each
+    call copies the group's slices of the epoch's tensors. On a CUDA device
+    the first call captures the k steps into a ``torch.cuda.CUDAGraph``
+    (``generators``, the steps' ``torch.Generator``s, registered with it, so
+    that each replay draws what the same steps would draw eagerly and
+    advances them as far) and every call replays it: one launch for the
+    group. The capture runs nothing, so the launches that the counted
+    wrappers (``STEP_KERNELS``) recorded during it are taken back and added
+    again at each replay. A failed capture or replay raises. On the CPU the
+    steps run one by one from the buffers.
+
+    The graph reads the model's parameters and buffers, the optimizer's
+    state and the step's operands by address: they must be updated in
+    place, never rebound, while the group lives.
+    """
+
+    def __init__(self, k: int, step_fn, epoch: dict, device,
+                 generators=()):
+        self.k, self.step_fn, self.device = k, step_fn, torch.device(device)
+        self.generators = tuple(generators)
+        self.buffers = {name: torch.empty((k, *t.shape[1:]), dtype=t.dtype,
+                                          device=self.device)
+                        for name, t in epoch.items()}
+        self.num_batch = torch.empty(k, dtype=torch.float32,
+                                     device=self.device)
+        self.graph = self.loss = None
+        self.launches: dict = {}    # wrapper -> its launches a replay
+        self.runs = 0
+        self.pool_bytes = 0         # device memory the capture reserved
+        self.capture_s = 0.0        # host seconds the capture took
+
+    def _steps(self) -> torch.Tensor:
+        for i in range(self.k):
+            metrics = self.step_fn({name: b[i] for name, b in
+                                    self.buffers.items()}, self.num_batch[i])
+        return metrics["loss"]
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        before = {fn: fn.launches for fn in STEP_KERNELS}
+        torch.cuda.synchronize(self.device)
+        t0 = time.time()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        try:
+            with torch.cuda.graph(graph):
+                loss = self._steps()
+        finally:
+            self.launches = {fn: fn.launches - n for fn, n in before.items()
+                             if fn.launches != n}
+            for fn, n in before.items():
+                fn.launches = n
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.capture_s = time.time() - t0
+        self.graph, self.loss = graph, loss
+
+    def __call__(self, epoch: dict, num_batch: torch.Tensor,
+                 i0: int) -> torch.Tensor:
+        """Run the group of the epoch's steps i0 .. i0 + k - 1 (``epoch``:
+        the epoch's tensors by batch key, ``num_batch`` its [n_steps] step
+        indices); returns the last step's loss, which on a card the next
+        call overwrites."""
+        for name, b in self.buffers.items():
+            b.copy_(epoch[name][i0:i0 + self.k])
+        self.num_batch.copy_(num_batch[i0:i0 + self.k])
+        self.runs += 1
+        if self.device.type != "cuda":
+            return self._steps()
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+        for fn, n in self.launches.items():
+            fn.launches += n
+        return self.loss
+
+    def stats(self) -> dict:
+        """runs, whether a graph was captured, its pool's reserved bytes,
+        the capture's host seconds and the launches a replay adds, by
+        wrapper name."""
+        return {"runs": self.runs, "graph": self.graph is not None,
+                "pool_bytes": self.pool_bytes, "capture_s": self.capture_s,
+                "launches": {fn.__name__: n
+                             for fn, n in self.launches.items()}}
 
 
 class _PreemptionGuard:
@@ -153,10 +282,14 @@ def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
                       sample_positions, train_labels_all, device,
                       verbose, model=None, optimizer=None,
                       edges_per_step: int = 0, batch_transform=None,
-                      row_padded=None):
+                      row_padded=None, generators=()):
     """Run the early-stopped training.
 
-    step_fn(batch, num_batch) -> metrics; eval_fn() -> (val_loss, val_acc);
+    step_fn(batch, num_batch) -> metrics, ``num_batch`` the step's index as
+    a 0-d f32 tensor on ``device`` (with ``cfg.scan_steps`` and no
+    ``batch_transform`` the rolled groups run it as :class:`StepGroup`s,
+    with ``generators`` the generators it draws from);
+    eval_fn() -> (val_loss, val_acc);
     snapshot() -> a copy of the model state, kept for the best eval;
     ``model`` and ``optimizer`` (its ``torch.optim.Adam``): what the
     checkpoints save and a resume loads (needed with ``cfg.ckpt_dir``; a
@@ -165,7 +298,9 @@ def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
     edges a step; ``batch_transform``: applied to each step's batch (a
     mesh's ``shard_batch``, grandtpu ``loop.py:236-237``).
     Returns a dict with the best eval (``best``: acc, loss, state, batch,
-    epoch), ``num_batch``, ``preempted``, per-step host ``batch_times``
+    epoch), ``num_batch``, ``preempted``, per-step host ``batch_times``,
+    ``synced_times`` ((seconds, steps) of each group that ended at an eval,
+    to a device sync), ``scan_groups`` ({length: :meth:`StepGroup.stats`})
     and ``history``.
     """
     best = {"acc": 0.0, "loss": np.inf, "state": snapshot(),
@@ -173,8 +308,17 @@ def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
     bad_counter = 0
     num_batch = 0
     batch_times: list[float] = []
+    synced_times: list[tuple] = []
     history: list[dict] = []
     stop = preempted = False
+    device = torch.device(device)
+    rolled = cfg.scan_steps and batch_transform is None
+    if cfg.scan_steps and not rolled:
+        verbose("scan_steps is ignored on a mesh: every group runs step by "
+                "step, as in grandtpu (grandtpu/train/loop.py:170)")
+    scan_seen: dict[int, int] = {}
+    scan_sizes: set[int] = set()
+    groups: dict[int, StepGroup] = {}
 
     metrics_log = MetricsLogger(cfg.metrics_path)
     timer = StepTimer(edges_per_step=edges_per_step)
@@ -217,27 +361,38 @@ def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
                 labels_np[i] = train_labels_all[tr_idx]
                 masks_np[i] = label_mask
                 umasks_np[i] = un_mask
-            rows_e, labels_e, masks_e, umasks_e = (
-                torch.as_tensor(a, device=device)
-                for a in (rows_np, labels_np, masks_np, umasks_np))
+            epoch_e = {name: torch.as_tensor(a, device=device) for name, a
+                       in (("rows", rows_np), ("labels", labels_np),
+                           ("label_mask", masks_np),
+                           ("unlabel_mask", umasks_np))}
+            nb_e = torch.arange(num_batch, num_batch + n_steps,
+                                dtype=torch.float32, device=device)
 
             for i0, k, eval_after in plan_groups(num_batch, n_steps,
                                                  cfg.eval_batch):
-                for i in range(i0, i0 + k):
-                    bt0 = time.time()
-                    batch = {"rows": rows_e[i], "labels": labels_e[i],
-                             "label_mask": masks_e[i],
-                             "unlabel_mask": umasks_e[i]}
-                    if batch_transform is not None:
-                        batch = batch_transform(batch)
-                    metrics = step_fn(batch, num_batch + i - i0)
-                    batch_times.append(time.time() - bt0)
-                timer.times.extend(batch_times[-k:])
+                bt0 = time.time()
+                if scan_rolls(scan_seen, scan_sizes, k) and rolled:
+                    if k not in groups:
+                        groups[k] = StepGroup(k, step_fn, epoch_e, device,
+                                              generators)
+                    last_loss = groups[k](epoch_e, nb_e, i0)
+                else:
+                    for i in range(i0, i0 + k):
+                        batch = {name: t[i] for name, t in epoch_e.items()}
+                        if batch_transform is not None:
+                            batch = batch_transform(batch)
+                        last_loss = step_fn(batch, nb_e[i])["loss"]
+                dt = (time.time() - bt0) / k
+                batch_times.extend([dt] * k)
+                timer.times.extend([dt] * k)
                 num_batch += k - 1    # the global index of the group's last
 
                 if eval_after and num_batch % cfg.eval_batch == 0:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    synced_times.append((time.time() - bt0, k))
                     val_loss, val_acc = (float(v) for v in eval_fn())
-                    train_loss = float(metrics["loss"])
+                    train_loss = float(last_loss)
                     history.append({"batch": num_batch, "val_loss": val_loss,
                                     "val_acc": val_acc, "loss": train_loss})
                     metrics_log.log(batch=num_batch, epoch=epoch,
@@ -303,4 +458,6 @@ def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
     verbose(f"Optimization finished. Best val acc {best['acc']:.4f} "
             f"at batch {best['batch']}")
     return {"best": best, "num_batch": num_batch, "preempted": preempted,
-            "batch_times": batch_times, "history": history}
+            "batch_times": batch_times, "synced_times": synced_times,
+            "scan_groups": {k: g.stats() for k, g in sorted(groups.items())},
+            "history": history}

@@ -58,13 +58,38 @@ class StepConfig:
     clip_norm: float            # <=0 disables
 
 
-def make_optimizer(model: MLP, lr: float,
-                   weight_decay: float) -> torch.optim.Adam:
+def make_optimizer(model: MLP, lr: float, weight_decay: float,
+                   capturable: bool = False) -> torch.optim.Adam:
     """torch.optim.Adam: coupled weight decay added to the (clipped)
     gradient before the moments, betas (0.9, 0.999), eps 1e-8 — the same
-    as ``grandtpu``'s ``make_optimizer`` (reference ``model.py:288-289``)."""
+    as ``grandtpu``'s ``make_optimizer`` (reference ``model.py:288-289``).
+    With ``capturable`` the step count lives on the parameters' device and
+    the bias corrections are computed there, so that a CUDA graph can hold
+    the update (the trainers set it for ``scan_steps`` on a card; torch
+    refuses it for CPU tensors). It rounds the update differently from the
+    plain Adam, whose bias corrections are host floats."""
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=weight_decay)
+                            eps=1e-8, weight_decay=weight_decay,
+                            capturable=capturable)
+
+
+def num_batch_tensor(num_batch, device) -> torch.Tensor:
+    """The step index as a 0-d f32 tensor on ``device``: the loop passes
+    one (grandtpu's ``nb_e``, ``grandtpu/train/loop.py:212``), so that a
+    captured step reads it from its buffer; a number is copied from the
+    host."""
+    if isinstance(num_batch, torch.Tensor):
+        return num_batch.to(device=device, dtype=torch.float32)
+    return torch.tensor(float(num_batch), dtype=torch.float32, device=device)
+
+
+def warmup_ramp(num_batch, device, lam: float,
+                warmup: float) -> torch.Tensor:
+    """The consistency weight min(lam, lam * num_batch / warmup) in f32 on
+    ``device``, as ``grandtpu/train/step.py:140`` computes it (reference
+    ``model.py:329``)."""
+    return (lam * num_batch_tensor(num_batch, device) / warmup).clamp(
+        max=lam)
 
 
 def _nll_sums(logps_k, labels, mask):
@@ -149,6 +174,9 @@ def build_train_step(cfg: StepConfig, model: MLP,
                      mesh=None) -> Callable:
     """Returns step(features, tk_cols, tk_vals, batch, generator, num_batch)
     -> metrics (0-d tensors), updating ``model`` and ``optimizer`` in place.
+    ``num_batch`` is the step's index, a 0-d f32 tensor on the device (or a
+    number); the step reads nothing back to the host, so that a CUDA graph
+    can capture it (``train/loop.py``'s ``StepGroup``).
 
     batch = dict(rows [B] positions into the top-k table, labels [n_train],
     label_mask [n_train] f32, optional unlabel_mask [B - n_train] f32), all
@@ -181,8 +209,7 @@ def build_train_step(cfg: StepConfig, model: MLP,
             for k in range(cfg.k_aug)])
         labels, lmask = batch["labels"], batch["label_mask"]
         sup = _masked_nll(logps[:, :nt], labels, lmask)
-        # warmup ramp: min(lam, lam * num_batch / warmup), model.py:329
-        ramp = min(cfg.lam, cfg.lam * float(num_batch) / cfg.warmup)
+        ramp = warmup_ramp(num_batch, cols.device, cfg.lam, cfg.warmup)
         unsup = consis_loss(logps[:, nt:], cfg.tem, cfg.conf, cfg.loss_kind,
                             row_mask=um)
         loss = sup + ramp * unsup
@@ -223,7 +250,7 @@ def _sharded_batch(mesh, batches, n_train: int):
     return nts, ums, bmasks, BatchSplit(mesh, n_train, n_unlabeled)
 
 
-def _sharded_losses(mesh, logps, batches, nts: int, ums, ramp: float,
+def _sharded_losses(mesh, logps, batches, nts: int, ums, ramp,
                     tem: float, conf: float, loss_kind: str):
     """(loss, sup, unsup, train accuracy) of the shards' log-probs
     [K, b_s, C], each of the batch, on the first device."""
@@ -271,7 +298,7 @@ def _build_sharded_train_step(cfg: StepConfig, model: MLP,
             generator=generator, split=split) for k in range(cfg.k_aug)]
         logps = [torch.stack([torch.log_softmax(o[s], dim=-1) for o in outs])
                  for s in range(len(xs))]
-        ramp = min(cfg.lam, cfg.lam * float(num_batch) / cfg.warmup)
+        ramp = warmup_ramp(num_batch, generator.device, cfg.lam, cfg.warmup)
         loss, sup, unsup, acc = _sharded_losses(
             mesh, logps, batches, nts, ums, ramp, cfg.tem, cfg.conf,
             cfg.loss_kind)

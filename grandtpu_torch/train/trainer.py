@@ -48,19 +48,20 @@ from grandtpu_torch.train.step import (StepConfig, build_eval_step,
 
 
 def check_supported(cfg: GrandConfig) -> None:
-    """Raise NotImplementedError for config fields whose feature the port
-    does not have, naming the ROADMAP item; nothing is ignored. The orbax
-    backend needs JAX's orbax package; ``scan_steps`` is grandtpu's
-    scan-rolled step groups, whose counterpart is a CUDA graph."""
-    unported = [
-        (cfg.ckpt_backend != "npz", f"ckpt_backend {cfg.ckpt_backend!r}",
-         "ROADMAP Queue A 5: the orbax checkpoint backend"),
-        (cfg.scan_steps, "scan_steps",
-         "ROADMAP Queue A 11: CUDA-graph step groups"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported ({item})")
+    """Raise NotImplementedError for the one config field whose feature the
+    port does not have, naming the ROADMAP item: the orbax checkpoint
+    backend, which needs JAX's orbax package."""
+    if cfg.ckpt_backend != "npz":
+        raise NotImplementedError(
+            f"ckpt_backend {cfg.ckpt_backend!r} is not ported (ROADMAP "
+            f"Queue A 5: the orbax checkpoint backend)")
+
+
+def captures_groups(cfg: GrandConfig, mesh, device: torch.device) -> bool:
+    """Whether the training loop will capture step groups into CUDA graphs
+    (``scan_steps`` on a card, not on a mesh): the optimizer must then be
+    capturable."""
+    return cfg.scan_steps and mesh is None and device.type == "cuda"
 
 
 def train_mesh(cfg: GrandConfig, mesh, device: torch.device):
@@ -109,6 +110,25 @@ class TrainResult:
     model: Optional[nn.Module] = None   # MLP or MagMLP, best weights
     history: list = dataclasses.field(default_factory=list)
     preempted: bool = False    # a SIGTERM/SIGINT stopped the training
+    # seconds a step of the groups that ended at an eval, timed to a device
+    # sync (batch_time_median is the host's, which a graph replay returns
+    # before the card is done)
+    batch_time_synced: float = 0.0
+    # scan_steps: {group length: StepGroup.stats()} of the rolled lengths
+    scan_groups: dict = dataclasses.field(default_factory=dict)
+
+
+def loop_result(out: dict) -> dict:
+    """The TrainResult fields of ``run_training_loop``'s output."""
+    bt, synced = out["batch_times"], out["synced_times"]
+    return dict(
+        num_batches=out["num_batch"],
+        batch_time_avg=float(np.mean(bt)) if bt else 0.0,
+        batch_time_median=float(np.median(bt)) if bt else 0.0,
+        batch_time_synced=(sum(t for t, _ in synced)
+                           / sum(k for _, k in synced)) if synced else 0.0,
+        scan_groups=out["scan_groups"], history=out["history"],
+        preempted=out["preempted"])
 
 
 def push(cfg: GrandConfig, adj_sl, sources, device):
@@ -178,7 +198,8 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
         conf=cfg.resolve_conf(n_class), loss_kind=cfg.loss,
         clip_norm=cfg.clip_norm)
     model = init_mlp(mlp_cfg, cfg.seed2, device)
-    optimizer = make_optimizer(model, cfg.lr, cfg.weight_decay)
+    optimizer = make_optimizer(model, cfg.lr, cfg.weight_decay,
+                               capturable=captures_groups(cfg, mesh, device))
     train_step = build_train_step(step_cfg, model, optimizer, mesh=mesh)
     eval_step = build_eval_step(step_cfg, model, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(cfg.seed2)
@@ -213,7 +234,7 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
         device=device, verbose=verbose, model=model, optimizer=optimizer,
         edges_per_step=(cfg.batch_size + cfg.unlabel_batch_size) * tk.k
         * cfg.sample,
-        batch_transform=batch_transform)
+        batch_transform=batch_transform, generators=(generator,))
     best = out["best"]
     model.load_state_dict(best["state"])
     step_operands = None
@@ -242,13 +263,9 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
     total_time = time.time() - t_start
     verbose(f"Total time elapsed: {total_time:.4f}s")
     verbose(f"Test Accuracy {test_acc:.4f}")
-    bt = out["batch_times"]
     return TrainResult(
         test_acc=test_acc, best_val_acc=best["acc"],
-        best_val_loss=best["loss"], num_batches=out["num_batch"],
-        total_time=total_time,
-        batch_time_avg=float(np.mean(bt)) if bt else 0.0,
-        batch_time_median=float(np.median(bt)) if bt else 0.0,
+        best_val_loss=best["loss"], total_time=total_time,
         preprocess_time=preprocess_time, propagate_time=propagate_time,
         predict_precision=predict_precision, model=model,
-        history=out["history"], preempted=out["preempted"])
+        **loop_result(out))

@@ -57,9 +57,17 @@ from grandtpu_torch.train.loop import run_training_loop
 from grandtpu_torch.train.step import (_clip_, _eval_metrics, _eval_sharded,
                                        _global_norm, _masked_nll,
                                        _sharded_batch, _sharded_losses,
-                                       make_optimizer)
+                                       make_optimizer, num_batch_tensor)
 from grandtpu_torch.train.trainer import (TrainResult, check_supported,
-                                          push, train_mesh)
+                                          captures_groups, loop_result, push,
+                                          train_mesh)
+
+
+def _mag_ramp(num_batch, device, lam: float, warmup: float) -> torch.Tensor:
+    """The MAG engine's consistency weight min(1, num_batch / warmup) * lam
+    in f32 on ``device`` (``grandtpu/train/trainer_sparse.py:104``)."""
+    return (num_batch_tensor(num_batch, device) / warmup).clamp(
+        max=1.0) * lam
 
 
 def build_sparse_steps(cfg: GrandConfig, model: MagMLP,
@@ -69,8 +77,9 @@ def build_sparse_steps(cfg: GrandConfig, model: MagMLP,
 
     train_step(attr_cols, attr_vals, tk_cols, tk_vals, batch, generator,
     num_batch) -> {"loss"}, updating ``model`` and ``optimizer`` in place;
-    batch as in ``train/step.py``. eval_step(attr_cols, attr_vals,
-    tk_cols, tk_vals, rows, labels, mask) -> (nll, acc).
+    batch and ``num_batch`` as in ``train/step.py``'s ``build_train_step``
+    (no host read: a CUDA graph can capture it). eval_step(attr_cols,
+    attr_vals, tk_cols, tk_vals, rows, labels, mask) -> (nll, acc).
 
     With ``mesh``, the data-parallel steps, arguments as in
     ``build_train_step``'s: the tables per-shard lists
@@ -120,7 +129,7 @@ def build_sparse_steps(cfg: GrandConfig, model: MagMLP,
                           batch["rows"], generator,
                           bmask if mcfg.use_bn else None)
         sup = _masked_nll(logps[:, :nt], batch["labels"], batch["label_mask"])
-        ramp = min(1.0, float(num_batch) / cfg.warmup) * cfg.lam
+        ramp = _mag_ramp(num_batch, bmask.device, cfg.lam, cfg.warmup)
         unsup = consis_loss(logps[:, nt:], cfg.tem, conf, cfg.loss,
                             row_mask=um)
         loss = sup + ramp * unsup
@@ -216,7 +225,7 @@ def _build_sharded_sparse_steps(cfg: GrandConfig, model: MagMLP,
             for k in range(k_aug)]
         logps = [torch.stack([torch.log_softmax(o[s], dim=-1) for o in outs])
                  for s in range(len(xs))]
-        ramp = min(1.0, float(num_batch) / cfg.warmup) * cfg.lam
+        ramp = _mag_ramp(num_batch, dev, cfg.lam, cfg.warmup)
         loss = _sharded_losses(mesh, logps, batches, nts, ums, ramp, cfg.tem,
                                conf, cfg.loss)[0]
         optimizer.zero_grad(set_to_none=True)
@@ -321,7 +330,8 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
                                           (val_rows, val_labels, val_mask))
         batch_transform = lambda b: shard_batch(mesh, b)  # noqa: E731
     # after the placement, so that Adam's moments follow the table's shards
-    optimizer = make_optimizer(model, cfg.lr, cfg.weight_decay)
+    optimizer = make_optimizer(model, cfg.lr, cfg.weight_decay,
+                               capturable=captures_groups(cfg, mesh, device))
     train_step, eval_step = build_sparse_steps(cfg, model, optimizer,
                                                n_class, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(cfg.seed2)
@@ -340,7 +350,8 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
         device=device, verbose=verbose, model=model, optimizer=optimizer,
         edges_per_step=(cfg.batch_size + cfg.unlabel_batch_size) * tk.k
         * cfg.sample,
-        batch_transform=batch_transform, row_padded=row_padded)
+        batch_transform=batch_transform, row_padded=row_padded,
+        generators=(generator,))
     best = out.pop("best")
     model.load_state_dict(best.pop("state"))
 
@@ -384,13 +395,9 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
                               labels_int[data.idx_test]).mean())
     total_time = time.time() - t_start
     verbose(f"Test Accuracy {test_acc:.4f}")
-    bt = out["batch_times"]
     return TrainResult(
         test_acc=test_acc, best_val_acc=best["acc"],
-        best_val_loss=best["loss"], num_batches=out["num_batch"],
-        total_time=total_time,
-        batch_time_avg=float(np.mean(bt)) if bt else 0.0,
-        batch_time_median=float(np.median(bt)) if bt else 0.0,
+        best_val_loss=best["loss"], total_time=total_time,
         preprocess_time=preprocess_time, propagate_time=propagate_time,
         predict_precision=predict_precision, model=model,
-        history=out["history"], preempted=out["preempted"])
+        **loop_result(out))

@@ -1855,3 +1855,217 @@ def test_process_mesh_on_one_card(device, tmp_path):
     outs = workers.spawn("card", tmp_path, ports=2, timeout=300)
     for out in outs:
         assert "refused: NCCL cannot run two ranks on one card" in out, out
+
+
+# scan_steps: a rolled step group as one CUDA graph replay (train/loop.py)
+
+def _group_setup(engine: str, device):
+    """A small model of ``engine`` with a capturable Adam, its step as the
+    loop calls it (every drop rate of the step on), the step's generator
+    and an epoch of 8 batches with their step indices."""
+    from grandtpu_torch.config import GrandConfig
+    from grandtpu_torch.nn.mag_mlp import init_mag_mlp
+    from grandtpu_torch.nn.mlp import MLPConfig, init_mlp
+    from grandtpu_torch.nn.sparse_input import PaddedFeatures
+    from grandtpu_torch.train.step import (StepConfig, build_train_step,
+                                           make_optimizer)
+    from grandtpu_torch.train.trainer_sparse import build_sparse_steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(0)
+    n, c, nt, nu, ktop = 300, 5, 12, 20, 16
+    cfg = GrandConfig(batch_size=nt, unlabel_batch_size=nu, sample=3,
+                      dropnode_rate=0.5, input_droprate=0.3,
+                      hidden_droprate=0.2, hidden=32,
+                      nlayers=2, use_bn=engine == "dense", node_norm=True,
+                      lr=1e-2, weight_decay=1e-3, clip_norm=0.5, loss="kl",
+                      warmup=10.0)
+    tk = [torch.as_tensor(rs.randint(0, n, (200, ktop)).astype(np.int32),
+                          device=device),
+          torch.as_tensor(rs.rand(200, ktop).astype(np.float32),
+                          device=device)]
+    if engine == "dense":
+        nfeat = 40
+        operands = [torch.as_tensor(rs.rand(n, nfeat).astype(np.float32),
+                                    device=device)] + tk
+    else:
+        m = (rs.rand(n, 500) < 0.02) * rs.rand(n, 500)
+        padded = PaddedFeatures.from_csr(sp.csr_matrix(m.astype(np.float32)))
+        nfeat = padded.num_features
+        operands = [torch.as_tensor(a, device=device) for a in
+                    (padded.attr_cols, padded.attr_vals)] + tk
+    mcfg = MLPConfig(num_features=nfeat, num_classes=c, hidden=cfg.hidden,
+                     nlayers=2, use_bn=cfg.use_bn, node_norm=True,
+                     input_droprate=cfg.input_droprate,
+                     hidden_droprate=cfg.hidden_droprate)
+    model = (init_mlp if engine == "dense" else init_mag_mlp)(mcfg, 0,
+                                                              device)
+    opt = make_optimizer(model, cfg.lr, cfg.weight_decay, capturable=True)
+    if engine == "dense":
+        step = build_train_step(StepConfig(
+            mlp=mcfg, k_aug=cfg.sample, dropnode_rate=cfg.dropnode_rate,
+            n_train=nt, lam=1.0, warmup=cfg.warmup, tem=0.5, conf=0.4,
+            loss_kind="kl", clip_norm=cfg.clip_norm), model, opt)
+    else:
+        step = build_sparse_steps(cfg, model, opt, c)[0]
+    gen = torch.Generator(device=device).manual_seed(7)
+    lmask = np.ones((8, nt), np.float32)
+    lmask[:, -3:] = 0.0
+    epoch = {"rows": torch.as_tensor(rs.randint(0, 200, (8, nt + nu)),
+                                     device=device),
+             "labels": torch.as_tensor(rs.randint(0, c, (8, nt)),
+                                       device=device),
+             "label_mask": torch.as_tensor(lmask, device=device),
+             "unlabel_mask": torch.ones(8, nu, device=device)}
+    nbs = torch.arange(2, 10, dtype=torch.float32, device=device)
+
+    def step_fn(batch, nb):
+        return step(*operands, batch, gen, nb)
+
+    return model, opt, gen, step_fn, epoch, nbs
+
+
+def _saved(model, opt, gen):
+    out = {f"m.{k}": v.detach().clone() for k, v in model.state_dict().items()}
+    for i, p in enumerate(model.parameters()):
+        for key, v in opt.state.get(p, {}).items():
+            out[f"a.{i}.{key}"] = v.detach().clone()
+    out["gen"] = gen.get_state()
+    return out
+
+
+def _restore(model, opt, gen, saved):
+    model.load_state_dict({k[2:]: v for k, v in saved.items()
+                           if k.startswith("m.")})
+    for i, p in enumerate(model.parameters()):
+        for key, v in opt.state.get(p, {}).items():
+            v.copy_(saved[f"a.{i}.{key}"])
+    gen.set_state(saved["gen"])
+
+
+@pytest.mark.parametrize("engine", ["dense", "mag"])
+def test_step_group_replay_equals_eager_steps(device, engine):
+    """From one saved state, a StepGroup of 3 steps (captured into a CUDA
+    graph, then replayed) against the same 3 steps run eagerly: the dense
+    engine's parameters, BN buffers, Adam state and generator state bit
+    for bit; MAG's within 1e-5 (K3's backward adds with float atomics),
+    its generator state equal. The wrappers count k launches a replay,
+    none for the capture; a second group of another length runs eagerly
+    between replays and the next replay still equals eager steps."""
+    from grandtpu_torch.nn.dropnode import gather_and_prop as k1
+    from grandtpu_torch.train.loop import StepGroup
+
+    model, opt, gen, step_fn, epoch, nbs = _group_setup(engine, device)
+    counted = ([k1] if engine == "dense"
+               else [embed_prop, embed_prop_backward])
+
+    def eager(i0, k):
+        for i in range(i0, i0 + k):
+            step_fn({n: t[i] for n, t in epoch.items()}, nbs[i])
+
+    def check(got, want):
+        for key, w in want.items():
+            if engine == "dense" or key == "gen":
+                assert torch.equal(got[key], w), key
+            else:
+                assert _rel_err(got[key], w) <= TOL, key
+
+    eager(0, 2)                         # Adam's state, first launches
+    saved = _saved(model, opt, gen)
+    eager(2, 3)
+    torch.cuda.synchronize()
+    want = _saved(model, opt, gen)
+    _restore(model, opt, gen, saved)
+    rest = {n: t[2:] for n, t in epoch.items()}
+    group = StepGroup(3, step_fn, rest, device, (gen,))
+    before = [f.launches for f in counted]
+    group(rest, nbs[2:], 0)
+    torch.cuda.synchronize()
+    assert group.graph is not None
+    assert [f.launches - b for f, b in zip(counted, before)] == [3] * len(
+        counted)
+    assert set(group.launches.values()) == {3}
+    check(_saved(model, opt, gen), want)
+
+    # eager steps of another count in between, then a replay of other
+    # batches: against the same steps run eagerly from the same state
+    saved = _saved(model, opt, gen)
+    eager(5, 2)
+    eager(4, 3)
+    torch.cuda.synchronize()
+    want = _saved(model, opt, gen)
+    _restore(model, opt, gen, saved)
+    eager(5, 2)
+    before = [f.launches for f in counted]
+    group(epoch, nbs, 4)                # steps 4, 5, 6 of the epoch
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counted, before)] == [3] * len(
+        counted)
+    check(_saved(model, opt, gen), want)
+
+
+def test_capturable_adam_checkpoint_round_trip(device, tmp_path):
+    """A capturable Adam's state (its step count on the card) written with
+    training_trees and read back with restore_training into a fresh
+    capturable optimizer: the step count lands on the parameters' device,
+    the moments equal, and the next step equals the original's."""
+    from grandtpu_torch.train import checkpoint as tckpt
+
+    model, opt, gen, step_fn, epoch, nbs = _group_setup("dense", device)
+    for i in range(3):
+        step_fn({n: t[i] for n, t in epoch.items()}, nbs[i])
+    params, state, ost = tckpt.training_trees(model, opt, 1e-3)
+    path = str(tmp_path / "latest.npz")
+    tckpt.save_checkpoint(path, params=params, state=state, opt_state=ost,
+                          num_batch=3, best_val_acc=0.5, best_val_loss=0.5)
+    model2, opt2, gen2, step_fn2, _, _ = _group_setup("dense", device)
+    params_t, state_t = tckpt.training_templates(model2)
+    lp, ls, lo, meta = tckpt.load_checkpoint(
+        path, params_template=params_t, state_template=state_t,
+        opt_template=tckpt.adam_tree(params_t, weight_decay=1e-3))
+    tckpt.restore_training(model2, opt2, lp, ls, lo)
+    gen2.set_state(gen.get_state())
+    for p, p2 in zip(model.parameters(), model2.parameters()):
+        st, st2 = opt.state[p], opt2.state[p2]
+        assert st2["step"].device == p2.device and float(st2["step"]) == 3.0
+        assert torch.equal(st["exp_avg"], st2["exp_avg"])
+        assert torch.equal(p, p2)
+    batch = {n: t[3] for n, t in epoch.items()}
+    step_fn(batch, nbs[3])
+    step_fn2(batch, nbs[3])
+    for p, p2 in zip(model.parameters(), model2.parameters()):
+        assert torch.equal(p, p2)
+
+
+@pytest.mark.parametrize("engine", ["dense", "mag"])
+def test_train_scan_steps_on_the_card(device, engine):
+    """train(scan_steps=True) on the card: the rolled lengths are CUDA-graph
+    replays whose launches count, the step count equals the per-step run's
+    and the history holds to it within 1e-4 (the capturable Adam rounds
+    its bias corrections on the card)."""
+    from grandtpu_torch.config import GrandConfig
+    from grandtpu_torch.data import load_data
+    from grandtpu_torch.nn.dropnode import gather_and_prop as k1
+    from grandtpu_torch.train import train
+
+    if engine == "dense":
+        cfg = GrandConfig(dataset="synth:400:4:32", epochs=8, eval_batch=3,
+                          patience=100)
+    else:
+        cfg = GrandConfig(dataset="synth:400:4:64:sparse", epochs=6,
+                          eval_batch=4, patience=100, batch_size=20,
+                          unlabel_batch_size=30, hidden=32)
+    data = load_data(cfg.dataset, split_seed=cfg.seed1)
+    per = train(cfg, data=data, device=device)
+    counted = k1 if engine == "dense" else embed_prop_backward
+    before = counted.launches
+    got = train(cfg.replace(scan_steps=True), data=data, device=device)
+    assert got.scan_groups and all(s["graph"]
+                                   for s in got.scan_groups.values())
+    steps = got.num_batches
+    want = (steps + len(got.history)) if engine == "dense" else steps
+    assert counted.launches - before == want
+    assert got.num_batches == per.num_batches
+    for g, w in zip(got.history, per.history, strict=True):
+        assert g["batch"] == w["batch"]
+        assert abs(g["val_loss"] - w["val_loss"]) <= 1e-4

@@ -125,11 +125,17 @@ def test_cli_run_on_cpu():
 
 
 def test_cli_presets_and_unported_flag(capsys):
+    """The CLI refuses the one unported option (the orbax backend), naming
+    its ROADMAP item, and runs ``--scan-steps true``."""
     assert cli(["presets"]) == 0
     assert "reddit" in capsys.readouterr().out
     assert cli(["run", "--dataset", "synth:200:4:16", "--device", "cpu",
-                "--scan-steps", "true"]) == 2
+                "--ckpt-backend", "orbax"]) == 2
     assert "ROADMAP" in capsys.readouterr().err
+    assert cli(["run", "--dataset", "synth:400:4:16", "--device", "cpu",
+                "--epochs", "3", "--eval-batch", "2",
+                "--scan-steps", "true"]) == 0
+    assert '"test_acc_mean"' in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("field,value", [
@@ -138,9 +144,9 @@ def test_cli_presets_and_unported_flag(capsys):
     ("scan_steps", True), ("num_devices", 2), ("push_cache_dir", "cache"),
 ])
 def test_unported_config_raises(field, value, tmp_path):
-    """Only the orbax backend and ``scan_steps`` still raise, naming their
-    ROADMAP items. The long-run options that used to raise here run and
-    do what their field asks."""
+    """Only the orbax backend still raises, naming its ROADMAP item. The
+    options that used to raise here run and do what their field asks
+    (``scan_steps``: rolled groups, the trajectory per-step training's)."""
     cfg = GrandConfig(dataset="synth:200:4:16").replace(**{field: value})
     if field == "num_devices":
         # data-parallel training is ported (tests/test_torch_dist_train.py);
@@ -149,10 +155,8 @@ def test_unported_config_raises(field, value, tmp_path):
         with pytest.raises(ValueError, match="unlabel_batch_size"):
             ttrainer.train(cfg.replace(batch_size=3), device="cpu")
         return
-    if field in ("ckpt_backend", "scan_steps"):
-        item = "5" if field == "ckpt_backend" else "11"
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue A {item}"):
+    if field == "ckpt_backend":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 5"):
             ttrainer.train(cfg, device="cpu")
         return
     base = GrandConfig(dataset="synth:400:4:16", epochs=4, eval_batch=1,
@@ -187,6 +191,14 @@ def test_unported_config_raises(field, value, tmp_path):
         assert lines[-1]["train_edges_per_s"] > 0
     elif field == "profile_dir":
         assert [f for f in os.listdir(value) if f.endswith(".json")]
+    elif field == "scan_steps":
+        # one eval a step: every group has length 1, none is rolled
+        assert got.scan_groups == {}
+        grouped = base.replace(eval_batch=3, epochs=8)
+        again = ttrainer.train(grouped.replace(**{field: value}),
+                               device="cpu")
+        want = ttrainer.train(grouped, device="cpu")
+        assert again.scan_groups and again.history == want.history
     else:
         assert len(os.listdir(value)) == 1
         again = ttrainer.train(base.replace(**{field: value}), device="cpu")
