@@ -16,8 +16,8 @@
 //   D[k,r]     = sum_j w[k,r,j] + 1e-12
 //   out[k,r,h] = sum_j w[k,r,j] * E[k,r,j,h] / D[k,r]  (node form: E[k,r,0,h])
 //
-// The backward scatter-adds into a zeroed dense dT [V, H] with float
-// atomics:  dT[c, h] += sum_k g[k,r,h] / D[k,r] * w[k,r,j] / S * a * drop/keep_prob.
+// The backward scatter-adds into a zeroed dense dT [V, H], in a fixed
+// order:  dT[c, h] += sum_k g[k,r,h] / D[k,r] * w[k,r,j] / S * a * drop/keep_prob.
 //
 // Vocab window [lo, hi) (the vocab-sharded table of data-parallel training,
 // grandtpu/dist/data_parallel.py:96-150): T holds rows lo..hi-1 only. The
@@ -76,11 +76,21 @@
 // slower; the mask words loaded inside the multiply loop: train with
 // input dropout 0.0245, against 0.0187 issued with the table rows.
 //
-// Backward (not redesigned): one warp per (row, slot), lanes over H with two
-// floats a lane, one atomicAdd per table element touched, into a dense
-// [V, H] gradient that the caller zero-fills (the fill is most of its time:
-// dense Adam reads the whole gradient, so the bound counts it too). Both
-// use 64-bit offsets into the table.
+// Backward, deterministic: the same bits on every run, so that a training
+// run repeats itself and a CUDA-graph replay of steps equals the steps run
+// eagerly. Two launches around a stable sort. embed_prop_bwd_kernel gives
+// one warp a (row, slot), lanes over H with two floats a lane, and writes
+// each (row, slot, attribute) entry's term row to its own place in a
+// scratch [E, H] (E = rows x ktop x P) and the entry's id to keys[E] (an
+// entry that adds nothing, a zero value or an id outside the vocab window,
+// gets kNoKey). The caller sorts the keys, stably; embed_prop_bwd_sum_kernel
+// gives a warp each run of equal ids in the sorted keys, which adds the
+// run's term rows in entry order and stores the sum into the dense [V, H]
+// gradient that the caller zero-fills (the fill is most of the time: dense
+// Adam reads the whole gradient, so the bound counts it too). The earlier
+// backward added each term with a float atomicAdd, in an order that
+// changed from run to run where three or more terms met in one element.
+// Both use 64-bit offsets into the table.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,6 +104,7 @@ constexpr int kMaxWarps = 32;   // forward: warps a block at most (one a slot)
 constexpr int kMinWarps = 4;    // forward: rows a block fill this many warps
 constexpr int kIdBytes = 3 * 32 * 4;   // forward: a warp's compacted id list
 constexpr int kMaxSmem = 232448;       // an H100 block's shared memory
+constexpr int32_t kNoKey = INT32_MAX;  // backward: an entry adding nothing
 
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
@@ -339,8 +350,9 @@ __global__ void __launch_bounds__(kThreads) embed_prop_bwd_kernel(
     const float* __restrict__ grad, const int32_t* __restrict__ attr_cols,
     const float* __restrict__ attr_vals, const int32_t* __restrict__ tk_cols,
     const float* __restrict__ tk_vals, const uint8_t* __restrict__ keep,
-    const uint8_t* __restrict__ drop, float* __restrict__ dtable, int rows,
-    int ktop, int P, int H, float keep_prob, int vocab_lo, int vocab_hi) {
+    const uint8_t* __restrict__ drop, float* __restrict__ contrib,
+    int32_t* __restrict__ keys, int rows, int ktop, int P, int H,
+    float keep_prob, int vocab_lo, int vocab_hi) {
   const int lane = threadIdx.x & 31;
   const int64_t gw = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) +
                      (threadIdx.x >> 5);
@@ -348,6 +360,7 @@ __global__ void __launch_bounds__(kThreads) embed_prop_bwd_kernel(
   const int r = static_cast<int>(gw / ktop);
   const int j = static_cast<int>(gw - static_cast<int64_t>(r) * ktop);
   const bool node_form = tk_cols == nullptr;
+  const int64_t e0 = gw * P;   // the slot's first entry
 
   // w[k,r,j] and D[k,r], summed in the forward's order (serial over j)
   float wk[K], dk[K];
@@ -373,13 +386,21 @@ __global__ void __launch_bounds__(kThreads) embed_prop_bwd_kernel(
     }
     any |= wk[k] != 0.0f;
   }
-  if (!any) return;                                      // whole warp
+  if (!any) {                                            // whole warp
+    for (int p = lane; p < P; p += 32) keys[e0 + p] = kNoKey;
+    return;
+  }
 
   const int64_t node =
       node_form ? r : tk_cols[static_cast<int64_t>(r) * ktop + j];
   const int32_t* ac = attr_cols + node * P;
   const float* av = attr_vals + node * P;
   const float s = attr_mass(av, P, lane) + 1e-10f;
+  for (int p = lane; p < P; p += 32) {
+    const int32_t c = ac[p];
+    const bool adds = av[p] != 0.0f && c >= vocab_lo && c < vocab_hi;
+    keys[e0 + p] = adds ? c : kNoKey;
+  }
 
   for (int h0 = 0; h0 < H; h0 += kChunk) {
     const int ha = h0 + lane, hb = h0 + 32 + lane;
@@ -422,11 +443,34 @@ __global__ void __launch_bounds__(kThreads) embed_prop_bwd_kernel(
             if (hb < H && dmask[hb] != 0) vb += gn[k][1] / keep_prob;
           }
         }
-        float* trow = dtable + (c - vocab_lo) * H;
-        if (ha < H) atomicAdd(trow + ha, va * a);
-        if (hb < H) atomicAdd(trow + hb, vb * a);
+        float* crow = contrib + (e0 + p0 + q) * H;
+        if (ha < H) crow[ha] = va * a;
+        if (hb < H) crow[hb] = vb * a;
       }
     }
+  }
+}
+
+// A warp a run of equal ids in the stably sorted keys (the warp at its
+// first position; the others return): the run's term rows added in entry
+// order, stored into the id's row of the zero-filled gradient.
+__global__ void __launch_bounds__(kThreads) embed_prop_bwd_sum_kernel(
+    const int32_t* __restrict__ skeys, const int64_t* __restrict__ perm,
+    const float* __restrict__ contrib, float* __restrict__ dtable,
+    int64_t num_entries, int H, int vocab_lo) {
+  const int lane = threadIdx.x & 31;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) +
+                    (threadIdx.x >> 5);
+  if (i >= num_entries) return;                          // whole warp
+  const int32_t c = skeys[i];
+  if (c == kNoKey || (i > 0 && skeys[i - 1] == c)) return;
+  int64_t end = i + 1;
+  while (end < num_entries && skeys[end] == c) ++end;
+  float* trow = dtable + static_cast<int64_t>(c - vocab_lo) * H;
+  for (int h = lane; h < H; h += 32) {
+    float acc = 0.0f;
+    for (int64_t t = i; t < end; ++t) acc += contrib[perm[t] * H + h];
+    trow[h] = acc;
   }
 }
 
@@ -488,15 +532,15 @@ template <int K, bool DROP>
 cudaError_t launch_bwd(const float* grad, const int32_t* attr_cols,
                        const float* attr_vals, const int32_t* tk_cols,
                        const float* tk_vals, const uint8_t* keep,
-                       const uint8_t* drop, float* dtable, int rows, int ktop,
-                       int P, int H, float keep_prob, int vocab_lo,
-                       int vocab_hi, cudaStream_t stream) {
+                       const uint8_t* drop, float* contrib, int32_t* keys,
+                       int rows, int ktop, int P, int H, float keep_prob,
+                       int vocab_lo, int vocab_hi, cudaStream_t stream) {
   const int64_t warps = static_cast<int64_t>(rows) * ktop;
   const int64_t blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
   embed_prop_bwd_kernel<K, DROP><<<static_cast<unsigned>(blocks), kThreads, 0,
                                    stream>>>(
-      grad, attr_cols, attr_vals, tk_cols, tk_vals, keep, drop, dtable, rows,
-      ktop, P, H, keep_prob, vocab_lo, vocab_hi);
+      grad, attr_cols, attr_vals, tk_cols, tk_vals, keep, drop, contrib, keys,
+      rows, ktop, P, H, keep_prob, vocab_lo, vocab_hi);
   return cudaGetLastError();
 }
 
@@ -528,7 +572,10 @@ cudaError_t launch_bwd(const float* grad, const int32_t* attr_cols,
 // and keep null); keep == nullptr keeps every slot; drop == nullptr applies
 // no input dropout (keep_prob is then unused). table (and dtable) hold the
 // rows [vocab_lo, vocab_hi) of the vocabulary; 0 and V for the whole
-// table. The backward adds into dtable, which the caller zeroes.
+// table. The backward is embed_prop_bwd_f32 (each entry's term row into
+// contrib [rows * ktop * P, H] and its id into keys), a stable sort of the
+// keys by the caller, then embed_prop_bwd_sum_f32 (the sums into dtable,
+// which the caller zeroes).
 extern "C" int embed_prop_fwd_f32(const float* table, const int32_t* attr_cols,
                                   const float* attr_vals,
                                   const int32_t* tk_cols, const float* tk_vals,
@@ -547,12 +594,27 @@ extern "C" int embed_prop_bwd_f32(const float* grad, const int32_t* attr_cols,
                                   const float* attr_vals,
                                   const int32_t* tk_cols, const float* tk_vals,
                                   const uint8_t* keep, const uint8_t* drop,
-                                  float* dtable, int rows, int ktop, int P,
-                                  int H, int num_aug, float keep_prob,
-                                  int vocab_lo, int vocab_hi, void* stream) {
+                                  float* contrib, int32_t* keys, int rows,
+                                  int ktop, int P, int H, int num_aug,
+                                  float keep_prob, int vocab_lo, int vocab_hi,
+                                  void* stream) {
   if (rows == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   EMBED_PROP_DISPATCH(launch_bwd, grad, attr_cols, attr_vals, tk_cols,
-                      tk_vals, keep, drop, dtable, rows, ktop, P, H,
+                      tk_vals, keep, drop, contrib, keys, rows, ktop, P, H,
                       keep_prob, vocab_lo, vocab_hi, s)
+}
+
+// skeys: the keys stably sorted, perm their entries (torch.sort's indices).
+extern "C" int embed_prop_bwd_sum_f32(const int32_t* skeys,
+                                      const int64_t* perm,
+                                      const float* contrib, float* dtable,
+                                      int64_t num_entries, int H,
+                                      int vocab_lo, void* stream) {
+  if (num_entries == 0 || H == 0) return 0;
+  const int64_t blocks = (num_entries + kThreads / 32 - 1) / (kThreads / 32);
+  embed_prop_bwd_sum_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      skeys, perm, contrib, dtable, num_entries, H, vocab_lo);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,9 @@ model shard of a data row holds what this says of the row):
 - MLP parameters, BatchNorm state and their Adam moments: one copy on the
   first device of each process, which its shards read through
   ``Mesh.broadcast`` (its backward sums the shards' gradients, over the
-  ranks too); every rank runs the same Adam step on the same gradients;
+  ranks too); every rank runs the same Adam step on the same gradients
+  (``train/adam.py``: one launch a device over all its leaves, a sharded
+  model's blocks among them);
 - the MAG embedding table and its Adam moments: vocab-sharded
   (``emb_mode="vocab"``: row-padded with zero rows to a multiple of the
   n data rows, data row d owns rows [d V/n, (d+1) V/n) on the device of
@@ -169,7 +171,7 @@ def shard_batch(mesh: Mesh, batch: dict) -> list:
 
 
 def joined_state(model, optimizer) -> dict:
-    """{name: (value, grad, exp_avg, exp_avg_sq)} of every parameter of
+    """{name: (value, grad, mu, nu)} of every parameter of
     ``model`` (None for a missing gradient or moment) and {buffer:
     (value,)}, each parameter held in blocks (``split_parameters``: a
     vocab-sharded table, the blocks split over 'model') joined whole under
@@ -178,7 +180,7 @@ def joined_state(model, optimizer) -> dict:
     collective: every rank calls it."""
     def four(p):
         st = optimizer.state.get(p, {})
-        return (p.detach(), p.grad, st.get("exp_avg"), st.get("exp_avg_sq"))
+        return (p.detach(), p.grad, st.get("mu"), st.get("nu"))
 
     split = split_parameters(model)
     blocks = {id(p) for ps, *_ in split.values() for p in ps}

@@ -263,20 +263,32 @@ def _launch_backward(grad, lo, hi, attr_cols, attr_vals, tk_cols, tk_vals,
     d_table = torch.zeros((hi - lo, h), dtype=torch.float32,
                           device=grad.device)
     if grad.numel():
-        rc = load_kernels().embed_prop_bwd_f32(
+        # each (row, slot, attribute) entry's term row and id, then the
+        # rows of equal ids added in entry order: no float atomics, the same
+        # bits on every run
+        n = rows * ktop * p
+        contrib = torch.empty((n, h), dtype=torch.float32, device=grad.device)
+        keys = torch.empty(n, dtype=torch.int32, device=grad.device)
+        stream = torch.cuda.current_stream(grad.device).cuda_stream
+        lib = load_kernels()
+        check(lib.embed_prop_bwd_f32(
             grad.data_ptr(), attr_cols.data_ptr(), attr_vals.data_ptr(),
             _ptr(tk_cols), _ptr(tk_vals), _ptr(keep), _ptr(drop),
-            d_table.data_ptr(), rows, ktop, p, h, num_aug, 1.0 - droprate,
-            lo, hi, torch.cuda.current_stream(grad.device).cuda_stream)
-        check(rc, "embed_prop_bwd_f32")
+            contrib.data_ptr(), keys.data_ptr(), rows, ktop, p, h, num_aug,
+            1.0 - droprate, lo, hi, stream), "embed_prop_bwd_f32")
+        skeys, perm = torch.sort(keys, stable=True)
+        check(lib.embed_prop_bwd_sum_f32(
+            skeys.data_ptr(), perm.data_ptr(), contrib.data_ptr(),
+            d_table.data_ptr(), n, h, lo, stream), "embed_prop_bwd_sum_f32")
     return d_table
 
 
 def embed_prop_backward(grad: torch.Tensor, num_embeddings: int,
                         attr_cols, attr_vals, tk_cols, tk_vals, keep, drop,
                         droprate: float, dims) -> torch.Tensor:
-    """The K3 backward kernel: a zeroed [V, H] table gradient that ``grad``
-    [K, R, H] is scatter-added into (float atomics)."""
+    """The K3 backward kernels: a zeroed [V, H] table gradient that
+    ``grad`` [K, R, H] is scatter-added into, each element's terms in a
+    fixed order (the same bits on every run)."""
     d_table = _launch_backward(grad, 0, num_embeddings, attr_cols, attr_vals,
                                tk_cols, tk_vals, keep, drop, droprate, dims)
     if grad.numel():

@@ -75,10 +75,12 @@ _SIGNATURES = {
     # q, col_scale, y, acc (may be null), carry_bf16
     "csr_spmm_q8_align": [_P] * 4 + [_I],
     # table | grad, attr_cols, attr_vals, tk_cols, tk_vals, keep, drop,
-    # out | dtable, rows, ktop, P, H, num_aug, keep_prob, vocab_lo,
+    # out | (contrib, keys), rows, ktop, P, H, num_aug, keep_prob, vocab_lo,
     # vocab_hi, stream
     "embed_prop_fwd_f32": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _I, _P],
-    "embed_prop_bwd_f32": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _I, _P],
+    "embed_prop_bwd_f32": [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _I, _P],
+    # skeys, perm, contrib, dtable, num_entries, H, vocab_lo, stream
+    "embed_prop_bwd_sum_f32": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
     # ids (or null), vals, row_off, out_cols, out_vals | num_rows, k, stream
     "push_topk": [_P] * 3 + [_I, _I, _P, _P, _P],
     # residue, reserve, pushed, tele_in, tele_out, src, deg, thr |
@@ -92,6 +94,12 @@ _SIGNATURES = {
     "bucket_reserve": [_P, _I] + [_P] * 9 + [_I, _P],
     # out[7]
     "bucket_push_occupancy": [_P],
+    # p, g, m, v (arrays of the leaves' pointers), n (int64 array) |
+    # num_leaves, bc1, bc2, neg_lr, wd, b1, 1 - b1, b2, 1 - b2, eps, decay,
+    # stream
+    "adam_update_f32": [_P] * 5 + [_I, _P, _P] + [ctypes.c_float] * 7
+                       + [_I, _P],
+    "adam_max_leaves": [],
 }
 
 

@@ -13,9 +13,9 @@ The trees are grandtpu's, as numpy: :func:`grandtpu_torch.convert.mlp_to_jax`
 and ``mag_to_jax`` make them from the port's modules, ``mlp_from_jax`` and
 ``mag_from_jax`` build modules from them (:func:`load_model`). A full
 training state (``latest.npz``) adds the ``opt`` section, optax's Adam
-state: torch ``Adam``'s ``exp_avg``, ``exp_avg_sq`` and ``step`` are its
-``mu``, ``nu`` and ``count`` (:func:`training_trees`,
-:func:`restore_training`). The orbax backend is not ported.
+state: the port's ``Adam`` (``train/adam.py``) keeps the same ``mu``,
+``nu`` and ``count`` (:func:`training_trees`, :func:`restore_training`).
+The orbax backend is not ported.
 """
 
 from __future__ import annotations
@@ -251,13 +251,6 @@ def _zeros_like(tree):
     return np.zeros_like(tree)
 
 
-def _moved(model, name: str) -> bool:
-    """Whether Adam moves parameter ``name``: not the BatchNorms' when
-    ``use_bn`` is off (they get no gradient, so torch's Adam keeps no
-    state for them)."""
-    return model.cfg.use_bn or not name.startswith("bns.")
-
-
 def training_templates(model) -> tuple:
     """(params, state) trees of ``model``'s shapes, whole and unpadded, for
     :func:`load_checkpoint` (an unsharded model of the same config on the
@@ -266,11 +259,11 @@ def training_templates(model) -> tuple:
 
 
 def training_trees(model, optimizer, weight_decay: float) -> tuple:
-    """(params, state, opt) of ``model`` and its ``torch.optim.Adam`` in
+    """(params, state, opt) of ``model`` and its ``train.adam.Adam`` in
     grandtpu's layout: ``opt`` is :func:`adam_tree` of the moments (zeros
-    for a parameter with no Adam state) with ``count`` the step count.
-    Whole trees, a sharded model's values and moments joined (a collective
-    over processes: every rank calls it)."""
+    before the first step) and the step count. Whole trees, a sharded
+    model's values and moments joined (a collective over processes: every
+    rank calls it)."""
     from grandtpu_torch.nn.mlp import split_parameters
 
     params, state = model_trees(model)
@@ -280,33 +273,27 @@ def training_trees(model, optimizer, weight_decay: float) -> tuple:
     for name, keys, transposed in _param_leaves(model):
         blocks, join, _ = split.get(name, ([named.get(name)], None, None))
         sts = [optimizer.state.get(p, {}) for p in blocks]
-        for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+        for tree, key in ((mu, "mu"), (nu, "nu")):
             if key not in sts[0]:
                 continue
             m = sts[0][key] if join is None else join([st[key] for st in sts])
             m = m.detach().cpu().numpy()
             _leaf(tree, keys[:-1])[keys[-1]] = m.T if transposed else m
-    count = max((int(st["step"]) for st in optimizer.state.values()
-                 if "step" in st), default=0)
-    return params, state, adam_tree(mu, nu, count, weight_decay)
+    return params, state, adam_tree(mu, nu, int(optimizer.count),
+                                    weight_decay)
 
 
 @torch.no_grad()
 def restore_training(model, optimizer, params, state, opt=None) -> None:
     """Load grandtpu-layout trees into ``model`` (whole or sharded: each
     block takes its part) and, with ``opt`` (optax's Adam state, as
-    :func:`training_trees` writes it), the moments and step count into
-    ``optimizer``'s state (the count on the parameter's device for a
-    capturable Adam). A parameter that Adam does not move (an unused
-    BatchNorm) gets no state, whatever the file holds for it. The weights
-    are copied in place; the Adam state is new tensors, so a CUDA graph
-    that holds the old ones must be captured again."""
+    :func:`training_trees` writes it), the moments and the step count into
+    ``optimizer``. Everything is copied in place, on the device where it
+    lives (moments that do not exist yet are made), so that a CUDA graph
+    that captured the step keeps reading the restored state."""
     from grandtpu_torch.nn.mlp import split_parameters
 
     adam = None if opt is None else next(s for s in opt if hasattr(s, "mu"))
-    # a capturable Adam keeps its step count on the parameter's device
-    capturable = optimizer is not None and optimizer.defaults.get(
-        "capturable", False)
     split = split_parameters(model)
     named = dict(model.named_parameters())
     for name, keys, transposed in _param_leaves(model):
@@ -322,14 +309,15 @@ def restore_training(model, optimizer, params, state, opt=None) -> None:
         targets, values = cut(params)
         for p, v in zip(targets, values):
             p.copy_(v)
-        if adam is None or not _moved(model, name):
+        if adam is None:
             continue
         for p, mu, nu in zip(targets, cut(adam.mu)[1], cut(adam.nu)[1]):
-            optimizer.state[p] = {
-                "step": torch.tensor(float(adam.count), dtype=torch.float32,
-                                     device=p.device if capturable else None),
-                "exp_avg": mu.to(p.device, p.dtype).clone(),
-                "exp_avg_sq": nu.to(p.device, p.dtype).clone()}
+            m, v = optimizer.moments(p)
+            m.copy_(mu)
+            v.copy_(nu)
+    if adam is not None:
+        optimizer.count.copy_(torch.as_tensor(np.asarray(adam.count),
+                                              dtype=torch.int32))
     for bn, s in zip(model.bns, state["bns"]):
         bn.running_mean.copy_(torch.as_tensor(np.asarray(s["mean"])))
         bn.running_var.copy_(torch.as_tensor(np.asarray(s["var"])))

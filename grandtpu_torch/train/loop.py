@@ -58,6 +58,7 @@ from grandtpu_torch.nn.sparse_input import (embed_prop, embed_prop_backward,
                                             embed_prop_window,
                                             embed_prop_window_backward)
 from grandtpu_torch.observe import MetricsLogger, StepTimer
+from grandtpu_torch.train.adam import adam_update
 from grandtpu_torch.train.checkpoint import (adam_tree, load_checkpoint,
                                              model_trees, restore_training,
                                              save_checkpoint,
@@ -72,7 +73,7 @@ SCAN_COMPILE_THRESHOLD = 3
 MAX_SCAN_SIZES = 2
 # the counted wrappers that a training step can launch
 STEP_KERNELS = (gather_and_prop, embed_prop, embed_prop_backward,
-                embed_prop_window, embed_prop_window_backward)
+                embed_prop_window, embed_prop_window_backward, adam_update)
 
 
 def plan_groups(nb0: int, n_steps: int, eval_batch: int) -> list:
@@ -119,8 +120,10 @@ class StepGroup:
     steps run one by one from the buffers.
 
     The graph reads the model's parameters and buffers, the optimizer's
-    state and the step's operands by address: they must be updated in
-    place, never rebound, while the group lives.
+    state (its moments and step count, from which each replayed step
+    computes its bias corrections) and the step's operands by address:
+    they must be updated in place, never rebound, while the group lives
+    (a checkpoint restore copies into them).
     """
 
     def __init__(self, k: int, step_fn, epoch: dict, device,
@@ -291,7 +294,7 @@ def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
     with ``generators`` the generators it draws from);
     eval_fn() -> (val_loss, val_acc);
     snapshot() -> a copy of the model state, kept for the best eval;
-    ``model`` and ``optimizer`` (its ``torch.optim.Adam``): what the
+    ``model`` and ``optimizer`` (its ``train.adam.Adam``): what the
     checkpoints save and a resume loads (needed with ``cfg.ckpt_dir``; a
     vocab-sharded table gathered, with the ``row_padded`` meta, as
     grandtpu writes a mesh run's); ``edges_per_step``: the StepTimer's

@@ -8,6 +8,7 @@ One training step is the reference inner loop (``model.py:303-334``):
                                                order: K sequential updates)
     loss = mean_k masked NLL + ramp * consis_loss
     grad norm (always measured) -> [clip] -> Adam with coupled L2
+    (``train/adam.py``, one launch of ``csrc/adam.cu``)
 
 Batches are wrap-padded to a fixed size; the masks weight the padding out
 of the NLL, the BN statistics and the consistency loss, so a padded step
@@ -42,6 +43,7 @@ from grandtpu_torch.dist.data_parallel import BatchSplit
 from grandtpu_torch.nn.dropnode import gather_and_prop
 from grandtpu_torch.nn.losses import consis_loss, consis_loss_sharded
 from grandtpu_torch.nn.mlp import MLP, MLPConfig
+from grandtpu_torch.train.adam import Adam
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,19 +60,12 @@ class StepConfig:
     clip_norm: float            # <=0 disables
 
 
-def make_optimizer(model: MLP, lr: float, weight_decay: float,
-                   capturable: bool = False) -> torch.optim.Adam:
-    """torch.optim.Adam: coupled weight decay added to the (clipped)
-    gradient before the moments, betas (0.9, 0.999), eps 1e-8 — the same
-    as ``grandtpu``'s ``make_optimizer`` (reference ``model.py:288-289``).
-    With ``capturable`` the step count lives on the parameters' device and
-    the bias corrections are computed there, so that a CUDA graph can hold
-    the update (the trainers set it for ``scan_steps`` on a card; torch
-    refuses it for CPU tensors). It rounds the update differently from the
-    plain Adam, whose bias corrections are host floats."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=weight_decay,
-                            capturable=capturable)
+def make_optimizer(model: MLP, lr: float, weight_decay: float) -> Adam:
+    """grandtpu's optimizer (reference ``model.py:288-289``): Adam with
+    coupled weight decay added to the (clipped) gradient before the
+    moments, betas (0.9, 0.999), eps 1e-8, in optax's order of operations
+    (:class:`~grandtpu_torch.train.adam.Adam`)."""
+    return Adam(model.parameters(), lr=lr, weight_decay=weight_decay)
 
 
 def num_batch_tensor(num_batch, device) -> torch.Tensor:

@@ -57,13 +57,6 @@ def check_supported(cfg: GrandConfig) -> None:
             f"Queue A 5: the orbax checkpoint backend)")
 
 
-def captures_groups(cfg: GrandConfig, mesh, device: torch.device) -> bool:
-    """Whether the training loop will capture step groups into CUDA graphs
-    (``scan_steps`` on a card, not on a mesh): the optimizer must then be
-    capturable."""
-    return cfg.scan_steps and mesh is None and device.type == "cuda"
-
-
 def train_mesh(cfg: GrandConfig, mesh, device: torch.device):
     """The mesh a trainer runs on: None for ``num_devices == 1``, else
     ``mesh`` (default ``make_mesh(num_devices, device=device)``), checked
@@ -198,8 +191,7 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
         conf=cfg.resolve_conf(n_class), loss_kind=cfg.loss,
         clip_norm=cfg.clip_norm)
     model = init_mlp(mlp_cfg, cfg.seed2, device)
-    optimizer = make_optimizer(model, cfg.lr, cfg.weight_decay,
-                               capturable=captures_groups(cfg, mesh, device))
+    optimizer = make_optimizer(model, cfg.lr, cfg.weight_decay)
     train_step = build_train_step(step_cfg, model, optimizer, mesh=mesh)
     eval_step = build_eval_step(step_cfg, model, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(cfg.seed2)

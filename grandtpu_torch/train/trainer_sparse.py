@@ -59,8 +59,7 @@ from grandtpu_torch.train.step import (_clip_, _eval_metrics, _eval_sharded,
                                        _sharded_batch, _sharded_losses,
                                        make_optimizer, num_batch_tensor)
 from grandtpu_torch.train.trainer import (TrainResult, check_supported,
-                                          captures_groups, loop_result, push,
-                                          train_mesh)
+                                          loop_result, push, train_mesh)
 
 
 def _mag_ramp(num_batch, device, lam: float, warmup: float) -> torch.Tensor:
@@ -330,8 +329,7 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
                                           (val_rows, val_labels, val_mask))
         batch_transform = lambda b: shard_batch(mesh, b)  # noqa: E731
     # after the placement, so that Adam's moments follow the table's shards
-    optimizer = make_optimizer(model, cfg.lr, cfg.weight_decay,
-                               capturable=captures_groups(cfg, mesh, device))
+    optimizer = make_optimizer(model, cfg.lr, cfg.weight_decay)
     train_step, eval_step = build_sparse_steps(cfg, model, optimizer,
                                                n_class, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(cfg.seed2)

@@ -283,7 +283,7 @@ def part_dense(rank, world, shared):
         scale = max(float(np.abs(v).max()) for k, v in ref.items()
                     if k.startswith("param/"))
         for name, vals in s_p.items():
-            keys = ["param", "grad", "exp_avg", "exp_avg_sq"]
+            keys = ["param", "grad", "mu", "nu"]
             if len(vals) == 1:
                 keys = ["buffer"]
             for key, v in zip(keys, vals):
@@ -946,8 +946,8 @@ def _grandtpu_dense(path) -> None:
     got, model = named(params, state, "param")
     out.update(got)
     out.update({f"buffer/{n}": b.numpy() for n, b in model.named_buffers()})
-    out.update(named(adam.mu, state, "exp_avg")[0])
-    out.update(named(adam.nu, state, "exp_avg_sq")[0])
+    out.update(named(adam.mu, state, "mu")[0])
+    out.update(named(adam.nu, state, "nu")[0])
     np.savez(os.path.join(path, "grandtpu_dense.npz"), **out)
 
 

@@ -125,8 +125,7 @@ def _check_states(got_model, got_opt, want_model, want_opt):
     got = joined_state(got_model, got_opt)
     assert want.keys() == got.keys(), (sorted(want), sorted(got))
     for name, w in want.items():
-        for i, what in enumerate(("value", "grad", "exp_avg",
-                                  "exp_avg_sq")[:len(w)]):
+        for i, what in enumerate(("value", "grad", "mu", "nu")[:len(w)]):
             assert rel(got[name][i], w[i]) <= TOL, (name, what)
 
 

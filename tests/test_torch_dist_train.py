@@ -188,8 +188,7 @@ def test_mesh_step_equals_one_device_step(graph, engine, shards):
     assert want.keys() == got.keys()
     for name, w in want.items():
         g = got[name]
-        for i, what in enumerate(("value", "grad", "exp_avg",
-                                  "exp_avg_sq")[:len(w)]):
+        for i, what in enumerate(("value", "grad", "mu", "nu")[:len(w)]):
             gi = g[i][:VOCAB] if name == "table" else g[i]
             assert rel(gi, w[i]) <= TOL, (name, what)
             if name == "table":    # the padding rows never move

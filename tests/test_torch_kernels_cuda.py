@@ -11,8 +11,8 @@ widths, empty and fully masked rows, hub rows, for K1 a grid of F, Ktop, K
 and batch (every vector width, lane groups, rows a block, tiles), views
 that start off a vector's alignment, the same bits on repeated calls and
 the Python mirror of its launch configuration, and for K3 attribute-free
-nodes, input dropout, colliding ids (the backward's atomics) and the node
-form, a grid of Ktop, P, H and K for the forward's warps, lane groups and id
+nodes, input dropout, colliding ids (the backward's runs of equal ids) and
+the node form, the backward's bits on repeated calls, a grid of Ktop, P, H and K for the forward's warps, lane groups and id
 lists, the forward's bits on repeated calls, and its vocab-window form (an
 empty window, the whole vocabulary, ids on the window's edges, the windows
 summing to the full op); for the fast-precision hops (K2-bf16, quantize,
@@ -37,7 +37,12 @@ hub rows included), D1's halo_pack (its send plan: a row
 every receiver needs, empty and all-padding groups, a row longer than a plan
 item, two windows of shared scales) and halo_hop (each form) and the
 quantize split (column_absmax, quantize_with_amax) 4-wide and 1-wide lanes,
-a 9000-nonzero hub row, empty rows and an empty shard.
+a 9000-nonzero hub row, empty rows and an empty shard; for Adam
+(csrc/adam.cu) bit for bit its plain version on the reddit MLP's leaves,
+the MAG table [2780000, 64] and head, a leaf without a gradient, leaves
+off the 16-byte alignment and of odd lengths, and more leaves than one
+launch takes, with and without weight decay, and the Python mirror of its
+leaf cap.
 """
 
 import ctypes
@@ -306,7 +311,8 @@ def _k3_check(device, num_aug, rows, ktop, p, h, q, collide=False,
     (want * grad).sum().backward()
     assert out.shape == want.shape == (num_aug, rows, h)
     assert _rel_err(out.detach(), want.detach()) <= TOL
-    # the backward's atomics sum in another order than autograd's scatter
+    # the backward adds an id's terms in entry order, autograd's scatter in
+    # another
     assert _rel_err(t_k.grad, t_p.grad) <= TOL
     return out
 
@@ -385,6 +391,28 @@ def test_embed_prop_forward_repeats_bit_for_bit(device, q, node_form):
     with torch.no_grad():
         outs = [embed_prop(table, **args, droprate=q) for _ in range(3)]
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.parametrize("q,collide,window", [(0.0, False, False),
+                                              (0.5, False, False),
+                                              (0.0, True, False),
+                                              (0.0, False, True)])
+def test_embed_prop_backward_repeats_bit_for_bit(device, q, collide, window):
+    """No float atomics in the backward: each id's terms added in entry
+    order, the same bits on every call (every id the same row, where the
+    atomics of the earlier backward met most; a vocab window)."""
+    table, args, grad = _k3_inputs(device, 2, 40, 32, 24, 64, q, collide,
+                                   False)
+    lo, hi = (30, 70) if window else (0, table.shape[0])
+    grads = []
+    for _ in range(3):
+        t = table[lo:hi].clone().requires_grad_(True)
+        out = (embed_prop_window(t, lo, hi, droprate=q, **args) if window
+               else embed_prop(t, droprate=q, **args))
+        (out * grad).sum().backward()
+        grads.append(t.grad)
+    assert all(torch.equal(g, grads[0]) for g in grads[1:])
+    assert grads[0].abs().max() > 0
 
 
 def test_embed_prop_wrapper_rejects_bad_input(device):
@@ -1860,7 +1888,7 @@ def test_process_mesh_on_one_card(device, tmp_path):
 # scan_steps: a rolled step group as one CUDA graph replay (train/loop.py)
 
 def _group_setup(engine: str, device):
-    """A small model of ``engine`` with a capturable Adam, its step as the
+    """A small model of ``engine`` with its Adam, its step as the
     loop calls it (every drop rate of the step on), the step's generator
     and an epoch of 8 batches with their step indices."""
     from grandtpu_torch.config import GrandConfig
@@ -1900,7 +1928,7 @@ def _group_setup(engine: str, device):
                      hidden_droprate=cfg.hidden_droprate)
     model = (init_mlp if engine == "dense" else init_mag_mlp)(mcfg, 0,
                                                               device)
-    opt = make_optimizer(model, cfg.lr, cfg.weight_decay, capturable=True)
+    opt = make_optimizer(model, cfg.lr, cfg.weight_decay)
     if engine == "dense":
         step = build_train_step(StepConfig(
             mlp=mcfg, k_aug=cfg.sample, dropnode_rate=cfg.dropnode_rate,
@@ -1930,6 +1958,7 @@ def _saved(model, opt, gen):
     for i, p in enumerate(model.parameters()):
         for key, v in opt.state.get(p, {}).items():
             out[f"a.{i}.{key}"] = v.detach().clone()
+    out["count"] = opt.count.clone()
     out["gen"] = gen.get_state()
     return out
 
@@ -1940,6 +1969,7 @@ def _restore(model, opt, gen, saved):
     for i, p in enumerate(model.parameters()):
         for key, v in opt.state.get(p, {}).items():
             v.copy_(saved[f"a.{i}.{key}"])
+    opt.count.copy_(saved["count"])
     gen.set_state(saved["gen"])
 
 
@@ -1948,16 +1978,18 @@ def test_step_group_replay_equals_eager_steps(device, engine):
     """From one saved state, a StepGroup of 3 steps (captured into a CUDA
     graph, then replayed) against the same 3 steps run eagerly: the dense
     engine's parameters, BN buffers, Adam state and generator state bit
-    for bit; MAG's within 1e-5 (K3's backward adds with float atomics),
-    its generator state equal. The wrappers count k launches a replay,
-    none for the capture; a second group of another length runs eagerly
-    between replays and the next replay still equals eager steps."""
+    for bit; MAG's too (K3's backward adds in a fixed order). The
+    wrappers (Adam's too)
+    count k launches a replay, none for the capture; a second group of
+    another length runs eagerly between replays and the next replay still
+    equals eager steps."""
     from grandtpu_torch.nn.dropnode import gather_and_prop as k1
+    from grandtpu_torch.train.adam import adam_update
     from grandtpu_torch.train.loop import StepGroup
 
     model, opt, gen, step_fn, epoch, nbs = _group_setup(engine, device)
-    counted = ([k1] if engine == "dense"
-               else [embed_prop, embed_prop_backward])
+    counted = ([k1, adam_update] if engine == "dense"
+               else [embed_prop, embed_prop_backward, adam_update])
 
     def eager(i0, k):
         for i in range(i0, i0 + k):
@@ -1965,10 +1997,7 @@ def test_step_group_replay_equals_eager_steps(device, engine):
 
     def check(got, want):
         for key, w in want.items():
-            if engine == "dense" or key == "gen":
-                assert torch.equal(got[key], w), key
-            else:
-                assert _rel_err(got[key], w) <= TOL, key
+            assert torch.equal(got[key], w), key
 
     eager(0, 2)                         # Adam's state, first launches
     saved = _saved(model, opt, gen)
@@ -2004,49 +2033,60 @@ def test_step_group_replay_equals_eager_steps(device, engine):
     check(_saved(model, opt, gen), want)
 
 
-def test_capturable_adam_checkpoint_round_trip(device, tmp_path):
-    """A capturable Adam's state (its step count on the card) written with
-    training_trees and read back with restore_training into a fresh
-    capturable optimizer: the step count lands on the parameters' device,
-    the moments equal, and the next step equals the original's."""
+@pytest.mark.parametrize("engine", ["dense", "mag"])
+def test_adam_checkpoint_round_trip_into_a_captured_group(device, tmp_path,
+                                                          engine):
+    """Adam's state written with training_trees after 2 eager steps, then a
+    captured group of 3 steps (a replay advances the int32 count on the
+    card by 3); restore_training of the file into the live optimizer copies
+    into its moments and count (the same tensors, on the card), and the
+    group's graph replayed from there gives what its first replay gave,
+    bit for bit (the count and the generator's state too)."""
     from grandtpu_torch.train import checkpoint as tckpt
+    from grandtpu_torch.train.loop import StepGroup
 
-    model, opt, gen, step_fn, epoch, nbs = _group_setup("dense", device)
-    for i in range(3):
+    model, opt, gen, step_fn, epoch, nbs = _group_setup(engine, device)
+    for i in range(2):
         step_fn({n: t[i] for n, t in epoch.items()}, nbs[i])
+    assert opt.count.device == next(model.parameters()).device
+    assert opt.count.dtype == torch.int32 and int(opt.count) == 2
     params, state, ost = tckpt.training_trees(model, opt, 1e-3)
     path = str(tmp_path / "latest.npz")
     tckpt.save_checkpoint(path, params=params, state=state, opt_state=ost,
-                          num_batch=3, best_val_acc=0.5, best_val_loss=0.5)
-    model2, opt2, gen2, step_fn2, _, _ = _group_setup("dense", device)
-    params_t, state_t = tckpt.training_templates(model2)
+                          num_batch=2, best_val_acc=0.5, best_val_loss=0.5)
+    gen_state = gen.get_state()
+    group = StepGroup(3, step_fn, epoch, device, (gen,))
+    group(epoch, nbs, 2)
+    torch.cuda.synchronize()
+    assert group.graph is not None and int(opt.count) == 5
+    want = _saved(model, opt, gen)
+    held = {id(v) for st in opt.state.values() for v in st.values()}
+    params_t, state_t = tckpt.training_templates(model)
     lp, ls, lo, meta = tckpt.load_checkpoint(
         path, params_template=params_t, state_template=state_t,
         opt_template=tckpt.adam_tree(params_t, weight_decay=1e-3))
-    tckpt.restore_training(model2, opt2, lp, ls, lo)
-    gen2.set_state(gen.get_state())
-    for p, p2 in zip(model.parameters(), model2.parameters()):
-        st, st2 = opt.state[p], opt2.state[p2]
-        assert st2["step"].device == p2.device and float(st2["step"]) == 3.0
-        assert torch.equal(st["exp_avg"], st2["exp_avg"])
-        assert torch.equal(p, p2)
-    batch = {n: t[3] for n, t in epoch.items()}
-    step_fn(batch, nbs[3])
-    step_fn2(batch, nbs[3])
-    for p, p2 in zip(model.parameters(), model2.parameters()):
-        assert torch.equal(p, p2)
+    tckpt.restore_training(model, opt, lp, ls, lo)
+    gen.set_state(gen_state)
+    assert int(opt.count) == 2 and meta["num_batch"] == 2
+    assert {id(v) for st in opt.state.values() for v in st.values()} == held
+    group(epoch, nbs, 2)
+    torch.cuda.synchronize()
+    got = _saved(model, opt, gen)
+    for key, w in want.items():
+        assert torch.equal(got[key], w), key
 
 
 @pytest.mark.parametrize("engine", ["dense", "mag"])
 def test_train_scan_steps_on_the_card(device, engine):
     """train(scan_steps=True) on the card: the rolled lengths are CUDA-graph
-    replays whose launches count, the step count equals the per-step run's
-    and the history holds to it within 1e-4 (the capturable Adam rounds
-    its bias corrections on the card)."""
+    replays whose launches count (Adam once a step), and the run is the
+    per-step run: the same step count, the history and test_acc equal (a
+    replayed step runs what an eager one runs)."""
     from grandtpu_torch.config import GrandConfig
     from grandtpu_torch.data import load_data
     from grandtpu_torch.nn.dropnode import gather_and_prop as k1
     from grandtpu_torch.train import train
+    from grandtpu_torch.train.adam import adam_update
 
     if engine == "dense":
         cfg = GrandConfig(dataset="synth:400:4:32", epochs=8, eval_batch=3,
@@ -2058,14 +2098,118 @@ def test_train_scan_steps_on_the_card(device, engine):
     data = load_data(cfg.dataset, split_seed=cfg.seed1)
     per = train(cfg, data=data, device=device)
     counted = k1 if engine == "dense" else embed_prop_backward
-    before = counted.launches
+    before = counted.launches, adam_update.launches
     got = train(cfg.replace(scan_steps=True), data=data, device=device)
     assert got.scan_groups and all(s["graph"]
                                    for s in got.scan_groups.values())
     steps = got.num_batches
     want = (steps + len(got.history)) if engine == "dense" else steps
-    assert counted.launches - before == want
+    assert counted.launches - before[0] == want
+    assert adam_update.launches - before[1] == steps
     assert got.num_batches == per.num_batches
-    for g, w in zip(got.history, per.history, strict=True):
-        assert g["batch"] == w["batch"]
-        assert abs(g["val_loss"] - w["val_loss"]) <= 1e-4
+    assert got.history == per.history
+    assert got.test_acc == per.test_acc
+
+
+# Adam (csrc/adam.cu): grandtpu's optax chain over a list of leaves
+
+def _adam_shapes(engine: str) -> tuple:
+    """(leaf shapes, the indices without a gradient) of a main-path model:
+    the reddit preset's MLP (F 602, 41 classes, BatchNorm on) or the MAG
+    table [2780000, 64] with mag_scholar_c's head (8 classes, its unused
+    BatchNorm's parameters without a gradient)."""
+    from grandtpu_torch.nn.mag_mlp import MagMLP
+    from grandtpu_torch.nn.mlp import MLP, MLPConfig
+
+    if engine == "reddit":
+        model = MLP(MLPConfig(num_features=602, num_classes=41, hidden=512,
+                              nlayers=2, use_bn=True))
+    else:
+        with torch.device("meta"):
+            model = MagMLP(MLPConfig(num_features=2780000, num_classes=8,
+                                     hidden=64, nlayers=2, use_bn=False))
+    named = list(model.named_parameters())
+    return ([tuple(p.shape) for _, p in named],
+            {i for i, (n, _) in enumerate(named)
+             if n.startswith("bns.") and not model.cfg.use_bn})
+
+
+ADAM_CASES = {
+    "reddit": lambda: _adam_shapes("reddit"),
+    "mag": lambda: _adam_shapes("mag"),
+    "no_grad": lambda: ([(64, 33), (17,), (5,)], {1}),
+    "odd_lengths": lambda: ([(7,), (1001,), (3, 5), (1,), (0,)], set()),
+    "many_leaves": lambda: ([(1 + (37 * i) % 300,) for i in range(150)],
+                            {3, 77}),
+}
+
+
+def _adam_inputs(shapes, no_grad, device, offset: int):
+    """Leaves, gradients (None at ``no_grad``), mu and nu of ``shapes``,
+    drawn on the card; each a view ``offset`` floats into its storage (1:
+    off the 16-byte alignment)."""
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def make(shape, scale, positive=False):
+        n = int(np.prod(shape))
+        draw = torch.rand if positive else torch.randn
+        return (draw(n + offset, generator=g, device=device) * scale)[
+            offset:].view(shape)
+
+    return ([make(s, 0.5) for s in shapes],
+            [None if i in no_grad else make(s, 1e-2)
+             for i, s in enumerate(shapes)],
+            [make(s, 1e-3) for s in shapes],
+            [make(s, 1e-5, positive=True) for s in shapes])
+
+
+@pytest.mark.parametrize("wd", [0.0, 1e-2])
+@pytest.mark.parametrize("case,offset", [
+    (case, offset) for case in sorted(ADAM_CASES) for offset in (0, 1)
+    if case != "mag" or offset == 0])   # the 712 MB table once
+def test_adam_kernel_matches_plain(device, case, offset, wd):
+    """adam_update (one launch a MAX_LEAVES non-empty leaves) bit for bit
+    adam_update_plain on the card: every leaf, mu and nu, from random
+    moments at step 3 (bias corrections as the optimizer takes them)."""
+    from grandtpu_torch.train.adam import (MAX_LEAVES, adam_update,
+                                           adam_update_plain)
+
+    shapes, no_grad = ADAM_CASES[case]()
+    got = _adam_inputs(shapes, no_grad, device, offset)
+    want = [[None if t is None else t.clone() for t in ts] for ts in got]
+    count = torch.tensor(3.0, device=device)
+    bc = 1 - torch.pow(torch.tensor([0.9, 0.999], device=device), count)
+    before = adam_update.launches
+    adam_update(*got, bc[0], bc[1], 1e-2, wd)
+    live = sum(int(np.prod(s)) > 0 for s in shapes)
+    assert adam_update.launches - before == -(-live // MAX_LEAVES)
+    adam_update_plain(*want, bc[0], bc[1], 1e-2, wd)
+    torch.cuda.synchronize()
+    for what, gs, ws in zip(("leaf", "mu", "nu"), (got[0], got[2], got[3]),
+                            (want[0], want[2], want[3])):
+        for i, (a, b) in enumerate(zip(gs, ws)):
+            assert torch.equal(a, b), (what, i, _rel_err(a, b))
+
+
+def test_adam_max_leaves_matches_the_kernel(device):
+    from grandtpu_torch.train.adam import MAX_LEAVES
+
+    assert load_kernels().adam_max_leaves() == MAX_LEAVES
+
+
+def test_adam_refuses_what_the_kernel_does_not_take(device):
+    """No fallback: an f64 leaf, a moment of another shape and bias
+    corrections off the card raise."""
+    from grandtpu_torch.train.adam import adam_update
+
+    p = torch.zeros(8, device=device)
+    bc = torch.ones(2, device=device)
+    with pytest.raises(TypeError):
+        adam_update([p.double()], [None], [p.double()], [p.double()], bc[0],
+                    bc[1], 1e-2, 0.0)
+    with pytest.raises(ValueError):
+        adam_update([p], [None], [torch.zeros(4, device=device)], [p.clone()],
+                    bc[0], bc[1], 1e-2, 0.0)
+    with pytest.raises(ValueError):
+        adam_update([p], [None], [p.clone()], [p.clone()], bc[0].cpu(),
+                    bc[1].cpu(), 1e-2, 0.0)

@@ -147,7 +147,8 @@ def _trained_port(mlp_cfg, weight_decay, steps=3):
 def test_port_latest_reads_in_grandtpu(tmp_path, use_bn, weight_decay):
     """grandtpu's load_checkpoint takes the port's latest.npz: params,
     state, the optax Adam state (moments, count) and the meta equal the
-    port's; unused BN parameters (``use_bn`` off) have zero moments."""
+    port's; unused BN parameters (``use_bn`` off) have the moments optax
+    gives them (zero gradients, plus the weight decay)."""
     mcfg = MLPConfig(num_features=6, num_classes=3, hidden=5, nlayers=3,
                      use_bn=use_bn, input_droprate=0.0, hidden_droprate=0.0)
     model, opt = _trained_port(mcfg, weight_decay)
@@ -170,25 +171,23 @@ def test_port_latest_reads_in_grandtpu(tmp_path, use_bn, weight_decay):
     for i, fc in enumerate(model.fcs):
         st = opt.state[fc.weight]
         np.testing.assert_array_equal(np.asarray(adam.mu["fcs"][i]["w"]),
-                                      st["exp_avg"].numpy().T)
+                                      st["mu"].numpy().T)
         np.testing.assert_array_equal(np.asarray(adam.nu["fcs"][i]["b"]),
-                                      opt.state[fc.bias]["exp_avg_sq"]
-                                      .numpy())
+                                      opt.state[fc.bias]["nu"].numpy())
     for i, bn in enumerate(model.bns):
         mu = np.asarray(adam.mu["bns"][i]["scale"])
-        if use_bn:
-            np.testing.assert_array_equal(
-                mu, opt.state[bn.weight]["exp_avg"].numpy())
-        else:
-            assert bn.weight not in opt.state and not mu.any()
+        np.testing.assert_array_equal(mu, opt.state[bn.weight]["mu"].numpy())
+        # an unused BN scale's zero gradient plus the decay
+        assert mu.any() == (use_bn or weight_decay > 0)
 
 
 @pytest.mark.parametrize("use_bn", [True, False])
 @pytest.mark.parametrize("weight_decay", [0.0, 1e-3])
 def test_grandtpu_latest_reads_in_the_port(tmp_path, use_bn, weight_decay):
     """The port restores grandtpu's latest.npz after optax Adam steps: the
-    weights and the BN state, Adam's moments and step (a parameter Adam
-    does not move gets no state), and the next step equals grandtpu's."""
+    weights and the BN state, Adam's moments (every parameter's, the unused
+    BN parameters' too) and step count, and the next step equals
+    grandtpu's, the unused BN parameters' included."""
     mcfg = MLPConfig(num_features=6, num_classes=3, hidden=5, nlayers=2,
                      use_bn=use_bn, input_droprate=0.0, hidden_droprate=0.0)
     jcfg = JaxMLPConfig(**dataclasses.asdict(mcfg))
@@ -225,12 +224,14 @@ def test_grandtpu_latest_reads_in_the_port(tmp_path, use_bn, weight_decay):
     jax.tree.map(lambda g, w: np.testing.assert_array_equal(
         g, np.asarray(w)), (got_p, got_s), (params, state))
     adam = [s for s in ost if hasattr(s, "mu")][0]
+    assert opt.count.dtype == torch.int32 and int(opt.count) == 3
     for i, fc in enumerate(model.fcs):
         st = opt.state[fc.weight]
-        assert float(st["step"]) == 3.0
-        np.testing.assert_array_equal(st["exp_avg_sq"].numpy().T,
+        np.testing.assert_array_equal(st["nu"].numpy().T,
                                       np.asarray(adam.nu["fcs"][i]["w"]))
-    assert all((bn.weight in opt.state) == use_bn for bn in model.bns)
+    for i, bn in enumerate(model.bns):
+        np.testing.assert_array_equal(opt.state[bn.weight]["mu"].numpy(),
+                                      np.asarray(adam.mu["bns"][i]["scale"]))
 
     # the next Adam step from the restored state is grandtpu's next step
     params, state, ost = jstep_once(params, state, ost, xs[3])
@@ -240,10 +241,6 @@ def test_grandtpu_latest_reads_in_the_port(tmp_path, use_bn, weight_decay):
     loss.backward()
     opt.step()
     got_p, _ = mlp_to_jax(model)
-    if not use_bn:
-        # grandtpu's optax decays the unused BN parameters and torch's Adam
-        # skips them (ROADMAP Queue C "Unused BN parameters")
-        got_p, params = got_p["fcs"], params["fcs"]
     jax.tree.map(lambda g, w: np.testing.assert_allclose(
         g, np.asarray(w), rtol=0, atol=1e-6), got_p, params)
 

@@ -279,8 +279,8 @@ def k3_times(r):
             ("window", lambda: K3.embed_prop_window_backward(
                 gout, 0, per, *saved))):
         r[f"k3_bwd_{name}_ms"] = tms(fn, 32)
-        r[f"k3_bwd_{name}_device_ms"] = dev_ms(fn, 32,
-                                               "embed_prop_bwd_kernel")
+        r[f"k3_bwd_{name}_device_ms"] = dev_ms(fn, 32, "embed_prop_bwd",
+                                               per_call=2)
         r[f"k3_bwd_{name}_fill_device_ms"] = dev_ms(fn, 32, "FillFunctor")
 
 
