@@ -76,6 +76,12 @@ Phases, in order; any failure exits non-zero without the result line:
     0), the trace in ``profile_dir`` naming K2's kernel, K2 exactly
     ``order`` launches; preprocess times and test accuracy beside the
     child's and phase 5's.
+5g-dir. (after 5g) the same with ``ckpt_backend="orbax"``, the port's
+    directory checkpoints (``best/``, ``latest/``: the npz's flat dict
+    through torch.distributed.checkpoint): the child, on 5g's push cache,
+    stops itself at 5g's stop step; both are directories; the resume here
+    is a path, its history, test_acc and parameter digest 5g's resumed
+    run's bit for bit; each form's save seconds a call and bytes on disk.
 5h. (after 5g) ``scan_steps``: ``train()`` with the reddit preset on
     ``synth:233000:41:602`` for 10 epochs, per step (twice: the second
     run's differences are the runs' own spread) and then with
@@ -112,8 +118,11 @@ Then the same for the MAG (sparse-feature) engine, on
     10,000-node chunk; max relative error <= 1e-5 (the backward adds in
     another order than autograd); each forward form's kernel also timed
     on the device alone (torch.profiler over 100 calls) beside its wrapper
-    time, and the backward's kernel and its zero-fill on the device apart
-    beside autograd's wall (host dispatch included); the node form over
+    time, and the backward's two kernels, its ``torch.sort`` of the ids
+    and its zero-fill on the device apart beside autograd's wall (host
+    dispatch included), its bound also with the deterministic backward's
+    scratch rows and keys (and the same on the [2780000, 32] column
+    blocks, with their bounds); the node form over
     all nodes as the predict runs it (CUDA events and the kernels' device
     time); K2 timed at H = 64 on the MAG operator;
 4b. reference on a small input: ``train()`` with the mag_scholar_c
@@ -125,6 +134,11 @@ Then the same for the MAG (sparse-feature) engine, on
     nodes), counters set to 0 just before; losses finite, the K3 forward
     launched for every step, eval and predict chunk, the K3 backward once
     per step, K2 exactly ``order`` times;
+5i. (after 5b) the MAG path for 1 epoch with ``save_every=1`` and
+    ``ckpt_backend="orbax"``, a path: ``latest/`` holds the [2780000, 64]
+    table with Adam's ``mu`` and ``nu`` (2.1 GB), restored bit for bit
+    the trees the loop saved; the same trees as ``latest.npz`` bit for bit
+    the directory's; save and load seconds and bytes on disk of both;
 6b. profile of the MAG main path, with the Adam kernel's device time a
     launch against the device time a step.
 
@@ -237,7 +251,9 @@ hidden 1024, 47 classes, ppr order 6, alpha 0.2) on
     accuracy equals that of the 5d model at the same precision (auto:
     5d's own), its npz holds [2000000, 47] logits, its hop kernels launch
     ``order`` times; the wall time split into data, checkpoint, operator
-    build, hops and classify.
+    build, hops and classify. Then the same checkpoint as a directory
+    (its flat dict the npz's, key for key) served at f32: the logits the
+    npz's bit for bit.
 
 3j. (after 3i) hub rows: grandtpu/bench/skew_probe.py's skew graph
     (the ``synth`` SBM base, 300,000 nodes, degree 20, with self-loops,
@@ -366,7 +382,12 @@ Meshes over processes (``torch.distributed``), on the one card:
     rank's launches its own shard's share: K1 once a step and eval, D1's
     hops ``order`` times), every rank's parameters bit for bit the same
     (a digest), the same validation history, test_acc within one node of
-    phase 9's, ``best.npz`` written by rank 0 alone; D1 over the ranks on
+    phase 9's, ``best.npz`` written by rank 0 alone; the same run with
+    ``ckpt_backend="orbax"``, a path of its own: every rank takes part in
+    each save of ``best/`` (each writes its ``.distcp``, sizes printed),
+    the history and digest the npz run's, and ``best/`` restored in the
+    parent bit for bit the npz run's ``best.npz`` (the same for MAG below,
+    both runs with a checkpoint directory); D1 over the ranks on
     the reddit operator (all_gather and halo, f32 within 1e-5 of the
     one-card ``exact_propagate``, int8 within 1e-3 of the one-process
     mesh's int8 run, exact launches, the default threshold 0.5), then
@@ -382,7 +403,7 @@ Meshes over processes (``torch.distributed``), on the one card:
     the nccl backend with both ranks on the card, which ``make_mesh``
     refuses, naming gloo. The parent then runs the ``predict`` CLI on one
     card from the ranks' ``best.npz``: test_acc within one node of the
-    ranks'. Tensor parallelism over the ranks (after each engine's step):
+    ranks', and from their ``best/``: the same test_acc. Tensor parallelism over the ranks (after each engine's step):
     the reddit and MAG steps split over 'model' on a (1 x 2) mesh whose
     model shards are the ranks, against the one-process (1 x 2) mesh
     (within 1e-5) and 9t's and 9tb's first loss, the ranks' joined
@@ -483,7 +504,10 @@ from grandtpu_torch.train import train
 from grandtpu_torch.train import trainer as trainer_mod
 from grandtpu_torch.train.adam import (MAX_LEAVES, adam_update,
                                        adam_update_plain)
-from grandtpu_torch.train.checkpoint import _flatten_with_paths, model_trees
+from grandtpu_torch.train.checkpoint import (_flatten_with_paths,
+                                             _load_directory,
+                                             load_checkpoint, model_trees,
+                                             save_checkpoint)
 from grandtpu_torch.train.step import (StepConfig, build_eval_step,
                                        build_train_step, make_optimizer)
 from grandtpu_torch.train.trainer_sparse import build_sparse_steps
@@ -568,6 +592,24 @@ def _device_ms(fn, iters: int, kernel: str, per_call: int = 1):
     None if it recorded no such kernel."""
     times = _device_times(fn, iters, kernel)
     return sum(times) / len(times) * per_call if times else None
+
+
+def _sort_ms(fn, iters: int):
+    """Device time a call of ``fn()`` spends in ``torch.sort``'s kernels
+    (CUB's radix sort passes, or a short row's in-place sort), summed over
+    their launches; None if the profiler recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(DEV)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize(DEV)
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "sort" in e.name.lower()]
+    return sum(times) / iters if times else None
 
 
 def _busy_ms(fn):
@@ -1443,6 +1485,18 @@ def _k3_bytes(table, s, num_aug):
             table.numel() * 4 + common + out, flops)
 
 
+def _k3_scratch_bytes(s: dict, h: int) -> int:
+    """The deterministic K3 backward's own traffic beyond the least bytes
+    of :func:`_k3_bytes`: each (row, slot, attribute) entry's term row
+    written and read back once, its int32 key written, sorted (keys read,
+    sorted keys and int64 permutation written) and read back with the
+    permutation by the summing kernel."""
+    rows, ktop = (s["tk_cols"].shape if "tk_cols" in s
+                  else (s["attr_cols"].shape[0], 1))
+    n = rows * ktop * s["attr_cols"].shape[1]
+    return n * (2 * h * 4 + 4 + (4 + 4 + 8) + (4 + 8))
+
+
 def _k3_column_blocks(table, sets, q: float, g) -> dict:
     """K3's forward and backward on each column block [V, H/m] of ``table``
     as phase 9tb's step runs them on a (d x m) = ``TP_SHAPE`` mesh: each
@@ -1489,16 +1543,30 @@ def _k3_column_blocks(table, sets, q: float, g) -> dict:
     outs = [embed_prop(t, **s, droprate=q) for s in bsets]
     it_o = itertools.cycle(outs)
     gout = torch.randn(outs[0].shape, generator=g, device=DEV)
-    dev_b = _device_ms(lambda: torch.autograd.grad(
-        next(it_o), t, gout, retain_graph=True), 20, "embed_prop_bwd",
-        per_call=2)
+    def grad_next():
+        return torch.autograd.grad(next(it_o), t, gout, retain_graph=True)
+
+    dev_b = _device_ms(grad_next, 20, "embed_prop_bwd", per_call=2)
+    sort_b = _sort_ms(grad_next, 20)
+    fill_b = _device_ms(grad_next, 20, "FillFunctor")
+    b_f, o_f, b_b, o_b = _k3_bytes(t, bsets[0], outs[0].shape[0])
+    scratch = _k3_scratch_bytes(bsets[0], w)
+    bounds = {"fwd": _bound(b_f, o_f), "bwd": _bound(b_b, o_b)}
+    bound_scratch = _bound(b_b + scratch, o_b)[0]
     shape = f"[{outs[0].shape[0]},{outs[0].shape[1]},{w}] of {m} blocks"
     print(f"[K3] {shape}: fwd vs plain {errs['fwd']}, bwd vs plain "
-          f"{errs['bwd']}; on the device, profiled: fwd {dev_f}, bwd kernel "
-          f"{dev_b}", flush=True)
-    return {key: {"shape": shape, "device_ms": dev,
-                  "max_abs_err": errs[key][0], "max_rel_err": errs[key][1]}
-            for key, dev in (("fwd", dev_f), ("bwd", dev_b))}
+          f"{errs['bwd']}; on the device, profiled: fwd {dev_f} (bound "
+          f"{bounds['fwd'][0]}, {b_f / 1e6:.3f} MB), bwd kernels {dev_b}, "
+          f"sort {sort_b}, zero-fill {fill_b} (bound {bounds['bwd'][0]}, "
+          f"{b_b / 1e6:.1f} MB; with the scratch rows and keys "
+          f"{bound_scratch}, +{scratch / 1e6:.2f} MB)", flush=True)
+    out = {key: {"shape": shape, "device_ms": dev,
+                 "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                 "max_abs_err": errs[key][0], "max_rel_err": errs[key][1]}
+           for key, dev in (("fwd", dev_f), ("bwd", dev_b))}
+    out["bwd"].update(sort_device_ms=sort_b, fill_device_ms=fill_b,
+                      bound_with_scratch_ms=bound_scratch)
+    return out
 
 
 def check_k3(padded) -> list:
@@ -1559,6 +1627,7 @@ def check_k3(padded) -> list:
         ms_b = _time_ms(grad_next, 50)
         dev_b = _device_ms(grad_next, 20, "embed_prop_bwd", per_call=2)
         fill_b = _device_ms(grad_next, 20, "FillFunctor")
+        sort_b = _sort_ms(grad_next, 20)
         plain_b = _time_ms(lambda: torch.autograd.grad(
             next(it_p), table, gout, retain_graph=True), 20)
         lib_f = lib_b = None
@@ -1584,6 +1653,8 @@ def check_k3(padded) -> list:
             del lib_outs, libs
         b_f, o_f, b_b, o_b = _k3_bytes(table, sets[0], num_aug)
         (bound_f, by_f), (bound_b, by_b) = _bound(b_f, o_f), _bound(b_b, o_b)
+        scratch = _k3_scratch_bytes(sets[0], H_MAG)
+        bound_scratch = _bound(b_b + scratch, o_b)[0]
         shape = (f"[{num_aug},{outs[0].shape[1]},{H_MAG}]" if form != "node"
                  else f"[1,{K3_SHAPE[4]},{H_MAG}] node form")
         times["fwd"][form] = {"shape": shape, "ms": ms_f, "device_ms": dev_f,
@@ -1591,17 +1662,20 @@ def check_k3(padded) -> list:
                               "library_ms": lib_f, "bound_ms": bound_f,
                               "bound_by": by_f, "max_rel_err": e_f[1]}
         times["bwd"][form] = {"shape": shape, "ms": ms_b, "device_ms": dev_b,
-                              "fill_device_ms": fill_b, "plain_ms": plain_b,
+                              "fill_device_ms": fill_b,
+                              "sort_device_ms": sort_b, "plain_ms": plain_b,
                               "library_ms": lib_b, "bound_ms": bound_b,
-                              "bound_by": by_b, "max_rel_err": e_b[1]}
+                              "bound_by": by_b, "max_rel_err": e_b[1],
+                              "bound_with_scratch_ms": bound_scratch}
         print(f"[K3] {form} {shape}: fwd ms {ms_f} (on the device, "
               f"profiled: {dev_f}) plain_ms {plain_f} "
               f"library_ms {lib_f} bound_ms {bound_f} ({by_f}, "
               f"{b_f / 1e6:.2f} MB) err {e_f}; bwd ms through autograd "
               f"{ms_b} (on the device, profiled: the two kernels {dev_b}, "
-              f"zero-fill {fill_b}) plain_ms {plain_b} library_ms {lib_b} "
-              f"bound_ms "
-              f"{bound_b} ({by_b}, {b_b / 1e6:.1f} MB) err {e_b}",
+              f"the sort {sort_b}, zero-fill {fill_b}) plain_ms {plain_b} "
+              f"library_ms {lib_b} bound_ms {bound_b} ({by_b}, "
+              f"{b_b / 1e6:.1f} MB; with the scratch rows and keys "
+              f"{bound_scratch}, +{scratch / 1e6:.2f} MB) err {e_b}",
               flush=True)
         del outs, plains, sets
 
@@ -2592,9 +2666,10 @@ LONG_RUN_TIMEOUT = 300              # seconds the 5g child may take
 K2_KERNEL = "csr_spmm_prop_kernel"  # K2's name in a profiler trace
 # 5g's child: train() with the config given as JSON, the push's cols and
 # vals digested as the trainer received them, and every checkpoint the
-# loop writes (file, num_batch) in order; one JSON line on stdout
+# loop writes (file, num_batch, seconds) in order; one JSON line on stdout.
+# With a second argument N it sends itself SIGTERM during its Nth step.
 _LONG_RUN_CHILD = """
-import hashlib, json, os, sys
+import hashlib, json, os, signal, sys, time
 from grandtpu_torch.config import GrandConfig
 from grandtpu_torch.data import load_data
 from grandtpu_torch.train import loop, trainer
@@ -2608,9 +2683,22 @@ def push(*args, **kwargs):
 trainer.push = push
 real_save, saves = loop.save_checkpoint, []
 def save(path, **kwargs):
+    t0 = time.time()
     real_save(path, **kwargs)
-    saves.append([os.path.basename(path), kwargs["num_batch"]])
+    saves.append([os.path.basename(path), kwargs["num_batch"],
+                  time.time() - t0])
 loop.save_checkpoint = save
+if len(sys.argv) > 2:
+    real_build, calls = trainer.build_train_step, [0]
+    def build(*args, **kwargs):
+        step = real_build(*args, **kwargs)
+        def signalling(*a, **k):
+            calls[0] += 1
+            if calls[0] == int(sys.argv[2]):
+                os.kill(os.getpid(), signal.SIGTERM)
+            return step(*a, **k)
+        return signalling
+    trainer.build_train_step = build
 r = trainer.train(cfg, data=load_data(cfg.dataset, split_seed=cfg.seed1),
                   device="cuda")
 print(json.dumps({"preempted": r.preempted, "num_batches": r.num_batches,
@@ -2627,19 +2715,22 @@ def _metrics_lines(path: str) -> list:
         return [json.loads(ln) for ln in f if ln.endswith("\n")]
 
 
-def _preempted_child(cfg) -> tuple:
+def _preempted_child(cfg, stop_step: int | None = None) -> tuple:
     """5g's first run: the child trains with ``cfg``; once its metrics file
-    holds an eval line, SIGTERM. Returns (its JSON result, the seconds
-    from its start to the signal, its wall seconds)."""
+    holds an eval line, SIGTERM (with ``stop_step``, the child signals
+    itself during that step instead). Returns (its JSON result, the
+    seconds from its start to the signal, its wall seconds)."""
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.time()
     child = subprocess.Popen(
-        [sys.executable, "-c", _LONG_RUN_CHILD, json.dumps(fields)],
+        [sys.executable, "-c", _LONG_RUN_CHILD, json.dumps(fields),
+         *([] if stop_step is None else [str(stop_step)])],
         cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    sent = None
+    sent = None if stop_step is None else "by itself"
     try:
-        while child.poll() is None and time.time() - t0 < LONG_RUN_TIMEOUT:
+        while (sent is None and child.poll() is None
+               and time.time() - t0 < LONG_RUN_TIMEOUT):
             if any("val_acc" in ln for ln in _metrics_lines(
                     cfg.metrics_path)):
                 child.send_signal(signal.SIGTERM)
@@ -2676,7 +2767,8 @@ def run_long_run(data, r_main) -> dict:
     events = [ln.get("event") for ln in _metrics_lines(cfg.metrics_path)]
     # save_every=1 writes latest.npz at every eval, so the preemption's own
     # save is the one beyond them: evals + 1 writes, the last at the stop
-    latest_saves = [nb for name, nb in first["saves"] if name == "latest.npz"]
+    latest_saves = [nb for name, nb, _ in first["saves"]
+                    if name == "latest.npz"]
     print(f"[5g] child: SIGTERM {sent} s after its start (its first eval "
           f"line), exit 0 after {child_s} s, preempted {first['preempted']} "
           f"at num_batch {first['num_batches']} after {first['evals']} "
@@ -2736,6 +2828,79 @@ def run_long_run(data, r_main) -> dict:
         raise AssertionError(f"[5g] a push kernel launched: {launches}")
     if launches["dropnode_mean"] < len(r.history):
         raise AssertionError("[5g] K1 did not launch for every eval")
+    return {"launches": launches, "cfg": cfg, "first": first,
+            "history": r.history, "test_acc": r.test_acc,
+            "digest": _digest(_replicas(r.model))}
+
+
+def _disk_bytes(path: str) -> int:
+    """The bytes of a file, or of the files of a directory."""
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def run_long_run_dir(data, npz_run: dict) -> dict:
+    """Phase 5g-dir: 5g again with ``ckpt_backend="orbax"`` (the directory
+    checkpoints ``best/`` and ``latest/``, torch.distributed.checkpoint's
+    bytes): the child stops itself at 5g's stop step, the resume here is a
+    path, and its history, test_acc and parameter digest are 5g's npz
+    run's bit for bit (the same seeds and push); each form's save seconds
+    and size on disk. Returns the resumed run's launches."""
+    base = os.path.abspath(LONG_RUN_DIR)
+    first_npz = npz_run["first"]
+    stop = first_npz["num_batches"]
+    cfg = npz_run["cfg"].replace(
+        ckpt_dir=os.path.join(base, "ck_dir"), ckpt_backend="orbax",
+        metrics_path=os.path.join(base, "metrics_dir.jsonl"),
+        profile_dir=None)
+    first, _, child_s = _preempted_child(cfg, stop_step=stop)
+    ck = cfg.ckpt_dir
+    forms = {name: os.path.isdir(os.path.join(ck, name))
+             for name in ("best", "latest")}
+    if not (first["preempted"] and first["num_batches"] == stop
+            and all(forms.values())):
+        raise AssertionError(f"[5g-dir] the preempted child: {first}, "
+                             f"{sorted(os.listdir(ck))}")
+    _, _, _, meta = load_checkpoint(os.path.join(ck, "latest.npz"),
+                                    params_template={}, state_template={})
+    logs = []
+    _reset_counts()
+    r = train(cfg.replace(resume=True), data=data, device=DEV,
+              log=logs.append)
+    launches = _read_counts()
+    digest = _digest(_replicas(r.model))
+    sizes = {"latest.npz": _disk_bytes(os.path.join(
+        npz_run["cfg"].ckpt_dir, "latest.npz")),
+        "latest/": _disk_bytes(os.path.join(ck, "latest")),
+        "best.npz": _disk_bytes(os.path.join(npz_run["cfg"].ckpt_dir,
+                                             "best.npz")),
+        "best/": _disk_bytes(os.path.join(ck, "best"))}
+    seconds = {form: {name: [t for n, _, t in run["saves"]
+                             if n == f"{name}.npz"]
+                      for name in ("best", "latest")}
+               for form, run in (("npz", first_npz), ("dir", first))}
+    print(f"[5g-dir] child: stopped itself in step {stop} (5g's stop), exit "
+          f"0 after {child_s} s, preempted {first['preempted']} at num_batch "
+          f"{first['num_batches']}; best/ and latest/ directories {forms}, "
+          f"latest/ num_batch {meta['num_batch']}; save seconds a call "
+          f"{seconds}; bytes on disk {sizes}; resumed: "
+          f"{'resumed from' in ' '.join(map(str, logs))}, steps to "
+          f"{r.num_batches}, launches {launches}; push as 5g's "
+          f"{first['push_digest'] == first_npz['push_digest']}; history as "
+          f"5g's "
+          f"{r.history == npz_run['history']}, test_acc {r.test_acc} (5g "
+          f"{npz_run['test_acc']}), parameter digest as 5g's "
+          f"{digest == npz_run['digest']}", flush=True)
+    if not (meta["num_batch"] == stop and r.history == npz_run["history"]
+            and first["push_digest"] == first_npz["push_digest"]
+            and r.test_acc == npz_run["test_acc"]
+            and digest == npz_run["digest"] and not r.preempted):
+        raise AssertionError("[5g-dir] the resumed run differs from 5g's")
+    _check_hops(launches, r.predict_precision, cfg.order)
+    if launches["dropnode_mean"] < len(r.history) or not launches["adam"]:
+        raise AssertionError(f"[5g-dir] launches {launches}")
     return launches
 
 
@@ -2977,6 +3142,101 @@ def check_group(engine: str, data, padded=None) -> dict:
 def run_mag_path(data) -> dict:
     cfg = preset("mag_scholar_c").replace(dataset=MAG_DATASET, epochs=5)
     r, launches = run_path(cfg, data, "mag")
+    _check_k3_launches(r, launches, data)
+    return launches
+
+
+MAG_CKPT_DIR = os.path.join("build", "chip_smoke_mag_ckpt")
+
+
+def _timed(fn, *args, **kwargs) -> tuple:
+    t0 = time.time()
+    out = fn(*args, **kwargs)
+    return out, time.time() - t0
+
+
+def run_mag_checkpoints(data) -> dict:
+    """Phase 5i: the MAG path (mag_scholar_c, 1 epoch: one eval) with
+    ``save_every=1`` and ``ckpt_backend="orbax"``, a path: ``latest/``
+    holds the [2780000, 64] table with Adam's ``mu`` and ``nu``. The last
+    ``latest`` save's trees, as the loop handed them over, against
+    ``latest/`` restored: every leaf bit for bit. The same trees saved as
+    ``latest.npz`` and loaded: its arrays the directory's bit for bit;
+    save and load seconds and bytes on disk of both forms (DCP fsyncs its
+    files, ``np.savez`` does not). Returns the launches."""
+    shutil.rmtree(MAG_CKPT_DIR, ignore_errors=True)
+    ck = os.path.abspath(MAG_CKPT_DIR)
+    cfg = preset("mag_scholar_c").replace(
+        dataset=MAG_DATASET, epochs=1, ckpt_dir=ck, save_every=1,
+        ckpt_backend="orbax")
+    calls, last = [], {}
+    real = loop_mod.save_checkpoint
+
+    def timed_save(path, **kwargs):
+        _, dt = _timed(real, path, **kwargs)
+        calls.append((os.path.basename(path), dt))
+        if os.path.basename(path) == "latest.npz":
+            last.clear()        # a copy: on the CPU the leaves alias
+            last.update(copy.deepcopy(kwargs))     # the live parameters
+
+    loop_mod.save_checkpoint = timed_save
+    try:
+        _reset_counts()
+        r = train(cfg, data=data, device=DEV)
+        launches = _read_counts()
+    finally:
+        loop_mod.save_checkpoint = real
+    _check_k3_launches(r, launches, data)
+    trees = {k: last[k] for k in ("params", "state", "opt_state")}
+    want = {f"{n}|{k}": v for n, t in trees.items()
+            for k, v in _flatten_with_paths(t).items()}
+    latest = os.path.join(ck, "latest")
+    got, load_dir_s = _timed(load_checkpoint, latest,
+                             params_template=trees["params"],
+                             state_template=trees["state"],
+                             opt_template=trees["opt_state"])
+    flat = {f"{n}|{k}": v for n, t in zip(trees, got[:3])
+            for k, v in _flatten_with_paths(t).items()}
+    same = sorted(flat) == sorted(want) and all(
+        flat[k].dtype == want[k].dtype and np.array_equal(flat[k], want[k])
+        for k in want)
+    table = [k for k in want if "['table']" in k]
+    npz_path = os.path.join(ck, "latest_again.npz")
+    _, save_npz_s = _timed(save_checkpoint, npz_path,
+                           **{**last, "backend": "npz"})
+    _, save_dir_s = _timed(save_checkpoint, os.path.join(ck, "latest_again"),
+                           **last)
+    arrays = _load_directory(latest)
+    with np.load(npz_path) as z:
+        t0 = time.time()
+        from_npz = {k: z[k] for k in z.files}
+        load_npz_s = time.time() - t0
+    same_npz = sorted(from_npz) == sorted(arrays) and all(
+        np.array_equal(from_npz[k], arrays[k]) for k in arrays)
+    sizes = {"latest/": _disk_bytes(latest),
+             "latest.npz": _disk_bytes(npz_path)}
+    print(f"[5i] MAG train() with save_every=1 and ckpt_backend 'orbax': "
+          f"{r.num_batches} steps, {len(r.history)} evals; saves (name, s) "
+          f"{calls}; latest/ at num_batch {got[3]['num_batch']}: "
+          f"{', '.join(f'{k} {list(want[k].shape)}' for k in table)}, "
+          f"{sizes['latest/']} bytes; restored bit for bit the loop's "
+          f"trees {same}; the same trees as latest.npz "
+          f"({sizes['latest.npz']} bytes) bit for bit {same_npz}; seconds: "
+          f"save dir {save_dir_s} (in the loop "
+          f"{[t for n, t in calls if n == 'latest.npz']}), load dir "
+          f"{load_dir_s}; save npz {save_npz_s}, load npz {load_npz_s}; "
+          f"launches {launches}", flush=True)
+    if not (same and same_npz and len(table) == 3
+            and all(want[k].shape == (data.features.shape[1], H_MAG)
+                    for k in table)
+            and got[3]["num_batch"] == last["num_batch"]):
+        raise AssertionError("[5i] the directory checkpoint's restore")
+    return launches
+
+
+def _check_k3_launches(r, launches: dict, data) -> None:
+    """A MAG path's K3: the forward once a step, eval and predict chunk,
+    the backward once a step."""
     chunks = -(-data.num_nodes // K3_SHAPE[4])
     if launches["embed_prop_fwd"] != r.num_batches + len(r.history) + chunks:
         raise AssertionError(
@@ -2987,7 +3247,6 @@ def run_mag_path(data) -> dict:
         raise AssertionError(f"K3 backward launched "
                              f"{launches['embed_prop_bwd']} times, not once "
                              f"per step ({r.num_batches})")
-    return launches
 
 
 def profile_path(cfg, data, tag: str) -> None:
@@ -3705,11 +3964,27 @@ def run_serving(r, data, ckpt: str) -> dict:
                 data.labels_int)}
     del feats
     torch.cuda.empty_cache()
-    out_npz = os.path.join(CKPT_DIR, "predictions.npz")
+    # the same checkpoint as a directory (ckpt_backend "orbax")
+    as_dir = ckpt[: -len(".npz")] + "_dir"
+    template = model_trees(r.model)
+    params, state, _, meta = load_checkpoint(
+        ckpt, params_template=template[0], state_template=template[1])
+    save_checkpoint(as_dir, params=params, state=state, backend="orbax",
+                    **{k: meta[k] for k in ("num_batch", "best_val_acc",
+                                            "best_val_loss")},
+                    row_padded=meta["__row_padded__"])
+    with np.load(ckpt) as z:
+        flat, dir_flat = {k: z[k] for k in z.files}, _load_directory(as_dir)
+        if not (sorted(flat) == sorted(dir_flat) and all(
+                np.array_equal(flat[k], dir_flat[k]) for k in flat)):
+            raise AssertionError(f"[5e] {as_dir} is not {ckpt}")
     res = {}
-    for precision, form in (("f32", "f32"), ("auto", "int8mxu")):
+    for tag, precision, form, path in (
+            ("f32", "f32", "f32", ckpt), ("auto", "auto", "int8mxu", ckpt),
+            ("f32_dir", "f32", "f32", as_dir)):
+        out_npz = os.path.join(CKPT_DIR, f"predictions_{tag}.npz")
         argv = ["predict", "--preset", "Amazon2M", "--dataset", AMAZON,
-                "--ckpt", ckpt, "--precision", precision, "--output",
+                "--ckpt", path, "--precision", precision, "--output",
                 out_npz]
         stdout, stderr = io.StringIO(), io.StringIO()
         _reset_counts()
@@ -3739,8 +4014,17 @@ def run_serving(r, data, ckpt: str) -> dict:
                                  f"finite {finite}, test_acc "
                                  f"{line['test_acc']} != {want[precision]}")
         _check_hops(launches, form, cfg.order)
-        res[precision] = {"launches": launches, "wall_s": wall,
-                          **seconds["predict_seconds"]}
+        res[tag] = {"launches": launches, "wall_s": wall,
+                    **seconds["predict_seconds"]}
+    with np.load(os.path.join(CKPT_DIR, "predictions_f32.npz")) as a, \
+            np.load(os.path.join(CKPT_DIR, "predictions_f32_dir.npz")) as b:
+        same = np.array_equal(a["logits"], b["logits"])
+    print(f"[5e] predict from {as_dir} (the same checkpoint as a "
+          f"directory): logits bit for bit the npz's {same}; checkpoint_s "
+          f"{res['f32_dir']['checkpoint_s']} (npz "
+          f"{res['f32']['checkpoint_s']})", flush=True)
+    if not same:
+        raise AssertionError("[5e] the directory's logits differ")
     return res
 
 
@@ -4448,6 +4732,7 @@ def check_k3_window(padded) -> list:
                        "embed_prop_bwd", per_call=2)
     fill_b = _device_ms(lambda: _window_grad(next(it_o), gout), 32,
                         "FillFunctor")
+    sort_b = _sort_ms(lambda: _window_grad(next(it_o), gout), 32)
     plains = [embed_prop_plain(t, **st, vocab_lo=lo, vocab_hi=hi)
               for t, lo, hi, st in cases[:8]]
     it_p = itertools.cycle(zip(plains, cases))
@@ -4497,13 +4782,16 @@ def check_k3_window(padded) -> list:
     b_f, o_f, b_b, o_b = (float(np.mean([x[i] for x in nb]))
                           for i in range(4))
     (bound_f, by_f), (bound_b, by_b) = _bound(b_f, o_f), _bound(b_b, o_b)
+    scratch = _k3_scratch_bytes(s0, h)
+    bound_scratch = _bound(b_b + scratch, o_b)[0]
     print(f"[3h] per window call: fwd ms {ms_f} (on the device, profiled: "
           f"{dev_f}) plain_ms {plain_f} library_ms {lib_f} (embedding_bag, "
           f"{lib_err} from the kernel) bound_ms {bound_f} ({by_f}, "
           f"{b_f / 1e6:.3f} MB); bwd ms through autograd {ms_b} (on the "
-          f"device, profiled: kernel {dev_b}, zero-fill {fill_b}) plain_ms "
-          f"{plain_b} library_ms {lib_b} bound_ms {bound_b} ({by_b}, "
-          f"{b_b / 1e6:.1f} MB)", flush=True)
+          f"device, profiled: kernels {dev_b}, sort {sort_b}, zero-fill "
+          f"{fill_b}) plain_ms {plain_b} library_ms {lib_b} bound_ms "
+          f"{bound_b} ({by_b}, {b_b / 1e6:.1f} MB; with the scratch rows "
+          f"and keys {bound_scratch}, +{scratch / 1e6:.2f} MB)", flush=True)
     shape = (f"[{num_aug},{s0['tk_cols'].shape[0]},{h}] over a window of "
              f"{per} of {v} rows")
     entries = []
@@ -4520,8 +4808,9 @@ def check_k3_window(padded) -> list:
             "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib,
             "shape": shape})
-    entries[1]["direct"] = direct
-    entries[1]["fill_device_ms"] = fill_b
+    entries[1].update(direct=direct, fill_device_ms=fill_b,
+                      sort_device_ms=sort_b,
+                      bound_with_scratch_ms=bound_scratch)
     return entries
 
 
@@ -4848,10 +5137,17 @@ def _proc_train(cfg, data) -> dict:
         raise AssertionError(f"[9p] {cfg.dataset}: launches {launches}, want "
                              f"{want}")
     rank = tdist.get_rank()
-    if cfg.ckpt_dir and not (writes and all(w == (rank == 0)
-                                            for w in writes)):
+    # the npz is rank 0's alone; every rank takes part in a directory save
+    writer = rank == 0 or cfg.ckpt_backend == "orbax"
+    if cfg.ckpt_dir and not (writes and all(w == writer for w in writes)):
         raise AssertionError(f"[9p] rank {rank} checkpoint writes {writes}")
+    files = []
+    if cfg.ckpt_backend == "orbax":
+        best = os.path.join(cfg.ckpt_dir, "best")
+        files = sorted((f, os.path.getsize(os.path.join(best, f)))
+                       for f in os.listdir(best))
     return {"launches": {k: v for k, v in launches.items() if v},
+            "ckpt_files": files,
             "steps": r.num_batches, "history": r.history,
             "test_acc": r.test_acc, "n_test": len(data.idx_test),
             "best_val_acc": r.best_val_acc,
@@ -5000,6 +5296,9 @@ def rank_main(argv) -> int:
         dataset=DATASET, epochs=2, num_devices=PROC_RANKS,
         ckpt_dir=os.path.join(workdir, "ckpt"))
     _emit("reddit_train", **_proc_train(cfg, data))
+    _emit("reddit_train_dir", **_proc_train(cfg.replace(
+        ckpt_dir=os.path.join(workdir, "ckpt_dir"), ckpt_backend="orbax"),
+        data))
     _emit("d1", **_proc_d1(data, cfg))
     _emit("push", **_proc_push(cfg, data))
     del data
@@ -5010,8 +5309,13 @@ def rank_main(argv) -> int:
     _emit("mag_tp", **_proc_tp_step("mag", mag, padded))
     del padded
     torch.cuda.empty_cache()
-    _emit("mag_train", **_proc_train(preset("mag_scholar_c").replace(
-        dataset=MAG_DATASET, epochs=5, num_devices=MAG_SHARDS), mag))
+    mag_cfg = preset("mag_scholar_c").replace(
+        dataset=MAG_DATASET, epochs=5, num_devices=MAG_SHARDS,
+        ckpt_dir=os.path.join(workdir, "mag_ckpt"))
+    _emit("mag_train", **_proc_train(mag_cfg, mag))
+    _emit("mag_train_dir", **_proc_train(mag_cfg.replace(
+        ckpt_dir=os.path.join(workdir, "mag_ckpt_dir"),
+        ckpt_backend="orbax"), mag))
     del mag
     tdist.destroy_process_group()
     _emit("nccl_refusal", message=_proc_nccl_refusal(rank, int(ports[1])),
@@ -5044,6 +5348,45 @@ def _predict_ckpt(ckpt: str) -> float:
         raise AssertionError(f"[9p] predict exited {rc}: "
                              f"{stderr.getvalue()[-2000:]}")
     return json.loads(stdout.getvalue().strip().splitlines()[-1])["test_acc"]
+
+
+def _proc_directories(a: dict, b: dict) -> float:
+    """9p with ``ckpt_backend="orbax"``: each engine's run over the ranks
+    again with the directory checkpoints. Every rank took part in each
+    save (each wrote its ``.distcp`` file), the run is the npz run's bit
+    for bit (history and parameter digest on both ranks), and ``best/``
+    restored here, in one process, holds the npz run's ``best.npz`` key
+    for key, bit for bit. Returns the test accuracy that the ``predict``
+    CLI on one card serves from the reddit run's ``best/``."""
+    for engine, ck in (("reddit", "ckpt"), ("mag", "mag_ckpt")):
+        part = f"{engine}_train_dir"
+        for r, rank in enumerate((a, b)):
+            if not (rank[part]["writes"] and all(rank[part]["writes"])):
+                raise AssertionError(f"[9p] {part}: rank {r} writes "
+                                     f"{rank[part]['writes']}")
+            for key in ("history", "digest", "test_acc"):
+                if rank[part][key] != rank[f"{engine}_train"][key]:
+                    raise AssertionError(f"[9p] {part}: rank {r}'s {key} "
+                                         f"is not the npz run's")
+        d = os.path.join(PROC_DIR, f"{ck}_dir", "best")
+        got, load_s = _timed(_load_directory, d)
+        with np.load(os.path.join(PROC_DIR, ck, "best.npz")) as z:
+            same = sorted(got) == sorted(z.files) and all(
+                got[k].dtype == z[k].dtype and np.array_equal(got[k], z[k])
+                for k in z.files)
+        files = a[part]["ckpt_files"]
+        print(f"[9p] {part}: best/ saved {len(a[part]['writes'])} times by "
+              f"rank 0 and {len(b[part]['writes'])} by rank 1 (each save "
+              f"entered by both); files (name, bytes) {files}; restored "
+              f"here in {load_s} s, bit for bit the npz run's best.npz "
+              f"{same}; history and parameters the npz run's on both ranks;"
+              f" train_call_s {a[part]['train_call_s']} (npz "
+              f"{a[f'{engine}_train']['train_call_s']})", flush=True)
+        distcp = [f for f, _ in files if f.endswith(".distcp")]
+        if not same or distcp != [f"__{r}_0.distcp"
+                                  for r in range(PROC_RANKS)]:
+            raise AssertionError(f"[9p] {part}: {d} ({files})")
+    return _predict_ckpt(os.path.join(PROC_DIR, "ckpt_dir", "best"))
 
 
 def run_process_mesh(mesh_steps: dict, reddit_acc: float,
@@ -5140,14 +5483,19 @@ def run_process_mesh(mesh_steps: dict, reddit_acc: float,
         if abs(got - ref) > 1.0 / n_test + 1e-12:
             raise AssertionError(f"[9p] {part}: test_acc {got} against "
                                  f"{ref} on one process")
-    if any(b["reddit_train"]["writes"]) or not all(a["reddit_train"]
-                                                   ["writes"]):
-        raise AssertionError("[9p] a rank other than 0 wrote best.npz")
+    for part in ("reddit_train", "mag_train"):
+        if any(b[part]["writes"]) or not all(a[part]["writes"]):
+            raise AssertionError(f"[9p] {part}: a rank other than 0 wrote "
+                                 f"best.npz")
     served = _predict_ckpt(os.path.join(PROC_DIR, "ckpt", "best.npz"))
     rank_acc = a["reddit_train"]["test_acc"]
     if abs(served - rank_acc) > 1.0 / a["reddit_train"]["n_test"] + 1e-12:
         raise AssertionError(f"[9p] predict from the ranks' best.npz: "
                              f"test_acc {served}, the ranks' {rank_acc}")
+    served_dir = _proc_directories(a, b)
+    if served_dir != served:
+        raise AssertionError(f"[9p] predict from the ranks' best/: test_acc "
+                             f"{served_dir}, from best.npz {served}")
     for engine, part, tag in (("dense", "reddit_step", "9"),
                               ("mag", "mag_step", "9b")):
         one = mesh_steps[engine]
@@ -5192,7 +5540,8 @@ def run_process_mesh(mesh_steps: dict, reddit_acc: float,
           f"{a['nccl_refusal']['message']!r}; gloo on card tensors: "
           f"{a['gloo_cuda']['coverage']}; phase wall {wall} s", flush=True)
     launches = {}
-    for part in ("reddit_train", "mag_train", "reddit_tp", "mag_tp"):
+    for part in ("reddit_train", "mag_train", "reddit_tp", "mag_tp",
+                 "reddit_train_dir", "mag_train_dir"):
         launches[part] = {k: a[part]["launches"].get(k, 0)
                           + b[part]["launches"].get(k, 0)
                           for k in COUNTED}
@@ -5243,8 +5592,11 @@ def main() -> int:
     mark("4d")
     launches, r_main = run_main_path(data)
     mark("5")
-    long_launches = run_long_run(data, r_main)
+    long_run = run_long_run(data, r_main)
+    long_launches = long_run["launches"]
     mark("5g")
+    long_dir_launches = run_long_run_dir(data, long_run)
+    mark("5g-dir")
     scan = {"reddit": run_scan_pair("reddit", data)}
     scan["reddit"]["group"] = check_group("dense", data)
     mark("5h")
@@ -5279,6 +5631,8 @@ def main() -> int:
     mark("4b")
     mag_launches = run_mag_path(mag)
     mark("5b")
+    mag_ckpt_launches = run_mag_checkpoints(mag)
+    mark("5i")
     scan["mag"] = run_scan_pair("mag", mag)
     scan["mag"]["group"] = check_group("mag", mag, mag_padded)
     mark("5h (MAG)")
@@ -5452,6 +5806,10 @@ def main() -> int:
                   for run, la in d1_2d["launches"].items()})
     paths.update({f"p1_sharded_2d_{axis}": r["launches"]
                   for axis, r in push_2d.items()})
+    # the directory checkpoints' paths: 5g's resume, 5i, 5e's predict
+    paths.update({"reddit_resumed_dir": long_dir_launches,
+                  "mag_latest_dir": mag_ckpt_launches,
+                  "serve_f32_dir": serve["f32_dir"]["launches"]})
     # 5h's runs, per step and with scan_steps (graph replays)
     for name, sc in scan.items():
         per, rolled = sc.pop("launches")

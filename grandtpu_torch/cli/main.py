@@ -10,17 +10,22 @@
     python -m grandtpu_torch.cli.main run --dataset synth:400:4:32 \
         --ckpt-dir /tmp/c --device cpu                    # writes best.npz
     python -m grandtpu_torch.cli.main run --dataset synth:400:4:32 \
+        --ckpt-dir /tmp/d --ckpt-backend orbax --device cpu   # best/ (DCP)
+    python -m grandtpu_torch.cli.main run --dataset synth:400:4:32 \
         --num-devices 2 --device cpu                      # data-parallel
     python -m grandtpu_torch.cli.main predict --dataset synth:400:4:32 \
         --ckpt /tmp/c/best.npz --device cpu [--num-devices 2]
+    python -m grandtpu_torch.cli.main predict --dataset synth:400:4:32 \
+        --ckpt /tmp/d/best --device cpu                   # from a directory
     GRANDTPU_DATA_DIR=/data python -m grandtpu_torch.cli.main predict \
         --preset Amazon2M --ckpt /tmp/c/best.npz --precision int8
     python -m grandtpu_torch.cli.main presets
 
 ``--dataset`` takes a ``synth:`` spec or a dataset's name (``reddit``,
 ``Amazon2M``, ``cora``, ...), whose files ``load_data`` reads from
-$GRANDTPU_DATA_DIR; a preset without ``--dataset`` loads its own
-dataset's files. Every GrandConfig field is overridable via a --flag of
+$GRANDTPU_DATA_DIR (``python -m grandtpu_torch.data.download
+--dataset NAME`` fetches them); a preset without ``--dataset`` loads its
+own dataset's files. Every GrandConfig field is overridable via a --flag of
 the same name (underscores become dashes).
 """
 
@@ -230,7 +235,8 @@ def cli(argv=None) -> int:
                         help="cuda runs the hand-written kernels; cpu runs "
                         "their plain PyTorch versions")
     p_pred.add_argument("--ckpt", required=True,
-                        help="checkpoint npz (best.npz from --ckpt-dir)")
+                        help="checkpoint npz or directory (best.npz, or "
+                        "best/ with --ckpt-backend orbax, from --ckpt-dir)")
     p_pred.add_argument("--output", default=None, help="output npz path")
     p_pred.add_argument("--precision", default="f32",
                         choices=["f32", "bf16", "int8", "auto"],

@@ -1,9 +1,10 @@
 """Typed experiment configuration + per-dataset presets.
 
 The port's own copy of ``grandtpu/config.py`` (same fields, defaults,
-presets and variants; the port imports nothing of ``grandtpu``). Fields
-whose feature the port does not have yet are rejected by
-``grandtpu_torch.train.trainer.check_supported``.
+presets and variants; the port imports nothing of ``grandtpu``). Every
+field's feature is ported; ``ckpt_backend="orbax"`` keeps grandtpu's name
+for the port's directory checkpoint (``torch.distributed.checkpoint``'s
+bytes, ``train/checkpoint.py``).
 
 Replaces the reference's flat argparse namespace (reference
 ``run_model.py:8-75``) and the seven ``scripts/run_*.sh`` hyperparameter

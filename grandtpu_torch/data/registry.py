@@ -12,8 +12,9 @@ Port of ``grandtpu/data/registry.py`` (reference
 - synthetic SBM                synth:* (for tests and scale stand-ins)
 
 The data directory resolves from $GRANDTPU_DATA_DIR, then the fallback
-directories of ``_FALLBACK_DIRS``, in grandtpu's order. Nothing is
-downloaded: the files must already be there.
+directories of ``_FALLBACK_DIRS``, in grandtpu's order. Loading downloads
+nothing: ``grandtpu_torch.data.download`` fetches the datasets the repo
+does not bundle.
 """
 
 from __future__ import annotations
@@ -110,9 +111,10 @@ def load_data(dataset_str: str, split_seed: int = 0,
             data = _load_from_disk(dataset_str, path, split_seed)
         except FileNotFoundError as e:
             raise FileNotFoundError(
-                f"{e} — dataset {dataset_str!r} files were not found; put "
-                f"them in a directory and point $GRANDTPU_DATA_DIR at it, or "
-                f"use a 'synth:<n>:<c>:<f>' spec") from None
+                f"{e} — dataset {dataset_str!r} files were not found; "
+                f"download them (grandtpu_torch.data.download) and point "
+                f"$GRANDTPU_DATA_DIR at the directory, or use a "
+                f"'synth:<n>:<c>:<f>' spec") from None
     if renormalize:
         data.adj = pp.sym_renormalize(data.adj)
     return data

@@ -15,7 +15,17 @@ and ``mag_to_jax`` make them from the port's modules, ``mlp_from_jax`` and
 training state (``latest.npz``) adds the ``opt`` section, optax's Adam
 state: the port's ``Adam`` (``train/adam.py``) keeps the same ``mu``,
 ``nu`` and ``count`` (:func:`training_trees`, :func:`restore_training`).
-The orbax backend is not ported.
+
+``backend="orbax"`` (the config's ``ckpt_backend``, grandtpu's name) is
+the directory form of the same flat dict, one tensor a key, written and
+read through ``torch.distributed.checkpoint`` (DCP): the bytes are DCP's
+(``.metadata`` and a ``__{rank}_0.distcp`` file a rank that wrote), not
+orbax's. Each package reads only its own directory form; the npz is the
+one both read. Over several ranks every rank takes part in the save (DCP
+writes each key once, spread over the ranks), as every process takes part
+in grandtpu's orbax save. A load takes a directory at the path (a
+``.npz`` suffix stripped) as this form, and reads the whole dict on each
+rank without a collective.
 """
 
 from __future__ import annotations
@@ -24,12 +34,17 @@ import collections
 import functools
 import json
 import os
+import shutil
+import warnings
 
 import numpy as np
 import torch
 import torch.distributed as tdist
 
-_ORBAX = "ROADMAP Queue A 5: the orbax checkpoint backend"
+# files that only grandtpu's orbax backend writes into its directory
+_ORBAX_FILES = ("manifest.ocdbt", "_CHECKPOINT_METADATA")
+# what DCP warns at every call without a process group, told so or not
+_NO_DIST = "torch.distributed is (disabled|unavailable)"
 
 
 class CheckpointShapeError(ValueError):
@@ -106,6 +121,14 @@ def row_padded_meta(before: dict, after: dict) -> dict[str, int]:
     return out
 
 
+def process_ranks() -> tuple[int, int]:
+    """(this process's rank, the world size) of ``torch.distributed``, or
+    (0, 1) when it is not initialized."""
+    if tdist.is_available() and tdist.is_initialized():
+        return tdist.get_rank(), tdist.get_world_size()
+    return 0, 1
+
+
 def save_checkpoint(path: str, *, params, state, opt_state=None,
                     num_batch: int = 0, best_val_acc: float = 0.0,
                     best_val_loss: float = float("inf"),
@@ -113,18 +136,18 @@ def save_checkpoint(path: str, *, params, state, opt_state=None,
                     row_padded: dict[str, int] | None = None,
                     backend: str = "npz") -> bool:
     """Write the ``params``/``state``/``opt_state`` trees (numpy leaves, in
-    grandtpu's layout) and the meta to ``path`` (an npz). Returns whether
-    this process wrote it: with ``torch.distributed`` initialized over
-    several ranks only rank 0 writes, as grandtpu's ``save_checkpoint``
-    does (``checkpoint.py:78-92``); every rank gathers the trees before
-    (a vocab-sharded table's gather is a collective)."""
-    if backend == "orbax":
-        raise NotImplementedError(f"ckpt_backend 'orbax' is not ported yet "
-                                  f"({_ORBAX})")
-    if backend != "npz":
+    grandtpu's layout) and the meta to ``path``: an npz, or with
+    ``backend="orbax"`` the directory ``path`` without its ``.npz``
+    (:func:`_save_directory`). Returns whether this process wrote: with
+    ``torch.distributed`` initialized over several ranks the npz is rank
+    0's alone, as in grandtpu (``checkpoint.py:78-92``), and the directory
+    every rank's, each rank taking part. Every rank calls it, with the
+    same whole trees (a vocab-sharded table's gather before it is a
+    collective)."""
+    if backend not in ("npz", "orbax"):
         raise ValueError(f"unknown checkpoint backend {backend!r}")
-    if (tdist.is_available() and tdist.is_initialized()
-            and tdist.get_rank() != 0):
+    rank, _ = process_ranks()
+    if backend == "npz" and rank != 0:
         return False
     arrays = {}
     for name, tree in (("params", params), ("state", state),
@@ -137,31 +160,98 @@ def save_checkpoint(path: str, *, params, state, opt_state=None,
             "__row_padded__": row_padded or {}, **(extra or {})}
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
                                        dtype=np.uint8)
+    if backend == "orbax":
+        _save_directory(_orbax_dir(path), arrays)
+        return True
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **arrays)
     return True
 
 
+def _save_directory(d: str, arrays: dict) -> None:
+    """``dcp.save`` of ``arrays`` (one CPU tensor a key) into the sibling
+    ``d.partial``, over every rank of ``torch.distributed`` when it is
+    initialized (a collective: DCP's planner writes each key on one rank),
+    then rank 0 moves it into place: ``d`` is replaced only once DCP's
+    collective finish has written the metadata, so a save cut short leaves
+    the previous ``d`` readable (for the instant between the two renames
+    there is only ``d.old``). Returns on every rank once ``d`` is in
+    place."""
+    rank, world = process_ranks()
+    partial, old = f"{d}.partial", f"{d}.old"
+    if rank == 0:
+        shutil.rmtree(partial, ignore_errors=True)
+        os.makedirs(os.path.dirname(os.path.abspath(d)), exist_ok=True)
+    if world > 1:
+        tdist.barrier()             # no rank writes into a stale partial
+    # imported here: its import takes about a second, which npz users skip
+    import torch.distributed.checkpoint as dcp
+
+    # a copy only of what is not a contiguous, writable array already
+    tensors = {k: torch.from_numpy(np.require(v, requirements="CW"))
+               for k, v in arrays.items()}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=_NO_DIST)
+        dcp.save(tensors, checkpoint_id=partial, no_dist=world == 1)
+    if rank == 0:
+        shutil.rmtree(old, ignore_errors=True)
+        if os.path.isdir(d):
+            os.replace(d, old)
+        os.replace(partial, d)
+        shutil.rmtree(old, ignore_errors=True)
+    if world > 1:
+        tdist.barrier()
+
+
 def _orbax_dir(path: str) -> str:
+    """A directory checkpoint's path: a stray ``.npz`` suffix stripped."""
     return path[: -len(".npz")] if path.endswith(".npz") else path
+
+
+def _load_directory(d: str) -> dict:
+    """The flat dict of the directory checkpoint ``d`` as numpy arrays:
+    each key's size and dtype from DCP's metadata, then ``dcp.load``
+    without collectives (each rank reads the whole dict)."""
+    if not os.path.isdir(d):
+        raise FileNotFoundError(d)
+    if any(os.path.exists(os.path.join(d, f)) for f in _ORBAX_FILES):
+        raise ValueError(
+            f"{d} was written by grandtpu's orbax backend, which only "
+            f"grandtpu reads; the port's directory checkpoints are "
+            f"torch.distributed.checkpoint's. Save it as npz (the form both "
+            f"packages read) with grandtpu's ckpt_backend='npz'")
+    import torch.distributed.checkpoint as dcp
+
+    meta = dcp.FileSystemReader(d).read_metadata().state_dict_metadata
+    tensors = {k: torch.empty(m.size, dtype=m.properties.dtype)
+               for k, m in meta.items()}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=_NO_DIST)
+        dcp.load(tensors, checkpoint_id=d, no_dist=True)
+    return {k: t.numpy() for k, t in tensors.items()}
 
 
 def load_checkpoint(path: str, *, params_template, state_template,
                     opt_template=None, backend: str | None = None):
     """Restore into the shapes of the templates (trees of arrays in
-    grandtpu's layout). Returns (params, state, opt_state, meta) as numpy
-    trees. A leaf whose shape differs raises :class:`CheckpointShapeError`,
-    unless the meta records it as row-padded from the template's leading
-    dimension: then its first rows are taken, as in grandtpu."""
+    grandtpu's layout) from the npz or, with ``backend=None``, the
+    directory at ``path`` (modulo ``.npz``) when there is one; a missing
+    checkpoint raises ``FileNotFoundError``. Returns (params, state,
+    opt_state, meta) as numpy trees. A leaf whose shape differs raises
+    :class:`CheckpointShapeError`, unless the meta records it as
+    row-padded from the template's leading dimension: then its first rows
+    are taken, as in grandtpu."""
     if backend is None:
         backend = "orbax" if os.path.isdir(_orbax_dir(path)) else "npz"
-    if backend != "npz":
-        raise NotImplementedError(f"ckpt_backend {backend!r} is not ported "
-                                  f"yet ({_ORBAX})")
-    if not path.endswith(".npz"):
-        path = path + ".npz"
-    with np.load(path) as d:
-        arrays = {k: d[k] for k in d.files}
+    if backend == "orbax":
+        arrays = _load_directory(_orbax_dir(path))
+    elif backend == "npz":
+        if not path.endswith(".npz"):
+            path = path + ".npz"
+        with np.load(path) as d:
+            arrays = {k: d[k] for k in d.files}
+    else:
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
     meta = json.loads(bytes(arrays.pop("__meta__")).decode())
     row_padded = meta.get("__row_padded__") or {}
 
@@ -201,7 +291,7 @@ def load_checkpoint(path: str, *, params_template, state_template,
 def model_trees(model) -> tuple:
     """(params, state) of an ``MLP`` or ``MagMLP`` in grandtpu's layout,
     whole (a model sharded over a mesh over processes is gathered: every
-    rank calls it, and ``save_checkpoint`` writes on rank 0)."""
+    rank calls it, and then ``save_checkpoint``)."""
     from grandtpu_torch.convert import mag_to_jax, mlp_to_jax
     from grandtpu_torch.nn.mag_mlp import MagMLP
 

@@ -11,6 +11,7 @@ grandtpu's:
 - with ``ckpt_dir``, ``best.npz`` at every eval that improves, and with
   ``save_every`` the full training state (``latest.npz``: the weights,
   the Adam state and the NEXT step's index) every ``save_every`` evals;
+  with ``ckpt_backend="orbax"`` the directories ``best/`` and ``latest/``;
 - ``resume``: continue from ``latest.npz`` (the weights, the Adam state,
   the step index and the best acc/loss), with the best weights from
   ``best.npz``. As in grandtpu the epoch loop restarts at 0 with the same
@@ -24,11 +25,13 @@ grandtpu's:
 
 On a mesh over processes every rank runs this loop: the eval metrics are
 replicated, so every rank takes the same improvement and stop decisions,
-gathers the checkpoint's trees, and rank 0 alone writes the files. A
-preemption there saves only when no parameter is sharded across the ranks
-(grandtpu's rule: signals reach the ranks at different steps, and the
-gather is a collective); the ``save_every`` checkpoints, which every rank
-reaches together, are then the resume point.
+gathers the checkpoint's trees, and rank 0 alone writes the npz files
+(every rank takes part in a directory checkpoint's save,
+``ckpt_backend="orbax"``). A preemption there saves only when that save
+is no collective: no parameter is sharded across the ranks (grandtpu's
+rule: signals reach the ranks at different steps, and the gather is a
+collective), and the checkpoints are npz files; else the ``save_every``
+checkpoints, which every rank reaches together, are the resume point.
 
 ``scan_steps`` is grandtpu's scan-rolled groups (``_build_multi_step``):
 a group length is rolled once it has occurred ``SCAN_COMPILE_THRESHOLD``
@@ -60,7 +63,8 @@ from grandtpu_torch.nn.sparse_input import (embed_prop, embed_prop_backward,
 from grandtpu_torch.observe import MetricsLogger, StepTimer
 from grandtpu_torch.train.adam import adam_update
 from grandtpu_torch.train.checkpoint import (adam_tree, load_checkpoint,
-                                             model_trees, restore_training,
+                                             model_trees, process_ranks,
+                                             restore_training,
                                              save_checkpoint,
                                              training_templates,
                                              training_trees)
@@ -235,12 +239,20 @@ def pad_batch(idx: np.ndarray, size: int):
     return idx, mask
 
 
-def _sharded_over_ranks(model) -> bool:
-    """Whether some parameter of ``model`` is split across processes (its
-    gather for a checkpoint is a collective)."""
-    return any(m is not None and m.multiprocess
-               for m in (getattr(model, "vocab_mesh", None),
-                         getattr(model, "model_mesh", None)))
+def _unsaveable(cfg: GrandConfig, model) -> str | None:
+    """Why a preemption must not save on this rank, or None: grandtpu's
+    ``saveable`` rule (``loop.py:307-329``). A signal reaches each rank at
+    its own step, so a save that is a collective over the ranks could
+    meet another rank's step collective and wait for ever: the gather of
+    a parameter split across processes, and the directory checkpoint's
+    save over several ranks."""
+    if any(m is not None and m.multiprocess
+           for m in (getattr(model, "vocab_mesh", None),
+                     getattr(model, "model_mesh", None))):
+        return "cross-process-sharded state"
+    if cfg.ckpt_backend == "orbax" and process_ranks()[1] > 1:
+        return "the directory checkpoint's save is a collective"
+    return None
 
 
 def _resume(cfg: GrandConfig, model, optimizer, best: dict, snapshot,
@@ -437,19 +449,20 @@ def run_training_loop(cfg: GrandConfig, rng: np.random.RandomState, *,
                     break
                 num_batch += 1
                 if guard.requested:
-                    if cfg.ckpt_dir and not _sharded_over_ranks(model):
+                    why = _unsaveable(cfg, model)
+                    if not cfg.ckpt_dir:
+                        verbose(f"preemption signal at batch {num_batch}: "
+                                f"stopping (no ckpt_dir)")
+                    elif why:
+                        verbose(f"preemption signal at batch {num_batch}: "
+                                f"stopping WITHOUT a fresh save ({why}; the "
+                                f"last save_every checkpoint is the resume "
+                                f"point)")
+                    else:
                         save("latest.npz", num_batch, full=True)
                         verbose(f"preemption signal at batch {num_batch}: "
                                 f"state saved, stopping (resume=True "
                                 f"continues)")
-                    else:
-                        verbose(f"preemption signal at batch {num_batch}: "
-                                f"stopping WITHOUT a fresh save "
-                                f"(cross-process-sharded state; the last "
-                                f"save_every checkpoint is the resume "
-                                f"point)" if cfg.ckpt_dir else
-                                f"preemption signal at batch {num_batch}: "
-                                f"stopping (no ckpt_dir)")
                     metrics_log.log(event="preempted", num_batch=num_batch)
                     preempted = stop = True
                     break

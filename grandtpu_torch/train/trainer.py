@@ -47,16 +47,6 @@ from grandtpu_torch.train.step import (StepConfig, build_eval_step,
                                        build_train_step, make_optimizer)
 
 
-def check_supported(cfg: GrandConfig) -> None:
-    """Raise NotImplementedError for the one config field whose feature the
-    port does not have, naming the ROADMAP item: the orbax checkpoint
-    backend, which needs JAX's orbax package."""
-    if cfg.ckpt_backend != "npz":
-        raise NotImplementedError(
-            f"ckpt_backend {cfg.ckpt_backend!r} is not ported (ROADMAP "
-            f"Queue A 5: the orbax checkpoint backend)")
-
-
 def train_mesh(cfg: GrandConfig, mesh, device: torch.device):
     """The mesh a trainer runs on: None for ``num_devices == 1``, else
     ``mesh`` (default ``make_mesh(num_devices, device=device)``), checked
@@ -142,7 +132,6 @@ def train(cfg: GrandConfig, data: Optional[GraphData] = None, log=None,
     ``make_mesh(num_devices, device=device)``; pass
     ``make_mesh(S, devices=[card] * S)`` to put S shards on one card)."""
     device = resolve_device(device)
-    check_supported(cfg)
     mesh = train_mesh(cfg, mesh, device)
     if mesh is not None:
         device = mesh.devices[0]

@@ -58,8 +58,8 @@ from grandtpu_torch.train.step import (_clip_, _eval_metrics, _eval_sharded,
                                        _global_norm, _masked_nll,
                                        _sharded_batch, _sharded_losses,
                                        make_optimizer, num_batch_tensor)
-from grandtpu_torch.train.trainer import (TrainResult, check_supported,
-                                          loop_result, push, train_mesh)
+from grandtpu_torch.train.trainer import (TrainResult, loop_result, push,
+                                          train_mesh)
 
 
 def _mag_ramp(num_batch, device, lam: float, warmup: float) -> torch.Tensor:
@@ -274,7 +274,6 @@ def train_sparse(cfg: GrandConfig, data: Optional[GraphData] = None,
     1`` it trains on ``mesh`` (default ``make_mesh(num_devices,
     device=device)``), as ``train()`` does."""
     device = resolve_device(device)
-    check_supported(cfg)
     mesh = train_mesh(cfg, mesh, device)
     if mesh is not None:
         device = mesh.devices[0]

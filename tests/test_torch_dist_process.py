@@ -25,14 +25,17 @@ computes and hands them in an npz. Parts, one test each:
 - (e) ``e2e``: ``train()`` of both engines with ``ckpt_dir``: the same
   history and weights on every rank, one ``best.npz`` written by rank 0,
   loaded by the port on every rank and by grandtpu here, the row-padded
-  table sliced back;
+  table sliced back; then with ``ckpt_backend="orbax"``: every rank takes
+  part in each save of ``best/`` (its own ``.distcp`` file), the same
+  history, and the directory restored here bit for bit the npz;
 - (f) ``longrun``: ``train()``'s long-run options over the processes:
   only rank 0 writes the metrics stream and ``latest.npz``; every rank
   resumes from it to the same weights (a digest taken as the resume loads
   them) and the same history; a SIGTERM on every rank stops both engines
   at the same step, with a fresh save for the replicated dense model and
   none for the vocab-sharded MAG table (grandtpu's rule: its gather is a
-  collective that signals do not line up);
+  collective that signals do not line up), nor for the dense model with
+  the directory checkpoints (their save is a collective);
 - ``collectives``: every cross-process collective's forward and gradient
   against the one-process mesh's on the same inputs;
 - ``d1_2d``: D1 (the all_gather, halo and scatter variants) and the
@@ -521,8 +524,29 @@ def part_e2e(rank, world, shared):
         assert rel(hist[:, 1], hist_one[:, 1]) <= 1e-4, (hist, hist_one)
         n_test = len(load_data(spec, split_seed=cfg.seed1).idx_test)
         assert abs(r.test_acc - one.test_acc) <= 1.0 / n_test + 1e-9
+        # the directory form: every rank takes part in each save, and the
+        # run is the npz run's, bit for bit
+        dckpt = os.path.join(shared, f"{engine}_dir")
+        n_npz = len(writes)
+        writes.clear()
+        rd = train(cfg.replace(ckpt_dir=dckpt, ckpt_backend="orbax"),
+                   device="cpu")
+        tdist.barrier()
+        assert len(writes) == n_npz and all(writes), writes
+        assert os.listdir(dckpt) == ["best"], os.listdir(dckpt)
+        assert rd.history == r.history and rd.test_acc == r.test_acc
+        loaded, meta = load_model(os.path.join(dckpt, "best"), model.cfg,
+                                  sparse=sparse, device="cpu")
+        assert meta["best_val_acc"] == r.best_val_acc
+        for a, b in zip(loaded.fcs.parameters(), rd.model.fcs.parameters()):
+            assert torch.equal(a, b)
+        if sparse:
+            assert torch.equal(loaded.table, want)
+        best = os.path.join(dckpt, "best")
         report[engine] = {"test_acc": r.test_acc, "one": one.test_acc,
-                          "writes": len(writes)}
+                          "writes": n_npz, "dir_files": sorted(
+                              (f, os.path.getsize(os.path.join(best, f)))
+                              for f in os.listdir(best))}
         if rank == 0:
             np.savez(os.path.join(shared, f"{engine}_weights.npz"),
                      **{"w0": params["fcs"][0]["w"],
@@ -617,10 +641,19 @@ def part_longrun(rank, world, shared):
         trainer_sparse.build_sparse_steps = lambda *a, **k: (
             lambda st, ev: (signalling(st), ev))(*real_sparse(*a, **k))
         logs, writes[:] = [], []
+        dir_logs = []
         try:
             stopped = train(cfg.replace(ckpt_dir=stop_dir, save_every=0,
                                         metrics_path=None, epochs=4),
                             device="cpu", log=logs.append)
+            if engine == "dense":
+                # the directory form's save is a collective: no save at a
+                # preemption over the ranks, even for replicated state
+                steps["n"] = 0
+                dir_stopped = train(cfg.replace(
+                    ckpt_dir=stop_dir + "_dir", ckpt_backend="orbax",
+                    save_every=0, metrics_path=None, epochs=4),
+                    device="cpu", log=dir_logs.append)
         finally:
             dense_trainer.build_train_step = real_dense
             trainer_sparse.build_sparse_steps = real_sparse
@@ -631,6 +664,13 @@ def part_longrun(rank, world, shared):
         assert saved == (engine == "dense"), os.listdir(stop_dir)
         if engine == "sparse":
             assert any("WITHOUT a fresh save" in str(m) for m in logs)
+        else:
+            assert dir_stopped.preempted and dir_stopped.num_batches == 3
+            assert "latest" not in os.listdir(stop_dir + "_dir")
+            assert any("WITHOUT a fresh save (the directory checkpoint's "
+                       "save is a collective" in str(m) for m in dir_logs)
+            # one latest save in the two runs: the npz run's preemption
+            assert [name for name, _ in writes].count("latest.npz") == 1
         report[engine] = {"num_batches": res.num_batches,
                           "stopped": stopped.num_batches, "saved": saved}
     with open(os.path.join(shared, f"longrun_{rank}.json"), "w") as f:
@@ -1017,8 +1057,13 @@ def test_two_rank_vocab_sharded_mag_step(shared):
 def test_two_rank_trainers_end_to_end_with_checkpoints(shared):
     """(e) ``train()`` of both engines over the processes with ``ckpt_dir``:
     rank 0 writes the one best.npz; grandtpu loads it (the padded MAG table
-    sliced back to the vocabulary) and finds the weights the ranks hold."""
+    sliced back to the vocabulary) and finds the weights the ranks hold.
+    With ``ckpt_backend="orbax"`` every rank takes part in each save of
+    ``best/`` (a ``.distcp`` file each), and this one process restores it
+    bit for bit the npz run's best.npz."""
     import jax
+
+    from grandtpu_torch.train import checkpoint as tcheckpoint
 
     from grandtpu.nn import mag_mlp as jmag
     from grandtpu.nn import mlp as jmlp
@@ -1047,13 +1092,34 @@ def test_two_rank_trainers_end_to_end_with_checkpoints(shared):
                 np.testing.assert_array_equal(
                     np.asarray(params["emb"]["table"]), d["table"][:vocab])
                 assert meta["__row_padded__"]
+        # one process restores what the two ranks wrote as a directory:
+        # bit for bit the npz run's best.npz, key for key
+        files = reports[0][engine]["dir_files"]
+        assert [f for f, _ in files if f.endswith(".distcp")] == [
+            "__0_0.distcp", "__1_0.distcp"], files
+        got = tcheckpoint._load_directory(
+            os.path.join(shared, f"{engine}_dir", "best"))
+        with np.load(os.path.join(shared, engine, "best.npz")) as z:
+            assert sorted(got) == sorted(z.files)
+            for k in z.files:
+                assert got[k].dtype == z[k].dtype, k
+                np.testing.assert_array_equal(got[k], z[k])
+        port_params, _, _, _ = tcheckpoint.load_checkpoint(
+            os.path.join(shared, f"{engine}_dir", "best"),
+            params_template=jax.tree.map(np.asarray, params_t),
+            state_template=jax.tree.map(np.asarray, state_t))
+        for a, b in zip(jax.tree.leaves(port_params),
+                        jax.tree.leaves(params)):
+            np.testing.assert_array_equal(a, np.asarray(b))
 
 
 def test_two_rank_long_run_options(shared):
     """(f) over 2 gloo ranks: rank 0 alone writes the metrics stream and
     latest.npz, every rank resumes from it to the same weights and
     history, and a preemption saves for the replicated dense model but not
-    for the vocab-sharded MAG table (grandtpu's ``saveable`` rule)."""
+    for the vocab-sharded MAG table (grandtpu's ``saveable`` rule), nor for
+    the dense model with the directory checkpoints (their save is a
+    collective)."""
     spawn("longrun", shared, timeout=240)
     reports = []
     for rank in range(WORLD):

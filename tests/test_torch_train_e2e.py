@@ -23,6 +23,7 @@ from grandtpu_torch.cli.main import cli
 from grandtpu_torch.config import GrandConfig
 from grandtpu_torch.convert import mlp_from_jax
 from grandtpu_torch.nn.mlp import MLP
+from grandtpu_torch.train import checkpoint as tcheckpoint
 from grandtpu_torch.train import loop as tloop
 from grandtpu_torch.train import trainer as ttrainer
 
@@ -124,14 +125,23 @@ def test_cli_run_on_cpu():
     assert '"test_acc_mean"' in out.stdout
 
 
-def test_cli_presets_and_unported_flag(capsys):
-    """The CLI refuses the one unported option (the orbax backend), naming
-    its ROADMAP item, and runs ``--scan-steps true``."""
+def test_cli_presets_and_unported_flag(capsys, tmp_path):
+    """The CLI runs what it once refused: ``--ckpt-backend orbax`` writes
+    the directory ``best/``, which ``predict`` serves from; and
+    ``--scan-steps true``."""
     assert cli(["presets"]) == 0
     assert "reddit" in capsys.readouterr().out
-    assert cli(["run", "--dataset", "synth:200:4:16", "--device", "cpu",
-                "--ckpt-backend", "orbax"]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    ck = str(tmp_path / "ck")
+    assert cli(["run", "--dataset", "synth:400:4:16", "--device", "cpu",
+                "--epochs", "2", "--ckpt-dir", ck,
+                "--ckpt-backend", "orbax"]) == 0
+    assert '"test_acc_mean"' in capsys.readouterr().out
+    assert os.listdir(ck) == ["best"]
+    assert os.path.isfile(os.path.join(ck, "best", ".metadata"))
+    assert cli(["predict", "--dataset", "synth:400:4:16", "--device", "cpu",
+                "--ckpt", os.path.join(ck, "best"), "--output",
+                str(tmp_path / "p.npz")]) == 0
+    assert '"test_acc"' in capsys.readouterr().out
     assert cli(["run", "--dataset", "synth:400:4:16", "--device", "cpu",
                 "--epochs", "3", "--eval-batch", "2",
                 "--scan-steps", "true"]) == 0
@@ -144,9 +154,11 @@ def test_cli_presets_and_unported_flag(capsys):
     ("scan_steps", True), ("num_devices", 2), ("push_cache_dir", "cache"),
 ])
 def test_unported_config_raises(field, value, tmp_path):
-    """Only the orbax backend still raises, naming its ROADMAP item. The
-    options that used to raise here run and do what their field asks
-    (``scan_steps``: rolled groups, the trajectory per-step training's)."""
+    """No option raises any more: the ones that used to raise here run and
+    do what their field asks (``scan_steps``: rolled groups, the
+    trajectory per-step training's; ``ckpt_backend="orbax"``: the
+    directories ``best/`` and ``latest/``, resumed from at the saved
+    step)."""
     cfg = GrandConfig(dataset="synth:200:4:16").replace(**{field: value})
     if field == "num_devices":
         # data-parallel training is ported (tests/test_torch_dist_train.py);
@@ -155,13 +167,31 @@ def test_unported_config_raises(field, value, tmp_path):
         with pytest.raises(ValueError, match="unlabel_batch_size"):
             ttrainer.train(cfg.replace(batch_size=3), device="cpu")
         return
-    if field == "ckpt_backend":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 5"):
-            ttrainer.train(cfg, device="cpu")
-        return
     base = GrandConfig(dataset="synth:400:4:16", epochs=4, eval_batch=1,
                        patience=100)
     ck = str(tmp_path / "ck")
+    if field == "ckpt_backend":
+        first = ttrainer.train(base.replace(ckpt_dir=ck, save_every=1,
+                                            **{field: value}), device="cpu")
+        assert sorted(os.listdir(ck)) == ["best", "latest"]
+        _, _, _, meta = tcheckpoint.load_checkpoint(
+            os.path.join(ck, "latest.npz"), params_template={},
+            state_template={})
+        assert meta["num_batch"] == first.num_batches
+        logs = []
+        got = ttrainer.train(base.replace(ckpt_dir=ck, resume=True, epochs=6,
+                                          **{field: value}),
+                             device="cpu", log=logs.append)
+        assert any("resumed from" in str(m) for m in logs)
+        assert got.history[0]["batch"] == first.num_batches
+        # the same resume from the same state as npz files
+        npz = str(tmp_path / "npz")
+        ttrainer.train(base.replace(ckpt_dir=npz, save_every=1),
+                       device="cpu")
+        want = ttrainer.train(base.replace(ckpt_dir=npz, resume=True,
+                                           epochs=6), device="cpu")
+        assert got.history == want.history
+        return
     if field in ("metrics_path", "profile_dir", "push_cache_dir"):
         value = str(tmp_path / value)
     logs = []
@@ -279,10 +309,17 @@ import grandtpu_torch
 for m in pkgutil.walk_packages(grandtpu_torch.__path__, "grandtpu_torch."):
     importlib.import_module(m.name)
 import grandtpu_torch.cli.main, grandtpu_torch.dist
-import grandtpu_torch.train.checkpoint
+import grandtpu_torch.train.checkpoint as ck
+import grandtpu_torch.data.download
 import chip_smoke
+import numpy as np, tempfile
+with tempfile.TemporaryDirectory() as d:
+    ck.save_checkpoint(d + "/best", params={"w": np.ones(3, np.float32)},
+                       state={}, backend="orbax")
+    ck.load_checkpoint(d + "/best", params_template={"w": np.ones(3)},
+                       state_template={})
 bad = sorted(n for n in sys.modules if n.split(".")[0] in
-             ("jax", "jaxlib", "optax", "grandtpu"))
+             ("jax", "jaxlib", "optax", "orbax", "grandtpu"))
 print("MODULES", len([n for n in sys.modules if n.startswith("grandtpu_torch")]))
 assert not bad, bad
 """
