@@ -116,13 +116,16 @@ Then the same for the MAG (sparse-feature) engine, on
     Ktop = 32, K = 2) without and with a q = 0.5 input-dropout mask, the
     eval form (K = 1, the 240 val rows) and the node form on a
     10,000-node chunk; max relative error <= 1e-5 (the backward adds in
-    another order than autograd); each forward form's kernel also timed
-    on the device alone (torch.profiler over 100 calls) beside its wrapper
-    time, and the backward's two kernels, its ``torch.sort`` of the ids
-    and its zero-fill on the device apart beside autograd's wall (host
-    dispatch included), its bound also with the deterministic backward's
-    scratch rows and keys (and the same on the [2780000, 32] column
-    blocks, with their bounds); the node form over
+    another order than autograd); the backward also against
+    ``embed_prop_backward_plain`` (<= 1e-5; it adds in the kernels' order,
+    so it also reports whether the bits are equal); each forward form's
+    kernel also timed on the device alone (torch.profiler over 100 calls)
+    beside its wrapper time, and the backward's device time as the sum of
+    every device operation of one call (its four kernels; no sort may
+    run) beside autograd's wall (host dispatch included), its bound also
+    with the backward's own scratch traffic, ``embedding_bag`` autograd's
+    wall and device time beside it (and the same on the [2780000, 32]
+    column blocks, with their bounds); the node form over
     all nodes as the predict runs it (CUDA events and the kernels' device
     time); K2 timed at H = 64 on the MAG operator;
 4b. reference on a small input: ``train()`` with the mag_scholar_c
@@ -348,9 +351,11 @@ Data-parallel training (D2) on meshes of the one card:
     shapes (every row of the batch over each window), against their plain
     versions (<= 1e-5), the windows' forwards summed against the full K3 and
     their gradients joined against the full backward (<= 1e-5), the padding
-    rows' gradient zero; kernel / plain / library (``F.embedding_bag`` over
-    the window) times and bounds, the forward's and the backward's kernels
-    also on the device alone (the backward's zero-fill apart);
+    rows' gradient zero, each window's backward against
+    ``embed_prop_backward_plain``; kernel / plain / library
+    (``F.embedding_bag`` over the window) times and bounds, the forward's
+    kernel and every device operation of the backward (and of the
+    library's backward) on the device;
 9b. (after 6b) the slice's main path, the MAG engine on
     ``make_mesh(4, devices=[cuda:0] * 4)``: one step against the one-card
     step as in 9 (hidden dropout on), then ``train(cfg, mesh=...)`` for 5
@@ -471,6 +476,7 @@ from grandtpu_torch.nn.mag_mlp import init_mag_mlp
 from grandtpu_torch.nn.mlp import MLPConfig, init_mlp
 from grandtpu_torch.nn.sparse_input import (PaddedFeatures, embed_prop,
                                             embed_prop_backward,
+                                            embed_prop_backward_plain,
                                             embed_prop_plain,
                                             embed_prop_window,
                                             embed_prop_window_backward)
@@ -592,6 +598,40 @@ def _device_ms(fn, iters: int, kernel: str, per_call: int = 1):
     None if it recorded no such kernel."""
     times = _device_times(fn, iters, kernel)
     return sum(times) / len(times) * per_call if times else None
+
+
+def _call_device_ms(fn, iters: int):
+    """(mean device ms of one ``fn()``, {kernel: mean ms a call}) over
+    ``iters`` calls: for each device operation the profiler recorded
+    (kernels, fills, memsets, copies; one stream, so none overlap), its mean
+    time a launch times its launches a call, summed. The profiler can drop
+    the records of whole calls, so the launches a call are the recorded
+    launches over ``iters``, rounded (at least 1). None if it recorded
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(DEV)
+    for _retry in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize(DEV)
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    if not events:
+        return None, {}
+    by_name = {}
+    for e in events:
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.removeprefix("void ").split("<")[0].split("(")[0]
+        name = name.split("::")[-1].strip()[:60]
+        by_name.setdefault(name, []).append(e.time_range.elapsed_us() / 1e3)
+    per_call = {k: sum(v) / len(v) * max(1, round(len(v) / iters))
+                for k, v in by_name.items()}
+    return sum(per_call.values()), per_call
 
 
 def _sort_ms(fn, iters: int):
@@ -1485,16 +1525,57 @@ def _k3_bytes(table, s, num_aug):
             table.numel() * 4 + common + out, flops)
 
 
-def _k3_scratch_bytes(s: dict, h: int) -> int:
-    """The deterministic K3 backward's own traffic beyond the least bytes
-    of :func:`_k3_bytes`: each (row, slot, attribute) entry's term row
-    written and read back once, its int32 key written, sorted (keys read,
-    sorted keys and int64 permutation written) and read back with the
-    permutation by the summing kernel."""
-    rows, ktop = (s["tk_cols"].shape if "tk_cols" in s
-                  else (s["attr_cols"].shape[0], 1))
-    n = rows * ktop * s["attr_cols"].shape[1]
-    return n * (2 * h * 4 + 4 + (4 + 4 + 8) + (4 + 8))
+def _k3_scratch_bytes(s: dict, h: int, lo: int = 0,
+                      hi: int | None = None) -> int:
+    """The K3 backward's own traffic beyond the least bytes of
+    :func:`_k3_bytes` (``csrc/embed_prop.cu``) on set ``s`` over the
+    window [lo, hi): the slots' term vectors written and read back once;
+    each entry's id and value written and its id read; each live entry's
+    value read, and its entry and value written into its id's row and read
+    back; each id's listing written and read; and for each id with more
+    entries than its row holds (min(32, (H - 1) // 2)) every entry's id
+    read once more."""
+    if "tk_cols" in s:
+        idx = s["tk_cols"].long()
+        ids, vals = s["attr_cols"][idx], s["attr_vals"][idx]
+        w = (s["tk_vals"][None] if "keep" not in s
+             else torch.where(s["keep"], s["tk_vals"][None], 0.0))
+        live = (w != 0).any(0)[..., None] & (vals != 0)
+        rows, ktop = s["tk_cols"].shape
+    else:
+        ids, vals = s["attr_cols"], s["attr_vals"]
+        live = vals != 0
+        rows, ktop = ids.shape[0], 1
+    live &= ids >= lo
+    if hi is not None:
+        live &= ids < hi
+    n_live = int(live.sum())
+    counts = torch.unique(ids[live], return_counts=True)[1]
+    n_long = int((counts > min(32, (h - 1) // 2)).sum())
+    nk = s["drop"].shape[0] if "drop" in s else 1
+    entries = rows * ktop * s["attr_cols"].shape[1]
+    return (2 * rows * ktop * nk * h * 4 + entries * 12 + n_live * 20
+            + counts.numel() * 12 + n_long * entries * 4)
+
+
+def _k3_backward_checked(d_k, gout, lo, hi, s, q, tag):
+    """The backward's gradient ``d_k`` against ``embed_prop_backward_plain``
+    on the same inputs (it adds in the kernels' order): the errors and
+    whether the bits are equal; raises above TOL."""
+    d_p = embed_prop_backward_plain(gout, lo, hi, **s, droprate=q)
+    err = _errors(d_k, d_p)
+    if err[1] > TOL:
+        raise AssertionError(f"K3 backward {tag} disagrees with its plain "
+                             f"version: {err}")
+    return err, bool(torch.equal(d_k, d_p))
+
+
+def _no_sort(sort_ms, tag):
+    """The backward runs no sort kernel."""
+    if sort_ms:
+        raise AssertionError(f"K3 backward {tag}: a sort ran on the device "
+                             f"({sort_ms} ms a call)")
+    return sort_ms
 
 
 def _k3_column_blocks(table, sets, q: float, g) -> dict:
@@ -1516,7 +1597,7 @@ def _k3_column_blocks(table, sets, q: float, g) -> dict:
         return out
 
     errs = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
-    first = None
+    first, bits_equal = None, True
     for c in range(m):
         t = table.detach()[:, c * w:(c + 1) * w].contiguous()
         t.requires_grad_(True)
@@ -1526,8 +1607,11 @@ def _k3_column_blocks(table, sets, q: float, g) -> dict:
         d_k, = torch.autograd.grad(out, t, gout)
         plain = embed_prop_plain(t, **bsets[0], droprate=q)
         d_p, = torch.autograd.grad(plain, t, gout)
+        pb_err, pb_bits = _k3_backward_checked(
+            d_k, gout, 0, t.shape[0], bsets[0], q, f"on column block {c}")
+        bits_equal = bits_equal and pb_bits
         for key, e in (("fwd", _errors(out.detach(), plain.detach())),
-                       ("bwd", _errors(d_k, d_p))):
+                       ("bwd", _errors(d_k, d_p)), ("bwd", pb_err)):
             errs[key] = [max(a, b) for a, b in zip(errs[key], e)]
         del out, plain, d_k, d_p
         if first is None:
@@ -1546,9 +1630,8 @@ def _k3_column_blocks(table, sets, q: float, g) -> dict:
     def grad_next():
         return torch.autograd.grad(next(it_o), t, gout, retain_graph=True)
 
-    dev_b = _device_ms(grad_next, 20, "embed_prop_bwd", per_call=2)
-    sort_b = _sort_ms(grad_next, 20)
-    fill_b = _device_ms(grad_next, 20, "FillFunctor")
+    dev_b, by_kernel = _call_device_ms(grad_next, 20)
+    sort_b = _no_sort(_sort_ms(grad_next, 20), "on a column block")
     b_f, o_f, b_b, o_b = _k3_bytes(t, bsets[0], outs[0].shape[0])
     scratch = _k3_scratch_bytes(bsets[0], w)
     bounds = {"fwd": _bound(b_f, o_f), "bwd": _bound(b_b, o_b)}
@@ -1556,16 +1639,18 @@ def _k3_column_blocks(table, sets, q: float, g) -> dict:
     shape = f"[{outs[0].shape[0]},{outs[0].shape[1]},{w}] of {m} blocks"
     print(f"[K3] {shape}: fwd vs plain {errs['fwd']}, bwd vs plain "
           f"{errs['bwd']}; on the device, profiled: fwd {dev_f} (bound "
-          f"{bounds['fwd'][0]}, {b_f / 1e6:.3f} MB), bwd kernels {dev_b}, "
-          f"sort {sort_b}, zero-fill {fill_b} (bound {bounds['bwd'][0]}, "
-          f"{b_b / 1e6:.1f} MB; with the scratch rows and keys "
-          f"{bound_scratch}, +{scratch / 1e6:.2f} MB)", flush=True)
+          f"{bounds['fwd'][0]}, {b_f / 1e6:.3f} MB), bwd every device "
+          f"operation {dev_b} ({by_kernel}; sort {sort_b}; bound "
+          f"{bounds['bwd'][0]}, {b_b / 1e6:.1f} MB; with the scratch "
+          f"{bound_scratch}, +{scratch / 1e6:.2f} MB); bwd bit for bit its "
+          f"plain version: {bits_equal}", flush=True)
     out = {key: {"shape": shape, "device_ms": dev,
                  "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
                  "max_abs_err": errs[key][0], "max_rel_err": errs[key][1]}
            for key, dev in (("fwd", dev_f), ("bwd", dev_b))}
-    out["bwd"].update(sort_device_ms=sort_b, fill_device_ms=fill_b,
-                      bound_with_scratch_ms=bound_scratch)
+    out["bwd"].update(sort_device_ms=sort_b, by_kernel_ms=by_kernel,
+                      bound_with_scratch_ms=bound_scratch,
+                      plain_bits_equal=bits_equal)
     return out
 
 
@@ -1594,6 +1679,10 @@ def check_k3(padded) -> list:
         e_f = _errors(outs[0].detach(), plains[0].detach())
         # the backward adds an id's terms in entry order, autograd in another
         e_b = _errors(d_k, d_p)
+        # its plain version adds in the kernels' order
+        e_pb, bits_b = _k3_backward_checked(d_k, gout, 0, table.shape[0],
+                                            sets[0], q, form)
+        e_b = [max(a, b) for a, b in zip(e_b, e_pb)]
         del d_k, d_p
         for key, e in (("fwd", e_f), ("bwd", e_b)):
             errs[key] = [max(a, b) for a, b in zip(errs[key], e)]
@@ -1622,15 +1711,14 @@ def check_k3(padded) -> list:
             return torch.autograd.grad(next(it_o), table, gout,
                                        retain_graph=True)
 
-        # autograd's wall (host dispatch included) and, on the device, the
-        # backward's two kernels and the gradient's zero-fill apart
+        # autograd's wall (host dispatch included) and every device
+        # operation of one call (no sort may run)
         ms_b = _time_ms(grad_next, 50)
-        dev_b = _device_ms(grad_next, 20, "embed_prop_bwd", per_call=2)
-        fill_b = _device_ms(grad_next, 20, "FillFunctor")
-        sort_b = _sort_ms(grad_next, 20)
+        dev_b, by_kernel = _call_device_ms(grad_next, 20)
+        sort_b = _no_sort(_sort_ms(grad_next, 20), form)
         plain_b = _time_ms(lambda: torch.autograd.grad(
             next(it_p), table, gout, retain_graph=True), 20)
-        lib_f = lib_b = None
+        lib_f = lib_b = lib_dev_b = None
         if q == 0.0:
             libs = [_k3_library(table, s) for s in sets]
             it_l = itertools.cycle(libs)
@@ -1648,8 +1736,12 @@ def check_k3(padded) -> list:
             lib_outs = [bag(iw) for iw in libs]
             lg = torch.randn(lib_outs[0].shape, generator=g, device=DEV)
             it_lo = itertools.cycle(lib_outs)
-            lib_b = _time_ms(lambda: torch.autograd.grad(
-                next(it_lo), table, lg, retain_graph=True), 50)
+            def lib_grad():
+                return torch.autograd.grad(next(it_lo), table, lg,
+                                           retain_graph=True)
+
+            lib_b = _time_ms(lib_grad, 50)
+            lib_dev_b = _call_device_ms(lib_grad, 20)[0]
             del lib_outs, libs
         b_f, o_f, b_b, o_b = _k3_bytes(table, sets[0], num_aug)
         (bound_f, by_f), (bound_b, by_b) = _bound(b_f, o_f), _bound(b_b, o_b)
@@ -1662,21 +1754,24 @@ def check_k3(padded) -> list:
                               "library_ms": lib_f, "bound_ms": bound_f,
                               "bound_by": by_f, "max_rel_err": e_f[1]}
         times["bwd"][form] = {"shape": shape, "ms": ms_b, "device_ms": dev_b,
-                              "fill_device_ms": fill_b,
+                              "by_kernel_ms": by_kernel,
                               "sort_device_ms": sort_b, "plain_ms": plain_b,
-                              "library_ms": lib_b, "bound_ms": bound_b,
-                              "bound_by": by_b, "max_rel_err": e_b[1],
+                              "library_ms": lib_b,
+                              "library_device_ms": lib_dev_b,
+                              "bound_ms": bound_b, "bound_by": by_b,
+                              "max_rel_err": e_b[1],
+                              "plain_bits_equal": bits_b,
                               "bound_with_scratch_ms": bound_scratch}
         print(f"[K3] {form} {shape}: fwd ms {ms_f} (on the device, "
               f"profiled: {dev_f}) plain_ms {plain_f} "
               f"library_ms {lib_f} bound_ms {bound_f} ({by_f}, "
               f"{b_f / 1e6:.2f} MB) err {e_f}; bwd ms through autograd "
-              f"{ms_b} (on the device, profiled: the two kernels {dev_b}, "
-              f"the sort {sort_b}, zero-fill {fill_b}) plain_ms {plain_b} "
-              f"library_ms {lib_b} bound_ms {bound_b} ({by_b}, "
-              f"{b_b / 1e6:.1f} MB; with the scratch rows and keys "
-              f"{bound_scratch}, +{scratch / 1e6:.2f} MB) err {e_b}",
-              flush=True)
+              f"{ms_b} (on the device, profiled: every operation {dev_b}, "
+              f"{by_kernel}; sort {sort_b}) plain_ms {plain_b} library_ms "
+              f"{lib_b} (on the device {lib_dev_b}) bound_ms {bound_b} "
+              f"({by_b}, {b_b / 1e6:.1f} MB; with the scratch "
+              f"{bound_scratch}, +{scratch / 1e6:.2f} MB) err {e_b}, bit "
+              f"for bit its plain version {bits_b}", flush=True)
         del outs, plains, sets
 
     # the node form over all 1M nodes, as the predict runs it
@@ -4683,14 +4778,18 @@ def check_k3_window(padded) -> list:
     gout = torch.randn(full.shape, generator=g, device=DEV)
     d_full, = torch.autograd.grad(full, full_t, gout)
     outs, grads, e_f, e_b = [], [], [0.0, 0.0], [0.0, 0.0]
+    bits_b = True
     for t, (lo, hi) in zip(shard_t, wins):
         out = embed_prop_window(t, lo, hi, **s0)
         d_k, = torch.autograd.grad(out, t, gout)
         plain = embed_prop_plain(t, **s0, vocab_lo=lo, vocab_hi=hi)
         d_p, = torch.autograd.grad(plain, t, gout)
+        e_pb, bits = _k3_backward_checked(d_k, gout, lo, hi, s0, 0.0,
+                                          f"window [{lo}, {hi})")
+        bits_b = bits_b and bits
         ef, eb = _errors(out.detach(), plain.detach()), _errors(d_k, d_p)
         e_f = [max(a, b) for a, b in zip(e_f, ef)]
-        e_b = [max(a, b) for a, b in zip(e_b, eb)]
+        e_b = [max(a, b, c) for a, b, c in zip(e_b, eb, e_pb)]
         outs.append(out.detach())
         grads.append(d_k)
     e_sum = _errors(sum(outs), full.detach())
@@ -4701,7 +4800,8 @@ def check_k3_window(padded) -> list:
           f"([{num_aug},{s0['tk_cols'].shape[0]},{h}] each): fwd vs plain "
           f"{e_f}, bwd vs plain {e_b}; windows summed vs the full K3 "
           f"{e_sum}, gradients joined vs the full backward {e_cat}, "
-          f"padding rows' gradient zero {pad_zero}", flush=True)
+          f"padding rows' gradient zero {pad_zero}, bwd bit for bit its "
+          f"plain version {bits_b}", flush=True)
     if not (e_f[1] <= TOL and e_b[1] <= TOL and e_sum[1] <= TOL
             and e_cat[1] <= TOL and pad_zero):
         raise AssertionError("[3h] the K3 window forms disagree")
@@ -4725,14 +4825,13 @@ def check_k3_window(padded) -> list:
         plain_f = _time_ms(lambda: fwd_next(embed_prop_plain), 16)
     outs = [embed_prop_window(t, lo, hi, **st) for t, lo, hi, st in cases]
     it_o = itertools.cycle(zip(outs, cases))
-    # autograd's wall (host dispatch included); on the device the backward
-    # kernel and the window gradient's zero-fill apart
+    # autograd's wall (host dispatch included); every device operation of
+    # one call (no sort may run)
     ms_b = _time_ms(lambda: _window_grad(next(it_o), gout), 64)
-    dev_b = _device_ms(lambda: _window_grad(next(it_o), gout), 32,
-                       "embed_prop_bwd", per_call=2)
-    fill_b = _device_ms(lambda: _window_grad(next(it_o), gout), 32,
-                        "FillFunctor")
-    sort_b = _sort_ms(lambda: _window_grad(next(it_o), gout), 32)
+    dev_b, by_kernel = _call_device_ms(
+        lambda: _window_grad(next(it_o), gout), 32)
+    sort_b = _no_sort(_sort_ms(lambda: _window_grad(next(it_o), gout), 32),
+                      "over a window")
     plains = [embed_prop_plain(t, **st, vocab_lo=lo, vocab_hi=hi)
               for t, lo, hi, st in cases[:8]]
     it_p = itertools.cycle(zip(plains, cases))
@@ -4759,8 +4858,12 @@ def check_k3_window(padded) -> list:
     lib_outs = [bag(lb) for lb in libs[:8]]
     lg = torch.randn(lib_outs[0].shape, generator=g, device=DEV)
     it_lo = itertools.cycle(zip(lib_outs, libs))
-    lib_b = _time_ms(lambda: (lambda o: torch.autograd.grad(
-        o[0], o[1][2], lg, retain_graph=True))(next(it_lo)), 32)
+    def lib_grad():
+        o = next(it_lo)
+        return torch.autograd.grad(o[0], o[1][2], lg, retain_graph=True)
+
+    lib_b = _time_ms(lib_grad, 32)
+    lib_dev_b = _call_device_ms(lib_grad, 32)[0]
     # where the backward's time goes: the function called directly (no
     # autograd), and its zero-fill alone; the same for the full table
     ktop_p = (s0["tk_cols"].shape[1], s0["attr_cols"].shape[1])
@@ -4782,16 +4885,18 @@ def check_k3_window(padded) -> list:
     b_f, o_f, b_b, o_b = (float(np.mean([x[i] for x in nb]))
                           for i in range(4))
     (bound_f, by_f), (bound_b, by_b) = _bound(b_f, o_f), _bound(b_b, o_b)
-    scratch = _k3_scratch_bytes(s0, h)
+    scratch = float(np.mean([_k3_scratch_bytes(st, h, lo, hi)
+                             for _, lo, hi, st in cases]))
     bound_scratch = _bound(b_b + scratch, o_b)[0]
     print(f"[3h] per window call: fwd ms {ms_f} (on the device, profiled: "
           f"{dev_f}) plain_ms {plain_f} library_ms {lib_f} (embedding_bag, "
           f"{lib_err} from the kernel) bound_ms {bound_f} ({by_f}, "
           f"{b_f / 1e6:.3f} MB); bwd ms through autograd {ms_b} (on the "
-          f"device, profiled: kernels {dev_b}, sort {sort_b}, zero-fill "
-          f"{fill_b}) plain_ms {plain_b} library_ms {lib_b} bound_ms "
-          f"{bound_b} ({by_b}, {b_b / 1e6:.1f} MB; with the scratch rows "
-          f"and keys {bound_scratch}, +{scratch / 1e6:.2f} MB)", flush=True)
+          f"device, profiled: every operation {dev_b}, {by_kernel}; sort "
+          f"{sort_b}) plain_ms {plain_b} library_ms {lib_b} (on the device "
+          f"{lib_dev_b}) bound_ms {bound_b} ({by_b}, {b_b / 1e6:.1f} MB; "
+          f"with the scratch {bound_scratch}, +{scratch / 1e6:.2f} MB)",
+          flush=True)
     shape = (f"[{num_aug},{s0['tk_cols'].shape[0]},{h}] over a window of "
              f"{per} of {v} rows")
     entries = []
@@ -4808,8 +4913,9 @@ def check_k3_window(padded) -> list:
             "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib,
             "shape": shape})
-    entries[1].update(direct=direct, fill_device_ms=fill_b,
-                      sort_device_ms=sort_b,
+    entries[1].update(direct=direct, by_kernel_ms=by_kernel,
+                      sort_device_ms=sort_b, library_device_ms=lib_dev_b,
+                      plain_bits_equal=bits_b,
                       bound_with_scratch_ms=bound_scratch)
     return entries
 

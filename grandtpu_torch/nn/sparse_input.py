@@ -18,9 +18,11 @@ with ``c, a`` the attr ids and values of node ``tk_cols[r, j]`` and
 ``w = keep ? tk_vals : 0``. Without ``tk_cols`` (the node form) row r is
 node r and ``out[k, r] = E[k, r]``: that is ``embed_nodes``. Gradients
 flow into the table only. On CUDA tensors the forward and the backward
-(a scatter-add into the table) are the hand-written kernels of
+(a scatter-add into the table, each id's terms added in entry order: one
+call into the kernel library, no sort) are the hand-written kernels of
 ``csrc/embed_prop.cu``; on CPU tensors :func:`embed_prop_plain` runs and
-autograd gives the same gradient.
+autograd gives the same gradient. :func:`embed_prop_backward_plain` is the
+backward's plain version in the kernels' own order of operations.
 
 :func:`embed_prop_window` is the same op over a vocab window: the table
 holds the vocabulary's rows [lo, hi) (one shard of the vocab-sharded
@@ -254,61 +256,169 @@ class _EmbedProp(torch.autograd.Function):
         return (d_table,) + (None,) * 11
 
 
-def _launch_backward(grad, lo, hi, attr_cols, attr_vals, tk_cols, tk_vals,
-                     keep, drop, droprate, dims) -> torch.Tensor:
+def bwd_scratch_bytes(rows: int, ktop: int, p: int, h: int, num_aug: int,
+                      drop: bool) -> int:
+    """Bytes of the K3 backward's scratch (``csrc/embed_prop.cu``,
+    ``carve_scratch``; ``embed_prop_bwd_scratch`` gives the kernels' own
+    count): the S = rows x ktop slots' term vectors [S, NK, H] (NK = K with
+    input dropout, else 1), four int32 or f32 arrays of the E = S x P
+    entries, and four counters, each array padded to 16 bytes."""
+    def pad4(n):
+        return -(-n // 4) * 4
+
+    slots = rows * ktop
+    return 4 * (pad4(slots * (num_aug if drop else 1) * h)
+                + 4 * pad4(slots * p) + 4)
+
+
+def _launch_backward(counted, grad, lo, hi, attr_cols, attr_vals, tk_cols,
+                     tk_vals, keep, drop, droprate, dims) -> torch.Tensor:
     rows, ktop, p, h, num_aug = dims
     if grad.shape != (num_aug, rows, h) or grad.dtype != torch.float32:
         raise ValueError(f"embed_prop_backward: grad must be f32 "
                          f"{(num_aug, rows, h)}")
-    d_table = torch.zeros((hi - lo, h), dtype=torch.float32,
+    if rows * ktop * p >= 2 ** 31 - 1:
+        raise ValueError(f"embed_prop_backward: {rows * ktop * p} entries, "
+                         "past the kernels' int32 indices")
+    # the kernels write every element of the gradient: zeros, or each id's
+    # terms added in entry order (no float atomics, the same bits on every
+    # run); the scratch's size follows from the shapes alone, so that a
+    # CUDA graph can capture the call
+    d_table = torch.empty((hi - lo, h), dtype=torch.float32,
                           device=grad.device)
-    if grad.numel():
-        # each (row, slot, attribute) entry's term row and id, then the
-        # rows of equal ids added in entry order: no float atomics, the same
-        # bits on every run
-        n = rows * ktop * p
-        contrib = torch.empty((n, h), dtype=torch.float32, device=grad.device)
-        keys = torch.empty(n, dtype=torch.int32, device=grad.device)
-        stream = torch.cuda.current_stream(grad.device).cuda_stream
-        lib = load_kernels()
-        check(lib.embed_prop_bwd_f32(
-            grad.data_ptr(), attr_cols.data_ptr(), attr_vals.data_ptr(),
-            _ptr(tk_cols), _ptr(tk_vals), _ptr(keep), _ptr(drop),
-            contrib.data_ptr(), keys.data_ptr(), rows, ktop, p, h, num_aug,
-            1.0 - droprate, lo, hi, stream), "embed_prop_bwd_f32")
-        skeys, perm = torch.sort(keys, stable=True)
-        check(lib.embed_prop_bwd_sum_f32(
-            skeys.data_ptr(), perm.data_ptr(), contrib.data_ptr(),
-            d_table.data_ptr(), n, h, lo, stream), "embed_prop_bwd_sum_f32")
+    if not d_table.numel():
+        return d_table
+    scratch = torch.empty(
+        bwd_scratch_bytes(rows, ktop, p, h, num_aug, drop is not None),
+        dtype=torch.uint8, device=grad.device)
+    check(load_kernels().embed_prop_bwd_f32(
+        grad.data_ptr(), attr_cols.data_ptr(), attr_vals.data_ptr(),
+        _ptr(tk_cols), _ptr(tk_vals), _ptr(keep), _ptr(drop),
+        d_table.data_ptr(), scratch.data_ptr(), rows, ktop, p, h, num_aug,
+        1.0 - droprate, lo, hi,
+        torch.cuda.current_stream(grad.device).cuda_stream),
+        "embed_prop_bwd_f32")
+    counted.launches += 1
     return d_table
+
+
+def _attr_mass_plain(a: torch.Tensor) -> torch.Tensor:
+    """sum_p a over the last axis in the kernels' order (``attr_mass``):
+    lane l of a warp adds p = l, l + 32, ... in turn from 0.0, then the
+    lanes meet by a xor-shuffle tree."""
+    lanes = a.new_zeros(*a.shape[:-1], 32)
+    for p0 in range(0, a.shape[-1], 32):
+        n = min(32, a.shape[-1] - p0)
+        lanes[..., :n] = lanes[..., :n] + a[..., p0:p0 + n]
+    idx = torch.arange(32, device=a.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ o]
+    return lanes[..., 0]
+
+
+def embed_prop_backward_plain(grad: torch.Tensor, vocab_lo: int,
+                              vocab_hi: int, attr_cols: torch.Tensor,
+                              attr_vals: torch.Tensor,
+                              tk_cols: torch.Tensor | None = None,
+                              tk_vals: torch.Tensor | None = None,
+                              keep: torch.Tensor | None = None,
+                              drop: torch.Tensor | None = None,
+                              droprate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of the K3 backward kernels, in their order of
+    operations: the table gradient [hi - lo, H] of the vocab window
+    [vocab_lo, vocab_hi) (0 and V for the whole table) given ``grad`` [K,
+    R, H]. Each (row, slot, attribute) entry's term row is g / D * w / S *
+    a (D summed serially over the slots, S in ``attr_mass``'s order; with
+    input dropout each kept augmentation's share over keep_prob, added in k
+    order), and each id's rows are added in entry order from 0.0, each
+    operation rounded on its own: the kernels' bits. Other arguments as
+    :func:`embed_prop`."""
+    num_aug, rows, h = grad.shape
+    dev = grad.device
+    if tk_cols is None:                                  # node form
+        node = torch.arange(rows, device=dev)[:, None]
+        w = torch.ones(num_aug, rows, 1, device=dev)
+        d = torch.ones(num_aug, rows, device=dev)
+    else:
+        node = tk_cols.long()
+        w = (tk_vals.expand(num_aug, *tk_vals.shape) if keep is None
+             else torch.where(keep, tk_vals, 0.0))
+        d = torch.zeros(num_aug, rows, device=dev)
+        for j in range(w.shape[-1]):                     # serially over j
+            d = d + w[..., j]
+        d = d + 1e-12
+    a, c = attr_vals[node], attr_cols[node].long()       # [R, Ktop, P]
+    s = _attr_mass_plain(a) + 1e-10                      # [R, Ktop]
+    # dL/dnum of each slot's mean: g / D * w / S, per augmentation
+    gn = grad[:, :, None] / d[..., None, None] * w[..., None] / s[..., None]
+    if drop is None:
+        tot = torch.zeros_like(gn[0])
+        for k in range(num_aug):
+            tot = tot + gn[k]
+        term = tot[:, :, None] * a[..., None]            # [R, Ktop, P, H]
+    else:
+        gq = gn / torch.full_like(gn, 1.0 - droprate)
+        kept = drop if tk_cols is not None else drop[:, :, None]
+        v = torch.zeros(*a.shape, h, device=dev)
+        for k in range(num_aug):
+            v = torch.where(kept[k], v + gq[k][:, :, None], v)
+        term = v * a[..., None]
+    live = ((w != 0).any(0)[..., None] & (a != 0) & (c >= vocab_lo)
+            & (c < vocab_hi)).reshape(-1)
+    ids = c.reshape(-1)[live] - vocab_lo                 # in entry order
+    rows_t = term.reshape(-1, h)[live]
+    out = torch.zeros(vocab_hi - vocab_lo, h, device=dev)
+    if not ids.numel():
+        return out
+    # each id's rows in entry order (a stable sort), the ids with the most
+    # rows first, so that the ids still adding at step t are a prefix
+    ids_s, perm = torch.sort(ids, stable=True)
+    uniq, counts = torch.unique_consecutive(ids_s, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    by_len = torch.sort(counts, descending=True, stable=True)[1]
+    uniq, counts, starts = uniq[by_len], counts[by_len], starts[by_len]
+    acc = torch.zeros(uniq.numel(), h, device=dev)
+    n_at = torch.searchsorted(-counts, -torch.arange(
+        1, int(counts[0]) + 1, device=dev), right=True).tolist()
+    for t, n in enumerate(n_at):                         # counts > t: n ids
+        acc[:n] = acc[:n] + rows_t[perm[starts[:n] + t]]
+    out[uniq] = acc
+    return out
 
 
 def embed_prop_backward(grad: torch.Tensor, num_embeddings: int,
                         attr_cols, attr_vals, tk_cols, tk_vals, keep, drop,
                         droprate: float, dims) -> torch.Tensor:
-    """The K3 backward kernels: a zeroed [V, H] table gradient that
-    ``grad`` [K, R, H] is scatter-added into, each element's terms in a
-    fixed order (the same bits on every run)."""
-    d_table = _launch_backward(grad, 0, num_embeddings, attr_cols, attr_vals,
-                               tk_cols, tk_vals, keep, drop, droprate, dims)
-    if grad.numel():
-        embed_prop_backward.launches += 1
-    return d_table
+    """The K3 backward kernels: the [V, H] table gradient, ``grad`` [K, R,
+    H]'s terms scatter-added into zeros, each element's terms in entry
+    order (the same bits on every run). On CPU tensors its plain version."""
+    if grad.device.type == "cpu":
+        return embed_prop_backward_plain(grad, 0, num_embeddings, attr_cols,
+                                         attr_vals, tk_cols, tk_vals, keep,
+                                         drop, droprate)
+    if grad.device.type != "cuda":
+        raise ValueError(f"unsupported device {grad.device}")
+    return _launch_backward(embed_prop_backward, grad, 0, num_embeddings,
+                            attr_cols, attr_vals, tk_cols, tk_vals, keep,
+                            drop, droprate, dims)
 
 
 def embed_prop_window_backward(grad: torch.Tensor, vocab_lo: int,
                                vocab_hi: int, attr_cols, attr_vals, tk_cols,
                                tk_vals, keep, drop, droprate: float,
                                dims) -> torch.Tensor:
-    """The K3 backward kernel over the vocab window [vocab_lo, vocab_hi):
-    the window's zeroed [hi - lo, H] gradient, into which ``grad``'s terms
-    of in-window ids are scatter-added."""
-    d_table = _launch_backward(grad, vocab_lo, vocab_hi, attr_cols,
-                               attr_vals, tk_cols, tk_vals, keep, drop,
-                               droprate, dims)
-    if grad.numel():
-        embed_prop_window_backward.launches += 1
-    return d_table
+    """The K3 backward kernels over the vocab window [vocab_lo, vocab_hi):
+    the window's [hi - lo, H] gradient, ``grad``'s terms of in-window ids
+    scatter-added into zeros. On CPU tensors its plain version."""
+    if grad.device.type == "cpu":
+        return embed_prop_backward_plain(grad, vocab_lo, vocab_hi, attr_cols,
+                                         attr_vals, tk_cols, tk_vals, keep,
+                                         drop, droprate)
+    if grad.device.type != "cuda":
+        raise ValueError(f"unsupported device {grad.device}")
+    return _launch_backward(embed_prop_window_backward, grad, vocab_lo,
+                            vocab_hi, attr_cols, attr_vals, tk_cols, tk_vals,
+                            keep, drop, droprate, dims)
 
 
 def embed_prop(table: torch.Tensor, attr_cols: torch.Tensor,

@@ -75,12 +75,12 @@ _SIGNATURES = {
     # q, col_scale, y, acc (may be null), carry_bf16
     "csr_spmm_q8_align": [_P] * 4 + [_I],
     # table | grad, attr_cols, attr_vals, tk_cols, tk_vals, keep, drop,
-    # out | (contrib, keys), rows, ktop, P, H, num_aug, keep_prob, vocab_lo,
-    # vocab_hi, stream
+    # out | (dtable, scratch), rows, ktop, P, H, num_aug, keep_prob,
+    # vocab_lo, vocab_hi, stream
     "embed_prop_fwd_f32": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _I, _P],
     "embed_prop_bwd_f32": [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _I, _P],
-    # skeys, perm, contrib, dtable, num_entries, H, vocab_lo, stream
-    "embed_prop_bwd_sum_f32": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
+    # rows, ktop, P, H, num_aug, drop, out[1] (int64 bytes)
+    "embed_prop_bwd_scratch": [_I] * 6 + [_P],
     # ids (or null), vals, row_off, out_cols, out_vals | num_rows, k, stream
     "push_topk": [_P] * 3 + [_I, _I, _P, _P, _P],
     # residue, reserve, pushed, tele_in, tele_out, src, deg, thr |

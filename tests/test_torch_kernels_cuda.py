@@ -12,7 +12,11 @@ and batch (every vector width, lane groups, rows a block, tiles), views
 that start off a vector's alignment, the same bits on repeated calls and
 the Python mirror of its launch configuration, and for K3 attribute-free
 nodes, input dropout, colliding ids (the backward's runs of equal ids) and
-the node form, the backward's bits on repeated calls, a grid of Ktop, P, H and K for the forward's warps, lane groups and id
+the node form, the backward's bits on repeated calls and against its
+plain version (every form, Zipf-like ids, more entries than one block's
+shared memory holds, H past 64 features), inside a CUDA graph's
+replays, with no sort or fill of PyTorch's among its launches, and the
+Python mirror of its scratch size, a grid of Ktop, P, H and K for the forward's warps, lane groups and id
 lists, the forward's bits on repeated calls, and its vocab-window form (an
 empty window, the whole vocabulary, ids on the window's edges, the windows
 summing to the full op); for the fast-precision hops (K2-bf16, quantize,
@@ -61,7 +65,10 @@ from grandtpu_torch.ppr.dense_push import (dense_push_mask,
                                            dense_push_mask_plain)
 from grandtpu_torch.ppr.push_topk import (push_topk, push_topk_plain,
                                           row_offsets)
-from grandtpu_torch.nn.sparse_input import (embed_prop, embed_prop_backward,
+from grandtpu_torch.data import synthetic_graph
+from grandtpu_torch.nn.sparse_input import (PaddedFeatures, bwd_scratch_bytes,
+                                            embed_prop, embed_prop_backward,
+                                            embed_prop_backward_plain,
                                             embed_prop_plain,
                                             embed_prop_window,
                                             embed_prop_window_backward)
@@ -535,6 +542,185 @@ def test_embed_prop_on_a_column_block_matches_plain(device, h, q):
         grads.append(d_k)
     assert _rel_err(torch.cat(outs, -1), full) <= TOL
     assert _rel_err(torch.cat(grads, 1), d_full) <= TOL
+
+
+def _k3_saved(args, q, dims):
+    """The saved inputs the backward wrappers take after ``grad``."""
+    return (args["attr_cols"], args["attr_vals"], args.get("tk_cols"),
+            args.get("tk_vals"), args.get("keep"), args.get("drop"), q, dims)
+
+
+def _k3_backward(grad, lo, hi, args, q, dims):
+    """The backward kernels over [lo, hi) (the full wrapper for the whole
+    300-word vocabulary, else the window's)."""
+    saved = _k3_saved(args, q, dims)
+    if (lo, hi) == (0, 300):
+        return embed_prop_backward(grad, 300, *saved)
+    return embed_prop_window_backward(grad, lo, hi, *saved)
+
+
+@pytest.mark.parametrize("num_aug,rows,ktop,p,h,q,collide,node_form", [
+    (2, 40, 32, 24, 64, 0.0, False, False),    # the MAG train step
+    (2, 40, 32, 24, 64, 0.5, False, False),    # with input dropout
+    (1, 240, 32, 24, 64, 0.0, False, False),   # the eval form's rows
+    (3, 9, 33, 37, 33, 0.5, False, False),
+    (5, 4, 3, 5, 130, 0.0, False, False),
+    (8, 6, 5, 5, 1, 0.5, False, False),
+    (2, 40, 32, 24, 64, 0.0, True, False),     # one id: a long segment
+    (2, 40, 32, 24, 64, 0.5, True, False),
+    (2, 40, 32, 24, 300, 0.0, True, False),    # H past a block's threads
+    (2, 40, 1, 24, 64, 0.5, False, True),      # node form
+    (1, 40, 1, 24, 3, 0.0, False, True),
+])
+@pytest.mark.parametrize("window", [(0, 300), (5, 105), (300, 340)])
+def test_embed_prop_backward_matches_its_plain_version_bit_for_bit(
+        device, num_aug, rows, ktop, p, h, q, collide, node_form, window):
+    """The backward (terms, counts, segments, each id's terms added in entry
+    order) against ``embed_prop_backward_plain``, which does the same
+    operations in torch ops: the same bits, over the whole vocabulary, a
+    window and an empty window."""
+    table, args, grad = _k3_inputs(device, num_aug, rows, ktop, p, h, q,
+                                   collide, node_form)
+    lo, hi = window
+    got = _k3_backward(grad, lo, hi, args, q, (rows, ktop, p, h, num_aug))
+    want = embed_prop_backward_plain(grad, lo, hi, **args, droprate=q)
+    torch.cuda.synchronize()
+    assert got.shape == (hi - lo, h)
+    assert torch.equal(got, want)
+    assert bool(got.any()) == (hi <= 300)
+
+
+def _skewed_k3_inputs(device, rows, ktop, num_aug, skew, seed=0):
+    """K3's train-form inputs over Zipf-like attribute ids (the synthetic
+    generator's ``token_skew``), 4,000 nodes and a 20,000-word vocabulary."""
+    _, feats, _ = synthetic_graph(num_nodes=4000, num_classes=4,
+                                  num_features=20000, sparse_features=True,
+                                  token_skew=skew, seed=seed)
+    padded = PaddedFeatures.from_csr(feats)
+    rs = np.random.RandomState(seed)
+    args = {"attr_cols": padded.attr_cols, "attr_vals": padded.attr_vals,
+            "tk_cols": rs.randint(0, 4000, (rows, ktop)).astype(np.int32),
+            "tk_vals": rs.rand(rows, ktop).astype(np.float32),
+            "keep": rs.rand(num_aug, rows, ktop) < 0.5}
+    grad = rs.randn(num_aug, rows, 64).astype(np.float32)
+    return ({k: torch.tensor(v, device=device) for k, v in args.items()},
+            torch.tensor(grad, device=device), padded)
+
+
+@pytest.mark.parametrize("skew", [2.0, 4.0, 8.0])
+def test_embed_prop_backward_with_skewed_ids(device, skew):
+    """Zipf-like ids, whose most frequent ids fill long segments (summed by
+    a whole block) beside short ones: bit for bit the plain version, within
+    TOL of autograd, the same bits on a second call."""
+    rows, ktop, num_aug = 40, 32, 2
+    args, grad, padded = _skewed_k3_inputs(device, rows, ktop, num_aug, skew)
+    ids = args["attr_cols"][args["tk_cols"].long()]
+    live = (args["attr_vals"][args["tk_cols"].long()] != 0) & \
+        args["keep"].any(0)[..., None]
+    assert int(torch.bincount(ids[live].long()).max()) > 32
+    v = padded.num_features
+    dims = (rows, ktop, padded.attr_cols.shape[1], 64, num_aug)
+    saved = _k3_saved(args, 0.0, dims)
+    got = embed_prop_backward(grad, v, *saved)
+    again = embed_prop_backward(grad, v, *saved)
+    want = embed_prop_backward_plain(grad, 0, v, **args)
+    t = torch.randn(v, 64, device=device, requires_grad=True)
+    (embed_prop_plain(t, **args) * grad).sum().backward()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert _rel_err(got, t.grad) <= TOL
+
+
+@pytest.mark.parametrize("collide", [False, True])
+def test_embed_prop_backward_past_one_blocks_shared_memory(device, collide):
+    """153,600 entries (200 rows x 32 slots x 24 attributes): more than one
+    block's shared memory holds as int32, so that the block summing one id
+    of all of them lists its entries over 75 rounds of the ids."""
+    table, args, grad = _k3_inputs(device, 2, 200, 32, 24, 64, 0.0, collide,
+                                   False)
+    dims = (200, 32, 24, 64, 2)
+    got = _k3_backward(grad, 0, 300, args, 0.0, dims)
+    want = embed_prop_backward_plain(grad, 0, 300, **args)
+    t = table.clone().requires_grad_(True)
+    (embed_prop_plain(t, **args) * grad).sum().backward()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert _rel_err(got, t.grad) <= TOL
+
+
+@pytest.mark.parametrize("q,collide,window", [(0.0, False, False),
+                                              (0.5, False, False),
+                                              (0.0, True, False),
+                                              (0.0, False, True)])
+def test_embed_prop_backward_replays_in_a_cuda_graph(device, q, collide,
+                                                     window):
+    """The backward captured in a CUDA graph (its scratch sized from the
+    shapes alone, no host sync): each replay on a new ``grad`` gives the
+    eager call's bits on that ``grad``."""
+    table, args, grad = _k3_inputs(device, 2, 40, 32, 24, 64, q, collide,
+                                   False)
+    lo, hi = (5, 105) if window else (0, 300)
+    dims = (40, 32, 24, 64, 2)
+    static = grad.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _k3_backward(static, lo, hi, args, q, dims)        # build, warm up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _k3_backward(static, lo, hi, args, q, dims)
+    g = torch.Generator(device=device).manual_seed(3)
+    for _ in range(3):
+        new = torch.randn(grad.shape, generator=g, device=device)
+        static.copy_(new)
+        graph.replay()
+        eager = _k3_backward(new, lo, hi, args, q, dims)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert out.abs().max() > 0
+
+
+@pytest.mark.parametrize("q,collide,window,node_form", [
+    (0.0, False, False, False), (0.5, False, False, False),
+    (0.0, True, False, False), (0.0, False, True, False),
+    (0.5, False, False, True)])
+def test_embed_prop_backward_launches_only_its_kernels(device, q, collide,
+                                                       window, node_form):
+    """One call launches the backward's four kernels and nothing else: no
+    sort, no fill or memset of PyTorch's (by name, under torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ktop = 1 if node_form else 32
+    table, args, grad = _k3_inputs(device, 2, 40, ktop, 24, 64, q, collide,
+                                   node_form)
+    lo, hi = (5, 105) if window else (0, 300)
+    dims = (40, ktop, 24, 64, 2)
+    _k3_backward(grad, lo, hi, args, q, dims)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _k3_backward(grad, lo, hi, args, q, dims)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 4, names
+    assert all("embed_prop_bwd" in n for n in names), names
+    assert not any("sort" in n.lower() for n in names)
+
+
+def test_bwd_scratch_bytes_matches_the_kernels(device):
+    """``bwd_scratch_bytes`` (the wrapper's allocation) against the
+    kernels' own ``embed_prop_bwd_scratch``, with and without input
+    dropout, across K, H and odd entry counts."""
+    lib = load_kernels()
+    out = (ctypes.c_int64 * 1)()
+    for rows, ktop, p, h, k in [(40, 32, 24, 64, 2), (240, 32, 24, 64, 1),
+                                (10000, 1, 24, 64, 1), (9, 33, 37, 33, 3),
+                                (1, 1, 1, 1, 8), (4, 3, 5, 130, 5)]:
+        for drop in (False, True):
+            assert lib.embed_prop_bwd_scratch(rows, ktop, p, h, k, drop,
+                                              out) == 0
+            assert out[0] == bwd_scratch_bytes(rows, ktop, p, h, k, drop)
 
 
 @functools.lru_cache(maxsize=None)

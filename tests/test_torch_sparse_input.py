@@ -25,10 +25,11 @@ from grandtpu_torch.convert import mag_from_jax, mag_to_jax
 from grandtpu_torch.data import load_data, synthetic_graph
 from grandtpu_torch.nn.mag_mlp import MagMLP, init_mag_mlp
 from grandtpu_torch.nn.mlp import MLPConfig
-from grandtpu_torch.nn.sparse_input import (MAX_SMEM, PaddedFeatures,
-                                            _check_args, embed_nodes,
-                                            embed_nodes_plain, embed_prop,
-                                            embed_prop_plain, fwd_smem_bytes)
+from grandtpu_torch.nn.sparse_input import (
+    MAX_SMEM, PaddedFeatures, _check_args, bwd_scratch_bytes, embed_nodes,
+    embed_nodes_plain, embed_prop, embed_prop_backward,
+    embed_prop_backward_plain, embed_prop_plain, embed_prop_window_backward,
+    fwd_smem_bytes)
 
 TOL = 1e-5
 
@@ -134,11 +135,13 @@ def _jax_embed_prop(table, b_ac, b_av, vals, keys, q, p):
     return jnp.stack(outs)
 
 
-@pytest.mark.parametrize("num_aug,q,p", [
-    (1, 0.0, 0.0), (2, 0.0, 0.5), (2, 0.5, 0.5), (3, 0.5, 0.0),
-])
-def test_embed_prop_plain_matches_grandtpu_forward_and_grad(num_aug, q, p):
-    rs, table, ac, av = _table_and_attrs(seed=2)
+def _jax_k3_case(num_aug, q, p, seed=2, collide=False):
+    """K3's inputs at a small size, grandtpu's forward and table gradient
+    on them (``_jax_embed_prop``), and the masks JAX drew, as torch
+    tensors for the port."""
+    rs, table, ac, av = _table_and_attrs(seed=seed)
+    if collide:
+        ac = np.full_like(ac, 7)               # every id the same table row
     r, ktop, h = 6, 5, table.shape[1]
     tk_cols = rs.randint(0, ac.shape[0], (r, ktop)).astype(np.int32)
     tk_cols[0, 1] = 3                          # a node with no attributes
@@ -166,16 +169,239 @@ def test_embed_prop_plain_matches_grandtpu_forward_and_grad(num_aug, q, p):
                     if p > 0 else np.ones((r, ktop), bool))
         drop.append(np.asarray(jax.random.bernoulli(
             k_emb, 1.0 - q, (r, ktop, ac.shape[1], h))))
-    keep_t = torch.tensor(np.stack(keep))
-    drop_t = torch.tensor(np.stack(drop)) if q > 0 else None
+    args = {"attr_cols": torch.tensor(ac), "attr_vals": torch.tensor(av),
+            "tk_cols": torch.tensor(tk_cols), "tk_vals": torch.tensor(tk_vals),
+            "keep": torch.tensor(np.stack(keep)),
+            "drop": torch.tensor(np.stack(drop)) if q > 0 else None}
+    return table, args, torch.tensor(g), want, want_grad
+
+
+@pytest.mark.parametrize("num_aug,q,p", [
+    (1, 0.0, 0.0), (2, 0.0, 0.5), (2, 0.5, 0.5), (3, 0.5, 0.0),
+])
+def test_embed_prop_plain_matches_grandtpu_forward_and_grad(num_aug, q, p):
+    table, args, g, want, want_grad = _jax_k3_case(num_aug, q, p)
+    r, h = args["tk_cols"].shape[0], table.shape[1]
     for fn in (embed_prop_plain, embed_prop):
         t = torch.tensor(table, requires_grad=True)
-        out = fn(t, torch.tensor(ac), torch.tensor(av), torch.tensor(tk_cols),
-                 torch.tensor(tk_vals), keep_t, drop_t, q)
+        out = fn(t, **args, droprate=q)
         assert out.shape == (num_aug, r, h)
         assert rel(out.detach(), want) <= TOL, fn.__name__
-        (out * torch.tensor(g)).sum().backward()
+        (out * g).sum().backward()
         assert rel(t.grad, want_grad) <= TOL, fn.__name__
+
+
+# vocab windows of the 30-word vocabulary: all of it, a middle part, none
+_WINDOWS = {"all": (0, 30), "some": (9, 21), "none": (30, 36)}
+
+
+@pytest.mark.parametrize("window", sorted(_WINDOWS))
+@pytest.mark.parametrize("num_aug,q,p,collide", [
+    (1, 0.0, 0.0, False), (2, 0.0, 0.5, False), (2, 0.5, 0.5, False),
+    (8, 0.0, 0.5, False), (8, 0.5, 0.5, False), (2, 0.0, 0.5, True),
+    (2, 0.5, 0.5, True),
+])
+def test_embed_prop_backward_plain_matches_grandtpus_grad(num_aug, q, p,
+                                                          collide, window):
+    """The backward's plain version (each entry's term row, each id's rows
+    added in entry order) against ``jax.grad`` of grandtpu's ``embed_nodes``
+    + ``random_prop`` on the same inputs and masks: K 1, 2, 8, input
+    dropout on and off, colliding ids, and the rows of a vocab window
+    (none of the ids in the last)."""
+    _, args, g, _, want_grad = _jax_k3_case(num_aug, q, p, collide=collide)
+    lo, hi = _WINDOWS[window]
+    got = embed_prop_backward_plain(g, lo, hi, **args, droprate=q)
+    assert got.shape == (hi - lo, g.shape[-1])
+    if window == "none":
+        assert not got.any()
+    else:
+        assert rel(got, np.asarray(want_grad)[lo:hi]) <= TOL
+    # the id every entry holds when they collide carries the whole gradient
+    if collide and window == "all":
+        assert got[7].abs().max() > 0 and not got[torch.arange(30) != 7].any()
+
+
+@pytest.mark.parametrize("droprate", [0.0, 0.5])
+def test_embed_prop_backward_plain_node_form_matches_grandtpus_grad(
+        droprate):
+    """The node form's backward (``embed_nodes``' table gradient) against
+    ``jax.grad`` of grandtpu's ``embed_nodes`` with the mask JAX draws."""
+    _, table, ac, av = _table_and_attrs()
+    key = jax.random.PRNGKey(4)
+    g = np.random.RandomState(5).randn(ac.shape[0], table.shape[1]).astype(
+        np.float32)
+
+    def jloss(t):
+        e = jsi.embed_nodes({"table": t}, jnp.asarray(ac), jnp.asarray(av),
+                            key=key, droprate=droprate,
+                            training=droprate > 0)
+        return jnp.sum(e * jnp.asarray(g))
+
+    want = jax.grad(jloss)(jnp.asarray(table))
+    drop = None
+    if droprate > 0:
+        drop = torch.tensor(np.asarray(jax.random.bernoulli(
+            key, 1.0 - droprate, (*ac.shape, table.shape[1]))))[None]
+    got = embed_prop_backward_plain(torch.tensor(g)[None], 0, 30,
+                                    torch.tensor(ac), torch.tensor(av),
+                                    drop=drop, droprate=droprate)
+    assert rel(got, want) <= TOL
+
+
+def _k3_small(num_aug, q, node_form, collide, seed=0):
+    """K3's inputs at a small size: 50 nodes of 24 attribute slots over a
+    300-word vocabulary, a node without attributes, top-k padding and a
+    row whose mask drops every slot."""
+    rs = np.random.RandomState(seed)
+    rows, ktop, p, h, vocab, n = 9, 7, 24, 16, 300, 50
+    ac = rs.randint(0, vocab, (n, p)).astype(np.int32)
+    if collide:
+        ac[:] = 7
+    av = rs.rand(n, p).astype(np.float32)
+    av[:, p // 2:] *= rs.rand(n, p - p // 2) < 0.5
+    av[3] = 0.0
+    args = {"attr_cols": ac, "attr_vals": av}
+    if node_form:
+        args = {k: v[:rows] for k, v in args.items()}
+        drop_shape = (num_aug, rows, p, h)
+    else:
+        tk = rs.randint(0, n, (rows, ktop)).astype(np.int32)
+        tk[0, 0] = 3
+        tv = rs.rand(rows, ktop).astype(np.float32)
+        tv[-1, ktop // 2:] = 0.0
+        keep = rs.rand(num_aug, rows, ktop) < 0.5
+        keep[:, 1] = False
+        args.update(tk_cols=tk, tk_vals=tv, keep=keep)
+        drop_shape = (num_aug, rows, ktop, p, h)
+    if q > 0:
+        args["drop"] = rs.rand(*drop_shape) < 1.0 - q
+    table = rs.randn(vocab, h).astype(np.float32)
+    grad = rs.randn(num_aug, rows, h).astype(np.float32)
+    return (torch.tensor(table), {k: torch.tensor(v) for k, v in
+                                  args.items()}, torch.tensor(grad))
+
+
+@pytest.mark.parametrize("window", [(0, 300), (5, 105), (300, 340)])
+@pytest.mark.parametrize("num_aug,q,node_form,collide", [
+    (1, 0.0, False, False), (2, 0.0, False, False), (2, 0.5, False, False),
+    (8, 0.5, False, False), (2, 0.5, True, False), (8, 0.0, True, False),
+    (2, 0.0, False, True),
+])
+def test_embed_prop_backward_plain_matches_autograd(num_aug, q, node_form,
+                                                    collide, window):
+    """The backward's plain version against autograd of the forward's plain
+    version, over windows holding all, some and none of the ids."""
+    table, args, grad = _k3_small(num_aug, q, node_form, collide)
+    lo, hi = window
+    t = (table[lo:hi] if hi <= 300 else torch.zeros(hi - lo, 16)).clone()
+    t.requires_grad_(True)
+    out = embed_prop_plain(t, **args, droprate=q, vocab_lo=lo, vocab_hi=hi)
+    (out * grad).sum().backward()
+    got = embed_prop_backward_plain(grad, lo, hi, **args, droprate=q)
+    if hi > 300:
+        assert not got.any() and not t.grad.any()
+    else:
+        assert t.grad.abs().max() > 0
+        assert rel(got, t.grad) <= TOL
+
+
+@pytest.mark.parametrize("window", [False, True])
+def test_embed_prop_backward_wrappers_take_the_plain_version_on_the_cpu(
+        window):
+    """The backward's wrappers on CPU tensors return the plain version's
+    gradient and launch nothing."""
+    table, args, grad = _k3_small(2, 0.5, False, False)
+    saved = (args["attr_cols"], args["attr_vals"], args["tk_cols"],
+             args["tk_vals"], args["keep"], args["drop"], 0.5,
+             (9, 7, 24, 16, 2))
+    fn = embed_prop_window_backward if window else embed_prop_backward
+    before = fn.launches
+    got = (fn(grad, 100, 200, *saved) if window else fn(grad, 300, *saved))
+    lo, hi = (100, 200) if window else (0, 300)
+    want = embed_prop_backward_plain(grad, lo, hi, **args, droprate=0.5)
+    assert torch.equal(got, want) and fn.launches == before
+
+
+def test_bwd_scratch_bytes_counts_the_kernels_arrays():
+    """The backward's scratch at the MAG step's shapes: the 1,280 slots'
+    term vectors (K of them with input dropout) and four int32 or f32
+    words for each of the 30,720 entries, plus four counters."""
+    assert bwd_scratch_bytes(40, 32, 24, 64, 2, False) == 4 * (
+        1280 * 64 + 4 * 30720 + 4)
+    assert bwd_scratch_bytes(40, 32, 24, 64, 2, True) == 4 * (
+        2 * 1280 * 64 + 4 * 30720 + 4)
+    # each array padded to 16 bytes
+    assert bwd_scratch_bytes(1, 1, 3, 1, 1, False) == 4 * (4 + 4 * 4 + 4)
+
+
+# csrc/embed_prop.cu: an id's gradient row holds its first row_cap(H) =
+# min(32, (H - 1) // 2) entries; a block reads the ids of a longer one's
+# entries kThreads x 8 at a time
+_LONG_BATCH = 256 * 8
+
+
+def _kernels_grouping(keys, arrival, cap):
+    """The K3 backward kernels' index steps on ``keys`` (each entry's id -
+    lo; -1 for an entry that adds nothing), in numpy, with the atomics
+    taken in ``arrival`` order: count (each entry's rank among its id's;
+    ranks below ``cap`` into the id's row), sum (an id of up to ``cap``
+    entries ordered by each one's rank among the row's), long (a longer id's
+    entries listed by an ordered scan of the ids, a batch at a time).
+    Returns {id: its entries in the order the sums add them}."""
+    counts, rows = {}, {}
+    for e in arrival:
+        c = keys[e]
+        if c >= 0:
+            rank = counts.get(c, 0)
+            counts[c] = rank + 1
+            if rank < cap:
+                rows.setdefault(c, {})[rank] = e
+    order = {}
+    for c, n in counts.items():
+        if n <= cap:
+            s = np.array([rows[c][r] for r in range(n)])
+            got = np.empty_like(s)
+            got[[int((s < x).sum()) for x in s]] = s
+        else:
+            got = np.concatenate([
+                b0 + np.flatnonzero(keys[b0:b0 + _LONG_BATCH] == c)
+                for b0 in range(0, keys.size, _LONG_BATCH)])
+        order[c] = got
+    return order
+
+
+@pytest.mark.parametrize("cap", [31, 15, 0])
+@pytest.mark.parametrize("ids", ["uniform", "skewed", "one_id", "windowed"])
+def test_k3_backward_grouping_matches_a_stable_sort(ids, cap):
+    """The kernels' grouping (ranks in whatever order the atomics take,
+    then each id's entries put in entry order) gives every id its entries
+    in the order of a stable sort of the ids, whatever the arrival order
+    and the rows' capacity (31 at H 64, 15 at H 32, 0 at H 1 or 2):
+    near-uniform ids, Zipf-like ids (``token_skew``), one id in every entry
+    over 108 rounds of the long scan, and a window's dead entries."""
+    rng = np.random.RandomState(cap)
+    if ids == "one_id":
+        keys = np.where(rng.rand(220000) < 0.6, 5, -1)
+    elif ids == "skewed":
+        _, feats, _ = synthetic_graph(num_nodes=600, num_classes=4,
+                                      num_features=5000,
+                                      sparse_features=True, token_skew=3.0,
+                                      seed=cap)
+        keys = feats.indices[rng.randint(0, feats.nnz, 30000)]
+    else:
+        keys = rng.randint(0, 20000, 30000)
+        if ids == "windowed":
+            keys = np.where((keys >= 5000) & (keys < 9000), keys - 5000, -1)
+    if cap == 0 and ids != "one_id":
+        keys = keys[:3000]                 # every id long: keep it short
+    order = _kernels_grouping(keys, rng.permutation(keys.size), cap)
+    live = np.flatnonzero(keys >= 0)
+    stable = live[np.argsort(keys[live], kind="stable")]
+    assert sorted(order) == sorted(set(keys[live]))
+    got = np.concatenate([order[c] for c in sorted(order)])
+    np.testing.assert_array_equal(got, stable)
+    if ids in ("one_id", "skewed"):
+        assert max(len(v) for v in order.values()) > cap
 
 
 def _mag_pair(nlayers, use_bn, node_norm, v=20, h=8, c=3):

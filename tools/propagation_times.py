@@ -42,8 +42,16 @@ order 6, alpha 0.2) times with CUDA events:
   train [2,40,64], train with input dropout 0.5, eval [1,240,64] and node
   [1,10000,64] forms and over each of the 4 vocab windows; the node form
   over all nodes as the predict runs it (CUDA events, and the kernels'
-  summed device time); the backward, full and over a window, with its
-  zero-fill's device time apart; with a digest of every output;
+  summed device time); with a digest of every output. Then the backward
+  (``embed_prop_backward`` and ``embed_prop_window_backward`` over the
+  first of 4 windows, called directly as any checkout's take them) in the
+  train, train with input dropout 0.5, eval, skewed (the train form over
+  Zipf-like ids: ``synthetic_graph``'s ``token_skew`` 4 on 100,000 nodes
+  of the same vocabulary) and collide (every attribute id the same)
+  forms: a digest of each gradient, CUDA events' time over back-to-back
+  calls, and the device time of one call as the sum of every device
+  operation it runs (kernels, fills, memsets), the sort kernels' share
+  apart;
 - halo: on the Amazon2M stand-in, halo_pack's int8 and f32 forms at shard
   0 of a 4-shard HaloPropagator (device time and CUDA events, digests),
   and the halo int8 and f32 6-hop runs (synchronized host wall, digests).
@@ -117,6 +125,29 @@ def dev_ms(fn, iters, kernel, per_call=1):
              if e.device_type == torch.autograd.DeviceType.CUDA
              and kernel in e.name]
     return sum(times) / len(times) * per_call if times else None
+
+
+def call_dev_ms(fn, iters):
+    """(mean device ms of one ``fn()``, of it the sort kernels', device
+    operations a call) over ``iters`` calls: every device operation the
+    profiler recorded (kernels, fills, memsets; one stream, so none
+    overlap). A run whose operations are not a whole number a call (the
+    profiler dropped records) is retried."""
+    fn()
+    torch.cuda.synchronize(DEV)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize(DEV)
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events and len(events) % iters == 0:
+            break
+    total = sum(e.time_range.elapsed_us() for e in events)
+    sort = sum(e.time_range.elapsed_us() for e in events
+               if "sort" in e.name.lower())
+    return total / iters / 1e3, sort / iters / 1e3, len(events) / iters
 
 
 def digest(t):
@@ -268,20 +299,37 @@ def k3_times(r):
         r["k3_node_all_device_ms"] = dev_ms(
             lambda: embed_all_nodes(table, ac, av), 2,
             "embed_prop_fwd_kernel", -(-ac.shape[0] // 10000))
-    # the backward called directly, its kernel and its zero-fill apart
-    s = sets[0]
-    dims = (40, 32, ac.shape[1], 64, 2)
-    saved = (ac, av, s["tk_cols"], s["tk_vals"], s["keep"], None, 0.0, dims)
-    gout = torch.randn(2, 40, 64, generator=g, device=DEV)
-    r["k3_bwd_digest"] = digest(K3.embed_prop_backward(gout, v, *saved))
-    for name, fn in (
-            ("full", lambda: K3.embed_prop_backward(gout, v, *saved)),
-            ("window", lambda: K3.embed_prop_window_backward(
-                gout, 0, per, *saved))):
-        r[f"k3_bwd_{name}_ms"] = tms(fn, 32)
-        r[f"k3_bwd_{name}_device_ms"] = dev_ms(fn, 32, "embed_prop_bwd",
-                                               per_call=2)
-        r[f"k3_bwd_{name}_fill_device_ms"] = dev_ms(fn, 32, "FillFunctor")
+    # the backward called directly, as every checkout's wrappers take it
+    from grandtpu_torch.data.synthetic import synthetic_graph
+    _, feats, _ = synthetic_graph(num_nodes=100000, num_classes=8,
+                                  num_features=v, sparse_features=True,
+                                  token_skew=4.0, seed=0)
+    skew = K3.PaddedFeatures.from_csr(feats)
+    attrs = {"skewed": (torch.as_tensor(skew.attr_cols, device=DEV),
+                        torch.as_tensor(skew.attr_vals, device=DEV)),
+             "collide": (torch.full_like(ac, 7), av)}
+    r["k3_bwd_skewed_P"] = skew.attr_cols.shape[1]
+    for form in ("train", "train_q0.5", "eval", "skewed", "collide"):
+        q = 0.5 if form == "train_q0.5" else 0.0
+        fac, fav = attrs.get(form, (ac, av))
+        s = k3_sets(fac, fav, "eval" if form == "eval" else
+                    "train_q0.5" if q else "train", g)[0]
+        rows, ktop = s["tk_cols"].shape
+        num_aug = 1 if form == "eval" else 2
+        dims = (rows, ktop, fac.shape[1], 64, num_aug)
+        saved = (fac, fav, s["tk_cols"], s["tk_vals"], s.get("keep"),
+                 s.get("drop"), q, dims)
+        gout = torch.randn(num_aug, rows, 64, generator=g, device=DEV)
+        for name, fn in (
+                ("full", lambda: K3.embed_prop_backward(gout, v, *saved)),
+                ("window", lambda: K3.embed_prop_window_backward(
+                    gout, 0, per, *saved))):
+            key = f"k3_bwd_{form}_{name}"
+            r[f"{key}_digest"] = digest(fn())
+            r[f"{key}_ms"] = tms(fn, 32)
+            (r[f"{key}_device_ms"], r[f"{key}_sort_device_ms"],
+             r[f"{key}_ops_per_call"]) = call_dev_ms(fn, 32)
+        del saved, s
 
 
 K1_FORMS = {   # N, F, B, Ktop, K
