@@ -114,7 +114,9 @@ def cmd_predict(args) -> int:
     row-partitioned over ``--num-devices`` shards, and write the logits and
     predictions to an npz. Prints grandtpu's JSON line on stdout and the
     wall time by phase (data, checkpoint, operator build, hops, classify)
-    on stderr."""
+    on stderr. ``--profile-dir D`` writes a ``torch.profiler`` Chrome trace
+    of the propagation and the classifier into D, the port's ``infer.*``
+    spans on its timeline."""
     import torch
 
     from grandtpu_torch.data import load_data
@@ -125,6 +127,7 @@ def cmd_predict(args) -> int:
     from grandtpu_torch.infer.propagate import exact_propagator
     from grandtpu_torch.nn.mlp import MLPConfig
     from grandtpu_torch.nn.sparse_input import PaddedFeatures
+    from grandtpu_torch.observe import profile_trace
     from grandtpu_torch.train.checkpoint import load_model
 
     device = resolve_device(args.device)
@@ -173,21 +176,23 @@ def cmd_predict(args) -> int:
         lap("hops_s", t0)
         return out
 
-    if sparse:
-        padded = PaddedFeatures.from_csr(data.features)
-        logits = predict_logits_sparse(
-            model, padded.attr_cols, padded.attr_vals, adj_sl,
-            mode=cfg.prop_mode, order=cfg.order, alpha=cfg.alpha,
-            propagate=propagate)
-        # the embeddings and the head, around the propagation
-        lap("classify_s", t)
-        seconds["classify_s"] -= seconds["build_s"] + seconds["hops_s"]
-    else:
-        prop = propagate(torch.as_tensor(
-            np.asarray(data.features, np.float32), device=device))
-        t = time.time()
-        logits = predict_logits(model, prop)
-        lap("classify_s", t)
+    # the propagation and the classifier; profiled with profile_dir
+    with profile_trace(cfg.profile_dir):
+        if sparse:
+            padded = PaddedFeatures.from_csr(data.features)
+            logits = predict_logits_sparse(
+                model, padded.attr_cols, padded.attr_vals, adj_sl,
+                mode=cfg.prop_mode, order=cfg.order, alpha=cfg.alpha,
+                propagate=propagate)
+            # the embeddings and the head, around the propagation
+            lap("classify_s", t)
+            seconds["classify_s"] -= seconds["build_s"] + seconds["hops_s"]
+        else:
+            prop = propagate(torch.as_tensor(
+                np.asarray(data.features, np.float32), device=device))
+            t = time.time()
+            logits = predict_logits(model, prop)
+            lap("classify_s", t)
     preds = logits.argmax(1)
     acc = float(np.equal(preds[data.idx_test],
                          data.labels_int[data.idx_test]).mean())

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from grandtpu_torch import observe
 from grandtpu_torch.infer.propagate import exact_propagate
 from grandtpu_torch.nn.sparse_input import embed_nodes
 
@@ -19,11 +20,20 @@ def predict_logits(model: nn.Module, feats: torch.Tensor,
     ``feats``, in chunks of ``batch_size`` rows; host numpy [n, C]. For the
     MAG model this is its head over propagated embeddings (``head_logits``
     in ``grandtpu``). bf16 rows (``bf16_carry`` propagation) are cast to
-    f32 first, as JAX promotes them against the f32 weights."""
+    f32 first, as JAX promotes them against the f32 weights. Spans:
+    ``infer.classify``, around ``infer.classify.head`` (the chunks and
+    their concatenation) and ``infer.classify.copy`` (to the host array,
+    counting its ``copy_bytes``)."""
     model.eval()
-    out = [model(feats[i: i + batch_size].float())
-           for i in range(0, feats.shape[0], batch_size)]
-    return torch.cat(out).cpu().numpy()
+    device = feats.device
+    with observe.span("infer.classify", device=device):
+        with observe.span("infer.classify.head", device=device):
+            out = torch.cat([model(feats[i: i + batch_size].float())
+                             for i in range(0, feats.shape[0], batch_size)])
+        with observe.span("infer.classify.copy", device=device) as copy:
+            out = out.cpu().numpy()
+            copy.add("copy_bytes", out.nbytes)
+    return out
 
 
 head_logits = predict_logits
@@ -47,11 +57,13 @@ def embed_all_nodes(table: torch.Tensor, attr_cols: torch.Tensor,
     split out so the caller can release the [n, P] attr tables before the
     propagation allocates its carries."""
     n = attr_cols.shape[0]
-    embs = torch.empty((n, table.shape[1]), dtype=torch.float32,
-                       device=table.device)
-    for i in range(0, n, batch_size):
-        embs[i: i + batch_size] = embed_nodes(
-            table, attr_cols[i: i + batch_size], attr_vals[i: i + batch_size])
+    with observe.span("infer.embed", device=table.device):
+        embs = torch.empty((n, table.shape[1]), dtype=torch.float32,
+                           device=table.device)
+        for i in range(0, n, batch_size):
+            embs[i: i + batch_size] = embed_nodes(
+                table, attr_cols[i: i + batch_size],
+                attr_vals[i: i + batch_size])
     return embs
 
 
@@ -67,16 +79,19 @@ def predict_logits_sparse(model: nn.Module, attr_cols, attr_vals, adj_sl, *,
     ``propagate``: an optional override ``embs [n, H] -> propagated [n,
     H]`` in place of :func:`exact_propagate` (the row-partitioned mesh
     operator, say); ``precision``: that of :func:`exact_propagate` ('f32',
-    'bf16', 'int8', 'auto', 'bf16_carry', ...) when it is not given."""
+    'bf16', 'int8', 'auto', 'bf16_carry', ...) when it is not given. The
+    whole call is the span ``infer.predict_sparse``, the root of the
+    embedding's, the propagation's and the head's spans."""
     device = model.table.device
-    embs = embed_all_nodes(model.table.detach(),
-                           torch.as_tensor(attr_cols, device=device),
-                           torch.as_tensor(attr_vals, device=device),
-                           batch_size)
-    if propagate is None:
-        prop = exact_propagate(adj_sl, embs, mode=mode, order=order,
-                               alpha=alpha, precision=precision,
-                               device=device)
-    else:
-        prop = torch.as_tensor(propagate(embs), device=device)
-    return head_logits(model, prop, batch_size)
+    with observe.span("infer.predict_sparse", device=device):
+        embs = embed_all_nodes(model.table.detach(),
+                               torch.as_tensor(attr_cols, device=device),
+                               torch.as_tensor(attr_vals, device=device),
+                               batch_size)
+        if propagate is None:
+            prop = exact_propagate(adj_sl, embs, mode=mode, order=order,
+                                   alpha=alpha, precision=precision,
+                                   device=device)
+        else:
+            prop = torch.as_tensor(propagate(embs), device=device)
+        return head_logits(model, prop, batch_size)

@@ -41,6 +41,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from grandtpu_torch import observe
 from grandtpu_torch.device import resolve_device
 from grandtpu_torch.sparse.spmm import (BF16, CSROperator, PaddedCSR,
                                         bf16_round, quantize_columns,
@@ -251,6 +252,11 @@ class Propagator:
         docstring. The dense backend runs its matmul in ``dtype``. Sets
         ``last_precision`` to the form the hops ran: 'f32', 'bf16',
         'int8mxu' or 'int8cast', or None on the dense backend."""
+        with observe.span("infer.propagate", device=self.device):
+            return self._propagate(features, mode, order, alpha, fast,
+                                   precision)
+
+    def _propagate(self, features, mode, order, alpha, fast, precision):
         if precision is None:
             precision = "bf16" if fast else "f32"
         precision = self.last_precision = self._resolve(precision,
@@ -280,8 +286,9 @@ class Propagator:
             if pair is not None:
                 amax = (pair[(t - 1) % 2] if t else None,
                         pair[t % 2] if t + 1 < order else None)
-            self._hop(precision, cur_in, cur_out, acc, scale, accumulate,
-                      amax)
+            with observe.span("infer.propagate.hop", device=self.device):
+                self._hop(precision, cur_in, cur_out, acc, scale,
+                          accumulate, amax)
             # the one in-place update of the port's propagation: two [n, F]
             # carries, swapped every hop (the hop reads one, writes the other)
             cur_in, cur_out = cur_out, cur_in
