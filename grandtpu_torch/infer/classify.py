@@ -13,6 +13,20 @@ from grandtpu_torch.infer.propagate import exact_propagate
 from grandtpu_torch.nn.sparse_input import embed_nodes
 
 
+# the side stream a card device's logits are copied to the host on, made at
+# first use: {device index: stream}
+_COPY_STREAMS: dict = {}
+
+
+def _copy_stream(device: torch.device) -> torch.cuda.Stream:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = _COPY_STREAMS.get(index)
+    if stream is None:
+        stream = _COPY_STREAMS.setdefault(index, torch.cuda.Stream(index))
+    return stream
+
+
 @torch.no_grad()
 def predict_logits(model: nn.Module, feats: torch.Tensor,
                    batch_size: int = 10000) -> np.ndarray:
@@ -20,13 +34,28 @@ def predict_logits(model: nn.Module, feats: torch.Tensor,
     ``feats``, in chunks of ``batch_size`` rows; host numpy [n, C]. For the
     MAG model this is its head over propagated embeddings (``head_logits``
     in ``grandtpu``). bf16 rows (``bf16_carry`` propagation) are cast to
-    f32 first, as JAX promotes them against the f32 weights. Spans:
-    ``infer.classify``, around ``infer.classify.head`` (the chunks and
-    their concatenation) and ``infer.classify.copy`` (to the host array,
-    counting its ``copy_bytes``)."""
+    f32 first, as JAX promotes them against the f32 weights.
+
+    On a card the result is one page-locked host array that the caller
+    owns; PyTorch's caching host allocator takes its block back once the
+    caller drops it and hands it to a later call, pinned already. Each
+    chunk's copy into its rows runs on a side stream as soon as the chunk
+    is ready, behind the next chunks' classifier, and the call returns
+    once the last byte is on the host. Off a card the chunks are joined
+    and copied to a new array.
+
+    Spans: ``infer.classify``, around ``infer.classify.head`` (the chunks;
+    off a card also their concatenation) and ``infer.classify.copy``
+    (counting ``copy_bytes``, the host array's bytes). On a card the copy
+    span's device time runs on the side stream, from the first chunk being
+    ready to the last byte on the host, and it also counts
+    ``pinned_bytes`` (the bytes copied asynchronously into page-locked
+    memory) and ``copy_chunks``."""
     model.eval()
     device = feats.device
     with observe.span("infer.classify", device=device):
+        if device.type == "cuda":
+            return _chunks_to_host(model, feats, batch_size)
         with observe.span("infer.classify.head", device=device):
             out = torch.cat([model(feats[i: i + batch_size].float())
                              for i in range(0, feats.shape[0], batch_size)])
@@ -34,6 +63,39 @@ def predict_logits(model: nn.Module, feats: torch.Tensor,
             out = out.cpu().numpy()
             copy.add("copy_bytes", out.nbytes)
     return out
+
+
+def _chunks_to_host(model: nn.Module, feats: torch.Tensor,
+                    batch_size: int) -> np.ndarray:
+    """``predict_logits`` on a card: the head's chunks on the current
+    stream, each copied by the side stream into its rows of one pinned
+    host tensor once an event says it is ready."""
+    device = feats.device
+    compute, side = torch.cuda.current_stream(device), _copy_stream(device)
+    chunks, ready = [], []
+    with observe.span("infer.classify.head", device=device):
+        for i in range(0, feats.shape[0], batch_size):
+            chunks.append(model(feats[i: i + batch_size].float()))
+            ready.append(compute.record_event())
+    # outside the head's span: where the host paces the head, a new block's
+    # pinning (0.1 s for 0.5 GB on an H100's host) would stall inside it
+    host = torch.empty((feats.shape[0],) + chunks[0].shape[1:],
+                       dtype=chunks[0].dtype, pin_memory=True)
+    with torch.cuda.stream(side):
+        side.wait_event(ready[0])
+        with observe.span("infer.classify.copy", device=device) as copy:
+            row = 0
+            for y, event in zip(chunks, ready):
+                side.wait_event(event)
+                host[row: row + y.shape[0]].copy_(y, non_blocking=True)
+                row += y.shape[0]
+            copy.add("copy_bytes", host.nbytes)
+            copy.add("pinned_bytes", host.nbytes if host.is_pinned() else 0)
+            copy.add("copy_chunks", len(chunks))
+        done = side.record_event()
+    # the chunks stay referenced until their copies are done
+    done.synchronize()
+    return host.numpy()
 
 
 head_logits = predict_logits

@@ -19,6 +19,7 @@ from grandtpu_torch.convert import mlp_from_jax
 from grandtpu_torch.infer import classify, exact_propagate
 from grandtpu_torch.nn.mlp import MLPConfig
 from grandtpu_torch.sparse import CSROperator, spmm_prop_step
+from test_torch_classify_cuda import owned_logits
 
 TOL = 1e-5
 
@@ -120,3 +121,15 @@ def test_predict_logits_and_accuracy_parity(small_graph):
         model, torch.tensor(x), idx, labels_int, batch_size=50) == \
         jcls.test_accuracy(params, state, jmlp.MLPConfig(**kw),
                            jnp.asarray(x), idx, labels_int, batch_size=50)
+
+
+@pytest.mark.parametrize("path", ["dense", "mag"])
+def test_logits_arrays_belong_to_the_caller(path):
+    """A second call on other inputs leaves the first call's array as it
+    was: no call hands out a buffer that a later call writes into."""
+    first = owned_logits(path, seed=1)
+    kept = first.copy()
+    second = owned_logits(path, seed=2)
+    assert not np.array_equal(second, kept)
+    np.testing.assert_array_equal(first, kept)
+    assert not np.shares_memory(first, second)
