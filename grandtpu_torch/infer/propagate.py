@@ -242,6 +242,18 @@ class Propagator:
                 spmm_prop_step_q8(self.adj_op, q, col_scale, cur_out, acc,
                                   scale, accumulate, raise_)
 
+    def _hop_counts(self, precision: str | None, x: torch.Tensor) -> dict:
+        """The counts each hop's span carries on the 'csr' backend, from
+        host numbers alone: the operator's (``nnz``, ``split_rows``,
+        ``split_chunks``, ``split_nnz``) and ``gather_bytes``, the input
+        rows its nonzeros gather (a carry element a feature, one byte for
+        the int8 forms). None on the other backends' hops."""
+        if self.backend != "csr":
+            return {}
+        item = 1 if precision in ("int8mxu", "int8cast") else x.element_size()
+        return dict(self.adj_op.counts,
+                    gather_bytes=self.adj_op.nnz * x.shape[1] * item)
+
     def __call__(self, features, *, mode: str = "ppr", order: int = 10,
                  alpha: float = 0.2, fast: bool = False,
                  precision: str | None = None) -> torch.Tensor:
@@ -281,14 +293,18 @@ class Propagator:
         # the first
         pair = (torch.zeros((2, x.shape[1]), device=self.device)
                 if precision in ("int8mxu", "int8cast") else None)
+        counts = self._hop_counts(precision, x)
         for t in range(order):
             amax = (None, None)
             if pair is not None:
                 amax = (pair[(t - 1) % 2] if t else None,
                         pair[t % 2] if t + 1 < order else None)
-            with observe.span("infer.propagate.hop", device=self.device):
+            with observe.span("infer.propagate.hop",
+                              device=self.device) as hop:
                 self._hop(precision, cur_in, cur_out, acc, scale,
                           accumulate, amax)
+                for key, n in counts.items():
+                    hop.add(key, n)
             # the one in-place update of the port's propagation: two [n, F]
             # carries, swapped every hop (the hop reads one, writes the other)
             cur_in, cur_out = cur_out, cur_in

@@ -86,12 +86,14 @@ class SplitPlan:
     chunks ``chunk_ptr[i]:chunk_ptr[i + 1]``; chunk ``c`` covers edges
     ``chunk_lo[c]:min(chunk_lo[c] + cap, indptr[row + 1])`` of row
     ``rows[chunk_row[c]]``. Chunks are in row order, and within a row in
-    edge order."""
+    edge order. ``nnz``: the nonzeros of the split rows, counted on the
+    host as the plan is built."""
     cap: int
     rows: torch.Tensor        # int32 [S], ascending
     chunk_ptr: torch.Tensor   # int32 [S + 1]
     chunk_row: torch.Tensor   # int32 [C], index into rows
     chunk_lo: torch.Tensor    # int32 [C]
+    nnz: int
 
     @property
     def num_chunks(self) -> int:
@@ -120,7 +122,8 @@ class SplitPlan:
         return SplitPlan(cap, *(torch.as_tensor(a.astype(np.int32),
                                                 device=device)
                                 for a in (rows, chunk_ptr, chunk_row,
-                                          chunk_lo)))
+                                          chunk_lo)),
+                         nnz=int(deg[rows].sum()))
 
 
 @dataclasses.dataclass
@@ -129,9 +132,11 @@ class CSROperator:
     ``num_cols`` input rows (default: square) and write ``num_rows``.
 
     Building one builds its K2 split plan (:class:`SplitPlan`, None when no
-    row has more than ``split_cap`` nonzeros). ``split_cap`` defaults to
-    :func:`default_split_cap`; a caller may set it (at least the longest
-    row's length to run every row whole)."""
+    row has more than ``split_cap`` nonzeros) and ``counts``, what each
+    hop does by the host's numbers: ``nnz``, and the rows, chunks and
+    nonzeros that the split carries (0 without a plan). ``split_cap``
+    defaults to :func:`default_split_cap`; a caller may set it (at least
+    the longest row's length to run every row whole)."""
     indptr: torch.Tensor      # int32 [num_rows + 1]
     indices: torch.Tensor     # int32 [nnz], in [0, num_cols)
     values: torch.Tensor      # f32 [nnz]
@@ -139,6 +144,7 @@ class CSROperator:
     num_cols: int | None = None
     split_cap: int | None = None
     plan: SplitPlan | None = dataclasses.field(init=False, repr=False)
+    counts: dict = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         if self.num_cols is None:
@@ -147,6 +153,12 @@ class CSROperator:
             self.split_cap = default_split_cap(self.num_rows, self.nnz)
         self.plan = SplitPlan.build(self.indptr.cpu().numpy(),
                                     self.split_cap, self.indptr.device)
+        plan = self.plan
+        self.counts = {
+            "nnz": self.nnz,
+            "split_rows": 0 if plan is None else int(plan.rows.shape[0]),
+            "split_chunks": 0 if plan is None else plan.num_chunks,
+            "split_nnz": 0 if plan is None else plan.nnz}
 
     @property
     def nnz(self) -> int:

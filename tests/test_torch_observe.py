@@ -316,13 +316,15 @@ FABRICATED = [
     _rec("infer.classify.copy", 400.0, 420.0, copy_bytes=460_000_000),
     _rec("infer.classify.head", 100.0), _rec("infer.classify.head", 140.0),
     _rec("infer.classify.head", 120.0),
-    _rec("infer.propagate.hop", 2.0), _rec("infer.propagate.hop", 3.0),
+    _rec("infer.propagate.hop", 2.0, gather_bytes=4_000_000_000),
+    _rec("infer.propagate.hop", 3.0, gather_bytes=9_000_000_000),
     _rec("infer.propagate", 50.0),
     _rec("infer.embed", 10.0, 9.0), _rec("infer.embed", 10.0, 5.0),
     _rec("infer.embed", 10.0, 8.0),
 ]
 READINGS = {"predict.copy_gbps": 2.3, "predict.head_ms": 120.0,
-            "predict.hop_ms": 2.5, "predict.embed_host_pct": 80.0}
+            "predict.hop_ms": 2.5, "predict.embed_host_pct": 80.0,
+            "predict.hop_gather_gbps": 2500.0}
 
 
 @pytest.mark.parametrize("metric", sorted(READINGS))
