@@ -27,6 +27,19 @@ Phases, in order; any failure exits non-zero without the result line:
     Adam's, and its bound (28 bytes an element with a gradient). Every
     training path below checks Adam's launches: once a step (a mesh's
     leaves on the one card take one launch);
+3n. the classifier's fused eval head (``csrc/mlp_head.cu``, the eval MLP's
+    forward as one launch a chunk) at the predict cells' widths (F 100,
+    hidden 1024, 47 classes; F 602, hidden 512, 41 classes; BN and
+    node_norm on): a 10,000-row chunk launched alone, then each cell's last
+    chunk (9,029 and 2,965 rows) launched right after it with
+    ``_after_head`` as ``predict_logits`` launches it, each against its
+    plain version and the module's eval forward within 2e-6 of the largest
+    |logit|, one launch a call; its device time a chunk beside CUDA events',
+    the plain version's, ``MLP.forward``'s (the library call: cuBLAS's f32
+    GEMMs and the elementwise passes) and its bound (2 F H + 2 H C flops a
+    row at 67 TFLOP/s), with its registers and spills. Paths 5, 5c, 5d and
+    5e classify every node in 10,000-row chunks: the head launches exactly
+    ceil(n / 10,000) times on each (5b's MAG head not at all);
 3e. GFPush on the card, with the reddit preset's push (ppr, order 6, alpha
     0.05, rmax 1e-5, k 64) from the 12,050 sources ``train()`` builds:
     ``gfpush(backend="jax")`` (P1: the push mask, K2 over A^T at [233000,
@@ -472,8 +485,9 @@ from grandtpu_torch.infer import Propagator, exact_propagate, test_accuracy
 from grandtpu_torch.infer import propagate as propagate_mod
 from grandtpu_torch.infer.classify import embed_all_nodes
 from grandtpu_torch.nn.dropnode import gather_and_prop, gather_and_prop_plain
-from grandtpu_torch.nn.mag_mlp import init_mag_mlp
-from grandtpu_torch.nn.mlp import MLPConfig, init_mlp
+from grandtpu_torch.nn import mlp_head
+from grandtpu_torch.nn.mag_mlp import MagMLP, init_mag_mlp
+from grandtpu_torch.nn.mlp import MLP, MLPConfig, init_mlp
 from grandtpu_torch.nn.sparse_input import (PaddedFeatures, embed_prop,
                                             embed_prop_backward,
                                             embed_prop_backward_plain,
@@ -547,6 +561,7 @@ TP_STEPS, TP_TIMED = 3, 20          # 9t/9tb: steps held to one card, timed
 PEAK_GB: dict = {}                  # peak device memory of each train() path
 CKPT_DIR = os.path.join("build", "chip_smoke_ckpt")   # 5d's best.npz
 TOL = 1e-5                          # max |kernel - plain| / max |plain|
+HEAD_TOL = 2e-6                     # 3n: max |head - want| / max |want|
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12             # f32 outside the tensor cores
 DEV = torch.device("cuda", 0)
@@ -1104,6 +1119,129 @@ def check_adam() -> dict:
                                                           "max_abs_err")},
             "reddit": {k: v for k, v in out["dense"].items()
                        if k not in ("bytes", "max_abs_err")},
+            "launches_by_path": {}}
+
+
+# 3n: the predict cells' classifier widths (F, hidden, classes) and their
+# last chunks' rows (2,449,029 and 232,965 nodes in chunks of 10,000)
+HEAD_WIDTHS = {"amazon2m": (100, 1024, 47, 9029), "reddit": (602, 512, 41,
+                                                           2965)}
+HEAD_CHUNK = 10000
+
+
+def _head_model(f: int, h: int, c: int, g) -> MLP:
+    """An eval-mode 2-layer MLP with BN and node_norm: weights as torch's
+    init draws them, BN running stats as a model that saw node-normalised
+    rows would carry (the benchmark's recipe)."""
+    with torch.device(DEV):
+        model = MLP(MLPConfig(num_features=f, num_classes=c, hidden=h,
+                              nlayers=2, use_bn=True, node_norm=True))
+    with torch.no_grad():
+        for fc in model.fcs:
+            b = 1.0 / np.sqrt(fc.in_features)
+            fc.weight.uniform_(-b, b, generator=g)
+            fc.bias.uniform_(-b, b, generator=g)
+        for bn in model.bns:
+            d = bn.weight.shape[0]
+            bn.weight.normal_(1.0, 0.1, generator=g)
+            bn.bias.normal_(0.0, 0.1, generator=g)
+            bn.running_mean.normal_(0.0, 0.3 / np.sqrt(d), generator=g)
+            bn.running_var.uniform_(0.5 / d, 1.5 / d, generator=g)
+    return model.eval()
+
+
+def _head_want(model, n: int) -> int:
+    """The fused head's launches in one ``predict_logits`` of ``n`` rows
+    in 10,000-row chunks: one a chunk for the dense MLP, none for MAG's."""
+    return 0 if isinstance(model, MagMLP) else -(-n // HEAD_CHUNK)
+
+
+def _check_head_launches(model, n: int, launched: int, tag: str) -> None:
+    want = _head_want(model, n)
+    if launched != want:
+        raise AssertionError(f"[{tag}] the fused head launched {launched} "
+                             f"times, expected {want} ({n} rows)")
+
+
+def check_head() -> dict:
+    """Phase 3n: the fused eval head (``csrc/mlp_head.cu``) at the predict
+    cells' widths: a 10,000-row chunk alone, then the cell's last chunk
+    right after another launch with ``_after_head``, each against its
+    plain version and ``model(x)`` (within ``HEAD_TOL`` of the largest
+    |logit|), one launch a call, the same bits on a second call; its
+    device time a chunk, CUDA events', the plain version's,
+    ``MLP.forward``'s, its bound, registers and spills."""
+    g = torch.Generator(device=DEV).manual_seed(13)
+    out = {}
+    for cell, (f, h, c, tail) in HEAD_WIDTHS.items():
+        model = _head_model(f, h, c, g)
+        launch = mlp_head.head_launcher(model)
+        x = torch.randn(HEAD_CHUNK + tail, f, generator=g, device=DEV)
+        chunk, last = x[:HEAD_CHUNK], x[HEAD_CHUNK:]
+        before = mlp_head.head_launcher.launches
+        got = launch(chunk)
+        got_tail = launch(last, _after_head=True)
+        torch.cuda.synchronize(DEV)
+        launched = mlp_head.head_launcher.launches - before
+        errs = {}
+        with torch.no_grad():
+            for name, rows_, y in (("chunk", chunk, got),
+                                   ("tail", last, got_tail)):
+                for against, want in (
+                        ("plain", mlp_head.eval_head_plain(model, rows_)),
+                        ("module", model(rows_))):
+                    errs[f"{name}_{against}"] = _errors(y, want)
+        same = (torch.equal(launch(chunk), got)
+                and torch.equal(launch(last), got_tail))
+        worst = max(e[1] for e in errs.values())
+        print(f"[3n] fused head, {cell} [{f} -> {h} -> {c}]: {HEAD_CHUNK} "
+              f"rows, then {tail} with _after_head; max_rel_err "
+              f"{ {k: v[1] for k, v in errs.items()} } (limit {HEAD_TOL}); "
+              f"{launched} launches; the same bits again {same}",
+              flush=True)
+        if worst > HEAD_TOL or launched != 2 or not same:
+            raise AssertionError(f"[3n] fused head {cell}: max_rel_err "
+                                 f"{worst}, {launched} launches, same bits "
+                                 f"{same}")
+        config = mlp_head.head_config(f, h, True)
+        if config["spill_bytes"]:
+            raise AssertionError(f"[3n] the fused head spills: {config}")
+        ms = _device_ms(lambda: launch(chunk), 30, "mlp_head")
+        events_ms = _time_ms(lambda: launch(chunk), 30)
+        plain_ms = _time_ms(lambda: mlp_head.eval_head_plain(model, chunk),
+                            10)
+        with torch.no_grad():
+            library_ms = _time_ms(lambda: model(chunk), 10)
+        flops = (2 * f * h + 2 * h * c) * HEAD_CHUNK
+        nbytes = 4 * (HEAD_CHUNK * (f + c) + h * (f + c + 1) + c
+                      + 4 * (f + h))
+        bound_ms, bound_by = _bound(nbytes, flops)
+        out[cell] = {"shape": f"[{HEAD_CHUNK}, {f}] -> {h} -> {c}",
+                     "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "flops": flops,
+                     "max_abs_err": max(e[0] for e in errs.values()),
+                     "max_rel_err": worst, "config": config}
+        print(f"[3n] fused head, {cell}: device ms {ms} a chunk (CUDA events "
+              f"{events_ms}); plain_ms {plain_ms}; library_ms {library_ms} "
+              f"(MLP.forward in eval); bound_ms {bound_ms} ({bound_by}, "
+              f"{flops / 1e9:.1f} GFLOP, {100 * bound_ms / ms:.1f} % of it); "
+              f"{config['registers']} registers, {config['spill_bytes']} "
+              f"spill bytes, {config['blocks_an_sm']} blocks an SM",
+              flush=True)
+        del model, launch, x, chunk, last
+        torch.cuda.empty_cache()
+    first = out["amazon2m"]
+    return {"name": "mlp_head", "route": "cuda",
+            "source": "grandtpu_torch/csrc/mlp_head.cu",
+            "replaces": "none (grandtpu/nn/mlp.py:130 apply_mlp was one XLA "
+                        "program)",
+            "max_abs_err": max(o["max_abs_err"] for o in out.values()),
+            "max_rel_err": max(o["max_rel_err"] for o in out.values()),
+            **{k: v for k, v in first.items()
+               if k not in ("max_abs_err", "max_rel_err")},
+            "reddit": {k: v for k, v in out["reddit"].items()
+                       if k not in ("max_abs_err", "max_rel_err")},
             "launches_by_path": {}}
 
 
@@ -2712,13 +2850,16 @@ def run_path(cfg, data, tag: str) -> tuple:
     """One ``train()`` of the path with every launch count set to 0 just
     before and read just after; returns (result, launches). The hop
     kernels of the form the predict's hops ran must launch ``order`` times
-    each, the others not at all."""
+    each, the others not at all; the fused head once a 10,000-row chunk of
+    the test predict's nodes (MAG's head: none)."""
     _reset_counts()
+    mlp_head.head_launcher.launches = 0
     torch.cuda.reset_peak_memory_stats(DEV)
     t0 = time.time()
     r = train(cfg, data=data, device=DEV)
     wall = time.time() - t0
     launches = _read_counts()
+    launches["mlp_head"] = mlp_head.head_launcher.launches
     print(f"[{tag}] {cfg.dataset}, {cfg.epochs} epochs, predict_precision "
           f"{cfg.predict_precision} (hops ran {r.predict_precision}): steps "
           f"{r.num_batches}, evals "
@@ -2735,6 +2876,9 @@ def run_path(cfg, data, tag: str) -> tuple:
     if not 0.0 <= r.test_acc <= 1.0:
         raise AssertionError(f"test_acc {r.test_acc}")
     _check_hops(launches, r.predict_precision, cfg.order)
+    if data is not None:    # 5f's train() loads its graph from files
+        _check_head_launches(r.model, data.num_nodes, launches["mlp_head"],
+                             tag)
     if launches["adam"] != r.num_batches:
         raise AssertionError(f"Adam launched {launches['adam']} times, not "
                              f"once a step ({r.num_batches})")
@@ -4083,12 +4227,14 @@ def run_serving(r, data, ckpt: str) -> dict:
                 out_npz]
         stdout, stderr = io.StringIO(), io.StringIO()
         _reset_counts()
+        mlp_head.head_launcher.launches = 0
         t0 = time.time()
         with contextlib.redirect_stdout(stdout), \
                 contextlib.redirect_stderr(stderr):
             rc = cli(argv)
         wall = time.time() - t0
         launches = _read_counts()
+        launches["mlp_head"] = mlp_head.head_launcher.launches
         if rc != 0:
             raise AssertionError(f"[5e] predict {precision} exited {rc}: "
                                  f"{stderr.getvalue()[-2000:]}")
@@ -4109,6 +4255,8 @@ def run_serving(r, data, ckpt: str) -> dict:
                                  f"finite {finite}, test_acc "
                                  f"{line['test_acc']} != {want[precision]}")
         _check_hops(launches, form, cfg.order)
+        _check_head_launches(r.model, data.num_nodes, launches["mlp_head"],
+                             "5e")
         res[tag] = {"launches": launches, "wall_s": wall,
                     **seconds["predict_seconds"]}
     with np.load(os.path.join(CKPT_DIR, "predictions_f32.npz")) as a, \
@@ -5677,6 +5825,8 @@ def main() -> int:
     mark("3 (K1, K2)")
     adam = check_adam()
     mark("3a")
+    head = check_head()
+    mark("3n")
     push_reddit = check_push(data, preset("reddit").replace(dataset=DATASET),
                              "3e", ("jax", "bucket"))
     mark("3e")
@@ -5859,6 +6009,13 @@ def main() -> int:
             ("files_train", files["train"]["launches"])) if counts["adam"]}
     for k in (k1, k2):
         k["launches"] = sum(k["launches_by_path"].values())
+    head["launches_by_path"] = {
+        path: counts["mlp_head"] for path, counts in (
+            ("reddit", launches), ("amazon", amazon_launches),
+            ("amazon_bucket", bucket_launches),
+            *((f"serve_{p}", serve[p]["launches"])
+              for p in ("f32", "auto", "f32_dir")))}
+    head["launches"] = sum(head["launches_by_path"].values())
     for k in k3 + k3_window:
         k["launches_by_path"] = {"mag": mag_launches[k["name"]],
                                  "mag_mesh": mag_mesh_launches[k["name"]]}
@@ -5932,8 +6089,8 @@ def main() -> int:
         "mesh_steps": mesh_steps, "scan_steps": scan,
         "peak_gb": PEAK_GB, "process_mesh": {
             k: proc[k] for k in ("wall_s", "predict_test_acc")}}))
-    print(json.dumps({"kernels": [k1, k2, adam, *fast, *k3, *k3_window,
-                                  *pushes, *served]}))
+    print(json.dumps({"kernels": [k1, k2, adam, head, *fast, *k3,
+                                  *k3_window, *pushes, *served]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,6 +10,7 @@ from torch import nn
 
 from grandtpu_torch import observe
 from grandtpu_torch.infer.propagate import exact_propagate
+from grandtpu_torch.nn import mlp_head
 from grandtpu_torch.nn.sparse_input import embed_nodes
 
 
@@ -44,8 +45,14 @@ def predict_logits(model: nn.Module, feats: torch.Tensor,
     once the last byte is on the host. Off a card the chunks are joined
     and copied to a new array.
 
+    On a card each chunk goes through :func:`chunk_head`: the hand-written
+    eval forward (``nn/mlp_head.py``) where it takes the model, else the
+    model's own forward.
+
     Spans: ``infer.classify``, around ``infer.classify.head`` (the chunks;
-    off a card also their concatenation) and ``infer.classify.copy``
+    off a card also their concatenation; counting ``fused_rows``, the rows
+    the hand-written head classified: all of them or none) and
+    ``infer.classify.copy``
     (counting ``copy_bytes``, the host array's bytes). On a card the copy
     span's device time runs on the side stream, from the first chunk being
     ready to the last byte on the host, and it also counts
@@ -56,13 +63,29 @@ def predict_logits(model: nn.Module, feats: torch.Tensor,
     with observe.span("infer.classify", device=device):
         if device.type == "cuda":
             return _chunks_to_host(model, feats, batch_size)
-        with observe.span("infer.classify.head", device=device):
+        with observe.span("infer.classify.head", device=device) as head:
             out = torch.cat([model(feats[i: i + batch_size].float())
                              for i in range(0, feats.shape[0], batch_size)])
+            head.add("fused_rows", 0)
         with observe.span("infer.classify.copy", device=device) as copy:
             out = out.cpu().numpy()
             copy.add("copy_bytes", out.nbytes)
     return out
+
+
+def chunk_head(model: nn.Module, device: torch.device):
+    """(the function ``run(x, _after_head=False)`` that ``predict_logits``
+    applies on a card to each chunk ``x`` of f32 rows on ``device``, whether
+    it is the hand-written eval forward): that kernel
+    (``mlp_head.head_launcher``) where it takes ``model``, has room for its
+    widths and the model is on ``device``, else the model's forward
+    (``_after_head`` unused)."""
+    if (mlp_head.takes(model) and model.fcs[0].weight.device == device
+            and mlp_head.fits(model)):
+        launch = mlp_head.head_launcher(model)
+        return (lambda x, _after_head=False:
+                launch(x.contiguous(), _after_head)), True
+    return (lambda x, _after_head=False: model(x)), False
 
 
 def _chunks_to_host(model: nn.Module, feats: torch.Tensor,
@@ -73,10 +96,16 @@ def _chunks_to_host(model: nn.Module, feats: torch.Tensor,
     device = feats.device
     compute, side = torch.cuda.current_stream(device), _copy_stream(device)
     chunks, ready = [], []
-    with observe.span("infer.classify.head", device=device):
-        for i in range(0, feats.shape[0], batch_size):
-            chunks.append(model(feats[i: i + batch_size].float()))
+    run, fused = chunk_head(model, device)
+    # f32 rows take no conversion between the chunks' launches, so each
+    # launch after the first may overlap the one before it
+    overlap = feats.dtype == torch.float32 and feats.is_contiguous()
+    with observe.span("infer.classify.head", device=device) as head:
+        for n, i in enumerate(range(0, feats.shape[0], batch_size)):
+            chunks.append(run(feats[i: i + batch_size].float(),
+                              _after_head=overlap and n > 0))
             ready.append(compute.record_event())
+        head.add("fused_rows", feats.shape[0] if fused else 0)
     # outside the head's span: where the host paces the head, a new block's
     # pinning (0.1 s for 0.5 GB on an H100's host) would stall inside it
     host = torch.empty((feats.shape[0],) + chunks[0].shape[1:],

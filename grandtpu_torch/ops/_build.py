@@ -100,6 +100,13 @@ _SIGNATURES = {
     "adam_update_f32": [_P] * 5 + [_I, _P, _P] + [ctypes.c_float] * 7
                        + [_I, _P],
     "adam_max_leaves": [],
+    # x, w0, c0, w1, c1, m0, v0, g0, b0, m1, v1, g1, b1, out | rows, F, H,
+    # C, use_bn, node_norm, eps, overlap, stream
+    "mlp_head_f32": [_P] * 14 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    # F, H, C, use_bn
+    "mlp_head_takes": [_I] * 4,
+    # F, H, use_bn, out[10]
+    "mlp_head_config": [_I] * 3 + [_P],
 }
 
 

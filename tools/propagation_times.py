@@ -5,7 +5,7 @@ change, change, parent).
 Usage, from the root of a checkout, with another checkout (for example a
 ``git archive`` of the parent commit) unpacked under a git-ignored path:
 
-    python tools/propagation_times.py ROOT TAG [all|int8|seg|k1|k3|halo]
+    python tools/propagation_times.py ROOT TAG [all|int8|seg|k1|k3|halo|head]
 
 imports ``grandtpu_torch`` from ROOT (its kernels build under
 ROOT/build), and on the Amazon2M stand-in ``synth:2000000:47:100`` (ppr,
@@ -54,7 +54,22 @@ order 6, alpha 0.2) times with CUDA events:
   apart;
 - halo: on the Amazon2M stand-in, halo_pack's int8 and f32 forms at shard
   0 of a 4-shard HaloPropagator (device time and CUDA events, digests),
-  and the halo int8 and f32 6-hop runs (synchronized host wall, digests).
+  and the halo int8 and f32 6-hop runs (synchronized host wall, digests);
+- head: the classifier's eval forward at the predict cells' widths (F 100,
+  hidden 1024, 47 classes over 2,449,029 rows; F 602, hidden 512, 41
+  classes over 232,965 rows; BN and node_norm on, random rows, weights and
+  BN running stats) in chunks of 10,000 rows: the hand-written head
+  (``nn/mlp_head.head_launcher``, where the checkout has it) by its device
+  time (torch.profiler, the kernel alone, which includes its blocks' wait
+  for the launch before it) and CUDA events a chunk, and by
+  CUDA events over a whole request's chunks, launched as predict_logits
+  does (each after the first may overlap the one before) and one at a
+  time; its launches, registers, spills and occupancy (``head_config``),
+  its gap to the module's eval forward and to its plain version; its
+  share of the f32 rate over a request; its bound (2 F
+  H + 2 H C flops a row at 67 TFLOP/s), and CUDA events' time of its plain
+  version and of the module's forward (``MLP.forward``, what the parent's
+  ``predict_logits`` runs) a chunk and a request.
 
 Prints one JSON line, with the card's name and power limit in ``smi``.
 """
@@ -427,6 +442,78 @@ def halo_times(adj, x, kw, r):
             lambda: H.halo_pack(xs[0], idx, a, **extra), 30, "halo_pack")
 
 
+def head_times(r):
+    import math
+
+    from grandtpu_torch.nn.mlp import MLP, MLPConfig
+    try:
+        from grandtpu_torch.nn import mlp_head
+    except ImportError:
+        mlp_head = None
+    bs = 10000
+    g = torch.Generator(device=DEV).manual_seed(0)
+    for cell, (f, h, c, n) in {"amazon2m": (100, 1024, 47, 2449029),
+                               "reddit": (602, 512, 41, 232965)}.items():
+        with torch.device(DEV):
+            model = MLP(MLPConfig(num_features=f, num_classes=c, hidden=h,
+                                  nlayers=2, use_bn=True, node_norm=True))
+        with torch.no_grad():
+            for fc in model.fcs:
+                b = 1.0 / math.sqrt(fc.in_features)
+                fc.weight.uniform_(-b, b, generator=g)
+                fc.bias.uniform_(-b, b, generator=g)
+            for bn in model.bns:
+                d = bn.weight.shape[0]
+                bn.weight.normal_(1.0, 0.1, generator=g)
+                bn.bias.normal_(0.0, 0.1, generator=g)
+                bn.running_mean.normal_(0.0, 0.3 / math.sqrt(d), generator=g)
+                bn.running_var.uniform_(0.5 / d, 1.5 / d, generator=g)
+        model.eval()
+        x = torch.randn(n, f, generator=g, device=DEV)
+        chunk = x[:bs]
+        flops = 2 * (f * h + h * c)
+        p = f"{cell}_"
+        r[p + "bound_chunk_ms"] = flops * bs / 67e12 * 1e3
+        r[p + "bound_request_ms"] = flops * n / 67e12 * 1e3
+
+        def module(rows):
+            with torch.no_grad():
+                return model(rows)
+
+        def request(fn):
+            return lambda: [fn(x[i: i + bs]) for i in range(0, n, bs)]
+
+        r[p + "module_chunk_ms"] = tms(lambda: module(chunk), 10)
+        r[p + "module_request_ms"] = tms(request(module), 2)
+        if mlp_head is None:
+            continue
+        plain = mlp_head.eval_head_plain(model, chunk)
+        want = module(chunk)
+        r[p + "plain_chunk_ms"] = tms(
+            lambda: mlp_head.eval_head_plain(model, chunk), 10)
+        launch = mlp_head.head_launcher(model)
+        got = launch(chunk)
+        r[p + "gap_vs_module"] = float((got - want).abs().max()
+                                       / want.abs().max())
+        r[p + "gap_vs_plain"] = float((got - plain).abs().max()
+                                      / want.abs().max())
+        r[p + "config"] = mlp_head.head_config(f, h, True)
+        before = mlp_head.head_launcher.launches
+        r[p + "kernel_chunk_ms"] = tms(lambda: launch(chunk), 30)
+        r[p + "kernel_chunk_device_ms"] = dev_ms(lambda: launch(chunk), 30,
+                                                 "mlp_head")
+        # a request's chunks as predict_logits launches them: each after
+        # the first may overlap the one before it
+        r[p + "kernel_request_ms"] = tms(lambda: [
+            launch(x[i: i + bs], _after_head=i > 0)
+            for i in range(0, n, bs)],
+            5)
+        r[p + "kernel_request_alone_ms"] = tms(request(launch), 5)
+        r[p + "kernel_launches"] = mlp_head.head_launcher.launches - before
+        r[p + "kernel_share_of_f32_peak"] = (r[p + "bound_request_ms"]
+                                             / r[p + "kernel_request_ms"])
+
+
 def main():
     if not S.__file__.startswith(os.path.abspath(root)):
         raise SystemExit(f"imported {S.__file__}, not from {root}")
@@ -437,8 +524,8 @@ def main():
     t0 = time.time()
     load_kernels()
     r["build_s"] = time.time() - t0
-    if mode in ("k1", "k3"):
-        (k1_times if mode == "k1" else k3_times)(r)
+    if mode in ("k1", "k3", "head"):
+        {"k1": k1_times, "k3": k3_times, "head": head_times}[mode](r)
         print(json.dumps(r), flush=True)
         return
     data = load_data("synth:2000000:47:100")
